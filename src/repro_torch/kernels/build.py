@@ -1,0 +1,114 @@
+"""Build and load the port's CUDA kernels (nvcc → shared library → ctypes).
+
+The sources under ``repro_torch/csrc`` have a plain ``extern "C"``
+interface, so one ``nvcc`` call per source builds them in seconds (PyTorch's
+extension builder would compile its headers for minutes). Each library is
+built at first use into ``build/repro_torch/<hash>/`` at the repository
+root, keyed by a hash of the source and the flags, so a changed source
+rebuilds and an unchanged one loads at once. There is no fallback: without
+``nvcc`` the build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict, List, Sequence
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("fused_block",)  # csrc/<name>.cu, one library each
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Per library name and -D flags: build seconds (0.0 when loaded from the
+# cache) and the ptxas report lines (registers, shared memory, spills).
+BUILD_INFO: Dict[str, Dict[str, object]] = {}
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler; raises when the toolkit is absent."""
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError(
+            "nvcc not found: the repro_torch CUDA kernels are built at first "
+            "use and need the CUDA toolkit (PATH or /usr/local/cuda/bin)")
+    return path
+
+
+def _ptxas_lines(log: str) -> List[str]:
+    return [ln.strip() for ln in log.splitlines()
+            if "spill" in ln or "smem" in ln
+            or ("ptxas info" in ln and ("registers" in ln
+                                        or "Compiling" in ln))]
+
+
+def build(name: str, defines: Sequence[str] = ()) -> Path:
+    """Compile ``csrc/<name>.cu``, with ``-D`` for each of `defines`, into
+    ``lib<name>.so`` under a directory keyed by the hash of the source and
+    the flags; return its path and record ``BUILD_INFO``."""
+    src = CSRC / f"{name}.cu"
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    key = " ".join([name, *flags[len(NVCC_FLAGS):]])
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(flags).encode()).hexdigest()[:16]
+    out_dir = BUILD_ROOT / digest
+    lib = out_dir / f"lib{name}.so"
+    log_path = out_dir / f"{name}.ptxas.log"
+    if lib.exists():
+        log = log_path.read_text() if log_path.exists() else ""
+        BUILD_INFO[key] = {"seconds": 0.0, "cached": True,
+                           "ptxas": _ptxas_lines(log)}
+        return lib
+    compiler = nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # Build under a temporary name and rename: concurrent builders (test
+    # workers, parallel builds) never load a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run([compiler, *flags, "-o", tmp, str(src)],
+                              capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src} (exit "
+                               f"{proc.returncode}):\n{log}")
+        log_path.write_text(log)
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    BUILD_INFO[key] = {"seconds": seconds, "cached": False,
+                       "ptxas": _ptxas_lines(log)}
+    return lib
+
+
+def load_block_library(path: Path) -> ctypes.CDLL:
+    """Load a fused-block library and declare its C signatures."""
+    lib = ctypes.CDLL(str(path))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.fused_block_forward.argtypes = [i, i, vp, vp, vp, vp, vp, vp, vp,
+                                        vp, vp, vp]
+    lib.fused_block_forward.restype = i
+    lib.fused_block_max_clusters.argtypes = [i, i, i, i,
+                                             ctypes.POINTER(i)]
+    lib.fused_block_max_clusters.restype = i
+    lib.fused_block_error_string.argtypes = [i]
+    lib.fused_block_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_fused_block() -> ctypes.CDLL:
+    """The fused FNO block library, built from ``csrc/fused_block.cu``."""
+    return load_block_library(build("fused_block"))

@@ -32,3 +32,8 @@ def run_with_devices(code: str, n_devices: int = 8, timeout: int = 560) -> str:
 @pytest.fixture
 def subproc():
     return run_with_devices
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU with CUDA (skips without one)")
