@@ -7,8 +7,9 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit; exits non-zero
 without them and never carries on on the CPU. Phases, in order, any failure
 fatal:
 
-  1. environment — the card's name and power limit, the kernel build from
-     the sources in this checkout (seconds and ptxas registers/smem/spills);
+  1. environment — the card's name and power limit, the kernels' build from
+     the sources in this checkout, one nvcc per source in parallel (seconds
+     and ptxas registers/smem/spills);
   2. kernel vs plain — the fused block kernel against its plain PyTorch
      version on the card: odd extents at ranks 1–3, reduced_1d/2d/3d, fno2d
      full width at B=1 and B=8, each in f32 (≤ 2e-4) and bf16 (≤ 2e-2
@@ -25,7 +26,20 @@ fatal:
      over the whole window; then CUDA events at fno2d B=8 in f32 and bf16:
      the kernel, its plain version, the staged torch.fft block (the paper's
      PyTorch baseline, a yardstick only), the bound from the shapes, peak
-     device memory.
+     device memory;
+  5. kernel vs plain, backward — the gz-recompute, dx-adjoint and wgrad
+     launches against their plain versions on the card at phase 2's shapes:
+     f32 ≤ 2e-4 on the same inputs, bf16 ≤ 2e-2 of the f32 plain chain;
+  6. train — fno2d at full width, batch 8 of Darcy data from seed 0: the
+     fused path's step-0 loss, grad norm and every leaf's grad against the
+     staged path (f32 ≤ 2e-4 of each leaf's magnitude; bf16 ≤ 5e-2 of the
+     f32 staged grads), exactly num_layers launches of each of block_fwd,
+     gz_recompute, dx_adjoint and wgrad per training step, and 20 AdamW
+     steps on that one batch whose last loss is below the first;
+  7. train times — per precision, median step ms and samples/s over 30
+     steps after the 20 above, peak device memory; then CUDA events at
+     fno2d B=8 for each backward launch beside its plain version, the
+     staged torch.fft block's autograd backward (a yardstick) and its bound.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -34,6 +48,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -46,13 +61,19 @@ SRC = os.path.join(ROOT, "src")
 
 F32_TOL = 2e-4   # DESIGN.md §4: f32 port == reference
 BF16_TOL = 2e-2  # DESIGN.md §4: bf16 forward within 2e-2 of the f32 reference
+BF16_GRAD_TOL = 5e-2  # DESIGN.md §4: bf16 grads within 5e-2 of f32
 PEAK_F32_FLOPS = 67e12     # H100 SXM, CUDA cores (published, 700 W)
 PEAK_BF16_FLOPS = 989e12   # H100 SXM, dense tensor cores (published, 700 W)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 (published)
 DEVICE = "cuda"
 WINDOW_REQUESTS = 500      # requests per precision in the sustained window
-REPLACES = "src/repro/kernels/engine.py:307"
-SOURCE = "src/repro_torch/csrc/fused_block.cu"
+TRAIN_STEPS = 20           # AdamW steps on one batch: the loss must fall
+TRAIN_WINDOW = 30          # timed training steps per precision after those
+BLOCK_REPLACES = "src/repro/kernels/engine.py:307"
+WGRAD_REPLACES = "src/repro/kernels/engine.py:634"
+BLOCK_SOURCE = "src/repro_torch/csrc/fused_block.cu"
+WGRAD_SOURCE = "src/repro_torch/csrc/fused_wgrad.cu"
+BACKWARD = ("gz_recompute", "dx_adjoint", "wgrad")
 
 
 def log(msg: str) -> None:
@@ -64,6 +85,14 @@ def rel_err(y, ref) -> float:
     y, ref = y.float(), ref.float()
     scale = max(float(ref.abs().max()), 1.0)
     return float((y - ref).abs().max()) / scale
+
+
+def errors(ours, refs) -> tuple:
+    """(max |y - ref|, max rel_err(y, ref)) over the pairs: the row's
+    max_abs_err and its scaled_err, the one held against the tolerance."""
+    pairs = list(zip(ours, refs))
+    return (max(float((y.float() - r.float()).abs().max()) for y, r in pairs),
+            max(rel_err(y, r) for y, r in pairs))
 
 
 def check(name: str, err: float, tol: float) -> None:
@@ -102,16 +131,39 @@ def dense_dft_flops(b, h, o, spatial, modes) -> int:
     return 2 * b * macs
 
 
-def bound_ms(b, h, o, spatial, modes, elem_bytes, peak_flops):
-    """Least time for the block on the card: each input read once and y
-    written once over the memory rate, against the least operations
-    (``block_flops``) over the peak rate for the element type. Returns
-    (ms, "bytes"|"operations")."""
+def wgrad_flops(b, h, o, spatial, modes) -> float:
+    """Least operations of the weight gradients: a real FFT of each x and
+    each gz channel, the spectral reduction (8 per complex multiply-add),
+    the dW_b reduction (2 per multiply-add) and dbias (1 per add)."""
+    return block_flops(b, h, o, spatial, modes) + b * o * math.prod(spatial)
+
+
+def bound_ms(kind, b, h, o, spatial, modes, elem_bytes, peak_flops):
+    """Least time for one launch of `kind` on the card: each input read once
+    and each output written once over the memory rate, against the least
+    operations over the peak rate for the element type. Returns
+    (ms, "bytes"|"operations").
+
+    block_fwd reads x, the weights and the operands and writes y;
+    gz_recompute reads gy too and writes gz; dx_adjoint reads gz and writes
+    dx (the same work with H and O swapped); wgrad reads x and gz and writes
+    the f32 weight gradients."""
     pts = math.prod(spatial)
-    kk = sum(2 * 2 * n * k for n, k in zip(spatial, modes))  # 4R operands
-    nbytes = elem_bytes * (b * h * pts + b * o * pts + 3 * o * h + o + kk)
+    mats = sum(2 * 2 * n * k for n, k in zip(spatial, modes))  # 4R operands
+    act_in, act_out = b * h * pts, b * o * pts
+    weights = 3 * o * h + o
+    flops = block_flops(b, h, o, spatial, modes)
+    if kind == "block_fwd":
+        nbytes = elem_bytes * (act_in + act_out + weights + mats)
+    elif kind == "gz_recompute":
+        nbytes = elem_bytes * (act_in + 2 * act_out + weights + mats)
+    elif kind == "dx_adjoint":
+        nbytes = elem_bytes * (act_out + act_in + 3 * o * h + mats)
+    else:
+        nbytes = elem_bytes * (act_in + act_out + mats) + 4 * weights
+        flops = wgrad_flops(b, h, o, spatial, modes)
     t_bytes = nbytes / PEAK_BYTES
-    t_ops = block_flops(b, h, o, spatial, modes) / peak_flops
+    t_ops = flops / peak_flops
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -166,8 +218,9 @@ def phase_environment(torch, build):
     return card
 
 
-def phase_kernel_vs_plain(torch, engine, spectral, configs):
-    log("== phase 2: kernel vs plain on the card")
+def check_shapes(configs):
+    """Phase 2's and phase 5's shapes: odd extents at ranks 1–3,
+    reduced_1d/2d/3d, fno2d full width at B=1 and B=8."""
     shapes = [("odd_r1", 2, 8, 6, (64,), (17,)),
               ("odd_r2", 2, 8, 6, (16, 32), (5, 9)),
               ("odd_r3", 2, 8, 6, (8, 8, 16), (3, 3, 5))]
@@ -179,15 +232,21 @@ def phase_kernel_vs_plain(torch, engine, spectral, configs):
     for b in (1, 8):
         shapes.append((f"fno2d_B{b}", b, full.hidden, full.hidden,
                        full.spatial, full.modes))
+    return shapes
+
+
+def phase_kernel_vs_plain(torch, engine, spectral, configs):
+    log("== phase 2: kernel vs plain on the card")
     errs = {}
-    for seed, (name, b, h, o, spatial, modes) in enumerate(shapes):
+    for seed, (name, b, h, o, spatial, modes) in enumerate(
+            check_shapes(configs)):
         args32 = block_inputs(b, h, o, spatial, seed, DEVICE)
         mats32 = spectral.operand_tensors(spatial, modes, "float32", DEVICE)
         ref = engine.fused_block_plain(*args32, mats32)
         y = engine.fused_block(*args32, mats32)
         torch.cuda.synchronize()
-        check(f"{name} f32 kernel vs plain", rel_err(y, ref), F32_TOL)
-        errs[(name, "float32")] = float((y - ref).abs().max())
+        errs[(name, "float32")] = e = errors([y], [ref])
+        check(f"{name} f32 kernel vs plain", e[1], F32_TOL)
         args16 = [a.to(torch.bfloat16) for a in args32]
         mats16 = spectral.operand_tensors(spatial, modes, "bfloat16", DEVICE)
         y16 = engine.fused_block(*args16, mats16)
@@ -195,9 +254,8 @@ def phase_kernel_vs_plain(torch, engine, spectral, configs):
         torch.cuda.synchronize()
         log(f"  {name} bf16 kernel vs bf16 plain: scaled_err="
             f"{rel_err(y16, ref16):.3e}")
-        check(f"{name} bf16 kernel vs f32 plain", rel_err(y16, ref),
-              BF16_TOL)
-        errs[(name, "bfloat16")] = float((y16.float() - ref).abs().max())
+        errs[(name, "bfloat16")] = e = errors([y16], [ref])
+        check(f"{name} bf16 kernel vs f32 plain", e[1], BF16_TOL)
     return errs
 
 
@@ -228,11 +286,11 @@ def phase_serve(torch, np, configs, fno_mod, sfs, engine):
             + [(mkreq(n), 4, "fused") for n in rng.integers(1, 9, size=2)]
             + [(mkreq(n), 1, "bf16") for n in rng.integers(1, 9, size=2)])
     top = servers["fused"].buckets[-1]
-    expect = {"float32": 0, "bfloat16": 0}
+    expect = {("block_fwd", "float32"): 0, ("block_fwd", "bfloat16"): 0}
     for x, k, name in plan:
         chunks = -(-x.shape[0] // top)
-        expect["float32" if name == "fused" else "bfloat16"] += (
-            cfg.num_layers * chunks * k)
+        dt = "float32" if name == "fused" else "bfloat16"
+        expect[("block_fwd", dt)] += cfg.num_layers * chunks * k
     torch.cuda.synchronize()
 
     engine.LAUNCHES.clear()
@@ -240,9 +298,8 @@ def phase_serve(torch, np, configs, fno_mod, sfs, engine):
     torch.cuda.synchronize()
     counts = dict(engine.LAUNCHES)
     log(f"  launches {counts} expected {expect}")
-    for dt, n in expect.items():
-        if counts.get(dt, 0) != n:
-            raise AssertionError(f"kernel launches {counts} != {expect}")
+    if counts != expect:
+        raise AssertionError(f"kernel launches {counts} != {expect}")
 
     for (x, k, name), y in zip(plan, outs):
         if not bool(torch.isfinite(y).all()):
@@ -274,23 +331,33 @@ def phase_serve_window(torch, np, servers, engine, num_layers):
         torch.cuda.synchronize()
         engine.LAUNCHES.clear()
         outs, lat = [], []
+        collections = [0, 0, 0]  # garbage collections during the window
+        count_gc = lambda phase, info: collections.__setitem__(
+            info["generation"], collections[info["generation"]]
+            + (phase == "stop"))
+        gc.callbacks.append(count_gc)
         t_all = time.perf_counter()
-        for n, off in zip(sizes, offs):
-            t0 = time.perf_counter()
-            outs.append(srv(pool[off:off + n]))
-            torch.cuda.synchronize()
-            lat.append(1e3 * (time.perf_counter() - t0))
+        try:
+            for n, off in zip(sizes, offs):
+                t0 = time.perf_counter()
+                outs.append(srv(pool[off:off + n]))
+                torch.cuda.synchronize()
+                lat.append(1e3 * (time.perf_counter() - t0))
+        finally:
+            gc.callbacks.remove(count_gc)
         wall = time.perf_counter() - t_all
-        launches = sum(engine.LAUNCHES.values())
-        if launches != num_layers * WINDOW_REQUESTS:
-            raise AssertionError(f"window launches {launches} != "
-                                 f"{num_layers * WINDOW_REQUESTS}")
+        dt = srv.cfg.precision.compute_dtype
+        launches = engine.LAUNCHES[("block_fwd", dt)]
+        if dict(engine.LAUNCHES) != {("block_fwd", dt):
+                                     num_layers * WINDOW_REQUESTS}:
+            raise AssertionError(f"window launches {dict(engine.LAUNCHES)} "
+                                 f"!= {num_layers * WINDOW_REQUESTS} "
+                                 f"block_fwd")
         if not all(bool(torch.isfinite(y).all()) for y in outs):
             raise AssertionError(f"non-finite output in the {name} window")
         lat = np.asarray(lat)
         buckets = np.asarray([srv.buckets[np.searchsorted(srv.buckets, n)]
                               for n in sizes])
-        dt = srv.cfg.precision.compute_dtype
         st = {"requests": WINDOW_REQUESTS, "sample_steps": int(sizes.sum()),
               "wall_s": wall, "sample_steps_per_s": float(sizes.sum()) / wall,
               "latency_ms": {q: float(np.percentile(lat, p)) for q, p in
@@ -300,6 +367,10 @@ def phase_serve_window(torch, np, servers, engine, num_layers):
               "latency_ms_p50_by_bucket": {
                   int(b): float(np.percentile(lat[buckets == b], 50))
                   for b in srv.buckets if (buckets == b).any()},
+              # the five slowest requests: (position, ms, bucket)
+              "slowest": [(int(i), float(lat[i]), int(buckets[i]))
+                          for i in np.argsort(lat)[::-1][:5]],
+              "gc_collections": collections,
               "launches": launches}
         stats[dt] = st
         log(f"  {dt}: {st['requests']} requests, {st['sample_steps']} "
@@ -334,7 +405,7 @@ def phase_times(torch, build, engine, spectral, ops, configs, counts, errs):
         plain_ms = time_ms(lambda: engine.fused_block_plain(*args, mats), 10)
         fft_ms = time_ms(lambda: ops.fno_block_nd(
             args[0], args[1], args[2], args[3], bias1, modes, path="ref"), 10)
-        bms, by = bound_ms(b, h, o, spatial, modes, eb, peak)
+        bms, by = bound_ms("block_fwd", b, h, o, spatial, modes, eb, peak)
         log(f"  {dt}: clusters by bucket {plans}; kernel_ms at B=1 "
             f"{kernel_b1_ms:.4f}")
         log(f"  {dt}: kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
@@ -343,15 +414,241 @@ def phase_times(torch, build, engine, spectral, ops, configs, counts, errs):
             f"flops_kernel={dense_dft_flops(b, h, o, spatial, modes)}")
         rows.append({
             "name": f"fused_block_{'f32' if dt == 'float32' else 'bf16'}",
-            "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-            "launches": counts.get(dt, 0),
-            "max_abs_err": errs[("fno2d_B8", dt)],
+            "route": "cuda", "source": BLOCK_SOURCE,
+            "replaces": BLOCK_REPLACES,
+            "launches": counts.get(("block_fwd", dt), 0),
+            "max_abs_err": errs[("fno2d_B8", dt)][0],
+            "scaled_err": errs[("fno2d_B8", dt)][1],
             "tol": F32_TOL if dt == "float32" else BF16_TOL,
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "library_ms": None, "torch_fft_ms": fft_ms,
             "ms_b1": kernel_b1_ms})
     log(f"  max_memory_allocated={torch.cuda.max_memory_allocated()} B")
     return rows
+
+
+def backward_mats(spectral, spatial, modes, dtype):
+    return {k: spectral.operand_tensors(spatial, modes, dtype, DEVICE, k)
+            for k in ("forward", "adjoint", "wgrad")}
+
+
+def run_backward(engine, args, gy, mats, *, plain=False, gz=None):
+    """The backward's three launches (or their plain versions): gz from gy,
+    dx from gz through the adjoint bundle with transposed weights, and the
+    weight gradients from x and gz. A given `gz` feeds dx and wgrad in
+    place of the one computed here."""
+    x, wr, wi, wb, bias = args
+    block = engine.fused_block_plain if plain else engine.fused_block
+    wgrad = engine.fused_wgrad_plain if plain else engine.fused_wgrad
+    gz0 = block(x, wr, wi, wb, bias, mats["forward"], act="gelu_vjp", gy=gy)
+    gz = gz0 if gz is None else gz
+    t = lambda w: w.t().contiguous()
+    dx = block(gz, t(wr), t(wi), t(wb), None, mats["adjoint"], act="linear")
+    return gz0, dx, wgrad(x, gz, mats["wgrad"])
+
+
+def phase_backward_vs_plain(torch, engine, spectral, configs):
+    log("== phase 5: kernel vs plain on the card, backward launches")
+    errs = {}
+    for seed, (name, b, h, o, spatial, modes) in enumerate(
+            check_shapes(configs)):
+        args32 = block_inputs(b, h, o, spatial, 200 + seed, DEVICE)
+        gy32 = torch.randn((b, o) + tuple(spatial),
+                           generator=torch.Generator().manual_seed(seed)
+                           ).to(DEVICE)
+        m32 = backward_mats(spectral, spatial, modes, "float32")
+        # f32: each launch against its plain version on the same inputs.
+        gz, dx, dw = run_backward(engine, args32, gy32, m32)
+        pgz, pdx, pdw = run_backward(engine, args32, gy32, m32, plain=True,
+                                     gz=gz)
+        torch.cuda.synchronize()
+        for kind, a, ref in (("gz_recompute", [gz], [pgz]),
+                             ("dx_adjoint", [dx], [pdx]),
+                             ("wgrad", dw, pdw)):
+            errs[(name, kind, "float32")] = e = errors(a, ref)
+            check(f"{name} f32 {kind} vs plain", e[1], F32_TOL)
+        # bf16: the kernels' chain against the f32 plain chain.
+        rgz, rdx, rdw = run_backward(engine, args32, gy32, m32, plain=True)
+        args16 = [a.to(torch.bfloat16) for a in args32]
+        m16 = backward_mats(spectral, spatial, modes, "bfloat16")
+        gz16, dx16, dw16 = run_backward(engine, args16,
+                                        gy32.to(torch.bfloat16), m16)
+        torch.cuda.synchronize()
+        for kind, a, ref in (("gz_recompute", [gz16], [rgz]),
+                             ("dx_adjoint", [dx16], [rdx]),
+                             ("wgrad", dw16, rdw)):
+            errs[(name, kind, "bfloat16")] = e = errors(a, ref)
+            check(f"{name} bf16 {kind} vs f32 plain", e[1], BF16_TOL)
+    return errs
+
+
+def leaf_err(a, ref) -> float:
+    """Max |a - ref| over max |ref|: relative to the leaf's own magnitude."""
+    a, ref = a.float(), ref.float()
+    return float((a - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+
+def phase_train(torch, configs, fno_mod, pde, tree, ts, optim, engine):
+    """Step-0 parity of the fused path with the staged one, the launch
+    structure, and TRAIN_STEPS AdamW steps on one batch per precision."""
+    log("== phase 6: train fno2d at full width")
+    cfg = configs.with_fuse_block(configs.get_config("fno2d"))
+    staged = dataclasses.replace(cfg, path="staged", fuse_block=False)
+    layers = cfg.num_layers
+    params = fno_mod.init_fno(torch.Generator().manual_seed(0), cfg, DEVICE)
+    batch = pde.darcy_batch(0, 0, 8, cfg.spatial[0], device=DEVICE)
+    for k, v in batch.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"non-finite Darcy batch {k}")
+    log(f"  batch x {tuple(batch['x'].shape)} y {tuple(batch['y'].shape)}; "
+        f"params {cfg.param_count()}")
+    loss_ref, g_ref = ts.value_and_grad(
+        ts.make_loss_fn(staged, fno_path="staged"), params, batch)
+    gn_ref = float(optim.global_norm(g_ref))
+    log(f"  staged f32: loss {float(loss_ref):.6f} grad_norm {gn_ref:.6f}")
+    total = TRAIN_STEPS + TRAIN_WINDOW
+    runs, counts = {}, {}
+    for preset, tol in (("f32", F32_TOL), ("bf16", BF16_GRAD_TOL)):
+        c = dataclasses.replace(configs.with_precision(cfg, preset),
+                                path="fused")
+        dt = c.precision.compute_dtype
+        torch.cuda.synchronize()
+        engine.LAUNCHES.clear()
+        loss, g = ts.value_and_grad(ts.make_loss_fn(c, fno_path="fused"),
+                                    params, batch)
+        torch.cuda.synchronize()
+        one = dict(engine.LAUNCHES)
+        want = {(k, dt): layers for k in engine.KINDS}
+        log(f"  {preset}: launches for one forward+backward {one}")
+        if one != want:
+            raise AssertionError(f"launches {one} != {want}")
+        gn = float(optim.global_norm(g))
+        log(f"  {preset}: loss {float(loss):.6f} grad_norm {gn:.6f}")
+        check(f"{preset} step-0 loss vs staged f32",
+              abs(float(loss) - float(loss_ref)) / abs(float(loss_ref)), tol)
+        check(f"{preset} step-0 grad norm vs staged f32",
+              abs(gn - gn_ref) / gn_ref, tol)
+        paths = [".".join(str(k) for k in p) for p in tree.paths(g)]
+        errs = [leaf_err(a, b) for a, b in zip(tree.leaves(g),
+                                              tree.leaves(g_ref))]
+        worst = max(range(len(errs)), key=errs.__getitem__)
+        log(f"  {preset}: grads of {len(errs)} leaves vs staged f32, worst "
+            f"{paths[worst]}")
+        for p, e in zip(paths, errs):
+            check(f"{preset} grad {p}", e, tol)
+        for a in tree.leaves(g):
+            if a.dtype != torch.float32:
+                raise AssertionError(f"grad dtype {a.dtype} != float32")
+
+        opt = optim.AdamW(lr=optim.cosine_warmup(
+            1e-3, min(100, total // 10 + 1), total))
+        step = ts.make_train_step(c, opt, fno_path="fused")
+        p, st = params, opt.init(params)
+        torch.cuda.synchronize()
+        engine.LAUNCHES.clear()
+        losses = []
+        for _ in range(TRAIN_STEPS):
+            p, st, m = step(p, st, batch)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        counts[dt] = dict(engine.LAUNCHES)
+        want = {(k, dt): layers * TRAIN_STEPS for k in engine.KINDS}
+        if counts[dt] != want:
+            raise AssertionError(f"launches {counts[dt]} != {want}")
+        losses = [float(v) for v in losses]
+        log(f"  {preset}: {TRAIN_STEPS} steps on one batch, loss "
+            f"{losses[0]:.6f} -> {losses[-1]:.6f}; launches {counts[dt]}")
+        if not all(math.isfinite(v) for v in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"{preset}: loss did not fall: {losses}")
+        runs[dt] = (step, p, st)
+    return batch, runs, counts
+
+
+def phase_train_times(torch, np, engine, spectral, ops, configs, batch,
+                      runs, counts, errs):
+    log("== phase 7: train times, fno2d full width, batch 8")
+    stats = {}
+    for dt, (step, p, st) in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        t_all = time.perf_counter()
+        for _ in range(TRAIN_WINDOW):
+            t0 = time.perf_counter()
+            p, st, m = step(p, st, batch)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        wall = time.perf_counter() - t_all
+        if not math.isfinite(float(m["loss"])):
+            raise AssertionError(f"{dt}: non-finite loss in the window")
+        b = batch["x"].shape[0]
+        stats[dt] = {"steps": TRAIN_WINDOW, "batch": b,
+                     "step_ms_median": float(np.median(ms)),
+                     "step_ms_p90": float(np.percentile(ms, 90)),
+                     "samples_per_s": b * TRAIN_WINDOW / wall,
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                     "final_loss": float(m["loss"])}
+        log(f"  {dt}: step ms median {stats[dt]['step_ms_median']:.4f} p90 "
+            f"{stats[dt]['step_ms_p90']:.4f}; "
+            f"{stats[dt]['samples_per_s']:.2f} samples/s; peak memory "
+            f"{stats[dt]['peak_memory_bytes']} B")
+
+    full = configs.get_config("fno2d")
+    b, h, o = 8, full.hidden, full.hidden
+    spatial, modes = full.spatial, full.modes
+    args32 = block_inputs(b, h, o, spatial, 300, DEVICE)
+    gy32 = torch.randn((b, o) + tuple(spatial),
+                       generator=torch.Generator().manual_seed(301)).to(DEVICE)
+    rows = []
+    for dt, peak, eb in (("float32", PEAK_F32_FLOPS, 4),
+                         ("bfloat16", PEAK_BF16_FLOPS, 2)):
+        tdt = getattr(torch, dt)
+        args = [a.to(tdt) for a in args32]
+        x, wr, wi, wb, bias = args
+        gy = gy32.to(tdt)
+        mats = backward_mats(spectral, spatial, modes, dt)
+        t = lambda w: w.t().contiguous()
+        wrt, wit, wbt = t(wr), t(wi), t(wb)
+        gz = engine.fused_block(*args, mats["forward"], act="gelu_vjp", gy=gy)
+        launch = {
+            "gz_recompute": lambda plain: (
+                engine.fused_block_plain if plain else engine.fused_block)(
+                    *args, mats["forward"], act="gelu_vjp", gy=gy),
+            "dx_adjoint": lambda plain: (
+                engine.fused_block_plain if plain else engine.fused_block)(
+                    gz, wrt, wit, wbt, None, mats["adjoint"], act="linear"),
+            "wgrad": lambda plain: (
+                engine.fused_wgrad_plain if plain else engine.fused_wgrad)(
+                    x, gz, mats["wgrad"]),
+        }
+        leaves = [a.detach().clone().requires_grad_(True)
+                  for a in (x, wr, wi, wb, bias.reshape(-1))]
+        y = ops.fno_block_nd(*leaves, modes, path="ref")
+        bwd_ms = time_ms(lambda: torch.autograd.grad(
+            y, leaves, gy, retain_graph=True), 10)
+        for kind in BACKWARD:
+            kms = time_ms(lambda: launch[kind](False), 20)
+            pms = time_ms(lambda: launch[kind](True), 10)
+            bms, by = bound_ms(kind, b, h, o, spatial, modes, eb, peak)
+            log(f"  {dt} {kind}: kernel_ms={kms:.4f} plain_ms={pms:.4f} "
+                f"torch_fft_bwd_ms={bwd_ms:.4f} bound_us={1e3 * bms:.2f} "
+                f"({by})")
+            rows.append({
+                "name": f"{kind}_{'f32' if dt == 'float32' else 'bf16'}",
+                "route": "cuda",
+                "source": WGRAD_SOURCE if kind == "wgrad" else BLOCK_SOURCE,
+                "replaces": (WGRAD_REPLACES if kind == "wgrad"
+                             else BLOCK_REPLACES),
+                "launches": counts[dt].get((kind, dt), 0),
+                "max_abs_err": errs[("fno2d_B8", kind, dt)][0],
+                "scaled_err": errs[("fno2d_B8", kind, dt)][1],
+                "tol": F32_TOL if dt == "float32" else BF16_TOL,
+                "ms": kms, "plain_ms": pms, "bound_ms": bms,
+                "bound_by": by, "library_ms": None,
+                "torch_fft_bwd_ms": bwd_ms})
+    log(f"  max_memory_allocated={torch.cuda.max_memory_allocated()} B")
+    return stats, rows
 
 
 def main() -> int:
@@ -366,11 +663,13 @@ def main() -> int:
               f"of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
-    from repro_torch import configs
+    from repro_torch import configs, optim, tree
     from repro_torch.core import fno as fno_mod
     from repro_torch.core import spectral
+    from repro_torch.data import pde
     from repro_torch.kernels import build, engine, ops
     from repro_torch.train import serve_fno_step as sfs
+    from repro_torch.train import train_step as ts
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -382,7 +681,18 @@ def main() -> int:
                                servers["fused"].cfg.num_layers)
     rows = phase_times(torch, build, engine, spectral, ops, configs, counts,
                        errs)
+    bwd_errs = phase_backward_vs_plain(torch, engine, spectral, configs)
+    batch, runs, train_counts = phase_train(torch, configs, fno_mod, pde,
+                                            tree, ts, optim, engine)
+    train_stats, bwd_rows = phase_train_times(
+        torch, np, engine, spectral, ops, configs, batch, runs, train_counts,
+        bwd_errs)
+    for row in rows:  # the forward kernel's launches on the training path
+        dt = "float32" if row["name"].endswith("f32") else "bfloat16"
+        row["launches_train"] = train_counts[dt].get(("block_fwd", dt), 0)
+    rows += bwd_rows
     log(f"serve window: {json.dumps(stats)}")
+    log(f"train window: {json.dumps(train_stats)}")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

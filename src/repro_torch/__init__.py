@@ -9,5 +9,5 @@ Execution paths (``path=``), with their counterparts in the reference:
 
   ``"ref"``    — ``torch.fft`` staged oracle           (reference ``"ref"``)
   ``"staged"`` — truncated-DFT matmuls, one per stage  (reference ``"xla"``)
-  ``"fused"``  — the hand-written CUDA block kernel    (reference ``"pallas"``)
+  ``"fused"``  — the hand-written CUDA block kernels   (reference ``"pallas"``)
 """

@@ -1,7 +1,7 @@
 """Precision policy and FNO configuration (counterpart of the FNO part of
 ``repro/configs/base.py``).
 
-Only the fields the single-device FNO forward and serving need are kept;
+Only the fields that single-device FNO training and serving need are kept;
 tensor-parallel layout fields and tuned block plans are not ported yet.
 """
 from __future__ import annotations

@@ -5,18 +5,20 @@
   → projection pointwise MLP.
 
 With ``cfg.fuse_block`` on the fused path each whole block runs as ONE
-kernel launch; the staged composition stays the oracle and the only form on
-the "ref"/"staged" paths. Params are a plain dict with the reference's
+kernel launch forward and three backward (``kernels.ops.fno_block_nd``);
+the staged composition stays the oracle and the only form on the
+"ref"/"staged" paths, where torch autograd differentiates it. Params are a plain dict with the reference's
 layout (``lift1``, ``lift2``, ``proj1``, ``proj2``, ``blocks``), so a JAX
 param tree carries over leaf for leaf (``repro_torch.convert``).
 
 Mixed precision: params stay at the param dtype; ``apply_fno`` casts the
 input once to the compute dtype and the dense/bypass layers follow the
-activation dtype. The loss is always reduced in f32.
+activation dtype, so the cast's backward hands f32 grads to the f32 master
+params. The loss is always reduced in f32.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -37,10 +39,28 @@ def _dense_init(gen: torch.Generator, din: int, dout: int,
             "b": torch.zeros((dout,), dtype=dtype, device=device)}
 
 
+class _AddBias(torch.autograd.Function):
+    """y [B, C, *sp] + bias [C] cast to y's dtype. The reference broadcasts
+    the bias BEFORE that cast, so the cast's backward upcasts the cotangent
+    and the bias grad is summed over batch and space in f32 (a bf16 sum
+    over a coherent cotangent field swamps). This gives that grad without
+    a broadcast copy of the bias in the forward."""
+
+    @staticmethod
+    def forward(ctx, y, b):
+        ctx.b_dtype = b.dtype
+        return y + b.to(y.dtype).reshape((1, -1) + (1,) * (y.ndim - 2))
+
+    @staticmethod
+    def backward(ctx, g):
+        dims = (0,) + tuple(range(2, g.ndim))
+        return g, g.sum(dim=dims, dtype=torch.float32).to(ctx.b_dtype)
+
+
 def _dense(p, x: torch.Tensor) -> torch.Tensor:
     """Pointwise over channels of x [B, C, *sp]; follows x's dtype."""
     y = torch.einsum("bc...,cd->bd...", x, p["w"].to(x.dtype))
-    return y + p["b"].reshape((1, -1) + (1,) * (y.ndim - 2)).to(x.dtype)
+    return _AddBias.apply(y, p["b"])
 
 
 def init_fno(gen: torch.Generator, cfg: FNOConfig,
@@ -100,3 +120,10 @@ def relative_l2(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     diff = torch.sqrt(torch.sum((pred - target).reshape(b, -1) ** 2, dim=-1))
     norm = torch.sqrt(torch.sum(target.reshape(b, -1) ** 2, dim=-1))
     return torch.mean(diff / torch.clamp(norm, min=1e-8))
+
+
+def fno_loss(params, cfg: FNOConfig, batch: Dict[str, torch.Tensor], *,
+             path: Optional[str] = None) -> torch.Tensor:
+    """Relative L2 loss of the model on batch {"x", "y"}."""
+    return relative_l2(apply_fno(params, cfg, batch["x"], path=path),
+                       batch["y"])

@@ -84,53 +84,124 @@ def cdft_mats(n: int, modes: int,
 
 
 # ---------------------------------------------------------------------------
-# Rank-generic fused-kernel operand bundles: R forward stages in kernel
-# order (axis s_R first, each [n, k]) then R inverse stages (axis s_1 first,
-# each [k, n]). The transposed (adjoint) bundle of the backward pass is not
-# ported yet.
+# Adjoint (transposed) factories — the backward kernels' operands.
+#
+# The spectral layer y = Re(((x·C)∘W)·E) is real-linear, so its adjoint in x
+# is the SAME fused DFT → CGEMM → iDFT pipeline with every DFT operand
+# transposed (no conjugation: conjugating every factor at once leaves the
+# real part unchanged) and the weight transposed over (out, hidden).
 # ---------------------------------------------------------------------------
-def _fused_mat_pairs(spatial, modes):
+@functools.lru_cache(maxsize=64)
+def rdft_adjoint_mats(n: int, modes: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Transposed truncated-rDFT operands, each [modes, n]: the adjoint
+    pipeline's last inverse-slot stage, dx = Tr @ Crᵀ − Ti @ Ciᵀ."""
+    cr, ci = rdft_mats(n, modes)
+    return np.ascontiguousarray(cr.T), np.ascontiguousarray(ci.T)
+
+
+@functools.lru_cache(maxsize=64)
+def irdft_adjoint_mats(n: int, modes: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Transposed padded-irDFT operands, each [n, modes]: the adjoint
+    pipeline's first forward-slot stage, G = g @ Erᵀ + i·(g @ Eiᵀ)."""
+    er, ei = irdft_mats(n, modes)
+    return np.ascontiguousarray(er.T), np.ascontiguousarray(ei.T)
+
+
+@functools.lru_cache(maxsize=64)
+def cdft_adjoint_mats(n: int, modes: int,
+                      inverse: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+    """Transposed complex-DFT operands: forward transposed [modes, n]
+    (adjoint inverse slot); inverse transposed [n, modes] (adjoint forward
+    slot)."""
+    fr, fi = cdft_mats(n, modes, inverse)
+    return np.ascontiguousarray(fr.T), np.ascontiguousarray(fi.T)
+
+
+# ---------------------------------------------------------------------------
+# Rank-generic fused-kernel operand bundles: R forward-slot stages in kernel
+# order (axis s_R first, each [n, k]) then R inverse-slot stages (axis s_1
+# first, each [k, n]). adjoint=True swaps every operand for its transpose:
+# the backward's dx pipeline.
+# ---------------------------------------------------------------------------
+def _fused_mat_pairs(spatial, modes, adjoint=False):
     """numpy (mr, mi) pairs: R forward-slot then R inverse-slot operands."""
     r = len(spatial)
     fwd, inv = [], []
     for i in range(r):  # forward stages transform axes s_R, s_{R-1}, …, s_1
         ax = r - 1 - i
         n, k = spatial[ax], modes[ax]
-        fwd.append(rdft_mats(n, k) if ax == r - 1  # the real-input axis
-                   else cdft_mats(n, k, False))
+        if ax == r - 1:  # the real-input axis
+            fwd.append(irdft_adjoint_mats(n, k) if adjoint
+                       else rdft_mats(n, k))
+        else:
+            fwd.append(cdft_adjoint_mats(n, k, True) if adjoint
+                       else cdft_mats(n, k, False))
     for ax in range(r):  # inverse stages transform axes s_1, …, s_R
         n, k = spatial[ax], modes[ax]
-        inv.append(irdft_mats(n, k) if ax == r - 1
-                   else cdft_mats(n, k, True))
+        if ax == r - 1:
+            inv.append(rdft_adjoint_mats(n, k) if adjoint
+                       else irdft_mats(n, k))
+        else:
+            inv.append(cdft_adjoint_mats(n, k, False) if adjoint
+                       else cdft_mats(n, k, True))
     return fwd + inv
 
 
-@functools.lru_cache(maxsize=256)
-def fused_operand_mats(spatial: Tuple[int, ...],
-                       modes: Tuple[int, ...]) -> Tuple[np.ndarray, ...]:
-    """Flat float32 operand tuple for the fused kernel: (cr, ci) per
-    forward stage then (er, ei) per inverse stage."""
+def _flat(pairs) -> Tuple[np.ndarray, ...]:
     out = []
-    for mr, mi in _fused_mat_pairs(tuple(spatial), tuple(modes)):
+    for mr, mi in pairs:
         out += [mr, mi]
     return tuple(out)
 
 
-def operand_tensors(spatial, modes, dtype: str,
-                    device) -> Tuple[torch.Tensor, ...]:
-    """The operand bundle as contiguous torch tensors at `dtype` (the
-    policy's spectral dtype) on `device`; cached per (shapes, dtype,
-    device) so repeated layer calls reuse the device copies."""
+@functools.lru_cache(maxsize=256)
+def fused_operand_mats(spatial: Tuple[int, ...], modes: Tuple[int, ...],
+                       adjoint: bool = False) -> Tuple[np.ndarray, ...]:
+    """Flat float32 operand tuple for the fused block kernel: (cr, ci) per
+    forward-slot stage then (er, ei) per inverse-slot stage; adjoint=True
+    gives the dx pipeline's transposed bundle."""
+    return _flat(_fused_mat_pairs(tuple(spatial), tuple(modes), adjoint))
+
+
+@functools.lru_cache(maxsize=256)
+def wgrad_operand_mats(spatial: Tuple[int, ...],
+                       modes: Tuple[int, ...]) -> Tuple[np.ndarray, ...]:
+    """Flat float32 operand tuple for the fused weight-gradient kernel: R
+    forward stages for the primal spectrum A, then R adjoint-forward stages
+    (transposed inverse transforms) that push the cotangent into the
+    spectral domain as Ĝ. All [n, k], axis s_R first."""
+    r = len(spatial)
+    spatial, modes = tuple(spatial), tuple(modes)
+    return _flat(_fused_mat_pairs(spatial, modes, False)[:r]
+                 + _fused_mat_pairs(spatial, modes, True)[:r])
+
+
+_BUNDLES = {
+    "forward": lambda sp, m: fused_operand_mats(sp, m),
+    "adjoint": lambda sp, m: fused_operand_mats(sp, m, adjoint=True),
+    "wgrad": wgrad_operand_mats,
+}
+
+
+def operand_tensors(spatial, modes, dtype: str, device,
+                    kind: str = "forward") -> Tuple[torch.Tensor, ...]:
+    """An operand bundle — "forward" (block forward and gz recompute),
+    "adjoint" (dx) or "wgrad" — as contiguous torch tensors at `dtype` (the
+    policy's spectral dtype) on `device`; cached per (shapes, dtype, device,
+    kind) so repeated layer calls reuse the device copies."""
+    if kind not in _BUNDLES:
+        raise ValueError(f"kind must be one of {tuple(_BUNDLES)}, got "
+                         f"{kind!r}")
     return _operand_tensors(tuple(int(s) for s in spatial),
                             tuple(int(m) for m in modes), dtype,
-                            str(torch.device(device)))
+                            str(torch.device(device)), kind)
 
 
 @functools.lru_cache(maxsize=64)
-def _operand_tensors(spatial, modes, dtype, device):
+def _operand_tensors(spatial, modes, dtype, device, kind):
     dt = torch_dtype(dtype)
     return tuple(torch.from_numpy(m).to(device=device, dtype=dt).contiguous()
-                 for m in fused_operand_mats(spatial, modes))
+                 for m in _BUNDLES[kind](spatial, modes))
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,22 @@
-// Fused FNO block forward for NVIDIA Hopper (sm_90a):
+// Fused FNO block for NVIDIA Hopper (sm_90a): one launch computes
 //
-//   y[b,o,s] = gelu_tanh( Re iDFT_pad( Σ_h DFT_trunc(x[b,h])·(wr + i·wi)[o,h] )[s]
-//                         + Σ_h wb[o,h]·x[b,h,s] + bias[o] )
+//   z[b,o,s] = Re iDFT_pad( Σ_h DFT_trunc(x[b,h])·(wr + i·wi)[o,h] )[s]
+//              + Σ_h wb[o,h]·x[b,h,s] + bias[o]
+//
+// and writes one of three epilogues of it (`act`):
+//   0 gelu      y  = gelu_tanh(z)                  the block forward;
+//   1 gelu_vjp  gz = gy·gelu_tanh'(z)              the backward's recompute:
+//               z is formed again from x and never stored;
+//   2 linear    y  = z (bias optional)             with the adjoint operand
+//               bundle, [H,O]-transposed weights and wbᵀ this is the
+//               backward's dx = spectral_adjoint(gz) + wbᵀ·gz.
 //
 // Replaces the TPU kernel repro/kernels/engine.py::fused_fnond_call
-// (_make_fwd_kernel, engine.py:161-427) in its block-forward mode
-// (act="gelu", shared weights, bypass + bias epilogue, no lift/proj).
-// Spatial rank R ∈ {1,2,3}; element type float or __nv_bfloat16 for x, the
-// weights, the DFT operands and y; every sum accumulates in f32 and y is
-// written once, at the element type.
+// (_make_fwd_kernel, engine.py:161-427) in those three modes (shared
+// weights, bypass + optional bias epilogue, no lift/proj). Spatial rank
+// R ∈ {1,2,3}; element type float or __nv_bfloat16 for x, gy, the weights
+// and the DFT operands; every sum accumulates in f32; the output is written
+// once, at the element type or (out_f32) in f32.
 //
 // What bounds it on an H100. At fno2d (B=8, H=O=64, 128×128, 32×32 modes)
 // the block needs ~1.9 GFLOP when its transforms are FFTs (2.5·N·log2 N per
@@ -35,21 +43,25 @@
 //     never touches device memory, and no block recomputes another's DFTs;
 //   * phase 3 — per s_1 chunk, the padded inverse chain (s_1 first, real irDFT
 //     on s_R last), then the bypass Σ_h wb·x re-read from L2 (one sample's x
-//     is a few MiB), + bias, gelu, and a single write of y.
+//     is a few MiB), + bias, the epilogue, and a single write.
 // Occupancy is low at small batches (B·CL blocks of 132 SMs). Ragged extents
 // are masked here: the TPU's lane padding is not ported.
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+
+#include "fno_common.cuh"
 
 namespace cg = cooperative_groups;
+using fno::kThreads;
+using fno::kTP;
+using fno::ld;
+using fno::stage;
 
 namespace {
 
-constexpr int kThreads = 512;
 constexpr int kMaxOut = 8;  // out channels per block (registers in phase 2/3)
-constexpr int kTP = 4;      // outputs per thread in the non-accumulating stages
 constexpr int kPts = 2;     // points per thread in the bypass epilogue
+
+enum Act { kGelu = 0, kGeluVjp = 1, kLinear = 2 };
 
 // Loop bound of phase i (1..3) below. Built with -DFUSED_BLOCK_ELIDE=<mask>,
 // the phases whose bit (1 << i) is set run no iteration: the output is then
@@ -65,89 +77,17 @@ struct Args {
   const T* wr;    // [O, H]
   const T* wi;    // [O, H]
   const T* wb;    // [O, H]
-  const T* bias;  // [O]
-  const T* fr[3];  // forward stage i (axis R-i): [n, k] real part
-  const T* fi[3];  //                             imaginary part
-  const T* er[3];  // inverse stage i (axis 1+i): [k, n] real part
-  const T* ei[3];  //                             imaginary part
-  T* y;           // [B, O, n_1..n_R]
+  const T* bias;  // [O], or null: no bias
+  const T* gy;    // [B, O, n_1..n_R] for act=gelu_vjp, else null
+  fno::Mats<T> f;  // forward stage i (axis R-i): [n, k]
+  fno::Mats<T> e;  // inverse stage i (axis 1+i): [k, n]
+  void* y;        // [B, O, n_1..n_R], float if out_f32 else T
+  int act, out_f32;
   int H, O;
   int n[3], k[3];  // extents and modes, axis order 1..R (unused = 1)
   int hs, os;      // hidden / out channels per block of the cluster
   int rows_f, rows_i;  // s_1 rows per forward / inverse chunk
 };
-
-__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float gelu_tanh(float z) {
-  const float c = 0.7978845608028654f;  // sqrt(2/pi)
-  return 0.5f * z * (1.0f + tanhf(c * (z + 0.044715f * z * z * z)));
-}
-
-// One DFT stage on shared-memory tensors viewed as [pre][n][post]:
-//   out[p][j][q] (+)= Σ_{i<n} in[p][i][q] · M[i·ldm + j],   j < kout.
-// kInCplx=false marks a real input (in_i unused). kOutCplx=false keeps only
-// the real part Σ in_r·M_r − in_i·M_i (the last inverse stage). Each thread
-// computes kTP outputs p, p+1, … that share every operand load M[i, j]
-// (register blocking: the loop is load-bound, not FMA-bound). Every thread
-// owns distinct outputs, so kAcc needs no synchronisation.
-template <typename T, bool kInCplx, bool kOutCplx, bool kAcc, int kTP>
-__device__ void stage(const float* in_r, const float* in_i, int pre, int n,
-                      int post, const T* m_r, const T* m_i, int ldm, int kout,
-                      float* out_r, float* out_i) {
-  const int total = (pre + kTP - 1) / kTP * kout * post;
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int q = idx % post;
-    const int t = idx / post;
-    const int j = t % kout;
-    const int p0 = t / kout * kTP;
-    int base[kTP];
-#pragma unroll
-    for (int u = 0; u < kTP; ++u) base[u] = min(p0 + u, pre - 1) * n * post + q;
-    float sr[kTP], si[kTP];
-#pragma unroll
-    for (int u = 0; u < kTP; ++u) sr[u] = si[u] = 0.f;
-    for (int i = 0; i < n; ++i) {
-      const float mr = ld(m_r + i * ldm + j);
-      const float mi = ld(m_i + i * ldm + j);
-#pragma unroll
-      for (int u = 0; u < kTP; ++u) {
-        const float a = in_r[base[u] + i * post];
-        if (kInCplx) {
-          const float c = in_i[base[u] + i * post];
-          sr[u] = fmaf(a, mr, fmaf(-c, mi, sr[u]));
-          if (kOutCplx) si[u] = fmaf(a, mi, fmaf(c, mr, si[u]));
-        } else {
-          sr[u] = fmaf(a, mr, sr[u]);
-          if (kOutCplx) si[u] = fmaf(a, mi, si[u]);
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kTP; ++u) {
-      if (p0 + u >= pre) break;
-      const int o = ((p0 + u) * kout + j) * post + q;
-      if (kOutCplx) {
-        if (kAcc) {
-          out_r[o] += sr[u];
-          out_i[o] += si[u];
-        } else {
-          out_r[o] = sr[u];
-          out_i[o] = si[u];
-        }
-      } else {
-        out_r[o] = sr[u];
-      }
-    }
-  }
-}
 
 template <int R, typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -159,12 +99,10 @@ fused_block_kernel(const Args<T> a) {
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
   const int H = a.H, O = a.O, hs = a.hs, os = a.os;
-  const int n1 = a.n[0], n2 = a.n[1], n3 = a.n[2];
-  const int k1 = a.k[0], k2 = a.k[1], k3 = a.k[2];
-  const int P = (R >= 2 ? n2 : 1) * (R == 3 ? n3 : 1);   // points per s_1 row
-  const int Kp = (R >= 2 ? k2 : 1) * (R == 3 ? k3 : 1);  // modes per k_1
-  const int K = k1 * Kp;
-  const int S = n1 * P;
+  const fno::Geom g = fno::make_geom<R>(a.n, a.k);
+  const int n1 = g.n1, n2 = g.n2, n3 = g.n3;
+  const int k1 = g.k1, k2 = g.k2, k3 = g.k3;
+  const int P = g.P, Kp = g.Kp, K = g.K, S = g.S;
   const int h0 = rank * hs, nh = max(0, min(hs, H - h0));
   const int o0 = rank * os, no = max(0, min(os, O - o0));
 
@@ -181,62 +119,21 @@ fused_block_kernel(const Args<T> a) {
   float* work = Bs + kMaxOut;
 
   for (int i = tid; i < no * H; i += kThreads) {
-    const int g = (o0 + i / H) * H + i % H;
-    Wr[i] = ld(a.wr + g);
-    Wi[i] = ld(a.wi + g);
-    Wb[i] = ld(a.wb + g);
+    const int gi = (o0 + i / H) * H + i % H;
+    Wr[i] = ld(a.wr + gi);
+    Wi[i] = ld(a.wi + gi);
+    Wb[i] = ld(a.wb + gi);
   }
-  for (int i = tid; i < no; i += kThreads) Bs[i] = ld(a.bias + o0 + i);
+  for (int i = tid; i < no; i += kThreads)
+    Bs[i] = a.bias ? ld(a.bias + o0 + i) : 0.f;
   for (int i = tid; i < hs * K; i += kThreads) Ar[i] = Ai[i] = 0.f;
   __syncthreads();
 
   // Phase 1: truncated forward DFT chain of my hidden channels (axis s_R
   // first), streamed over chunks of s_1 rows; the s_1 stage accumulates.
-  const int rf = a.rows_f;
-  for (int hh = 0; hh < PHASE_BOUND(1, nh); ++hh) {
-    const T* xh = a.x + (static_cast<size_t>(b) * H + h0 + hh) * S;
-    for (int c0 = 0; c0 < n1; c0 += rf) {
-      const int nr = min(rf, n1 - c0);
-      float* xs = work;  // [nr][P]
-      for (int i = tid; i < nr * P; i += kThreads) xs[i] = ld(xh + c0 * P + i);
-      __syncthreads();
-      const float* zr = xs;  // [nr][Kp] spectrum of the inner axes
-      const float* zi = nullptr;
-      if constexpr (R == 2) {
-        float* z2r = xs + rf * P;
-        float* z2i = z2r + rf * Kp;
-        stage<T, false, true, false, kTP>(xs, nullptr, nr, n2, 1, a.fr[0], a.fi[0],
-                                     k2, k2, z2r, z2i);
-        zr = z2r;
-        zi = z2i;
-        __syncthreads();
-      } else if constexpr (R == 3) {
-        float* z1r = xs + rf * P;  // [nr][n2][k3]
-        float* z1i = z1r + rf * n2 * k3;
-        stage<T, false, true, false, kTP>(xs, nullptr, nr * n2, n3, 1, a.fr[0],
-                                     a.fi[0], k3, k3, z1r, z1i);
-        __syncthreads();
-        float* z2r = z1i + rf * n2 * k3;  // [nr][k2][k3]
-        float* z2i = z2r + rf * Kp;
-        stage<T, true, true, false, kTP>(z1r, z1i, nr, n2, k3, a.fr[1], a.fi[1],
-                                    k2, k2, z2r, z2i);
-        zr = z2r;
-        zi = z2i;
-        __syncthreads();
-      }
-      // A[k_1][k'] += Σ_{r<nr} Z[r][k'] · F_1[c0 + r][k_1]
-      const T* f1r = a.fr[R - 1] + c0 * k1;
-      const T* f1i = a.fi[R - 1] + c0 * k1;
-      if constexpr (R == 1) {
-        stage<T, false, true, true, 1>(zr, nullptr, 1, nr, 1, f1r, f1i, k1, k1,
-                                    Ar + hh * K, Ai + hh * K);
-      } else {
-        stage<T, true, true, true, 1>(zr, zi, 1, nr, Kp, f1r, f1i, k1, k1,
-                                   Ar + hh * K, Ai + hh * K);
-      }
-      __syncthreads();
-    }
-  }
+  fno::forward_chain<R, T>(a.x + (static_cast<size_t>(b) * H + h0) * S,
+                           PHASE_BOUND(1, nh), g, a.rows_f, a.f, Ar, Ai, K,
+                           work);
   cluster.sync();
 
   // Phase 2: CGEMM over the whole hidden axis, reading every block's spectra
@@ -276,7 +173,8 @@ fused_block_kernel(const Args<T> a) {
   cluster.sync();
 
   // Phase 3: per s_1 chunk, the padded inverse chain (s_1 first, real irDFT
-  // on s_R last) into ys[o][r·P + p], then bypass + bias + gelu and one write.
+  // on s_R last) into ys[o][r·P + p], then bypass + bias + epilogue and one
+  // write.
   const int ri = a.rows_i;
   for (int c0 = 0; c0 < PHASE_BOUND(3, n1); c0 += ri) {
     const int nr = min(ri, n1 - c0);
@@ -284,27 +182,28 @@ fused_block_kernel(const Args<T> a) {
     float* ys = work;  // [no][nr·P]
     float* t1r = ys + os * ri * P;
     float* t1i = t1r + os * ri * Kp;
-    const T* e1r = a.er[0] + c0;  // columns c0.. of E_1 [k_1][n_1]
-    const T* e1i = a.ei[0] + c0;
+    const T* e1r = a.e.r[0] + c0;  // columns c0.. of E_1 [k_1][n_1]
+    const T* e1i = a.e.i[0] + c0;
     if constexpr (R == 1) {
       stage<T, true, false, false, kTP>(Cr, Ci, no, k1, 1, e1r, e1i, n1, nr, ys,
-                                   nullptr);
+                                        nullptr);
     } else {
       // T1[o][r][k'] = Σ_{k_1} C[o][k_1][k'] · E_1[k_1][c0 + r]
-      stage<T, true, true, false, kTP>(Cr, Ci, no, k1, Kp, e1r, e1i, n1, nr, t1r,
-                                  t1i);
+      stage<T, true, true, false, kTP>(Cr, Ci, no, k1, Kp, e1r, e1i, n1, nr,
+                                       t1r, t1i);
       __syncthreads();
       if constexpr (R == 2) {
-        stage<T, true, false, false, kTP>(t1r, t1i, no * nr, k2, 1, a.er[1],
-                                     a.ei[1], n2, n2, ys, nullptr);
+        stage<T, true, false, false, kTP>(t1r, t1i, no * nr, k2, 1, a.e.r[1],
+                                          a.e.i[1], n2, n2, ys, nullptr);
       } else {
         float* t2r = t1i + os * ri * Kp;  // [o][r][n2][k3]
         float* t2i = t2r + os * ri * n2 * k3;
-        stage<T, true, true, false, kTP>(t1r, t1i, no * nr, k2, k3, a.er[1],
-                                    a.ei[1], n2, n2, t2r, t2i);
+        stage<T, true, true, false, kTP>(t1r, t1i, no * nr, k2, k3, a.e.r[1],
+                                         a.e.i[1], n2, n2, t2r, t2i);
         __syncthreads();
-        stage<T, true, false, false, kTP>(t2r, t2i, no * nr * n2, k3, 1, a.er[2],
-                                     a.ei[2], n3, n3, ys, nullptr);
+        stage<T, true, false, false, kTP>(t2r, t2i, no * nr * n2, k3, 1,
+                                          a.e.r[2], a.e.i[2], n3, n3, ys,
+                                          nullptr);
       }
     }
     __syncthreads();
@@ -340,10 +239,21 @@ fused_block_kernel(const Args<T> a) {
 #pragma unroll
         for (int o = 0; o < kMaxOut; ++o) {
           if (o < no) {
+            // The output and gy share one (b, o, point) index.
+            const size_t at = (static_cast<size_t>(b) * O + o0 + o) * S +
+                              c0 * P + pt[u];
             const float z = (ys[o * npts + pt[u]] + byp[u][o]) + Bs[o];
-            st(a.y + (static_cast<size_t>(b) * O + o0 + o) * S + c0 * P +
-                   pt[u],
-               gelu_tanh(z));
+            float v = z;
+            if (a.act == kGelu) {
+              v = fno::gelu_tanh(z);
+            } else if (a.act == kGeluVjp) {
+              v = ld(a.gy + at) * fno::dgelu_tanh(z);
+            }
+            if (a.out_f32) {
+              static_cast<float*>(a.y)[at] = v;
+            } else {
+              fno::st(static_cast<T*>(a.y) + at, v);
+            }
           }
         }
       }
@@ -352,85 +262,53 @@ fused_block_kernel(const Args<T> a) {
   }
 }
 
-// Kernel attributes and launch configuration for clusters of `cl` blocks;
-// `attr` must outlive `cfg`.
-template <int R, typename T>
-cudaError_t configure(int batch, int cl, int smem_bytes, cudaStream_t stream,
-                      cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  auto kernel = fused_block_kernel<R, T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return err;
-  if (cl > 8) {  // Hopper schedules clusters of up to 16 blocks on request
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-  }
-  *cfg = {};
-  cfg->gridDim = dim3(cl, batch, 1);
-  cfg->blockDim = dim3(kThreads, 1, 1);
-  cfg->dynamicSmemBytes = smem_bytes;
-  cfg->stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cl;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-  return cudaSuccess;
-}
-
 template <int R, typename T>
 cudaError_t launch(const Args<T>& a, int batch, int cl, int smem_bytes,
                    cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = configure<R, T>(batch, cl, smem_bytes, stream, &cfg,
-                                    &attr);
+  cudaError_t err = fno::configure(fused_block_kernel<R, T>, batch, cl,
+                                   smem_bytes, stream, &cfg, &attr);
   if (err != cudaSuccess) return err;
   err = cudaLaunchKernelEx(&cfg, fused_block_kernel<R, T>, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// How many clusters of `cl` blocks the card holds at once (0: none fits).
-template <int R, typename T>
-cudaError_t max_clusters(int cl, int smem_bytes, int* n) {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cudaError_t err = configure<R, T>(1, cl, smem_bytes, nullptr, &cfg,
-                                    &attr);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveClusters(n, fused_block_kernel<R, T>, &cfg);
-}
-
 template <typename T>
 int max_clusters_for(int rank, int cl, int smem_bytes, int* n) {
   switch (rank) {
-    case 1: return static_cast<int>(max_clusters<1, T>(cl, smem_bytes, n));
-    case 2: return static_cast<int>(max_clusters<2, T>(cl, smem_bytes, n));
-    case 3: return static_cast<int>(max_clusters<3, T>(cl, smem_bytes, n));
+    case 1: return static_cast<int>(
+        fno::max_clusters(fused_block_kernel<1, T>, cl, smem_bytes, n));
+    case 2: return static_cast<int>(
+        fno::max_clusters(fused_block_kernel<2, T>, cl, smem_bytes, n));
+    case 3: return static_cast<int>(
+        fno::max_clusters(fused_block_kernel<3, T>, cl, smem_bytes, n));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <typename T>
-int dispatch(int rank, const void* x, const void* wr, const void* wi,
-             const void* wb, const void* bias, const void* const* mats,
-             void* y, const int* dims, const int* plan, void* stream) {
+int dispatch(int rank, int act, int out_f32, const void* x, const void* wr,
+             const void* wi, const void* wb, const void* bias, const void* gy,
+             const void* const* mats, void* y, const int* dims,
+             const int* plan, void* stream) {
   Args<T> a = {};
   a.x = static_cast<const T*>(x);
   a.wr = static_cast<const T*>(wr);
   a.wi = static_cast<const T*>(wi);
   a.wb = static_cast<const T*>(wb);
   a.bias = static_cast<const T*>(bias);
+  a.gy = static_cast<const T*>(gy);
   for (int i = 0; i < rank; ++i) {
-    a.fr[i] = static_cast<const T*>(mats[2 * i]);
-    a.fi[i] = static_cast<const T*>(mats[2 * i + 1]);
-    a.er[i] = static_cast<const T*>(mats[2 * rank + 2 * i]);
-    a.ei[i] = static_cast<const T*>(mats[2 * rank + 2 * i + 1]);
+    a.f.r[i] = static_cast<const T*>(mats[2 * i]);
+    a.f.i[i] = static_cast<const T*>(mats[2 * i + 1]);
+    a.e.r[i] = static_cast<const T*>(mats[2 * rank + 2 * i]);
+    a.e.i[i] = static_cast<const T*>(mats[2 * rank + 2 * i + 1]);
   }
-  a.y = static_cast<T*>(y);
+  a.y = y;
+  a.act = act;
+  a.out_f32 = out_f32;
   const int batch = dims[0];
   a.H = dims[1];
   a.O = dims[2];
@@ -444,7 +322,10 @@ int dispatch(int rank, const void* x, const void* wr, const void* wi,
   a.rows_f = plan[3];
   a.rows_i = plan[4];
   const int smem_bytes = plan[5];
-  if (a.os > kMaxOut) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.os > kMaxOut || act < kGelu || act > kLinear ||
+      (act == kGeluVjp) != (gy != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (rank) {
     case 1: return static_cast<int>(launch<1, T>(a, batch, cl, smem_bytes, s));
@@ -456,24 +337,27 @@ int dispatch(int rank, const void* x, const void* wr, const void* wi,
 
 }  // namespace
 
-// C entry, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
+// C entry, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16 (x, gy,
+// weights, operands). act: 0 gelu, 1 gelu_vjp (gy required), 2 linear.
+// out_f32: write y in float32 whatever dtype is. bias and gy may be null.
 // mats: 4·rank device pointers (forward re/im per stage, then inverse).
 // dims: {B, H, O, n_1, n_2, n_3, k_1, k_2, k_3}.
 // plan: {cluster, hidden/block, out/block, rows_f, rows_i, smem bytes}.
 // Returns the cudaError_t of the launch (0 on success).
-extern "C" int fused_block_forward(int dtype, int rank, const void* x,
-                                   const void* wr, const void* wi,
-                                   const void* wb, const void* bias,
+extern "C" int fused_block_forward(int dtype, int rank, int act, int out_f32,
+                                   const void* x, const void* wr,
+                                   const void* wi, const void* wb,
+                                   const void* bias, const void* gy,
                                    const void* const* mats, void* y,
                                    const int* dims, const int* plan,
                                    void* stream) {
   if (dtype == 0) {
-    return dispatch<float>(rank, x, wr, wi, wb, bias, mats, y, dims, plan,
-                           stream);
+    return dispatch<float>(rank, act, out_f32, x, wr, wi, wb, bias, gy, mats,
+                           y, dims, plan, stream);
   }
   if (dtype == 1) {
-    return dispatch<__nv_bfloat16>(rank, x, wr, wi, wb, bias, mats, y, dims,
-                                   plan, stream);
+    return dispatch<__nv_bfloat16>(rank, act, out_f32, x, wr, wi, wb, bias,
+                                   gy, mats, y, dims, plan, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -4,8 +4,9 @@ The sources under ``repro_torch/csrc`` have a plain ``extern "C"``
 interface, so one ``nvcc`` call per source builds them in seconds (PyTorch's
 extension builder would compile its headers for minutes). Each library is
 built at first use into ``build/repro_torch/<hash>/`` at the repository
-root, keyed by a hash of the source and the flags, so a changed source
-rebuilds and an unchanged one loads at once. There is no fallback: without
+root, keyed by a hash of the source, the shared headers (``csrc/*.cuh``)
+and the flags, so a changed source rebuilds and an unchanged one loads at
+once. There is no fallback: without
 ``nvcc`` the build raises.
 """
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("fused_block",)  # csrc/<name>.cu, one library each
+SOURCES = ("fused_block", "fused_wgrad")  # csrc/<name>.cu, one library each
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -58,8 +59,9 @@ def build(name: str, defines: Sequence[str] = ()) -> Path:
     src = CSRC / f"{name}.cu"
     flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     key = " ".join([name, *flags[len(NVCC_FLAGS):]])
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(flags).encode()).hexdigest()[:16]
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
     out_dir = BUILD_ROOT / digest
     lib = out_dir / f"lib{name}.so"
     log_path = out_dir / f"{name}.ptxas.log"
@@ -97,8 +99,8 @@ def load_block_library(path: Path) -> ctypes.CDLL:
     """Load a fused-block library and declare its C signatures."""
     lib = ctypes.CDLL(str(path))
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_block_forward.argtypes = [i, i, vp, vp, vp, vp, vp, vp, vp,
-                                        vp, vp, vp]
+    lib.fused_block_forward.argtypes = [i, i, i, i, vp, vp, vp, vp, vp, vp,
+                                        vp, vp, vp, vp, vp]
     lib.fused_block_forward.restype = i
     lib.fused_block_max_clusters.argtypes = [i, i, i, i,
                                              ctypes.POINTER(i)]
@@ -108,7 +110,27 @@ def load_block_library(path: Path) -> ctypes.CDLL:
     return lib
 
 
+def load_wgrad_library(path: Path) -> ctypes.CDLL:
+    """Load a fused weight-gradient library and declare its C signatures."""
+    lib = ctypes.CDLL(str(path))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.fused_wgrad.argtypes = [i, i, vp, vp, vp, vp, vp, vp, vp, vp, vp]
+    lib.fused_wgrad.restype = i
+    lib.fused_wgrad_max_clusters.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+    lib.fused_wgrad_max_clusters.restype = i
+    lib.fused_wgrad_error_string.argtypes = [i]
+    lib.fused_wgrad_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def load_fused_block() -> ctypes.CDLL:
     """The fused FNO block library, built from ``csrc/fused_block.cu``."""
     return load_block_library(build("fused_block"))
+
+
+@functools.lru_cache(maxsize=None)
+def load_fused_wgrad() -> ctypes.CDLL:
+    """The fused weight-gradient library, built from
+    ``csrc/fused_wgrad.cu``."""
+    return load_wgrad_library(build("fused_wgrad"))

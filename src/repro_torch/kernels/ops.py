@@ -3,11 +3,13 @@
 
   path="ref"    — ``torch.fft`` staged oracle          (reference "ref")
   path="staged" — truncated-DFT matmuls, one per stage (reference "xla")
-  path="fused"  — the CUDA block kernel                (reference "pallas")
+  path="fused"  — the CUDA block kernels              (reference "pallas")
 
-The oracles accumulate in f32 and never fuse. The fused path is the whole
-FNO block in one kernel launch, forward only, shared weights only; the
-kernel masks its own ragged edges, so nothing here pads.
+The oracles accumulate in f32, never fuse, and differentiate through torch
+autograd. The fused path is the whole FNO block, shared weights only, as a
+``torch.autograd.Function``: one kernel launch forward, three backward (gz
+recompute, dx adjoint, fused wgrad), the reference's launch structure. The
+kernels mask their own ragged edges, so nothing here pads.
 """
 from __future__ import annotations
 
@@ -106,14 +108,59 @@ def _fno_block_oracle(x, wr, wi, wb, bias, modes, path, pol):
     return _block_tail(s, x.to(cp), wb, bias, s.dtype)
 
 
-def _fnond_fused(x, wr, wi, wb, bias, modes, pol):
-    """Launch the fused block kernel (operands already at the compute
-    dtype); the bias is [O] here and [O,1] at the kernel."""
-    mats = spectral.operand_tensors(tuple(x.shape[2:]), modes,
-                                    pol.spectral_dtype, x.device)
-    return engine.fused_block(x.contiguous(), wr.contiguous(),
-                              wi.contiguous(), wb.contiguous(),
-                              bias.reshape(-1, 1).contiguous(), mats)
+def _mats(x, modes, pol, kind):
+    return spectral.operand_tensors(tuple(x.shape[2:]), modes,
+                                    pol.spectral_dtype, x.device, kind)
+
+
+def _c(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().contiguous()
+
+
+def _operands(x, wr, wi, wb, bias, pol):
+    """The block's operands at the compute dtype, detached and contiguous;
+    the bias is [O] here and [O,1] at the kernel."""
+    cp = torch_dtype(pol.compute_dtype)
+    return tuple(_c(a.to(cp)) for a in (x, wr, wi, wb, bias.reshape(-1, 1)))
+
+
+class _FusedBlock(torch.autograd.Function):
+    """The fused FNO block with the reference's custom VJP
+    (``ops._fno_block_vjp_fwd``/``_bwd``): forward is one block-kernel
+    launch and saves only the primals (never z); backward is three launches
+    — gz = gy·gelu'(z) with z recomputed, dx through the adjoint pipeline
+    with transposed weights, and dW, dW_b, dbias from the wgrad kernel.
+    The compute-dtype casts live inside, so every grad comes back at its
+    primal's dtype (f32 master params get f32 grads under bf16)."""
+
+    @staticmethod
+    def forward(ctx, x, wr, wi, wb, bias, modes, pol):
+        ctx.save_for_backward(x, wr, wi, wb, bias)
+        ctx.modes, ctx.pol = modes, pol
+        ops_ = _operands(x, wr, wi, wb, bias, pol)
+        return engine.fused_block(*ops_, _mats(ops_[0], modes, pol, "forward"))
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, wr, wi, wb, bias = ctx.saved_tensors
+        modes, pol = ctx.modes, ctx.pol
+        xc, wrc, wic, wbc, bc = _operands(x, wr, wi, wb, bias, pol)
+        # (1) recompute z through the forward kernel; its epilogue forms
+        # gz = gy·gelu'(z), so z never reaches device memory.
+        gz = engine.fused_block(xc, wrc, wic, wbc, bc,
+                                _mats(xc, modes, pol, "forward"),
+                                act="gelu_vjp", gy=_c(gy.to(xc.dtype)))
+        # (2) dx = spectral_adjoint(gz) + wbᵀ·gz: the same kernel with the
+        # adjoint operands, (out, hidden)-swapped weights, no bias, linear
+        # epilogue, emitted at the primal dtype.
+        dx = engine.fused_block(gz, _c(wrc.t()), _c(wic.t()), _c(wbc.t()),
+                                None, _mats(xc, modes, pol, "adjoint"),
+                                act="linear", out_dtype=x.dtype)
+        # (3) dW, dW_b, dbias from one wgrad launch, in f32.
+        dwr, dwi, dwb, db = engine.fused_wgrad(
+            xc, gz, _mats(xc, modes, pol, "wgrad"))
+        return (dx, dwr.to(wr.dtype), dwi.to(wi.dtype), dwb.to(wb.dtype),
+                db.reshape(bias.shape).to(bias.dtype), None, None)
 
 
 def fno_block_nd(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
@@ -124,9 +171,9 @@ def fno_block_nd(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
 
     x: [B,H,s_1..s_R]; wr/wi: [O,H] (or [O,H,k_1..k_R] on the oracle
     paths); wb: [O,H] bypass (y_o += Σ_h x_h·wb[o,h]); bias: [O].
-    path="fused" is ONE kernel launch (forward only); "ref"/"staged" are
-    the staged parity oracles. The result is at the policy's compute dtype
-    (x's dtype without a policy).
+    path="fused" is ONE kernel launch forward and three backward
+    (``_FusedBlock``); "ref"/"staged" are the staged parity oracles. The
+    result is at the policy's compute dtype (x's dtype without a policy).
     """
     modes = _modes_key(modes)
     if path in ("ref", "staged"):
@@ -136,7 +183,5 @@ def fno_block_nd(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
     if wr.ndim != 2:
         raise ValueError("the fused block kernel takes shared [O,H] "
                          "weights; per-mode weights are not ported yet")
-    pol = policy or _default_policy(x)
-    cp = torch_dtype(pol.compute_dtype)
-    x, wr, wi, wb, bias = (a.to(cp) for a in (x, wr, wi, wb, bias))
-    return _fnond_fused(x, wr, wi, wb, bias, modes, pol)
+    return _FusedBlock.apply(x, wr, wi, wb, bias, modes,
+                             policy or _default_policy(x))

@@ -1,1 +1,1 @@
-"""Serving steps and the request-batched FNO server."""
+"""Training step, serving steps and the request-batched FNO server."""

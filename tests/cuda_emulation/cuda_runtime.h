@@ -4,7 +4,8 @@
 // cluster run together, clusters one after another. __syncthreads is a
 // per-block barrier, cluster.sync a cluster-wide one, and each block owns a
 // shared-memory buffer that the other blocks of its cluster can map.
-// The including build replaces `extern __shared__ float smem[];` with
+// Clusters run in grid order, so a block's atomic ticket sees every earlier
+// cluster's writes. The including build replaces `extern __shared__ float smem[];` with
 // `float* smem = g_smem[blockIdx.x].data();`.
 #pragma once
 #include <pthread.h>
@@ -36,6 +37,11 @@ inline pthread_barrier_t g_cluster_bar;
 
 inline void __syncthreads() { pthread_barrier_wait(&g_block_bar[blockIdx.x]); }
 inline float __ldg(const float* p) { return *p; }
+inline float __ldcg(const float* p) { return *p; }
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
 
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef struct CUstream_st* cudaStream_t;

@@ -1,7 +1,8 @@
 """Port parity: the fused FNO block of ``repro_torch`` against the JAX
 reference's one-kernel block (``ops.fno_block_nd``, ``path="pallas"``, the
 Pallas kernel in interpret mode as the reference's own tests run it), plus
-the wrapper's contract: checks, launch plan, no fallback, forward-only.
+the wrappers' contract: checks, launch plans, no fallback, and no tensor
+that requires grad (``ops.fno_block_nd`` is the differentiable entry).
 
 On the CPU the fused wrapper runs the kernel's plain PyTorch version; the
 CUDA kernel itself is checked on the card (tests/test_torch_kernel_gpu.py
@@ -138,10 +139,57 @@ def test_wrapper_rejects_bad_operands():
 
 
 def test_wrapper_is_forward_only():
+    """The raw wrappers refuse tensors that require grad and name the
+    differentiable entry."""
     args, mats = _engine_args()
     args[1] = args[1].clone().requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward-only"):
+    with pytest.raises(RuntimeError, match="ops.fno_block_nd"):
         engine.fused_block(*args, mats)
+    x = args[0].clone().requires_grad_(True)
+    wmats = tspec.operand_tensors(x.shape[2:], _CASES[2][1], "float32",
+                                  "cpu", "wgrad")
+    with pytest.raises(RuntimeError, match="ops.fno_block_nd"):
+        engine.fused_wgrad(x, torch.zeros(2, 6, *x.shape[2:]), wmats)
+
+
+def test_wrapper_modes_check_their_operands():
+    args, mats = _engine_args()
+    x, wr, wi, wb, bias = args
+    gy = torch.zeros((2, 6) + tuple(x.shape[2:]))
+    with pytest.raises(ValueError, match="gy"):
+        engine.fused_block(*args, mats, act="gelu_vjp")
+    with pytest.raises(ValueError, match="gy"):
+        engine.fused_block(*args, mats, gy=gy)
+    with pytest.raises(ValueError, match="gy must be"):
+        engine.fused_block(*args, mats, act="gelu_vjp",
+                           gy=gy[:, :-1].contiguous())
+    with pytest.raises(ValueError, match="act"):
+        engine.fused_block(*args, mats, act="relu")
+    with pytest.raises(TypeError, match="out_dtype"):
+        engine.fused_block(*args, mats, out_dtype=torch.float64)
+    y = engine.fused_block(x, wr, wi, wb, None, mats, act="linear",
+                           out_dtype=torch.bfloat16)
+    assert y.dtype == torch.bfloat16
+    wmats = tspec.operand_tensors(x.shape[2:], _CASES[2][1], "float32",
+                                  "cpu", "wgrad")
+    with pytest.raises(ValueError, match="DFT operand"):
+        engine.fused_wgrad(x, gy, mats)  # the forward bundle's [k,n] stages
+    with pytest.raises(ValueError, match="gz must be"):
+        engine.fused_wgrad(x, gy[:1], wmats)
+    dwr, dwi, dwb, db = engine.fused_wgrad(x, gy, wmats)
+    assert tuple(dwr.shape) == (6, 8) and tuple(db.shape) == (6, 1)
+
+
+def test_wgrad_plan_full_width_and_limits():
+    plan = engine.wgrad_plan(64, 64, (128, 128), (32, 32))  # fno2d
+    assert plan["cluster"] == 8 and plan["hs"] == 8 and plan["os"] == 8
+    assert plan["cols"] == 128 and plan["smem"] <= 232448
+    big = engine.wgrad_plan(64, 64, (128, 128), (32, 32), 16)
+    assert big["cluster"] == 16 and big["smem"] < plan["smem"]
+    with pytest.raises(ValueError, match="shared memory"):
+        engine.wgrad_plan(32, 32, (64, 64, 64), (16, 16, 16))
+    with pytest.raises(ValueError, match="hidden channels"):
+        engine.wgrad_plan(1024, 8, (16,), (4,))
 
 
 def test_wrapper_raises_off_cpu_and_cuda():

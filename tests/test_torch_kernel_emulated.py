@@ -1,14 +1,16 @@
-"""The fused block kernel's CUDA source, run on the CPU.
+"""The fused block and wgrad kernels' CUDA sources, run on the CPU.
 
-``src/repro_torch/csrc/fused_block.cu`` is compiled with g++ against the
-emulation headers in ``tests/cuda_emulation`` (one POSIX thread per CUDA
-thread, real barriers for ``__syncthreads`` and the cluster barrier, one
-shared-memory buffer per block that the cluster's other blocks map), loaded
-through the same ``ctypes`` signature and launch plan as on the card, and
-compared with the kernel's plain PyTorch version. This checks the kernel's
-indexing, chunking, masking and cluster exchange at every rank without a
-GPU; the card itself is checked by tests/test_torch_kernel_gpu.py and
-chip_smoke.py.
+``src/repro_torch/csrc/fused_block.cu`` and ``fused_wgrad.cu`` are compiled
+with g++ against the emulation headers in ``tests/cuda_emulation`` (one
+POSIX thread per CUDA thread, real barriers for ``__syncthreads`` and the
+cluster barrier, one shared-memory buffer per block that the cluster's
+other blocks map, clusters run in grid order), loaded through the same
+``ctypes`` signatures and launch plans as on the card, and compared with
+the kernels' plain PyTorch versions: the block forward and the backward's
+three launches (gz recompute, dx adjoint, wgrad). This checks the kernels'
+indexing, chunking, masking, cluster exchange and the wgrad kernel's
+batch reduction at every rank without a GPU; the card itself is checked by
+tests/test_torch_kernel_gpu.py and chip_smoke.py.
 """
 import shutil
 import subprocess
@@ -38,26 +40,36 @@ CASES = [
 EMULATED_MAX_CLUSTERS = 4  # cuda_emulation/cuda_runtime.h
 
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
+def _compile(out: Path, name: str) -> Path:
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the kernel source for the CPU")
-    out = tmp_path_factory.mktemp("emulated")
-    src = (build.CSRC / "fused_block.cu").read_text()
+    src = (build.CSRC / f"{name}.cu").read_text()
     decl = "extern __shared__ float smem[];"
     assert src.count(decl) == 1
-    cpp = out / "fused_block.cpp"
+    cpp = out / f"{name}.cpp"
     cpp.write_text(src.replace(decl,
                                "float* smem = g_smem[blockIdx.x].data();"))
-    lib = out / "libfused_block_emulated.so"
+    lib = out / f"lib{name}_emulated.so"
     proc = subprocess.run(
         [gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-pthread",
          "-Wno-unknown-pragmas", "-include", "cuda_runtime.h",
-         f"-I{EMULATION}", str(cpp), "-o", str(lib)],
+         f"-I{EMULATION}", f"-I{build.CSRC}", str(cpp), "-o", str(lib)],
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    return build.load_block_library(lib)
+    return lib
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    out = tmp_path_factory.mktemp("emulated")
+    return build.load_block_library(_compile(out, "fused_block"))
+
+
+@pytest.fixture(scope="module")
+def emulated_wgrad(tmp_path_factory):
+    out = tmp_path_factory.mktemp("emulated_wgrad")
+    return build.load_wgrad_library(_compile(out, "fused_wgrad"))
 
 
 def _inputs(spatial, b, h, o, seed):
@@ -115,3 +127,43 @@ def test_emulated_kernel_rejects_too_many_out_channels(emulated,
     monkeypatch.setattr(engine, "launch_plan", lambda *a: bad)
     with pytest.raises(RuntimeError, match="launch failed"):
         engine._launch(emulated, *args, mats, spatial, modes, None)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}x{c[1]}")
+def test_emulated_backward_kernels_match_plain(emulated, emulated_wgrad,
+                                               case, dtype):
+    """The backward's three launches: gz = gy·gelu'(z) (recompute mode),
+    dx through the adjoint bundle with transposed weights (linear mode, no
+    bias, emitted in f32), and dW, dW_b, dbias from the wgrad kernel,
+    against the plain versions in f32 (bf16: 2e-2, f32: 2e-4)."""
+    spatial, modes, b, h, o = case
+    x, wr, wi, wb, bias = _inputs(spatial, b, h, o, seed=len(spatial) + o)
+    gy = torch.randn((b, o) + spatial,
+                     generator=torch.Generator().manual_seed(h))
+    tdt = getattr(torch, dtype)
+    t = lambda a: a.to(tdt).contiguous()
+    mats = {k: spectral.operand_tensors(spatial, modes, dtype, "cpu", k)
+            for k in ("forward", "adjoint", "wgrad")}
+    m32 = {k: spectral.operand_tensors(spatial, modes, "float32", "cpu", k)
+           for k in ("forward", "adjoint", "wgrad")}
+    gz = engine._launch(emulated, t(x), t(wr), t(wi), t(wb), t(bias),
+                        mats["forward"], spatial, modes, None,
+                        act="gelu_vjp", gy=t(gy))
+    dx = engine._launch(emulated, gz, t(wr.t()), t(wi.t()), t(wb.t()), None,
+                        mats["adjoint"], spatial, modes, None, act="linear",
+                        out_dtype=torch.float32)
+    dw = engine._launch_wgrad(emulated_wgrad, t(x), gz, mats["wgrad"],
+                              spatial, modes, None)
+    gz32 = engine.fused_block_plain(x, wr, wi, wb, bias, m32["forward"],
+                                    act="gelu_vjp", gy=gy)
+    dx32 = engine.fused_block_plain(gz.float(), wr.t().contiguous(),
+                                    wi.t().contiguous(), wb.t().contiguous(),
+                                    None, m32["adjoint"], act="linear")
+    dw32 = engine.fused_wgrad_plain(x, gz.float(), m32["wgrad"])
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    assert gz.dtype == tdt and dx.dtype == torch.float32
+    for name, a, ref in zip(("gz", "dx", "dwr", "dwi", "dwb", "dbias"),
+                            (gz, dx, *dw), (gz32, dx32, *dw32)):
+        assert a.shape == ref.shape and bool(torch.isfinite(a).all()), name
+        assert _rel_err(a, ref) <= tol, (name, _rel_err(a, ref))

@@ -1,7 +1,9 @@
-"""The fused block CUDA kernel on the card, against its plain PyTorch
-version: ranks 1–3, f32 (relative 2e-4) and bf16 (2e-2 against the f32
-plain version), the launch counter, and the fused model against the staged
-path. Every test needs an NVIDIA GPU (marker ``gpu``) and skips without
+"""The fused block and wgrad CUDA kernels on the card, against their plain
+PyTorch versions: ranks 1–3, the block forward and the three backward
+launches (gz recompute, dx adjoint, wgrad), f32 (relative 2e-4) and bf16
+(2e-2 against the f32 plain version), the launch counter, the fused model
+against the staged path, and one fused training step against the staged
+one. Every test needs an NVIDIA GPU (marker ``gpu``) and skips without
 one; on the card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernel_gpu.py
@@ -12,10 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import configs
+from repro_torch import configs, tree
 from repro_torch.core import fno as tfno
 from repro_torch.core import spectral
 from repro_torch.kernels import engine
+from repro_torch.optim.adamw import AdamW
+from repro_torch.optim.schedule import constant
+from repro_torch.train.train_step import (make_loss_fn, make_train_step,
+                                          value_and_grad)
 
 pytestmark = pytest.mark.gpu
 
@@ -85,19 +91,20 @@ def test_launch_counter_counts_each_launch(cuda):
     spatial, modes = _CASES[2]
     args = _args(cuda, spatial)
     mats = spectral.operand_tensors(spatial, modes, "float32", cuda)
-    before = engine.LAUNCHES["float32"]
+    key = ("block_fwd", "float32")
+    before = engine.LAUNCHES[key]
     for _ in range(3):
         engine.fused_block(*args, mats)
     engine.fused_block_plain(*args, mats)
     torch.cuda.synchronize()
-    assert engine.LAUNCHES["float32"] - before == 3
+    assert engine.LAUNCHES[key] - before == 3
 
 
 def test_forward_only_on_card(cuda):
     spatial, modes = _CASES[1]
     args = _args(cuda, spatial)
     args[0].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward-only"):
+    with pytest.raises(RuntimeError, match="ops.fno_block_nd"):
         engine.fused_block(
             *args, spectral.operand_tensors(spatial, modes, "float32", cuda))
 
@@ -107,10 +114,109 @@ def test_fused_model_matches_staged_on_card(cuda):
     params = tfno.init_fno(torch.Generator().manual_seed(0), cfg, cuda)
     x = torch.randn((3, cfg.in_channels) + tuple(cfg.spatial),
                     generator=torch.Generator().manual_seed(1)).to(cuda)
-    before = engine.LAUNCHES["float32"]
+    key = ("block_fwd", "float32")
+    before = engine.LAUNCHES[key]
     with torch.no_grad():
         y = tfno.apply_fno(params, dataclasses.replace(cfg, path="fused"), x)
         y_ref = tfno.apply_fno(params, cfg, x, path="staged")
     torch.cuda.synchronize()
-    assert engine.LAUNCHES["float32"] - before == cfg.num_layers
+    assert engine.LAUNCHES[key] - before == cfg.num_layers
     assert _rel_err(y, y_ref) <= 2e-4
+
+
+def _backward_launches(device, spatial, modes, dtype, b=2, h=8, o=6,
+                       seed=0):
+    """(gz, dx, wgrad) from the kernels at `dtype` and from the plain
+    versions in f32, on the same inputs."""
+    x, wr, wi, wb, bias = _args(device, spatial, b, h, o, seed)
+    gy = torch.randn((b, o) + tuple(spatial),
+                     generator=torch.Generator().manual_seed(seed)).to(device)
+    tdt = getattr(torch, dtype)
+    mats = {k: spectral.operand_tensors(spatial, modes, dtype, device, k)
+            for k in ("forward", "adjoint", "wgrad")}
+    m32 = {k: spectral.operand_tensors(spatial, modes, "float32", device, k)
+           for k in ("forward", "adjoint", "wgrad")}
+    t = lambda a: a.to(tdt).contiguous()
+    gz = engine.fused_block(t(x), t(wr), t(wi), t(wb), t(bias),
+                            mats["forward"], act="gelu_vjp", gy=t(gy))
+    dx = engine.fused_block(gz, t(wr.t()), t(wi.t()), t(wb.t()), None,
+                            mats["adjoint"], act="linear",
+                            out_dtype=torch.float32)
+    dw = engine.fused_wgrad(t(x), gz, mats["wgrad"])
+    gz32 = engine.fused_block_plain(x, wr, wi, wb, bias, m32["forward"],
+                                    act="gelu_vjp", gy=gy)
+    dx32 = engine.fused_block_plain(gz32, wr.t().contiguous(),
+                                    wi.t().contiguous(), wb.t().contiguous(),
+                                    None, m32["adjoint"], act="linear")
+    dw32 = engine.fused_wgrad_plain(x, gz32, m32["wgrad"])
+    torch.cuda.synchronize()
+    return (gz, dx, *dw), (gz32, dx32, *dw32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rank", [1, 2, 3])
+def test_backward_kernels_match_plain(cuda, rank, dtype):
+    spatial, modes = _CASES[rank]
+    ours, plain = _backward_launches(cuda, spatial, modes, dtype, seed=rank)
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    for name, a, b in zip(("gz", "dx", "dwr", "dwi", "dwb", "dbias"), ours,
+                          plain):
+        assert a.is_cuda and bool(torch.isfinite(a).all()), name
+        assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
+    assert ours[0].dtype == getattr(torch, dtype)
+    assert all(t.dtype == torch.float32 for t in ours[1:])
+
+
+def test_backward_kernels_at_fno2d_full_width(cuda):
+    cfg = configs.get_config("fno2d")
+    ours, plain = _backward_launches(cuda, cfg.spatial, cfg.modes, "float32",
+                                     b=2, h=cfg.hidden, o=cfg.hidden, seed=7)
+    for a, b in zip(ours, plain):
+        assert _rel_err(a, b) <= 2e-4
+
+
+def test_wgrad_is_deterministic(cuda):
+    """The batch reduction sums per-sample partials in sample order: two
+    launches on the same inputs agree bit for bit."""
+    spatial, modes = _CASES[2]
+    x, _, _, _, _ = _args(cuda, spatial, b=5)
+    gz = torch.randn((5, 6) + spatial, device=cuda)
+    mats = spectral.operand_tensors(spatial, modes, "float32", cuda, "wgrad")
+    one = engine.fused_wgrad(x, gz, mats)
+    two = engine.fused_wgrad(x, gz, mats)
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+
+
+def test_fused_train_step_matches_staged_on_card(cuda):
+    """One AdamW step of reduced fno2d on the fused path (four kernel
+    launches per block) against the staged path's autograd, and every
+    leaf's gradient against the staged one, scaled to the leaf's own
+    magnitude."""
+    cfg = configs.with_fuse_block(configs.get_config("fno2d", reduced=True))
+    params = tfno.init_fno(torch.Generator().manual_seed(0), cfg, cuda)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"x": torch.randn((2, cfg.in_channels) + tuple(cfg.spatial),
+                              generator=gen).to(cuda),
+             "y": torch.randn((2, cfg.out_channels) + tuple(cfg.spatial),
+                              generator=gen).to(cuda)}
+    opt = AdamW(lr=constant(1e-3))
+    engine.LAUNCHES.clear()
+    fused = make_train_step(cfg, opt, fno_path="fused")(
+        params, opt.init(params), batch)
+    torch.cuda.synchronize()
+    for kind in engine.KINDS:
+        assert engine.LAUNCHES[(kind, "float32")] == cfg.num_layers, kind
+    staged = make_train_step(cfg, opt, fno_path="staged")(
+        params, opt.init(params), batch)
+    for key in ("loss", "grad_norm"):
+        assert abs(float(fused[2][key]) - float(staged[2][key])) <= (
+            2e-4 * abs(float(staged[2][key])))
+    for a, b in zip(tree.leaves(fused[0]), tree.leaves(staged[0])):
+        assert _rel_err(a, b) <= 2e-4
+    grads = [tree.leaves(value_and_grad(make_loss_fn(cfg, fno_path=p),
+                                        params, batch)[1])
+             for p in ("fused", "staged")]
+    for a, b in zip(*grads):
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= 2e-4 * scale
