@@ -39,10 +39,31 @@ fatal:
   7. train times — per precision, median step ms and samples/s over 30
      steps after the 20 above, peak device memory; then CUDA events at
      fno2d B=8 for each backward launch beside its plain version, the
-     staged torch.fft block's autograd backward (a yardstick) and its bound.
+     staged torch.fft block's autograd backward (a yardstick) and its bound;
+  8. kernel vs plain, partial launches — the row kernels (rdft, cdft with
+     the forward and the padded-inverse operand, irdft) and the fused core
+     against their plain versions at phase 2's odd extents (ranks 2–3),
+     fno2d full width at B=1 and B=8 and fno3d full width (hidden 32, 64³,
+     modes 16³) at B=1, f32 ≤ 2e-4 and bf16 ≤ 2e-2 of the f32 plain
+     version; and the block kernel without wb (the bare spectral layer);
+  9. serve partial — ``FNOServer(variant="partial")`` for fno2d at full
+     width with phase 3's 12 requests: finite, equal to the staged path and
+     to the full variant within the tolerances, exactly num_layers ×
+     Σ(chunks × K) launches of each of rdft, core and irdft and no
+     block_fwd; then fno3d at full width serves batches of 1 and 2 through
+     the partial path (f32 and bf16) against the staged path;
+  10. train partial — phase 6 with ``fno_variant="partial"``: num_layers
+     launches of each of rdft, core, irdft, gz_recompute, dx_adjoint and
+     wgrad per step;
+  11. times, partial — phase 4's serve window (the same seeded sizes) and
+     phase 7's training window on the partial variant; CUDA events at fno2d
+     B=8 for each partial launch beside its plain version, its one-call
+     ``torch.fft`` yardstick (none for the core) and its bound, fno3d's
+     outer launches at B=1, and the whole served block forward, partial
+     against full against the staged torch.fft block.
 
-The last two lines are a ``{"kernels": [...]}`` JSON object and
-``{"ok": true, "device": {...}}``.
+Each phase's seconds are printed. The last two lines are a
+``{"kernels": [...]}`` JSON object and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -74,6 +95,14 @@ WGRAD_REPLACES = "src/repro/kernels/engine.py:634"
 BLOCK_SOURCE = "src/repro_torch/csrc/fused_block.cu"
 WGRAD_SOURCE = "src/repro_torch/csrc/fused_wgrad.cu"
 BACKWARD = ("gz_recompute", "dx_adjoint", "wgrad")
+PARTIAL_LAUNCHES = ("rdft", "cdft", "icdft", "irdft", "core")
+DTYPES = ("float32", "bfloat16")
+ROWS_SOURCE = "src/repro_torch/csrc/dft_rows.cu"
+CORE_SOURCE = "src/repro_torch/csrc/fused_core.cu"
+PARTIAL_REPLACES = {"rdft": "src/repro/kernels/dft.py:44",
+                    "cdft": "src/repro/kernels/dft.py:75",
+                    "irdft": "src/repro/kernels/dft.py:97",
+                    "core": "src/repro/kernels/engine.py:494"}
 
 
 def log(msg: str) -> None:
@@ -147,7 +176,8 @@ def bound_ms(kind, b, h, o, spatial, modes, elem_bytes, peak_flops):
     block_fwd reads x, the weights and the operands and writes y;
     gz_recompute reads gy too and writes gz; dx_adjoint reads gz and writes
     dx (the same work with H and O swapped); wgrad reads x and gz and writes
-    the f32 weight gradients."""
+    the f32 weight gradients; the partial variant's launches as
+    ``partial_work`` counts them."""
     pts = math.prod(spatial)
     mats = sum(2 * 2 * n * k for n, k in zip(spatial, modes))  # 4R operands
     act_in, act_out = b * h * pts, b * o * pts
@@ -159,6 +189,9 @@ def bound_ms(kind, b, h, o, spatial, modes, elem_bytes, peak_flops):
         nbytes = elem_bytes * (act_in + 2 * act_out + weights + mats)
     elif kind == "dx_adjoint":
         nbytes = elem_bytes * (act_out + act_in + 3 * o * h + mats)
+    elif kind in PARTIAL_LAUNCHES:
+        flops, elems = partial_work(kind, b, h, o, spatial, modes)
+        nbytes = elem_bytes * elems
     else:
         nbytes = elem_bytes * (act_in + act_out + mats) + 4 * weights
         flops = wgrad_flops(b, h, o, spatial, modes)
@@ -166,6 +199,41 @@ def bound_ms(kind, b, h, o, spatial, modes, elem_bytes, peak_flops):
     t_ops = flops / peak_flops
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def fft_flops(n: int, real: bool) -> float:
+    """Least operations of one FFT of n points: 2.5·n·log2 n for real
+    input or output, 5·n·log2 n complex (the convention of
+    ``block_flops``)."""
+    return (2.5 if real else 5.0) * n * math.log2(n) if n > 1 else 0.0
+
+
+def partial_work(kind, b, h, o, spatial, modes):
+    """(least operations, elements moved) of one partial-variant launch at
+    a block of B=b, H=h, O=o: each row read once and each output written
+    once (operands too), against FFTs of the transformed axes.
+
+    rdft: the b·h·s_1 rows over the outer axes s_2..s_R (one real FFT of
+    all outer points each); irdft: the b·o·s_1 rows back; cdft / icdft:
+    the s_1 stage as a row launch over b·h·P (b·o·P) rows of s_1 points
+    (complex FFTs; P = Πk_2..k_R); core: z and y pairs, W, both s_1
+    operands, an s_1 FFT of every (b, channel, p) column each way and the
+    CGEMM (8 per complex multiply-add)."""
+    n1, k1 = spatial[0], modes[0]
+    n_out, p = math.prod(spatial[1:]), math.prod(modes[1:])
+    if kind == "rdft":
+        rows = b * h * n1
+        return (rows * fft_flops(n_out, True),
+                rows * (n_out + 2 * p) + 2 * n_out * p)
+    if kind == "irdft":
+        rows = b * o * n1
+        return (rows * fft_flops(n_out, True),
+                rows * (2 * p + n_out) + 2 * n_out * p)
+    if kind in ("cdft", "icdft"):
+        rows = b * (h if kind == "cdft" else o) * p
+        return rows * fft_flops(n1, False), rows * 2 * (n1 + k1) + 2 * n1 * k1
+    return (b * p * ((h + o) * fft_flops(n1, False) + 8 * o * h * k1),
+            2 * b * p * n1 * (h + o) + 2 * o * h + 4 * n1 * k1)
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -259,6 +327,31 @@ def phase_kernel_vs_plain(torch, engine, spectral, configs):
     return errs
 
 
+def serve_requests(torch, np, shape):
+    """Phase 3's 12 mixed requests, the same in every phase that sends
+    them: 8 single-step requests of seeded sizes 1–8, 2 with
+    rollout_steps=4, 2 under the bf16 preset, as (x, K, bf16)."""
+    rng = np.random.default_rng(0)
+    gen = torch.Generator().manual_seed(1)
+    mkreq = lambda n: torch.randn((int(n),) + shape, generator=gen).to(DEVICE)
+    return ([(mkreq(n), 1, False) for n in rng.integers(1, 9, size=8)]
+            + [(mkreq(n), 4, False) for n in rng.integers(1, 9, size=2)]
+            + [(mkreq(n), 1, True) for n in rng.integers(1, 9, size=2)])
+
+
+def expected_launches(plan, kinds, num_layers, top):
+    """num_layers × Σ(chunks × K) launches of each kind per precision for
+    requests (x, K, name); names ending in "bf16" run in bf16."""
+    expect = {}
+    for x, k, name in plan:
+        dt = "bfloat16" if name.endswith("bf16") else "float32"
+        chunks = -(-x.shape[0] // top)
+        for kind in kinds:
+            expect[(kind, dt)] = (expect.get((kind, dt), 0)
+                                  + num_layers * chunks * k)
+    return expect
+
+
 def phase_serve(torch, np, configs, fno_mod, sfs, engine):
     log("== phase 3: serve fno2d at full width")
     cfg = configs.with_fuse_block(configs.get_config("fno2d"))
@@ -279,18 +372,10 @@ def phase_serve(torch, np, configs, fno_mod, sfs, engine):
         srv(torch.zeros((1,) + shape, device=DEVICE), rollout_steps=4)
     torch.cuda.synchronize()
 
-    rng = np.random.default_rng(0)
-    gen = torch.Generator().manual_seed(1)
-    mkreq = lambda n: torch.randn((int(n),) + shape, generator=gen).to(DEVICE)
-    plan = ([(mkreq(n), 1, "fused") for n in rng.integers(1, 9, size=8)]
-            + [(mkreq(n), 4, "fused") for n in rng.integers(1, 9, size=2)]
-            + [(mkreq(n), 1, "bf16") for n in rng.integers(1, 9, size=2)])
-    top = servers["fused"].buckets[-1]
-    expect = {("block_fwd", "float32"): 0, ("block_fwd", "bfloat16"): 0}
-    for x, k, name in plan:
-        chunks = -(-x.shape[0] // top)
-        dt = "float32" if name == "fused" else "bfloat16"
-        expect[("block_fwd", dt)] += cfg.num_layers * chunks * k
+    plan = [(x, k, "bf16" if bf16 else "fused")
+            for x, k, bf16 in serve_requests(torch, np, shape)]
+    expect = expected_launches(plan, ("block_fwd",), cfg.num_layers,
+                               servers["fused"].buckets[-1])
     torch.cuda.synchronize()
 
     engine.LAUNCHES.clear()
@@ -311,19 +396,24 @@ def phase_serve(torch, np, configs, fno_mod, sfs, engine):
     return counts, servers
 
 
-def phase_serve_window(torch, np, servers, engine, num_layers):
+def phase_serve_window(torch, np, servers, engine, num_layers,
+                       names=("fused", "bf16"), kinds=("block_fwd",),
+                       phase="4"):
     """Sustained serving, one precision at a time: WINDOW_REQUESTS
     single-step requests of seeded sizes 1–8 back to back, each waited for
     (one request in flight, as a client that needs its answer). Latency is
     the host clock from call to answer; throughput is every sample-step over
-    the whole window's wall time."""
-    log("== phase 4: times — sustained serve window, fno2d full width")
-    srv0 = servers["fused"]
+    the whole window's wall time. `names` are the f32 and bf16 servers,
+    `kinds` the launch kinds each layer issues; the sizes are the same
+    for every variant."""
+    log(f"== phase {phase}: times — sustained serve window, fno2d full "
+        f"width, {names}")
+    srv0 = servers[names[0]]
     shape = (srv0.cfg.in_channels,) + tuple(srv0.cfg.spatial)
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     pool = torch.randn((64,) + shape, generator=gen, device=DEVICE)
     stats = {}
-    for name in ("fused", "bf16"):
+    for name in names:
         srv = servers[name]
         rng = np.random.default_rng(3)
         sizes = rng.integers(1, 9, size=WINDOW_REQUESTS)
@@ -347,12 +437,11 @@ def phase_serve_window(torch, np, servers, engine, num_layers):
             gc.callbacks.remove(count_gc)
         wall = time.perf_counter() - t_all
         dt = srv.cfg.precision.compute_dtype
-        launches = engine.LAUNCHES[("block_fwd", dt)]
-        if dict(engine.LAUNCHES) != {("block_fwd", dt):
-                                     num_layers * WINDOW_REQUESTS}:
+        launches = engine.LAUNCHES[(kinds[0], dt)]
+        want = {(k, dt): num_layers * WINDOW_REQUESTS for k in kinds}
+        if dict(engine.LAUNCHES) != want:
             raise AssertionError(f"window launches {dict(engine.LAUNCHES)} "
-                                 f"!= {num_layers * WINDOW_REQUESTS} "
-                                 f"block_fwd")
+                                 f"!= {want}")
         if not all(bool(torch.isfinite(y).all()) for y in outs):
             raise AssertionError(f"non-finite output in the {name} window")
         lat = np.asarray(lat)
@@ -488,10 +577,14 @@ def leaf_err(a, ref) -> float:
     return float((a - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
 
 
-def phase_train(torch, configs, fno_mod, pde, tree, ts, optim, engine):
-    """Step-0 parity of the fused path with the staged one, the launch
-    structure, and TRAIN_STEPS AdamW steps on one batch per precision."""
-    log("== phase 6: train fno2d at full width")
+def phase_train(torch, configs, fno_mod, pde, tree, ts, optim, engine,
+                variant="full", phase="6"):
+    """Step-0 parity of the fused path (full or partial variant) with the
+    staged one, the launch structure, and TRAIN_STEPS AdamW steps on one
+    batch per precision."""
+    log(f"== phase {phase}: train fno2d at full width, variant {variant}")
+    kinds = (engine.KINDS if variant == "full"
+             else engine.PARTIAL_KINDS + engine.KINDS[1:])
     cfg = configs.with_fuse_block(configs.get_config("fno2d"))
     staged = dataclasses.replace(cfg, path="staged", fuse_block=False)
     layers = cfg.num_layers
@@ -514,11 +607,12 @@ def phase_train(torch, configs, fno_mod, pde, tree, ts, optim, engine):
         dt = c.precision.compute_dtype
         torch.cuda.synchronize()
         engine.LAUNCHES.clear()
-        loss, g = ts.value_and_grad(ts.make_loss_fn(c, fno_path="fused"),
-                                    params, batch)
+        loss, g = ts.value_and_grad(
+            ts.make_loss_fn(c, fno_path="fused", fno_variant=variant),
+            params, batch)
         torch.cuda.synchronize()
         one = dict(engine.LAUNCHES)
-        want = {(k, dt): layers for k in engine.KINDS}
+        want = {(k, dt): layers for k in kinds}
         log(f"  {preset}: launches for one forward+backward {one}")
         if one != want:
             raise AssertionError(f"launches {one} != {want}")
@@ -542,7 +636,8 @@ def phase_train(torch, configs, fno_mod, pde, tree, ts, optim, engine):
 
         opt = optim.AdamW(lr=optim.cosine_warmup(
             1e-3, min(100, total // 10 + 1), total))
-        step = ts.make_train_step(c, opt, fno_path="fused")
+        step = ts.make_train_step(c, opt, fno_path="fused",
+                                  fno_variant=variant)
         p, st = params, opt.init(params)
         torch.cuda.synchronize()
         engine.LAUNCHES.clear()
@@ -552,7 +647,7 @@ def phase_train(torch, configs, fno_mod, pde, tree, ts, optim, engine):
             losses.append(m["loss"])
         torch.cuda.synchronize()
         counts[dt] = dict(engine.LAUNCHES)
-        want = {(k, dt): layers * TRAIN_STEPS for k in engine.KINDS}
+        want = {(k, dt): layers * TRAIN_STEPS for k in kinds}
         if counts[dt] != want:
             raise AssertionError(f"launches {counts[dt]} != {want}")
         losses = [float(v) for v in losses]
@@ -565,9 +660,9 @@ def phase_train(torch, configs, fno_mod, pde, tree, ts, optim, engine):
     return batch, runs, counts
 
 
-def phase_train_times(torch, np, engine, spectral, ops, configs, batch,
-                      runs, counts, errs):
-    log("== phase 7: train times, fno2d full width, batch 8")
+def train_window(torch, np, batch, runs):
+    """Median step ms, samples/s and peak memory over TRAIN_WINDOW steps
+    per precision, continuing each run of `runs`."""
     stats = {}
     for dt, (step, p, st) in runs.items():
         torch.cuda.synchronize()
@@ -593,7 +688,13 @@ def phase_train_times(torch, np, engine, spectral, ops, configs, batch,
             f"{stats[dt]['step_ms_p90']:.4f}; "
             f"{stats[dt]['samples_per_s']:.2f} samples/s; peak memory "
             f"{stats[dt]['peak_memory_bytes']} B")
+    return stats
 
+
+def phase_train_times(torch, np, engine, spectral, ops, configs, batch,
+                      runs, counts, errs):
+    log("== phase 7: train times, fno2d full width, batch 8")
+    stats = train_window(torch, np, batch, runs)
     full = configs.get_config("fno2d")
     b, h, o = 8, full.hidden, full.hidden
     spatial, modes = full.spatial, full.modes
@@ -651,6 +752,283 @@ def phase_train_times(torch, np, engine, spectral, ops, configs, batch,
     return stats, rows
 
 
+def as_tuple(y):
+    return y if isinstance(y, tuple) else (y,)
+
+
+def partial_shapes(configs):
+    """Phase 8's shapes: phase 2's odd extents at ranks 2–3, fno2d full
+    width at B=1 and B=8, fno3d full width at B=1."""
+    shapes = [c for c in check_shapes(configs) if c[0] in ("odd_r2",
+                                                           "odd_r3")]
+    full = configs.get_config("fno2d")
+    for b in (1, 8):
+        shapes.append((f"fno2d_B{b}", b, full.hidden, full.hidden,
+                       full.spatial, full.modes))
+    f3 = configs.get_config("fno3d")
+    shapes.append(("fno3d_B1", 1, f3.hidden, f3.hidden, f3.spatial,
+                   f3.modes))
+    return shapes
+
+
+def partial_cases(torch, spectral, dft, engine, b, h, o, spatial, modes,
+                  seed):
+    """Each partial-variant launch at a block of this shape, as the path
+    issues it: kind -> (kernel, plain version, f32 inputs, operands by
+    dtype). rdft/irdft transform the outer axes (one axis at rank 2, the
+    Kronecker-combined operand at rank 3); cdft/icdft are the s_1 stage as
+    standalone row launches."""
+    r = len(spatial)
+    gen = torch.Generator().manual_seed(seed)
+    rnd = lambda *s, sc=1.0: (sc * torch.randn(s, generator=gen)).to(DEVICE)
+    n1, k1 = spatial[0], modes[0]
+    osp, omd = tuple(spatial[1:]), tuple(modes[1:])
+    n_out, p = math.prod(osp), math.prod(omd)
+    spec = tuple(modes[r - 1:0:-1])
+    fwd, inv = ("rdft", "irdft") if r == 2 else ("outer_fwd", "outer_inv")
+    row = lambda kind, sp, md: {
+        dt: spectral.row_operand_tensors(kind, sp, md, dt, DEVICE)
+        for dt in DTYPES}
+    core_ops = {dt: spectral.operand_tensors(spatial, modes, dt,
+                                             DEVICE)[2 * r - 2:2 * r + 2]
+                for dt in DTYPES}
+    return {
+        "rdft": (dft.rdft, dft.rdft_plain, [rnd(b, h, n1, n_out)],
+                 row(fwd, osp, omd)),
+        "cdft": (dft.cdft, dft.cdft_plain,
+                 [rnd(b * h * p, n1), rnd(b * h * p, n1)],
+                 row("cdft", (n1,), (k1,))),
+        "icdft": (dft.cdft, dft.cdft_plain,
+                  [rnd(b * o * p, k1), rnd(b * o * p, k1)],
+                  row("icdft", (n1,), (k1,))),
+        "irdft": (dft.irdft, dft.irdft_plain,
+                  [rnd(b, o, n1, p), rnd(b, o, n1, p)], row(inv, osp, omd)),
+        "core": (engine.fused_core, engine.fused_core_plain,
+                 [rnd(b, h, n1, *spec), rnd(b, h, n1, *spec),
+                  rnd(o, h, sc=1.0 / h), rnd(o, h, sc=1.0 / h)], core_ops),
+    }
+
+
+def phase_partial_vs_plain(torch, engine, spectral, dft, configs):
+    log("== phase 8: kernel vs plain on the card, partial launches")
+    errs = {}
+    for seed, (name, b, h, o, spatial, modes) in enumerate(
+            partial_shapes(configs)):
+        cases = partial_cases(torch, spectral, dft, engine, b, h, o,
+                              spatial, modes, 500 + seed)
+        for kind, (fn, plain, ins, mats) in cases.items():
+            ref = as_tuple(plain(*ins, *mats["float32"]))
+            y = as_tuple(fn(*ins, *mats["float32"]))
+            torch.cuda.synchronize()
+            errs[(name, kind, "float32")] = e = errors(y, ref)
+            check(f"{name} f32 {kind} vs plain", e[1], F32_TOL)
+            y16 = as_tuple(fn(*[a.to(torch.bfloat16) for a in ins],
+                              *mats["bfloat16"]))
+            torch.cuda.synchronize()
+            errs[(name, kind, "bfloat16")] = e = errors(y16, ref)
+            check(f"{name} bf16 {kind} vs f32 plain", e[1], BF16_TOL)
+        del cases
+    # The block kernel without wb and bias: the bare spectral layer that
+    # the rank-1 partial variant runs.
+    name, b, h, o, spatial, modes = check_shapes(configs)[0]
+    x, wr, wi = block_inputs(b, h, o, spatial, 520, DEVICE)[:3]
+    m32 = spectral.operand_tensors(spatial, modes, "float32", DEVICE)
+    ref = engine.fused_block_plain(x, wr, wi, None, None, m32, act="linear")
+    y = engine.fused_block(x, wr, wi, None, None, m32, act="linear")
+    y16 = engine.fused_block(
+        *[a.to(torch.bfloat16) for a in (x, wr, wi)], None, None,
+        spectral.operand_tensors(spatial, modes, "bfloat16", DEVICE),
+        act="linear")
+    torch.cuda.synchronize()
+    check(f"{name} f32 bare spectral (wb=None) vs plain", rel_err(y, ref),
+          F32_TOL)
+    check(f"{name} bf16 bare spectral (wb=None) vs f32 plain",
+          rel_err(y16, ref), BF16_TOL)
+    return errs
+
+
+def phase_serve_partial(torch, np, configs, fno_mod, sfs, engine, servers):
+    log("== phase 9: serve the partial variant, fno2d and fno3d full width")
+    cfg = servers["fused"].cfg
+    params = servers["fused"].params
+    for name, base in (("partial", "fused"), ("partial_bf16", "bf16")):
+        servers[name] = sfs.FNOServer(servers[base].cfg, params,
+                                      device=DEVICE, variant="partial",
+                                      max_batch=8)
+    shape = (cfg.in_channels,) + tuple(cfg.spatial)
+    for name in ("partial", "partial_bf16"):  # warm outside the count
+        srv = servers[name]
+        for b in srv.buckets:
+            srv(torch.zeros((b,) + shape, device=DEVICE))
+        srv(torch.zeros((1,) + shape, device=DEVICE), rollout_steps=4)
+    plan = [(x, k, "partial_bf16" if bf16 else "partial")
+            for x, k, bf16 in serve_requests(torch, np, shape)]
+    expect = expected_launches(plan, engine.PARTIAL_KINDS, cfg.num_layers,
+                               servers["partial"].buckets[-1])
+    torch.cuda.synchronize()
+    engine.LAUNCHES.clear()
+    outs = [servers[name](x, rollout_steps=k) for x, k, name in plan]
+    torch.cuda.synchronize()
+    counts = dict(engine.LAUNCHES)
+    log(f"  launches {counts} expected {expect}")
+    if counts != expect:
+        raise AssertionError(f"kernel launches {counts} != {expect}")
+    for (x, k, name), y in zip(plan, outs):
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"non-finite serve output ({name}, K={k})")
+        tol = F32_TOL if name == "partial" else BF16_TOL
+        check(f"serve {name} n={x.shape[0]} K={k} vs staged f32",
+              rel_err(y, servers["staged"](x, rollout_steps=k)), tol)
+        check(f"serve {name} n={x.shape[0]} K={k} vs full variant f32",
+              rel_err(y, servers["fused"](x, rollout_steps=k)), tol)
+
+    # fno3d at full width: the full-fusion kernels cannot hold it; the
+    # partial path serves it.
+    c3 = configs.with_fuse_block(configs.get_config("fno3d"))
+    p3 = fno_mod.init_fno(torch.Generator().manual_seed(0), c3)
+    srv3 = {name: sfs.FNOServer(c, p3, device=DEVICE, variant="partial",
+                                max_batch=2)
+            for name, c in (("f32", dataclasses.replace(c3, path="fused")),
+                            ("bf16", configs.with_precision(
+                                dataclasses.replace(c3, path="fused"),
+                                "bf16")))}
+    staged3 = sfs.FNOServer(dataclasses.replace(c3, path="staged",
+                                                fuse_block=False), p3,
+                            device=DEVICE, max_batch=2)
+    gen = torch.Generator().manual_seed(4)
+    reqs = [torch.randn((n, c3.in_channels) + tuple(c3.spatial),
+                        generator=gen).to(DEVICE) for n in (1, 2)]
+    torch.cuda.synchronize()
+    engine.LAUNCHES.clear()
+    outs3 = {name: [srv(x) for x in reqs] for name, srv in srv3.items()}
+    torch.cuda.synchronize()
+    want = {(k, dt): c3.num_layers * len(reqs)
+            for k in engine.PARTIAL_KINDS for dt in DTYPES}
+    counts3 = dict(engine.LAUNCHES)
+    log(f"  fno3d launches {counts3}")
+    if counts3 != want:
+        raise AssertionError(f"fno3d launches {counts3} != {want}")
+    ms3 = {}
+    for i, x in enumerate(reqs):
+        ref = staged3(x)
+        for name, tol in (("f32", F32_TOL), ("bf16", BF16_TOL)):
+            y = outs3[name][i]
+            if not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"non-finite fno3d output ({name})")
+            check(f"serve fno3d {name} n={x.shape[0]} vs staged f32",
+                  rel_err(y, ref), tol)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv3[name](x)
+            torch.cuda.synchronize()
+            ms3[f"{name}_B{x.shape[0]}"] = 1e3 * (time.perf_counter() - t0)
+    log(f"  fno3d request ms (host clock, after one warm request): {ms3}")
+    return counts, ms3
+
+
+def library_call(torch, kind, ins, n, k):
+    """The one torch.fft call that computes a row launch's function, on its
+    f32 inputs (a yardstick; the port never calls it), or None (core)."""
+    if kind == "rdft":
+        return lambda: torch.fft.rfft(ins[0], dim=-1)[..., :k]
+    if kind == "core":
+        return None
+    c = torch.complex(*ins)
+    if kind == "cdft":
+        return lambda: torch.fft.fft(c, dim=-1)[..., :k]
+    if kind == "icdft":
+        return lambda: torch.fft.ifft(c, n=n, dim=-1)
+    return lambda: torch.fft.irfft(c, n=n, dim=-1)
+
+
+def phase_partial_times(torch, engine, spectral, dft, ops, configs, errs,
+                        serve_counts, train_counts):
+    log("== phase 11: times — partial launches and block at fno2d B=8")
+    full = configs.get_config("fno2d")
+    b, h, o = 8, full.hidden, full.hidden
+    spatial, modes = full.spatial, full.modes
+    cases = partial_cases(torch, spectral, dft, engine, b, h, o, spatial,
+                          modes, 600)
+    f3 = configs.get_config("fno3d")
+    cases3 = partial_cases(torch, spectral, dft, engine, 1, f3.hidden,
+                           f3.hidden, f3.spatial, f3.modes, 601)
+    # (axis length, kept modes) of each launch's library call
+    nk = {"rdft": (spatial[1], modes[1]), "irdft": (spatial[1], modes[1]),
+          "cdft": (spatial[0], modes[0]), "icdft": (spatial[0], modes[0])}
+    rows = []
+    for dt, peak, eb in (("float32", PEAK_F32_FLOPS, 4),
+                         ("bfloat16", PEAK_BF16_FLOPS, 2)):
+        tdt = getattr(torch, dt)
+        t = {}
+        for kind in PARTIAL_LAUNCHES:
+            fn, plain, ins, mats = cases[kind]
+            a = [x.to(tdt) for x in ins]
+            m = mats[dt]
+            lib = library_call(torch, kind, ins, *nk.get(kind, (0, 0)))
+            t[kind] = {
+                "ms": time_ms(lambda: fn(*a, *m), 20),
+                "plain_ms": time_ms(lambda: plain(*a, *m), 10),
+                "library_ms": time_ms(lib, 20) if lib else None,
+                "bound": bound_ms(kind, b, h, o, spatial, modes, eb, peak)}
+            log(f"  {dt} {kind}: kernel_ms={t[kind]['ms']:.4f} plain_ms="
+                f"{t[kind]['plain_ms']:.4f} library_ms="
+                f"{t[kind]['library_ms']} bound_us="
+                f"{1e3 * t[kind]['bound'][0]:.2f} ({t[kind]['bound'][1]})")
+        for kind in ("rdft", "irdft"):  # fno3d's outer launches at B=1
+            fn, _, ins, mats = cases3[kind]
+            a = [x.to(tdt) for x in ins]
+            t[kind]["ms_fno3d_b1"] = time_ms(lambda: fn(*a, *mats[dt]), 5)
+            log(f"  {dt} {kind} fno3d outer B=1: kernel_ms="
+                f"{t[kind]['ms_fno3d_b1']:.4f}")
+        for kind in ("rdft", "cdft", "irdft", "core"):
+            ks = ("cdft", "icdft") if kind == "cdft" else (kind,)
+            e = [errs[("fno2d_B8", k, dt)] for k in ks]
+            row = {
+                "name": f"{kind}_{'f32' if dt == 'float32' else 'bf16'}",
+                "route": "cuda",
+                "source": CORE_SOURCE if kind == "core" else ROWS_SOURCE,
+                "replaces": PARTIAL_REPLACES[kind],
+                "launches": serve_counts.get((kind, dt), 0),
+                "launches_train": train_counts[dt].get((kind, dt), 0),
+                "max_abs_err": max(v[0] for v in e),
+                "scaled_err": max(v[1] for v in e),
+                "tol": F32_TOL if dt == "float32" else BF16_TOL,
+                "ms": t[kind]["ms"], "plain_ms": t[kind]["plain_ms"],
+                "bound_ms": t[kind]["bound"][0],
+                "bound_by": t[kind]["bound"][1],
+                "library_ms": t[kind]["library_ms"]}
+            if kind == "core":
+                row["library_note"] = ("no single PyTorch call computes "
+                                       "cDFT_s1 -> CGEMM -> icDFT_s1")
+            elif kind in ("rdft", "irdft"):
+                row["ms_fno3d_b1"] = t[kind]["ms_fno3d_b1"]
+            if kind == "cdft":  # the padded inverse operand, same kernel
+                row.update({f"{key}_inverse": t["icdft"][key]
+                            for key in ("ms", "plain_ms", "library_ms")})
+                row["bound_ms_inverse"] = t["icdft"]["bound"][0]
+            rows.append(row)
+    del cases, cases3
+
+    # The whole block forward, served (no grad): the partial variant's
+    # three launches + tail against the one-launch full variant and the
+    # staged torch.fft block.
+    args32 = block_inputs(b, h, o, spatial, 602, DEVICE)
+    block = {}
+    with torch.no_grad():
+        for dt in DTYPES:
+            x, wr, wi, wb, bias = [a.to(getattr(torch, dt)) for a in args32]
+            bias1 = bias.reshape(-1)
+            run = lambda **kw: ops.fno_block_nd(x, wr, wi, wb, bias1, modes,
+                                                **kw)
+            block[dt] = {"partial_ms": time_ms(lambda: run(variant="partial"),
+                                               20),
+                         "full_ms": time_ms(lambda: run(variant="full"), 20),
+                         "torch_fft_ms": time_ms(lambda: run(path="ref"),
+                                                 10)}
+            log(f"  {dt} block forward B=8: {block[dt]}")
+    return rows, block
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -667,32 +1045,67 @@ def main() -> int:
     from repro_torch.core import fno as fno_mod
     from repro_torch.core import spectral
     from repro_torch.data import pde
-    from repro_torch.kernels import build, engine, ops
+    from repro_torch.kernels import build, dft, engine, ops
     from repro_torch.train import serve_fno_step as sfs
     from repro_torch.train import train_step as ts
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    phase_environment(torch, build)
-    errs = phase_kernel_vs_plain(torch, engine, spectral, configs)
-    counts, servers = phase_serve(torch, np, configs, fno_mod, sfs, engine)
-    stats = phase_serve_window(torch, np, servers, engine,
-                               servers["fused"].cfg.num_layers)
-    rows = phase_times(torch, build, engine, spectral, ops, configs, counts,
-                       errs)
-    bwd_errs = phase_backward_vs_plain(torch, engine, spectral, configs)
-    batch, runs, train_counts = phase_train(torch, configs, fno_mod, pde,
-                                            tree, ts, optim, engine)
-    train_stats, bwd_rows = phase_train_times(
-        torch, np, engine, spectral, ops, configs, batch, runs, train_counts,
-        bwd_errs)
+    seconds = {}
+
+    def timed(label, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[label] = time.perf_counter() - t
+        log(f"  phase {label}: {seconds[label]:.1f} s")
+        return out
+
+    timed("1", phase_environment, torch, build)
+    errs = timed("2", phase_kernel_vs_plain, torch, engine, spectral,
+                 configs)
+    counts, servers = timed("3", phase_serve, torch, np, configs, fno_mod,
+                            sfs, engine)
+    layers = servers["fused"].cfg.num_layers
+    stats = timed("4 window", phase_serve_window, torch, np, servers,
+                  engine, layers)
+    rows = timed("4 times", phase_times, torch, build, engine, spectral,
+                 ops, configs, counts, errs)
+    bwd_errs = timed("5", phase_backward_vs_plain, torch, engine, spectral,
+                     configs)
+    batch, runs, train_counts = timed("6", phase_train, torch, configs,
+                                      fno_mod, pde, tree, ts, optim, engine)
+    train_stats, bwd_rows = timed(
+        "7", phase_train_times, torch, np, engine, spectral, ops, configs,
+        batch, runs, train_counts, bwd_errs)
     for row in rows:  # the forward kernel's launches on the training path
         dt = "float32" if row["name"].endswith("f32") else "bfloat16"
         row["launches_train"] = train_counts[dt].get(("block_fwd", dt), 0)
     rows += bwd_rows
+    part_errs = timed("8", phase_partial_vs_plain, torch, engine, spectral,
+                      dft, configs)
+    part_counts, fno3d_ms = timed("9", phase_serve_partial, torch, np,
+                                  configs, fno_mod, sfs, engine, servers)
+    _, part_runs, part_train_counts = timed(
+        "10", phase_train, torch, configs, fno_mod, pde, tree, ts, optim,
+        engine, variant="partial", phase="10")
+    part_stats = timed("11 window", phase_serve_window, torch, np, servers,
+                       engine, layers, names=("partial", "partial_bf16"),
+                       kinds=engine.PARTIAL_KINDS, phase="11")
+    log("== phase 11: train window, partial variant")
+    part_train = timed("11 train", train_window, torch, np, batch,
+                       part_runs)
+    part_rows, part_block = timed(
+        "11 times", phase_partial_times, torch, engine, spectral, dft, ops,
+        configs, part_errs, part_counts, part_train_counts)
+    rows += part_rows
     log(f"serve window: {json.dumps(stats)}")
     log(f"train window: {json.dumps(train_stats)}")
+    log(f"serve window, partial: {json.dumps(part_stats)}")
+    log(f"train window, partial: {json.dumps(part_train)}")
+    log(f"block forward, partial vs full: {json.dumps(part_block)}")
+    log(f"fno3d partial request ms: {json.dumps(fno3d_ms)}")
+    log(f"phase seconds: {json.dumps(seconds)}")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

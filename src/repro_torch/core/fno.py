@@ -5,9 +5,11 @@
   → projection pointwise MLP.
 
 With ``cfg.fuse_block`` on the fused path each whole block runs as ONE
-kernel launch forward and three backward (``kernels.ops.fno_block_nd``);
-the staged composition stays the oracle and the only form on the
-"ref"/"staged" paths, where torch autograd differentiates it. Params are a plain dict with the reference's
+kernel launch forward (``variant="full"``; ``"partial"`` runs the paper's
+partial fusion, three launches and the staged tail) and three backward
+(``kernels.ops.fno_block_nd``); the staged composition stays the oracle
+and the only form on the "ref"/"staged" paths, where torch autograd
+differentiates it. Params are a plain dict with the reference's
 layout (``lift1``, ``lift2``, ``proj1``, ``proj2``, ``blocks``), so a JAX
 param tree carries over leaf for leaf (``repro_torch.convert``).
 
@@ -88,10 +90,11 @@ def init_fno(gen: torch.Generator, cfg: FNOConfig,
 
 
 def apply_fno(params: Dict[str, Any], cfg: FNOConfig, x: torch.Tensor,
-              *, path: str = None) -> torch.Tensor:
+              *, path: str = None, variant: str = "full") -> torch.Tensor:
     """x: [B, in_channels, *spatial] -> [B, out_channels, *spatial], at the
     policy's compute dtype. The fused path needs ``cfg.fuse_block`` (its
-    kernel is the whole block)."""
+    kernels are the whole block); `variant` picks full or partial fusion
+    there (the oracle paths compute the same function either way)."""
     path = path or cfg.path
     pol = cfg.precision
     fuse = path == "fused"
@@ -104,7 +107,8 @@ def apply_fno(params: Dict[str, Any], cfg: FNOConfig, x: torch.Tensor,
     for blk in params["blocks"]:
         if fuse:
             h = sc.apply_fno_block_nd(blk["spectral"], blk["bypass"], h,
-                                      cfg.modes, path=path, policy=pol)
+                                      cfg.modes, path=path, variant=variant,
+                                      policy=pol)
             continue
         s = sc.apply_spectral_nd(blk["spectral"], h, cfg.modes, path=path,
                                  policy=pol)
@@ -123,7 +127,8 @@ def relative_l2(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 
 def fno_loss(params, cfg: FNOConfig, batch: Dict[str, torch.Tensor], *,
-             path: Optional[str] = None) -> torch.Tensor:
+             path: Optional[str] = None,
+             variant: str = "full") -> torch.Tensor:
     """Relative L2 loss of the model on batch {"x", "y"}."""
-    return relative_l2(apply_fno(params, cfg, batch["x"], path=path),
-                       batch["y"])
+    return relative_l2(apply_fno(params, cfg, batch["x"], path=path,
+                                 variant=variant), batch["y"])

@@ -26,22 +26,24 @@ _F32 = torch.float32
 # DFT matrix factories (host-side numpy; cached; O(N·k) memory)
 # ---------------------------------------------------------------------------
 @functools.lru_cache(maxsize=64)
-def rdft_mats(n: int, modes: int) -> Tuple[np.ndarray, np.ndarray]:
+def rdft_mats(n: int, modes: int,
+              dtype: str = "float32") -> Tuple[np.ndarray, np.ndarray]:
     """Forward truncated real-input DFT X[m] = Σ_n x[n]·e^{-2πi mn/N}.
 
-    Returns (Cr, Ci), each [n, modes] float32: Xr = x @ Cr, Xi = x @ Ci.
+    Returns (Cr, Ci), each [n, modes] at `dtype` (built in float64): Xr =
+    x @ Cr, Xi = x @ Ci.
     """
     if modes > n // 2 + 1:
         raise ValueError(f"modes {modes} > n//2+1 for n={n}")
     m = np.arange(modes)[None, :]
     k = np.arange(n)[:, None]
     ang = 2.0 * np.pi * k * m / n
-    return (np.cos(ang).astype(np.float32),
-            (-np.sin(ang)).astype(np.float32))
+    return np.cos(ang).astype(dtype), (-np.sin(ang)).astype(dtype)
 
 
 @functools.lru_cache(maxsize=64)
-def irdft_mats(n: int, modes: int) -> Tuple[np.ndarray, np.ndarray]:
+def irdft_mats(n: int, modes: int,
+               dtype: str = "float32") -> Tuple[np.ndarray, np.ndarray]:
     """Inverse of (truncate ∘ rFFT) with implicit zero padding:
 
         y[j] = (1/N)·Σ_{m<modes} c_m·(Xr[m]·cos(2πmj/N) − Xi[m]·sin(2πmj/N)),
@@ -58,13 +60,13 @@ def irdft_mats(n: int, modes: int) -> Tuple[np.ndarray, np.ndarray]:
     c[0] = 1.0
     if modes == n // 2 + 1 and n % 2 == 0:
         c[-1] = 1.0  # Nyquist bin is its own conjugate
-    return ((c * np.cos(ang) / n).astype(np.float32),
-            (c * np.sin(ang) / n).astype(np.float32))
+    return ((c * np.cos(ang) / n).astype(dtype),
+            (c * np.sin(ang) / n).astype(dtype))
 
 
 @functools.lru_cache(maxsize=64)
-def cdft_mats(n: int, modes: int,
-              inverse: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+def cdft_mats(n: int, modes: int, inverse: bool = False,
+              dtype: str = "float32") -> Tuple[np.ndarray, np.ndarray]:
     """Complex truncated DFT matrix: forward F[k, m] = e^{-2πi km/N}
     ([n, modes]); inverse E[m, j] = e^{+2πi mj/N}/N ([modes, n]).
 
@@ -74,13 +76,11 @@ def cdft_mats(n: int, modes: int,
         k = np.arange(n)[:, None]
         m = np.arange(modes)[None, :]
         ang = 2.0 * np.pi * k * m / n
-        return (np.cos(ang).astype(np.float32),
-                (-np.sin(ang)).astype(np.float32))
+        return np.cos(ang).astype(dtype), (-np.sin(ang)).astype(dtype)
     m = np.arange(modes)[:, None]
     j = np.arange(n)[None, :]
     ang = 2.0 * np.pi * m * j / n
-    return ((np.cos(ang) / n).astype(np.float32),
-            (np.sin(ang) / n).astype(np.float32))
+    return (np.cos(ang) / n).astype(dtype), (np.sin(ang) / n).astype(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -202,6 +202,93 @@ def _operand_tensors(spatial, modes, dtype, device, kind):
     dt = torch_dtype(dtype)
     return tuple(torch.from_numpy(m).to(device=device, dtype=dt).contiguous()
                  for m in _BUNDLES[kind](spatial, modes))
+
+
+# ---------------------------------------------------------------------------
+# Partial-fusion operands. The outer axes s_2..s_R are separable, so their
+# forward transforms compose into ONE matmul with the Kronecker product of
+# the per-axis DFT matrices (one row-kernel launch for all outer axes).
+# Rows index the flattened (s_2..s_R) in natural order, columns (k_R..k_2):
+# the spectrum layout the fused core expects. Built in float64 and cast to
+# float32, as the reference builds them.
+# ---------------------------------------------------------------------------
+def _kron_ordered(factors):
+    """Combine complex per-axis factors F_j[a_j, b_j] (axis order s_2..s_R)
+    into M[(a_2..a_R), (b_R..b_2)]."""
+    r1 = len(factors)
+    subs_in = [f"{chr(97 + 2 * j)}{chr(98 + 2 * j)}" for j in range(r1)]
+    rows = "".join(s[0] for s in subs_in)
+    cols = "".join(subs_in[j][1] for j in reversed(range(r1)))
+    m = np.einsum(",".join(subs_in) + "->" + rows + cols, *factors)
+    nr = int(np.prod([f.shape[0] for f in factors]))
+    nc = int(np.prod([f.shape[1] for f in factors]))
+    return m.reshape(nr, nc)
+
+
+@functools.lru_cache(maxsize=64)
+def outer_fwd_mats(outer_spatial: Tuple[int, ...], outer_modes: Tuple[int, ...]
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Combined forward operand for the outer axes (s_2..s_R): real input,
+    truncated spectrum out. float32 [Πn_j, Πk_j], columns (k_R..k_2)."""
+    factors = []
+    for n, k in zip(outer_spatial, outer_modes):
+        fr, fi = cdft_mats(n, k, False, "float64")
+        factors.append(fr + 1j * fi)
+    m = _kron_ordered(factors)
+    return m.real.astype(np.float32), m.imag.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def outer_inv_mats(outer_spatial: Tuple[int, ...], outer_modes: Tuple[int, ...]
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Combined inverse operand for the outer axes: padded complex inverse
+    along s_2..s_{R-1} and the hermitian-folded real inverse along s_R.
+    float32 [Πk_j, Πn_j], rows (k_R..k_2), columns (s_2..s_R); consumed as
+    y = Xr@Er − Xi@Ei (only the real part survives)."""
+    factors = []
+    last = len(outer_spatial) - 1
+    for j, (n, k) in enumerate(zip(outer_spatial, outer_modes)):
+        er, ei = (irdft_mats(n, k, "float64") if j == last
+                  else cdft_mats(n, k, True, "float64"))
+        factors.append(er + 1j * ei)
+    # Factors fed reversed (s_R..s_2) give rows (k_R..k_2) and columns
+    # (s_2..s_R).
+    m = _kron_ordered(factors[::-1])
+    return m.real.astype(np.float32), m.imag.astype(np.float32)
+
+
+# Operands of the row kernels (kernels/dft.py), by kind, over the axes
+# `spatial` / `modes` they transform: [N_in, N_out] pairs.
+_ROW_MATS = {
+    "rdft": lambda sp, m: rdft_mats(sp[0], m[0]),
+    "irdft": lambda sp, m: irdft_mats(sp[0], m[0]),
+    "cdft": lambda sp, m: cdft_mats(sp[0], m[0], False),
+    "icdft": lambda sp, m: cdft_mats(sp[0], m[0], True),
+    "outer_fwd": outer_fwd_mats,
+    "outer_inv": outer_inv_mats,
+}
+
+
+def row_operand_tensors(kind: str, spatial, modes, dtype: str,
+                        device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A row kernel's operand pair — "rdft", "irdft", "cdft", "icdft" over
+    one axis (n,)/(k,), or "outer_fwd"/"outer_inv" over the outer axes
+    (s_2..s_R)/(k_2..k_R) — as contiguous tensors at `dtype` on `device`,
+    cast from the float32 operand as the reference casts it; cached like
+    ``operand_tensors``."""
+    if kind not in _ROW_MATS:
+        raise ValueError(f"kind must be one of {tuple(_ROW_MATS)}, got "
+                         f"{kind!r}")
+    return _row_tensors(kind, tuple(int(s) for s in spatial),
+                        tuple(int(m) for m in modes), dtype,
+                        str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=64)
+def _row_tensors(kind, spatial, modes, dtype, device):
+    dt = torch_dtype(dtype)
+    return tuple(torch.from_numpy(m).to(device=device, dtype=dt).contiguous()
+                 for m in _ROW_MATS[kind](spatial, modes))
 
 
 # ---------------------------------------------------------------------------

@@ -41,10 +41,13 @@ def apply_spectral_nd(params: Dict[str, torch.Tensor], x: torch.Tensor,
 def apply_fno_block_nd(spec_params: Dict[str, torch.Tensor],
                        byp_params: Dict[str, torch.Tensor], x: torch.Tensor,
                        modes: Sequence[int], *, path: str = "fused",
+                       variant: str = "full",
                        policy: Optional[PrecisionPolicy] = None
                        ) -> torch.Tensor:
     """One whole FNO block — gelu(spectral(x) + 1×1 bypass + bias) — as a
-    single kernel launch on the fused path, any rank.
+    single kernel launch on the fused path (variant="full"), or the paper's
+    partial fusion (variant="partial": row DFT, fused core, row iDFT, then
+    the tail), any rank.
 
     spec_params: {"wr","wi"}; byp_params: {"w","b"} from
     ``core.fno._dense_init``, where w is [C_in, C_out] — transposed here to
@@ -52,4 +55,4 @@ def apply_fno_block_nd(spec_params: Dict[str, torch.Tensor],
     wb = byp_params["w"].transpose(0, 1)
     return ops.fno_block_nd(x, spec_params["wr"], spec_params["wi"], wb,
                             byp_params["b"], tuple(modes), path=path,
-                            policy=policy)
+                            variant=variant, policy=policy)

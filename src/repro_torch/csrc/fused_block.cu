@@ -9,11 +9,12 @@
 //               z is formed again from x and never stored;
 //   2 linear    y  = z (bias optional)             with the adjoint operand
 //               bundle, [H,O]-transposed weights and wbᵀ this is the
-//               backward's dx = spectral_adjoint(gz) + wbᵀ·gz.
+//               backward's dx = spectral_adjoint(gz) + wbᵀ·gz; with
+//               no wb and no bias, the bare spectral layer.
 //
 // Replaces the TPU kernel repro/kernels/engine.py::fused_fnond_call
 // (_make_fwd_kernel, engine.py:161-427) in those three modes (shared
-// weights, bypass + optional bias epilogue, no lift/proj). Spatial rank
+// weights, optional bypass and bias epilogue, no lift/proj). Spatial rank
 // R ∈ {1,2,3}; element type float or __nv_bfloat16 for x, gy, the weights
 // and the DFT operands; every sum accumulates in f32; the output is written
 // once, at the element type or (out_f32) in f32.
@@ -76,7 +77,7 @@ struct Args {
   const T* x;     // [B, H, n_1..n_R]
   const T* wr;    // [O, H]
   const T* wi;    // [O, H]
-  const T* wb;    // [O, H]
+  const T* wb;    // [O, H], or null: no bypass (the bare spectral layer)
   const T* bias;  // [O], or null: no bias
   const T* gy;    // [B, O, n_1..n_R] for act=gelu_vjp, else null
   fno::Mats<T> f;  // forward stage i (axis R-i): [n, k]
@@ -89,7 +90,9 @@ struct Args {
   int rows_f, rows_i;  // s_1 rows per forward / inverse chunk
 };
 
-template <int R, typename T>
+// kBypass=false (wb null) compiles the bare spectral layer: no wb loads and
+// no bypass loop, while the bypass path keeps its code unchanged.
+template <int R, typename T, bool kBypass>
 __global__ void __launch_bounds__(kThreads)
 fused_block_kernel(const Args<T> a) {
   extern __shared__ float smem[];
@@ -122,7 +125,7 @@ fused_block_kernel(const Args<T> a) {
     const int gi = (o0 + i / H) * H + i % H;
     Wr[i] = ld(a.wr + gi);
     Wi[i] = ld(a.wi + gi);
-    Wb[i] = ld(a.wb + gi);
+    Wb[i] = kBypass ? ld(a.wb + gi) : 0.f;
   }
   for (int i = tid; i < no; i += kThreads)
     Bs[i] = a.bias ? ld(a.bias + o0 + i) : 0.f;
@@ -219,7 +222,7 @@ fused_block_kernel(const Args<T> a) {
 #pragma unroll
         for (int o = 0; o < kMaxOut; ++o) byp[u][o] = 0.f;
       }
-      for (int h = 0; h < H; ++h) {
+      for (int h = 0; h < (kBypass ? H : 0); ++h) {
         float xv[kPts];
 #pragma unroll
         for (int u = 0; u < kPts; ++u)
@@ -262,28 +265,35 @@ fused_block_kernel(const Args<T> a) {
   }
 }
 
+template <int R, typename T, bool kBypass>
+cudaError_t launch_kernel(const Args<T>& a, int batch, int cl,
+                          int smem_bytes, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = fno::configure(fused_block_kernel<R, T, kBypass>, batch,
+                                   cl, smem_bytes, stream, &cfg, &attr);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, fused_block_kernel<R, T, kBypass>, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 template <int R, typename T>
 cudaError_t launch(const Args<T>& a, int batch, int cl, int smem_bytes,
                    cudaStream_t stream) {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cudaError_t err = fno::configure(fused_block_kernel<R, T>, batch, cl,
-                                   smem_bytes, stream, &cfg, &attr);
-  if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&cfg, fused_block_kernel<R, T>, a);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return a.wb ? launch_kernel<R, T, true>(a, batch, cl, smem_bytes, stream)
+              : launch_kernel<R, T, false>(a, batch, cl, smem_bytes, stream);
 }
 
 template <typename T>
 int max_clusters_for(int rank, int cl, int smem_bytes, int* n) {
   switch (rank) {
     case 1: return static_cast<int>(
-        fno::max_clusters(fused_block_kernel<1, T>, cl, smem_bytes, n));
+        fno::max_clusters(fused_block_kernel<1, T, true>, cl, smem_bytes, n));
     case 2: return static_cast<int>(
-        fno::max_clusters(fused_block_kernel<2, T>, cl, smem_bytes, n));
+        fno::max_clusters(fused_block_kernel<2, T, true>, cl, smem_bytes, n));
     case 3: return static_cast<int>(
-        fno::max_clusters(fused_block_kernel<3, T>, cl, smem_bytes, n));
+        fno::max_clusters(fused_block_kernel<3, T, true>, cl, smem_bytes, n));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -339,7 +349,8 @@ int dispatch(int rank, int act, int out_f32, const void* x, const void* wr,
 
 // C entry, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16 (x, gy,
 // weights, operands). act: 0 gelu, 1 gelu_vjp (gy required), 2 linear.
-// out_f32: write y in float32 whatever dtype is. bias and gy may be null.
+// out_f32: write y in float32 whatever dtype is. wb, bias and gy may be
+// null (no wb: the bare spectral layer, no bypass).
 // mats: 4·rank device pointers (forward re/im per stage, then inverse).
 // dims: {B, H, O, n_1, n_2, n_3, k_1, k_2, k_3}.
 // plan: {cluster, hidden/block, out/block, rows_f, rows_i, smem bytes}.

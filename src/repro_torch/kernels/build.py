@@ -24,7 +24,8 @@ from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("fused_block", "fused_wgrad")  # csrc/<name>.cu, one library each
+# csrc/<name>.cu, one library each
+SOURCES = ("fused_block", "fused_wgrad", "dft_rows", "fused_core")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -134,3 +135,41 @@ def load_fused_wgrad() -> ctypes.CDLL:
     """The fused weight-gradient library, built from
     ``csrc/fused_wgrad.cu``."""
     return load_wgrad_library(build("fused_wgrad"))
+
+
+def load_dft_rows_library(path: Path) -> ctypes.CDLL:
+    """Load a row-DFT library and declare its C signatures."""
+    lib = ctypes.CDLL(str(path))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.dft_rows_cdft.argtypes = [i, vp, vp, vp, vp, vp, vp, i, i, i, vp]
+    lib.dft_rows_cdft.restype = i
+    lib.dft_rows_rdft.argtypes = [i, vp, vp, vp, vp, vp, i, i, i, vp]
+    lib.dft_rows_rdft.restype = i
+    lib.dft_rows_irdft.argtypes = [i, vp, vp, vp, vp, vp, i, i, i, vp]
+    lib.dft_rows_irdft.restype = i
+    lib.dft_rows_error_string.argtypes = [i]
+    lib.dft_rows_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load_core_library(path: Path) -> ctypes.CDLL:
+    """Load a partial-fusion core library and declare its C signatures."""
+    lib = ctypes.CDLL(str(path))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.fused_core.argtypes = [i, vp, vp, vp, vp, i, i, vp]
+    lib.fused_core.restype = i
+    lib.fused_core_error_string.argtypes = [i]
+    lib.fused_core_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_dft_rows() -> ctypes.CDLL:
+    """The row-DFT library, built from ``csrc/dft_rows.cu``."""
+    return load_dft_rows_library(build("dft_rows"))
+
+
+@functools.lru_cache(maxsize=None)
+def load_fused_core() -> ctypes.CDLL:
+    """The partial-fusion core library, built from ``csrc/fused_core.cu``."""
+    return load_core_library(build("fused_core"))

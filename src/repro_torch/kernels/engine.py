@@ -13,8 +13,16 @@ Counterpart of ``repro/kernels/engine.py``:
       act="linear"    y  = z                  with the adjoint bundle and
                                               transposed weights: dx.
 
+  With wb=None (no bypass, no bias, act="linear") it is the bare spectral
+  layer, the rank-1 partial variant's forward.
+
 * ``fused_wgrad`` — ``fused_fnond_wgrad_call(with_bypass=True)``
   (``csrc/fused_wgrad.cu``): dW = conj(Σ Ĝ·A), dW_b = Σ gz·xᵀ, dbias = Σ gz.
+
+* ``fused_core`` — ``fused_fnond_core_call`` (``csrc/fused_core.cu``), the
+  partial variant's middle: truncated cDFT along s_1 → CGEMM → padded icDFT
+  along s_1 on a spectrum whose outer axes are already transformed
+  (``kernels.dft`` holds the row kernels around it).
 
 Each wrapper validates its operands, plans its launch and launches on a CUDA
 tensor, and runs its plain version on a CPU tensor; on a CUDA tensor it
@@ -39,11 +47,15 @@ from repro_torch.kernels import build
 _F32 = torch.float32
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODES = {"gelu": 0, "gelu_vjp": 1, "linear": 2}
-# Launch kind counted per epilogue mode: on the main path the linear mode
-# runs only as the backward's dx adjoint.
+# Launch kind counted per epilogue mode: with a bypass the linear mode runs
+# only as the backward's dx adjoint; without one it is the bare spectral
+# layer ("spectral_fwd").
 _ACT_KINDS = {"gelu": "block_fwd", "gelu_vjp": "gz_recompute",
               "linear": "dx_adjoint"}
+# The kinds of one full-variant training step, and of one partial-variant
+# block forward (kernels.dft counts "rdft", "cdft" and "irdft").
 KINDS = ("block_fwd", "gz_recompute", "dx_adjoint", "wgrad")
+PARTIAL_KINDS = ("rdft", "core", "irdft")
 
 # Kernel launches by (kind, element type), e.g. ("block_fwd", "float32"):
 # each wrapper adds one where it launches its kernel and nowhere else.
@@ -58,6 +70,7 @@ _PORTABLE_CLUSTER = 8  # cluster size every Hopper part schedules
 _MAX_CLUSTER = 16  # Hopper's non-portable cluster size
 _SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block can use
 BATCH_BLOCK = 1    # samples per cluster: the serving quantum
+_CORE_CHUNK = 4096  # z floats per plane of a core kernel's forward chunk
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -96,7 +109,8 @@ def dgelu_tanh(z: torch.Tensor) -> torch.Tensor:
 
 
 def fused_block_plain(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
-                      wb: torch.Tensor, bias: Optional[torch.Tensor],
+                      wb: Optional[torch.Tensor],
+                      bias: Optional[torch.Tensor],
                       mats: Sequence[torch.Tensor], *, act: str = "gelu",
                       gy: Optional[torch.Tensor] = None,
                       out_dtype: Optional[torch.dtype] = None
@@ -118,7 +132,8 @@ def fused_block_plain(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
         else:
             z = (torch.tensordot(tr, mr, dims=([r - i], [0]))
                  - torch.tensordot(ti, mi, dims=([r - i], [0])))
-    z = z + torch.einsum("oh,bh...->bo...", wb.to(_F32), x.to(_F32))
+    if wb is not None:
+        z = z + torch.einsum("oh,bh...->bo...", wb.to(_F32), x.to(_F32))
     if bias is not None:
         z = z + bias.to(_F32).reshape((1, -1) + (1,) * r)
     if act == "gelu":
@@ -145,6 +160,25 @@ def fused_wgrad_plain(x: torch.Tensor, gz: torch.Tensor,
     dwb = dot(g32, x.to(_F32))
     dbias = g32.sum(dim=red).reshape(-1, 1)
     return dwr, dwi, dwb, dbias
+
+
+def fused_core_plain(zr: torch.Tensor, zi: torch.Tensor, wr: torch.Tensor,
+                     wi: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor,
+                     gr: torch.Tensor, gi: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The partial-fusion core's function in plain PyTorch, accumulating in
+    f32 and emitting at z's dtype. Arguments and results as
+    ``fused_core``."""
+    f = lambda t: t.to(_F32)
+    z_r, z_i = f(zr).movedim(2, -1), f(zi).movedim(2, -1)  # [B,H,…,s_1]
+    a_r = z_r @ f(fr) - z_i @ f(fi)                       # [B,H,…,K_1]
+    a_i = z_r @ f(fi) + z_i @ f(fr)
+    cg = lambda a, w: torch.einsum("oh,bh...k->b...ok", f(w), a)
+    c_r = cg(a_r, wr) - cg(a_i, wi)                       # [B,…,O,K_1]
+    c_i = cg(a_i, wr) + cg(a_r, wi)
+    y_r = c_r @ f(gr) - c_i @ f(gi)                       # [B,…,O,s_1]
+    y_i = c_r @ f(gi) + c_i @ f(gr)
+    return y_r.to(zr.dtype), y_i.to(zr.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +271,22 @@ def wgrad_plan(hidden: int, out: int, spatial: Sequence[int],
             "cols": cols, "smem": smem}
 
 
+def core_plan(hidden: int, out: int, n1: int, k1: int) -> Dict[str, int]:
+    """The core kernel's s_1 rows per forward chunk and shared memory (the
+    weights, the spectrum A, then z's chunk or C); raises ValueError for
+    shapes a block cannot hold."""
+    rows = min(n1, max(1, _CORE_CHUNK // hidden))
+    floats = 2 * out * hidden + 2 * hidden * k1 + max(2 * hidden * rows,
+                                                      2 * out * k1)
+    smem = 4 * floats
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"fused core kernel needs {smem} B of shared memory for "
+            f"hidden={hidden} out={out} s_1={n1} k_1={k1} (limit "
+            f"{_SMEM_LIMIT}); this shape needs a tiled kernel")
+    return {"rows": rows, "smem": smem}
+
+
 def _check_mats(mats, spatial, inverse: bool):
     """4R operands: R forward-slot stages [n,k] (axis s_R first), then R
     inverse-slot stages [k,n] (axis s_1 first) — or, with inverse=False,
@@ -300,12 +350,15 @@ def _check(x, wr, wi, wb, bias, mats, act, gy, out_dtype):
     if out_dtype is not None and out_dtype not in _DTYPE_CODES:
         raise TypeError(f"out_dtype must be float32 or bfloat16, got "
                         f"{out_dtype}")
+    if wb is None and (act != "linear" or bias is not None):
+        raise ValueError("without wb the block kernel is the bare spectral "
+                         "layer: act='linear' and no bias")
     h = x.shape[1]
     o = wr.shape[0]
-    extra = tuple(t for t in (bias, gy) if t is not None)
-    _check_tensors("fused block", x, (x, wr, wi, wb, *extra, *mats))
+    extra = tuple(t for t in (wb, bias, gy) if t is not None)
+    _check_tensors("fused block", x, (x, wr, wi, *extra, *mats))
     for name, t in (("wr", wr), ("wi", wi), ("wb", wb)):
-        if tuple(t.shape) != (o, h):
+        if t is not None and tuple(t.shape) != (o, h):
             raise ValueError(f"{name} must be [O,H]=({o},{h}), got "
                              f"{tuple(t.shape)}")
     if bias is not None and tuple(bias.shape) != (o, 1):
@@ -327,6 +380,25 @@ def _check_wgrad(x, gz, mats):
         raise ValueError(f"gz must be [B,O,s…] with x's batch and extents "
                          f"{spatial}, got {tuple(gz.shape)}")
     return spatial, _check_mats(mats, spatial, inverse=False)
+
+
+def _check_core(zr, zi, wr, wi, fr, fi, gr, gi):
+    if zr.ndim < 3:
+        raise ValueError(f"z must be [B,H,s_1,K_R..K_2], got shape "
+                         f"{tuple(zr.shape)}")
+    if wr.ndim != 2:
+        raise ValueError("the fused core kernel takes shared [O,H] weights; "
+                         "per-mode weights [O,H,k…] are not ported yet "
+                         "(ROADMAP Queue B item 1.5)")
+    _check_tensors("fused core", zr, (zr, zi, wr, wi, fr, fi, gr, gi))
+    h, n1 = zr.shape[1], zr.shape[2]
+    o, k1 = wr.shape[0], fr.shape[1]
+    for name, t, want in (("zi", zi, tuple(zr.shape)), ("wr", wr, (o, h)),
+                          ("wi", wi, (o, h)), ("fr", fr, (n1, k1)),
+                          ("fi", fi, (n1, k1)), ("gr", gr, (k1, n1)),
+                          ("gi", gi, (k1, n1))):
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} must be {want}, got {tuple(t.shape)}")
 
 
 @functools.lru_cache(maxsize=64)
@@ -399,7 +471,7 @@ def _launch(lib, x, wr, wi, wb, bias, mats, spatial, modes, stream, *,
     ptrs = (ctypes.c_void_p * len(mats))(*[m.data_ptr() for m in mats])
     err = lib.fused_block_forward(
         code, len(spatial), _ACT_CODES[act], int(od == _F32), x.data_ptr(),
-        wr.data_ptr(), wi.data_ptr(), wb.data_ptr(), _ptr(bias), _ptr(gy),
+        wr.data_ptr(), wi.data_ptr(), _ptr(wb), _ptr(bias), _ptr(gy),
         ptrs, y.data_ptr(), _dims(b, h, o, spatial, modes), pl, stream)
     if err != 0:
         msg = lib.fused_block_error_string(err).decode()
@@ -434,6 +506,31 @@ def _launch_wgrad(lib, x, gz, mats, spatial, modes, stream):
     return tuple(outs)
 
 
+def _launch_core(lib, zr, zi, wr, wi, fr, fi, gr, gi, stream):
+    """Allocate the y pair and launch the core kernel through the C entry
+    (no checks)."""
+    b, h, n1 = zr.shape[:3]
+    spec = tuple(zr.shape[3:])
+    o, k1 = wr.shape[0], fr.shape[1]
+    plan = core_plan(h, o, n1, k1)
+    shape = (b,) + spec + (o, n1)
+    yr = torch.empty(shape, dtype=zr.dtype, device=zr.device)
+    yi = torch.empty(shape, dtype=zr.dtype, device=zr.device)
+    ptrs = (ctypes.c_void_p * 8)(*[t.data_ptr() for t in
+                                   (zr, zi, wr, wi, fr, fi, gr, gi)])
+    p = 1
+    for k in spec:
+        p *= k
+    err = lib.fused_core(_DTYPE_CODES[zr.dtype], ptrs, yr.data_ptr(),
+                         yi.data_ptr(), _ints([b, h, o, n1, k1, p]),
+                         plan["rows"], plan["smem"], stream)
+    if err != 0:
+        msg = lib.fused_core_error_string(err).decode()
+        raise RuntimeError(f"fused core kernel launch failed: {msg} "
+                           f"(cudaError {err}, plan {plan})")
+    return yr, yi
+
+
 def _on_card(x: torch.Tensor, what: str) -> bool:
     """True for a CUDA tensor, False for a CPU one; raises otherwise."""
     if x.device.type == "cpu":
@@ -444,13 +541,14 @@ def _on_card(x: torch.Tensor, what: str) -> bool:
 
 
 def fused_block(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
-                wb: torch.Tensor, bias: Optional[torch.Tensor],
+                wb: Optional[torch.Tensor], bias: Optional[torch.Tensor],
                 mats: Sequence[torch.Tensor], *, act: str = "gelu",
                 gy: Optional[torch.Tensor] = None,
                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """One FNO block kernel launch in one of its three epilogue modes.
 
-    x: [B,H,s_1..s_R] float32 or bfloat16; wr/wi/wb: [O,H]; bias: [O,1] or
+    x: [B,H,s_1..s_R] float32 or bfloat16; wr/wi/wb: [O,H] (wb=None: the
+    bare spectral layer, with act="linear" and no bias); bias: [O,1] or
     None; mats: the 4R operands of ``core.spectral.operand_tensors`` (R
     forward-slot stages [n,k], axis s_R first, then R inverse-slot stages
     [k,n], axis s_1 first; the "adjoint" bundle for dx), all at x's dtype
@@ -468,7 +566,8 @@ def fused_block(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
         y = _launch(build.load_fused_block(), x, wr, wi, wb, bias, mats,
                     spatial, modes, stream, act=act, gy=gy,
                     out_dtype=out_dtype)
-    LAUNCHES[(_ACT_KINDS[act], _dtype_name(x.dtype))] += 1
+    kind = "spectral_fwd" if wb is None else _ACT_KINDS[act]
+    LAUNCHES[(kind, _dtype_name(x.dtype))] += 1
     return y
 
 
@@ -493,3 +592,28 @@ def fused_wgrad(x: torch.Tensor, gz: torch.Tensor,
                              modes, stream)
     LAUNCHES[("wgrad", _dtype_name(x.dtype))] += 1
     return outs
+
+
+def fused_core(zr: torch.Tensor, zi: torch.Tensor, wr: torch.Tensor,
+               wi: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor,
+               gr: torch.Tensor, gi: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The partial variant's fused middle in one kernel launch: truncated
+    cDFT along s_1 → CGEMM over hidden → padded icDFT along s_1.
+
+    z: the pair [B,H,s_1,K_R..K_2] (outer axes already transformed),
+    float32 or bfloat16; wr/wi: shared [O,H]; fr/fi: [s_1,K_1] (forward
+    cDFT); gr/gi: [K_1,s_1] (padded inverse), all at z's dtype and
+    contiguous. Returns the y pair [B,K_R..K_2,O,s_1] at z's dtype (the
+    reference's layout; the caller transposes). A CPU tensor runs
+    ``fused_core_plain``; a CUDA tensor launches the kernel or raises.
+    """
+    _check_core(zr, zi, wr, wi, fr, fi, gr, gi)
+    if not _on_card(zr, "fused core"):
+        return fused_core_plain(zr, zi, wr, wi, fr, fi, gr, gi)
+    with torch.cuda.device(zr.device):
+        stream = torch.cuda.current_stream(zr.device).cuda_stream
+        y = _launch_core(build.load_fused_core(), zr, zi, wr, wi, fr, fi,
+                         gr, gi, stream)
+    LAUNCHES[("core", _dtype_name(zr.dtype))] += 1
+    return y

@@ -39,3 +39,34 @@ def ref_fnond(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
     for j in range(r - 1):  # inverse FFT along s_1, …, s_{R-1}
         yf = torch.fft.ifft(yf, n=spatial[j], dim=2 + j)
     return torch.fft.irfft(yf, n=spatial[-1], dim=-1).to(torch.float32)
+
+
+# Standalone transforms along the last axis (the separate truncation and
+# padding copies of the staged pipeline), each in float32.
+def ref_truncated_rdft(x: torch.Tensor, modes: int):
+    """rFFT along the last axis, then the slice of the first `modes` bins."""
+    xf = torch.fft.rfft(x.to(torch.float32), dim=-1)[..., :modes]
+    return xf.real.contiguous(), xf.imag.contiguous()
+
+
+def ref_padded_irdft(xr: torch.Tensor, xi: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """Zero-pad to n//2+1 bins, then irFFT to length n."""
+    xf = torch.complex(xr.to(torch.float32), xi.to(torch.float32))
+    xf = F.pad(xf, [0, n // 2 + 1 - xr.shape[-1]])
+    return torch.fft.irfft(xf, n=n, dim=-1)
+
+
+def ref_truncated_cdft(xr: torch.Tensor, xi: torch.Tensor, modes: int):
+    """Complex FFT along the last axis, keeping the first `modes` bins."""
+    xf = torch.fft.fft(torch.complex(xr.to(torch.float32),
+                                     xi.to(torch.float32)), dim=-1)
+    xf = xf[..., :modes]
+    return xf.real.contiguous(), xf.imag.contiguous()
+
+
+def ref_padded_icdft(xr: torch.Tensor, xi: torch.Tensor, n: int):
+    """Zero-pad the first-`modes` bins to n, then the inverse complex FFT."""
+    xf = torch.complex(xr.to(torch.float32), xi.to(torch.float32))
+    out = torch.fft.ifft(F.pad(xf, [0, n - xr.shape[-1]]), n=n, dim=-1)
+    return out.real.contiguous(), out.imag.contiguous()

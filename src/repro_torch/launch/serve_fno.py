@@ -6,7 +6,9 @@
 Serves request batches of seeded random sizes through ``FNOServer`` on the
 GPU (``--device cpu`` runs the plain versions), asserts every output is
 finite, and prints samples/s beside the device's name. On the fused path
-every FNO layer is one launch of the CUDA block kernel.
+every FNO layer is one launch of the CUDA block kernel (``--variant
+full``) or the paper's partial fusion (``--variant partial``: row rDFT,
+fused core and row irDFT launches, then the block tail).
 """
 from __future__ import annotations
 
@@ -33,6 +35,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="largest request batch (and bucket ceiling)")
     ap.add_argument("--path", default="fused",
                     choices=["ref", "staged", "fused"])
+    ap.add_argument("--variant", default="full",
+                    choices=["full", "partial"],
+                    help="full: one block kernel per layer; partial: the "
+                         "paper's partial fusion")
     ap.add_argument("--dtype", default="f32", choices=["f32", "bf16"])
     ap.add_argument("--rollout-steps", type=int, default=1,
                     help="serve K-step autoregressive rollouts (the carry "
@@ -62,7 +68,7 @@ def run(args) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     params = fno_mod.init_fno(torch.Generator().manual_seed(0), cfg)
     server = sfs.FNOServer(cfg, params, device=args.device,
-                           max_batch=args.max_batch)
+                           variant=args.variant, max_batch=args.max_batch)
     dev = server.device
     shape = (cfg.in_channels,) + tuple(cfg.spatial)
 
@@ -87,13 +93,15 @@ def run(args) -> dict:
 
     samples = int(sizes.sum())
     out = {
-        "arch": args.arch, "path": args.path, "dtype": args.dtype,
+        "arch": args.arch, "path": args.path, "variant": args.variant,
+        "dtype": args.dtype,
         "device": device_name(dev), "buckets": list(server.buckets),
         "rollout_steps": args.rollout_steps, "requests": args.requests,
         "samples": samples, "padded": server.stats["padded"],
         "seconds": dt, "samples_per_s": samples / max(dt, 1e-9),
     }
-    print(f"serve_fno arch={args.arch} path={args.path} dtype={args.dtype} "
+    print(f"serve_fno arch={args.arch} path={args.path} "
+          f"variant={args.variant} dtype={args.dtype} "
           f"device={out['device']} buckets={list(server.buckets)}")
     print(f"  served {args.requests} requests / {samples} samples "
           f"(rollout K={args.rollout_steps}) in {dt * 1e3:.3f} ms "

@@ -10,10 +10,11 @@
 Trains on synthetic PDE data made in the run from seed 0 (Burgers 1D,
 Darcy 2D, diffusion 3D), with AdamW and the reference's warmup-cosine
 schedule, in a plain step loop (no checkpointing). On the fused path every
-FNO block trains through the hand-written kernels: one launch forward and
-three backward. Runs on the GPU by default; ``--device cpu`` runs the
-kernels' plain versions. Prints loss and grad norm per step beside the
-device's name.
+FNO block trains through the hand-written kernels: one launch forward
+(``--variant full``; ``partial`` runs the paper's partial fusion, three
+launches and the staged tail) and three backward. Runs on the GPU by
+default; ``--device cpu`` runs the kernels' plain versions. Prints loss
+and grad norm per step beside the device's name.
 """
 from __future__ import annotations
 
@@ -43,6 +44,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--path", default="fused",
                     choices=["ref", "staged", "fused"],
                     help="fused = the CUDA kernels forward and backward")
+    ap.add_argument("--variant", default="full",
+                    choices=["full", "partial"],
+                    help="full: one block kernel per layer forward; "
+                         "partial: the paper's partial fusion")
     ap.add_argument("--dtype", default="f32", choices=["f32", "bf16"],
                     help="bf16: bf16 compute and DFT operands with f32 "
                          "master params, accumulators and AdamW update")
@@ -83,11 +88,13 @@ def run(args) -> dict:
     params = fno_mod.init_fno(torch.Generator().manual_seed(0), cfg, dev)
     opt = AdamW(lr=cosine_warmup(args.lr, min(100, args.steps // 10 + 1),
                                  args.steps))
-    step = make_train_step(cfg, opt, fno_path=args.path)
+    step = make_train_step(cfg, opt, fno_path=args.path,
+                           fno_variant=args.variant)
     data = batch_fn(cfg, args.batch, dev)
     state = opt.init(params)
     print(f"train_fno arch={cfg.name} params={cfg.param_count()} "
-          f"path={args.path} dtype={args.dtype} batch={args.batch} "
+          f"path={args.path} variant={args.variant} dtype={args.dtype} "
+          f"batch={args.batch} "
           f"steps={args.steps} device={name}")
     history = []
     for i in range(args.steps):
@@ -102,7 +109,8 @@ def run(args) -> dict:
                         "grad_norm": gnorm, "ms": 1e3 * dt})
         print(f"  step {i + 1:5d} loss {loss:.6f} gnorm {gnorm:.6f} "
               f"{1e3 * dt:.1f} ms on {name}")
-    return {"arch": cfg.name, "path": args.path, "dtype": args.dtype,
+    return {"arch": cfg.name, "path": args.path, "variant": args.variant,
+            "dtype": args.dtype,
             "device": name, "history": history}
 
 

@@ -3,7 +3,7 @@ of fno2d training steps at full width (or, with ``--serve``, of served
 requests).
 
     PYTHONPATH=src python -m repro_torch.launch.train_profile [--dtype bf16]
-        [--serve]
+        [--serve] [--variant partial]
 
 Runs warm-up steps, then traces ``--steps`` train steps (fused path, batch
 8 of Darcy data from seed 0, AdamW) with CPU and CUDA activities, and
@@ -42,6 +42,9 @@ def main() -> None:
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--serve", action="store_true",
                     help="trace served requests instead of train steps")
+    ap.add_argument("--variant", default="full",
+                    choices=["full", "partial"],
+                    help="full or partial fusion of the blocks' forward")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("train_profile: needs an NVIDIA GPU")
@@ -56,9 +59,11 @@ def main() -> None:
     params = fno_mod.init_fno(torch.Generator().manual_seed(0), cfg, "cuda")
     batch = pde.darcy_batch(0, 0, 8, cfg.spatial[0], device="cuda")
     opt = AdamW(lr=constant(1e-4))
-    step = make_train_step(cfg, opt, fno_path="fused")
+    step = make_train_step(cfg, opt, fno_path="fused",
+                           fno_variant=args.variant)
     carry = [params, opt.init(params)]
-    server = FNOServer(cfg, params, device="cuda", max_batch=8)
+    server = FNOServer(cfg, params, device="cuda", variant=args.variant,
+                       max_batch=8)
 
     def run():
         if args.serve:
@@ -90,7 +95,8 @@ def main() -> None:
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:args.top]
     what = "serve" if args.serve else "train"
-    print(f"{what} dtype={args.dtype} steps={args.steps}: wall "
+    print(f"{what} variant={args.variant} dtype={args.dtype} "
+          f"steps={args.steps}: wall "
           f"{wall_ms:.4f} ms per step, device busy {device_ms:.4f} ms per step, idle share "
           f"{1 - device_ms / wall_ms:.4f}")
     rows = []
@@ -100,7 +106,8 @@ def main() -> None:
                      "calls_per_step": e.count / args.steps})
         print(f"  {ms:9.4f} ms  {e.count / args.steps:7.1f} calls  "
               f"{e.key[:80]}")
-    print(json.dumps({"card": smi, "what": what, "dtype": args.dtype,
+    print(json.dumps({"card": smi, "what": what, "variant": args.variant,
+                      "dtype": args.dtype,
                       "steps": args.steps,
                       "wall_ms_per_step": wall_ms,
                       "device_ms_per_step": device_ms,

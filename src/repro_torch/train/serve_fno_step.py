@@ -20,15 +20,17 @@ from repro_torch.core import fno as fno_mod
 from repro_torch.kernels.engine import BATCH_BLOCK
 
 
-def make_fno_serve_step(cfg: FNOConfig, *, path: Optional[str] = None):
+def make_fno_serve_step(cfg: FNOConfig, *, path: Optional[str] = None,
+                        variant: str = "full"):
     """serve_step(params, batch{"x": [B,C_in,*spatial]}) -> y."""
     def fno_serve_step(params, batch: Dict[str, torch.Tensor]):
         return fno_mod.apply_fno(params, cfg, batch["x"],
-                                 path=path or cfg.path)
+                                 path=path or cfg.path, variant=variant)
     return fno_serve_step
 
 
-def make_fno_rollout_step(cfg: FNOConfig, *, path: Optional[str] = None):
+def make_fno_rollout_step(cfg: FNOConfig, *, path: Optional[str] = None,
+                          variant: str = "full"):
     """rollout(params, batch{"x": [B,C_in,*spatial]}, steps=K) -> y_K.
 
     Autoregressive rollout on the device: the prediction replaces the
@@ -47,7 +49,8 @@ def make_fno_rollout_step(cfg: FNOConfig, *, path: Optional[str] = None):
         # Cast once so the carry dtype is invariant across steps.
         x = batch["x"].to(torch_dtype(cfg.precision.compute_dtype))
         for _ in range(steps):
-            y = fno_mod.apply_fno(params, cfg, x, path=path or cfg.path)
+            y = fno_mod.apply_fno(params, cfg, x, path=path or cfg.path,
+                                  variant=variant)
             x = torch.cat([y, x[:, cfg.out_channels:]], 1) if keep else y
         return x[:, :cfg.out_channels]
     return fno_rollout_step
@@ -94,17 +97,20 @@ class FNOServer:
     Pads every request batch to a bucket (``bucket_sizes`` over the fused
     kernel's batch block), runs the forward (or a K-step rollout) on
     ``device`` — the GPU unless the caller asks for the CPU — and keeps
-    request/sample/padding counts in ``stats``.
+    request/sample/padding counts in ``stats``. ``variant="partial"``
+    serves the paper's partial fusion on the fused path.
     """
 
     def __init__(self, cfg: FNOConfig, params, *, device="cuda",
-                 path: Optional[str] = None, max_batch: int = 64):
+                 path: Optional[str] = None, variant: str = "full",
+                 max_batch: int = 64):
         self.device = _device(device)
         self.cfg = cfg
         self.params = _to_device(params, self.device)
         self.buckets = bucket_sizes(max_batch, quantum=BATCH_BLOCK)
-        self.step_fn = make_fno_serve_step(cfg, path=path)
-        self.rollout_step_fn = make_fno_rollout_step(cfg, path=path)
+        self.step_fn = make_fno_serve_step(cfg, path=path, variant=variant)
+        self.rollout_step_fn = make_fno_rollout_step(cfg, path=path,
+                                                     variant=variant)
         self.stats = {"requests": 0, "samples": 0, "padded": 0}
 
     def _bucketed(self, xp: torch.Tensor, rollout_steps: int):

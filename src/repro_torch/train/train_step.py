@@ -3,11 +3,12 @@
 accumulation at ``grad_acc_dtype``, the AdamW update.
 
 On ``fno_path="fused"`` every FNO block trains through the hand-written
-kernels: one launch forward and three backward per block
-(``kernels.ops.fno_block_nd``). Mixed precision needs nothing here: params
-stay f32 masters, the forward and backward run at the compute dtype inside
-``apply_fno`` and the kernels, the casts' backward hands f32 grads to the
-params, and the AdamW update is f32.
+kernels: one launch forward (``fno_variant="full"``; "partial" runs the
+paper's partial fusion, three launches and the staged tail) and three
+backward per block (``kernels.ops.fno_block_nd``). Mixed precision needs
+nothing here: params stay f32 masters, the forward and backward run at the
+compute dtype inside ``apply_fno`` and the kernels, the casts' backward
+hands f32 grads to the params, and the AdamW update is f32.
 """
 from __future__ import annotations
 
@@ -21,9 +22,11 @@ from repro_torch.core import fno as fno_mod
 from repro_torch.optim.adamw import AdamW, global_norm
 
 
-def make_loss_fn(cfg: FNOConfig, *, fno_path: str = "staged") -> Callable:
+def make_loss_fn(cfg: FNOConfig, *, fno_path: str = "staged",
+                 fno_variant: str = "full") -> Callable:
     def loss_fn(params, batch):
-        return fno_mod.fno_loss(params, cfg, batch, path=fno_path)
+        return fno_mod.fno_loss(params, cfg, batch, path=fno_path,
+                                variant=fno_variant)
     return loss_fn
 
 
@@ -47,13 +50,16 @@ def _split_microbatches(batch: Dict[str, torch.Tensor], n: int):
 
 def make_train_step(cfg: FNOConfig, optimizer: AdamW, *,
                     microbatches: int = 1, fno_path: str = "staged",
+                    fno_variant: str = "full",
                     grad_acc_dtype: Optional[str] = None):
     """train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm", "step"}).
 
+    fno_variant: full or partial fusion of the blocks' forward on the fused
+    path (the backward is the same three launches for both).
     grad_acc_dtype: dtype of the microbatch gradient accumulator (default
     the config policy's ``grad_acc_dtype``)."""
-    loss_fn = make_loss_fn(cfg, fno_path=fno_path)
+    loss_fn = make_loss_fn(cfg, fno_path=fno_path, fno_variant=fno_variant)
     acc_dt = torch_dtype(grad_acc_dtype or cfg.precision.grad_acc_dtype)
 
     def train_step(params, opt_state, batch):

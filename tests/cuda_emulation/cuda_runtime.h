@@ -5,7 +5,9 @@
 // per-block barrier, cluster.sync a cluster-wide one, and each block owns a
 // shared-memory buffer that the other blocks of its cluster can map.
 // Clusters run in grid order, so a block's atomic ticket sees every earlier
-// cluster's writes. The including build replaces `extern __shared__ float smem[];` with
+// cluster's writes. A launch without a cluster attribute runs its blocks one
+// at a time, in grid order. The including build replaces
+// `extern __shared__ float smem[];` with
 // `float* smem = g_smem[blockIdx.x].data();`.
 #pragma once
 #include <pthread.h>
@@ -103,12 +105,33 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* c, void (*k)(E...),
                                A&&... args) {
   gridDim = c->gridDim;
   blockDim = c->blockDim;
-  const unsigned cl = c->attrs[0].val.clusterDim.x;
-  if (c->numAttrs != 1 || cl != gridDim.x) return cudaErrorInvalidValue;
   const std::function<void()> body = [&]() { k(args...); };
   pthread_attr_t attr;
   pthread_attr_init(&attr);
   pthread_attr_setstacksize(&attr, 64 * 1024);
+  if (c->numAttrs == 0) {  // no cluster: every block alone, in grid order
+    if (gridDim.z != 1) return cudaErrorInvalidValue;
+    g_block_bar.assign(gridDim.x, pthread_barrier_t{});
+    for (unsigned by = 0; by < gridDim.y; ++by) {
+      for (unsigned bx = 0; bx < gridDim.x; ++bx) {
+        g_smem.assign(gridDim.x, std::vector<float>());
+        g_smem[bx].assign(c->dynamicSmemBytes / 4, NAN);
+        pthread_barrier_init(&g_block_bar[bx], nullptr, blockDim.x);
+        std::vector<emu::Thread> ts;
+        for (unsigned t = 0; t < blockDim.x; ++t)
+          ts.push_back({bx, by, t, &body});
+        std::vector<pthread_t> ids(ts.size());
+        for (size_t i = 0; i < ts.size(); ++i)
+          if (pthread_create(&ids[i], &attr, emu::run, &ts[i]) != 0) abort();
+        for (auto& id : ids) pthread_join(id, nullptr);
+        pthread_barrier_destroy(&g_block_bar[bx]);
+      }
+    }
+    pthread_attr_destroy(&attr);
+    return cudaSuccess;
+  }
+  const unsigned cl = c->attrs[0].val.clusterDim.x;
+  if (c->numAttrs != 1 || cl != gridDim.x) return cudaErrorInvalidValue;
   for (unsigned by = 0; by < gridDim.y; ++by) {
     // Shared memory starts as NaN so a read before a write shows up.
     g_smem.assign(cl, std::vector<float>(c->dynamicSmemBytes / 4, NAN));

@@ -1,15 +1,19 @@
-"""The fused block and wgrad kernels' CUDA sources, run on the CPU.
+"""The port's CUDA kernel sources, run on the CPU.
 
-``src/repro_torch/csrc/fused_block.cu`` and ``fused_wgrad.cu`` are compiled
-with g++ against the emulation headers in ``tests/cuda_emulation`` (one
-POSIX thread per CUDA thread, real barriers for ``__syncthreads`` and the
-cluster barrier, one shared-memory buffer per block that the cluster's
-other blocks map, clusters run in grid order), loaded through the same
-``ctypes`` signatures and launch plans as on the card, and compared with
-the kernels' plain PyTorch versions: the block forward and the backward's
-three launches (gz recompute, dx adjoint, wgrad). This checks the kernels'
-indexing, chunking, masking, cluster exchange and the wgrad kernel's
-batch reduction at every rank without a GPU; the card itself is checked by
+``src/repro_torch/csrc/fused_block.cu``, ``fused_wgrad.cu``,
+``dft_rows.cu`` and ``fused_core.cu`` are compiled with g++ against the
+emulation headers in ``tests/cuda_emulation`` (one POSIX thread per CUDA
+thread, real barriers for ``__syncthreads`` and the cluster barrier, one
+shared-memory buffer per block that the cluster's other blocks map,
+clusters run in grid order, blocks of a launch without clusters one at a
+time), loaded through the same ``ctypes`` signatures and launch plans as
+on the card, and compared with the kernels' plain PyTorch versions: the
+block forward, the bare spectral layer, the backward's three launches (gz
+recompute, dx adjoint, wgrad), the row DFTs and the partial-fusion core.
+This checks the kernels' indexing, chunking, masking, cluster exchange and
+the wgrad kernel's batch reduction at every rank without a GPU; mutated
+copies of the new sources (a dropped imaginary term, an off-by-one on a
+ragged edge) must fail the same comparison. The card itself is checked by
 tests/test_torch_kernel_gpu.py and chip_smoke.py.
 """
 import shutil
@@ -21,7 +25,7 @@ import pytest
 import torch
 
 from repro_torch.core import spectral
-from repro_torch.kernels import build, engine
+from repro_torch.kernels import build, dft, engine
 
 EMULATION = Path(__file__).resolve().parent / "cuda_emulation"
 
@@ -40,11 +44,16 @@ CASES = [
 EMULATED_MAX_CLUSTERS = 4  # cuda_emulation/cuda_runtime.h
 
 
-def _compile(out: Path, name: str) -> Path:
+def _compile(out: Path, name: str, mutation=None) -> Path:
+    """Compile csrc/<name>.cu for the CPU; `mutation` (old, new) replaces
+    one exact piece of the source first."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the kernel source for the CPU")
     src = (build.CSRC / f"{name}.cu").read_text()
+    if mutation is not None:
+        assert src.count(mutation[0]) >= 1, mutation[0]
+        src = src.replace(mutation[0], mutation[1], 1)
     decl = "extern __shared__ float smem[];"
     assert src.count(decl) == 1
     cpp = out / f"{name}.cpp"
@@ -70,6 +79,18 @@ def emulated(tmp_path_factory):
 def emulated_wgrad(tmp_path_factory):
     out = tmp_path_factory.mktemp("emulated_wgrad")
     return build.load_wgrad_library(_compile(out, "fused_wgrad"))
+
+
+@pytest.fixture(scope="module")
+def emulated_rows(tmp_path_factory):
+    out = tmp_path_factory.mktemp("emulated_rows")
+    return build.load_dft_rows_library(_compile(out, "dft_rows"))
+
+
+@pytest.fixture(scope="module")
+def emulated_core(tmp_path_factory):
+    out = tmp_path_factory.mktemp("emulated_core")
+    return build.load_core_library(_compile(out, "fused_core"))
 
 
 def _inputs(spatial, b, h, o, seed):
@@ -167,3 +188,141 @@ def test_emulated_backward_kernels_match_plain(emulated, emulated_wgrad,
                             (gz, dx, *dw), (gz32, dx32, *dw32)):
         assert a.shape == ref.shape and bool(torch.isfinite(a).all()), name
         assert _rel_err(a, ref) <= tol, (name, _rel_err(a, ref))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rank", [1, 2, 3])
+def test_emulated_bare_spectral_matches_plain(emulated, rank, dtype):
+    """The block kernel without wb and bias (linear epilogue): the bare
+    spectral layer, the rank-1 partial variant's forward."""
+    spatial, modes, b, h, o = CASES[rank - 1]
+    x, wr, wi = _inputs(spatial, b, h, o, seed=30 + rank)[:3]
+    ref = engine.fused_block_plain(
+        x, wr, wi, None, None,
+        spectral.operand_tensors(spatial, modes, "float32", "cpu"),
+        act="linear")
+    tdt = getattr(torch, dtype)
+    y = engine._launch(emulated, *[a.to(tdt) for a in (x, wr, wi)], None,
+                       None, spectral.operand_tensors(spatial, modes, dtype,
+                                                      "cpu"),
+                       spatial, modes, None, act="linear")
+    assert y.dtype == tdt and bool(torch.isfinite(y).all())
+    assert _rel_err(y, ref) <= (2e-4 if dtype == "float32" else 2e-2)
+
+
+# Row-kernel cases (kind, leading shape, n, k): ragged rows (130 > one
+# 128-row tile), ragged input chunks (n not a multiple of 16), ragged output
+# tiles (k = 45 > 32), and a rank-3 outer operand.
+ROW_CASES = [("rdft", (3, 5), 37, 9), ("rdft", (130,), 20, 11),
+             ("cdft", (3,), 100, 45), ("icdft", (3, 5), 37, 9),
+             ("irdft", (130,), 20, 11), ("irdft", (2, 3), 100, 45),
+             ("outer_fwd", (2, 3), (6, 10), (3, 4)),
+             ("outer_inv", (2, 3), (6, 10), (3, 4))]
+_LAUNCH_KIND = {"rdft": "rdft", "cdft": "cdft", "icdft": "cdft",
+                "irdft": "irdft", "outer_fwd": "rdft", "outer_inv": "irdft"}
+_PLAIN = {"rdft": dft.rdft_plain, "cdft": dft.cdft_plain,
+          "irdft": dft.irdft_plain}
+
+
+def _row_inputs(kind, lead, n, k, seed):
+    """f32 inputs and operands of one row case."""
+    sp, md = (n, k) if isinstance(n, tuple) else ((n,), (k,))
+    mats = spectral.row_operand_tensors(kind, sp, md, "float32", "cpu")
+    launch = _LAUNCH_KIND[kind]
+    rng = np.random.default_rng(seed)
+    mk = lambda: torch.tensor(rng.normal(size=lead + (mats[0].shape[0],)),
+                              dtype=torch.float32)
+    ins = (mk(),) if launch == "rdft" else (mk(), mk())
+    return launch, ins, mats, (sp, md)
+
+
+def _run_rows(lib, case, dtype):
+    """(kernel outputs at `dtype`, f32 plain outputs) of one row case."""
+    kind, lead, n, k = case
+    launch, ins, mats, (sp, md) = _row_inputs(kind, lead, n, k, seed=len(lead))
+    ref = _PLAIN[launch](*ins, *mats)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    tdt = getattr(torch, dtype)
+    tm = spectral.row_operand_tensors(kind, sp, md, dtype, "cpu")
+    outs = dft._launch(lib, launch, tuple(a.to(tdt) for a in ins), tm, None)
+    return outs, ref
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ROW_CASES,
+                         ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}")
+def test_emulated_row_kernels_match_plain(emulated_rows, case, dtype):
+    outs, ref = _run_rows(emulated_rows, case, dtype)
+    for a, r in zip(outs, ref):
+        assert a.dtype == getattr(torch, dtype) and a.shape == r.shape
+        assert bool(torch.isfinite(a).all())
+        assert _rel_err(a, r) <= (2e-4 if dtype == "float32" else 2e-2)
+
+
+# Core cases (B, H, O, s_1, K_1, K_R..K_2): rank 2 and 3 spectra, odd
+# extents, channel counts off the kTP grouping, and no outer axis.
+CORE_CASES = [(2, 8, 6, 16, 5, (9,)), (1, 5, 7, 33, 4, (3, 5)),
+              (2, 3, 2, 10, 10, ())]
+
+
+def _core_inputs(case, seed):
+    b, h, o, n1, k1, spec = case
+    rng = np.random.default_rng(seed)
+    mk = lambda *s, sc=1.0: torch.tensor(sc * rng.normal(size=s),
+                                         dtype=torch.float32)
+    f = [torch.from_numpy(m) for m in spectral.cdft_mats(n1, k1)]
+    g = [torch.from_numpy(m) for m in spectral.cdft_mats(n1, k1, True)]
+    return [mk(b, h, n1, *spec), mk(b, h, n1, *spec), mk(o, h, sc=1.0 / h),
+            mk(o, h, sc=1.0 / h)] + f + g
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunk", [4096, 16], ids=["one", "chunked"])
+@pytest.mark.parametrize("case", CORE_CASES, ids=str)
+def test_emulated_core_matches_plain(emulated_core, monkeypatch, case,
+                                     chunk, dtype):
+    """The partial-fusion core against its plain version; chunk=16 forces
+    several (ragged) s_1 chunks in the forward stage."""
+    monkeypatch.setattr(engine, "_CORE_CHUNK", chunk)
+    args = _core_inputs(case, seed=case[3])
+    ref = engine.fused_core_plain(*args)
+    tdt = getattr(torch, dtype)
+    y = engine._launch_core(emulated_core, *[a.to(tdt) for a in args], None)
+    for a, r in zip(y, ref):
+        assert a.dtype == tdt and a.shape == r.shape
+        assert _rel_err(a, r) <= (2e-4 if dtype == "float32" else 2e-2)
+
+
+# Mutations of the new sources, each of which the comparisons above must
+# catch: (source, what, (old, new)).
+MUTATIONS = [
+    ("dft_rows", "dropped imaginary term",
+     ("acc_r[u][v] = fmaf(xr[u], mr[v], fmaf(-xi[u], mi[v], acc_r[u][v]));",
+      "acc_r[u][v] = fmaf(xr[u], mr[v], acc_r[u][v]);")),
+    ("dft_rows", "off-by-one on the ragged input edge",
+     ("const bool in = gr < M && gc < n_in;",
+      "const bool in = gr < M && gc < n_in - 1;")),
+    ("fused_core", "dropped imaginary term",
+     ("cr[u] = fmaf(wr, ar, fmaf(-wi, ai, cr[u]));",
+      "cr[u] = fmaf(wr, ar, cr[u]);")),
+    ("fused_core", "off-by-one on the ragged chunk edge",
+     ("const int nr = min(a.rows, n1 - c0);",
+      "const int nr = min(a.rows, n1 - c0 - 1);")),
+]
+
+
+@pytest.mark.parametrize("mutation", MUTATIONS,
+                         ids=lambda m: f"{m[0]}-{m[1].replace(' ', '_')}")
+def test_emulated_mutations_are_caught(tmp_path, monkeypatch, mutation):
+    name, _, edit = mutation
+    lib = _compile(tmp_path, name, edit)
+    if name == "dft_rows":
+        lib = build.load_dft_rows_library(lib)
+        outs, ref = _run_rows(lib, ("cdft", (3,), 100, 45), "float32")
+    else:
+        monkeypatch.setattr(engine, "_CORE_CHUNK", 16)
+        lib = build.load_core_library(lib)
+        args = _core_inputs(CORE_CASES[1], seed=1)
+        ref = engine.fused_core_plain(*args)
+        outs = engine._launch_core(lib, *args, None)
+    assert max(_rel_err(a, r) for a, r in zip(outs, ref)) > 2e-4

@@ -1,9 +1,11 @@
-"""The fused block and wgrad CUDA kernels on the card, against their plain
-PyTorch versions: ranks 1–3, the block forward and the three backward
-launches (gz recompute, dx adjoint, wgrad), f32 (relative 2e-4) and bf16
-(2e-2 against the f32 plain version), the launch counter, the fused model
-against the staged path, and one fused training step against the staged
-one. Every test needs an NVIDIA GPU (marker ``gpu``) and skips without
+"""The fused block, wgrad, row-DFT and core CUDA kernels on the card,
+against their plain PyTorch versions: ranks 1–3, the block forward and the
+three backward launches (gz recompute, dx adjoint, wgrad), the bare
+spectral layer (no bypass), the partial variant's rdft / cdft / irdft and
+core launches, f32 (relative 2e-4) and bf16 (2e-2 against the f32 plain
+version), the launch counter, the fused model (both variants) against the
+staged path, and one fused training step of each variant against the
+staged one. Every test needs an NVIDIA GPU (marker ``gpu``) and skips without
 one; on the card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernel_gpu.py
@@ -17,7 +19,8 @@ import torch
 from repro_torch import configs, tree
 from repro_torch.core import fno as tfno
 from repro_torch.core import spectral
-from repro_torch.kernels import engine
+from repro_torch.kernels import dft, engine
+from repro_torch.kernels import ops as tops
 from repro_torch.optim.adamw import AdamW
 from repro_torch.optim.schedule import constant
 from repro_torch.train.train_step import (make_loss_fn, make_train_step,
@@ -218,5 +221,145 @@ def test_fused_train_step_matches_staged_on_card(cuda):
                                         params, batch)[1])
              for p in ("fused", "staged")]
     for a, b in zip(*grads):
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= 2e-4 * scale
+
+
+# (leading shape, n, k): ragged rows, chunks and column tiles, then fno2d's
+# rows at B=1.
+_ROWS = [((3, 5), 37, 9), ((130,), 20, 11), ((3,), 100, 45),
+         ((1, 64, 128), 128, 32)]
+
+
+def _row_case(device, kind, lead, n, k, dtype, seed):
+    """Inputs and operands of one row kernel (f32 and `dtype`)."""
+    rng = np.random.default_rng(seed)
+    k = min(k, n // 2 + 1)
+    width = k if kind in ("irdft", "icdft") else n
+    mk = lambda: torch.tensor(rng.normal(size=lead + (width,)),
+                              dtype=torch.float32, device=device)
+    ins = [mk()] if kind == "rdft" else [mk(), mk()]
+    ops = {d: spectral.row_operand_tensors(kind, (n,), (k,), d, device)
+           for d in ("float32", dtype)}
+    return ins, ops
+
+
+_ROW_FNS = {"rdft": (dft.rdft, dft.rdft_plain),
+            "cdft": (dft.cdft, dft.cdft_plain),
+            "icdft": (dft.cdft, dft.cdft_plain),
+            "irdft": (dft.irdft, dft.irdft_plain)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", list(_ROW_FNS))
+@pytest.mark.parametrize("case", _ROWS, ids=lambda c: f"{c[0]}x{c[1]}")
+def test_row_kernels_match_plain(cuda, kind, case, dtype):
+    lead, n, k = case
+    ins, ops = _row_case(cuda, kind, lead, n, k, dtype, seed=n + k)
+    fn, plain = _ROW_FNS[kind]
+    ref = plain(*ins, *ops["float32"])
+    tdt = getattr(torch, dtype)
+    launch = "cdft" if kind == "icdft" else kind
+    before = engine.LAUNCHES[(launch, dtype)]
+    y = fn(*[a.to(tdt) for a in ins], *ops[dtype])
+    torch.cuda.synchronize()
+    assert engine.LAUNCHES[(launch, dtype)] == before + 1
+    ys = y if isinstance(y, tuple) else (y,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    for a, b in zip(ys, refs):
+        assert a.dtype == tdt and a.is_cuda and a.shape == b.shape
+        assert _rel_err(a, b) <= (2e-4 if dtype == "float32" else 2e-2)
+
+
+def _core_case(device, b, h, o, n1, k1, spec, seed):
+    rng = np.random.default_rng(seed)
+    mk = lambda *s, sc=1.0: torch.tensor(sc * rng.normal(size=s),
+                                         dtype=torch.float32, device=device)
+    z = [mk(b, h, n1, *spec), mk(b, h, n1, *spec)]
+    w = [mk(o, h, sc=1.0 / h), mk(o, h, sc=1.0 / h)]
+    f = [torch.from_numpy(m).to(device) for m in spectral.cdft_mats(n1, k1)]
+    g = [torch.from_numpy(m).to(device)
+         for m in spectral.cdft_mats(n1, k1, True)]
+    return z + w + f + g
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [(2, 8, 6, 16, 5, (9,)),
+                                  (1, 5, 7, 33, 4, (3, 5)),
+                                  (2, 64, 64, 128, 32, (32,)),
+                                  (1, 32, 32, 64, 16, (16, 16))],
+                         ids=str)
+def test_core_kernel_matches_plain(cuda, case, dtype):
+    args = _core_case(cuda, *case, seed=case[3])
+    ref = engine.fused_core_plain(*args)
+    tdt = getattr(torch, dtype)
+    y = engine.fused_core(*[a.to(tdt) for a in args])
+    torch.cuda.synchronize()
+    for a, r in zip(y, ref):
+        assert a.dtype == tdt and a.shape == r.shape
+        assert _rel_err(a, r) <= (2e-4 if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bare_spectral_kernel_matches_plain(cuda, dtype):
+    """The block kernel without wb and bias (linear): the rank-1 partial
+    variant's forward, counted as "spectral_fwd"."""
+    spatial, modes = _CASES[1]
+    x, wr, wi = _args(cuda, spatial, seed=11)[:3]
+    ref = engine.fused_block_plain(
+        x, wr, wi, None, None,
+        spectral.operand_tensors(spatial, modes, "float32", cuda),
+        act="linear")
+    tdt = getattr(torch, dtype)
+    before = engine.LAUNCHES[("spectral_fwd", dtype)]
+    y = engine.fused_block(
+        *[a.to(tdt) for a in (x, wr, wi)], None, None,
+        spectral.operand_tensors(spatial, modes, dtype, cuda), act="linear")
+    torch.cuda.synchronize()
+    assert engine.LAUNCHES[("spectral_fwd", dtype)] == before + 1
+    assert _rel_err(y, ref) <= (2e-4 if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.parametrize("rank", [1, 2, 3])
+def test_partial_block_matches_staged_on_card(cuda, rank):
+    """fno_block_nd(variant="partial") against the staged oracle, with the
+    launch structure: rank 1 one bare-spectral launch, ranks 2–3 one rdft,
+    one core and one irdft launch, and no block_fwd."""
+    spatial, modes = _CASES[rank]
+    x, wr, wi, wb, bias = _args(cuda, spatial, seed=20 + rank)
+    bias = bias.reshape(-1)
+    engine.LAUNCHES.clear()
+    y = tops.fno_block_nd(x, wr, wi, wb, bias, modes, variant="partial")
+    torch.cuda.synchronize()
+    want = ({("spectral_fwd", "float32"): 1} if rank == 1 else
+            {(k, "float32"): 1 for k in engine.PARTIAL_KINDS})
+    assert dict(engine.LAUNCHES) == want
+    ref = tops.fno_block_nd(x, wr, wi, wb, bias, modes, path="staged")
+    assert _rel_err(y, ref) <= 2e-4
+
+
+def test_partial_train_step_matches_staged_on_card(cuda):
+    """One AdamW step of reduced fno2d on the partial variant (rdft, core
+    and irdft forward, the three fused launches backward) against the
+    staged path, every leaf's gradient to its own magnitude."""
+    cfg = configs.with_fuse_block(configs.get_config("fno2d", reduced=True))
+    params = tfno.init_fno(torch.Generator().manual_seed(0), cfg, cuda)
+    gen = torch.Generator().manual_seed(2)
+    batch = {"x": torch.randn((2, cfg.in_channels) + tuple(cfg.spatial),
+                              generator=gen).to(cuda),
+             "y": torch.randn((2, cfg.out_channels) + tuple(cfg.spatial),
+                              generator=gen).to(cuda)}
+    engine.LAUNCHES.clear()
+    loss, grads = value_and_grad(
+        make_loss_fn(cfg, fno_path="fused", fno_variant="partial"), params,
+        batch)
+    torch.cuda.synchronize()
+    kinds = engine.PARTIAL_KINDS + engine.KINDS[1:]
+    assert dict(engine.LAUNCHES) == {(k, "float32"): cfg.num_layers
+                                     for k in kinds}
+    loss_s, grads_s = value_and_grad(make_loss_fn(cfg, fno_path="staged"),
+                                     params, batch)
+    assert abs(float(loss) - float(loss_s)) <= 2e-4 * abs(float(loss_s))
+    for a, b in zip(tree.leaves(grads), tree.leaves(grads_s)):
         scale = max(float(b.abs().max()), 1e-30)
         assert float((a - b).abs().max()) <= 2e-4 * scale
