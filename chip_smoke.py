@@ -60,7 +60,30 @@ fatal:
      B=8 for each partial launch beside its plain version, its one-call
      ``torch.fft`` yardstick (none for the core) and its bound, fno3d's
      outer launches at B=1, and the whole served block forward, partial
-     against full against the staged torch.fft block.
+     against full against the staged torch.fft block;
+  12. per-mode kernels vs plain — weights [O,H,k_1..k_R]: the block
+     kernel's forward, gz-recompute and dx-adjoint modes (dx reads the
+     [H,O,K] swap as a view), the per-mode wgrad and the core, against
+     their plain versions at phase 2's odd extents (ranks 1–3; the bare
+     spectral layer at rank 1) and at fno2d-large full width (hidden 128,
+     128×128, modes 32×32) B=8, f32 ≤ 2e-4 and bf16 ≤ 2e-2 of the f32
+     plain chain;
+  13. serve fno2d-large — ``FNOServer`` at full width (clusters of 16,
+     134,350,977 parameters), max_batch 8, in both variants: phase 3's 12
+     requests against the staged path with exact launch counts (full:
+     block_fwd; partial: rdft, core, irdft), then a sustained window of
+     LARGE_WINDOW single-step requests of seeded sizes 1–8 per precision
+     and variant;
+  14. train fno2d-large — phase 6 and phase 7's window at full width,
+     Darcy batch 8, both variants, f32 and bf16: step-0 loss, grad norm and
+     every leaf against the staged path, exact launches per step, the loss
+     falls over 20 steps, 30 timed steps and peak device memory;
+  15. times, per-mode — CUDA events at fno2d-large B=8 for each per-mode
+     launch beside its plain version and its bound (W counted once at
+     2·O·H·ΠK), the row kernels at hidden 128 and the served block forward
+     in both variants; and the bare spectral layer (the rank-1 partial
+     forward) at fno1d full width B=8, with its launches on one served
+     fno1d partial request.
 
 Each phase's seconds are printed. The last two lines are a
 ``{"kernels": [...]}`` JSON object and ``{"ok": true, "device": {...}}``.
@@ -99,6 +122,8 @@ PARTIAL_LAUNCHES = ("rdft", "cdft", "icdft", "irdft", "core")
 DTYPES = ("float32", "bfloat16")
 ROWS_SOURCE = "src/repro_torch/csrc/dft_rows.cu"
 CORE_SOURCE = "src/repro_torch/csrc/fused_core.cu"
+LARGE = "fno2d-large"        # per-mode weights, hidden 128 (phases 12–15)
+LARGE_WINDOW = 200         # requests per precision in phase 13's window
 PARTIAL_REPLACES = {"rdft": "src/repro/kernels/dft.py:44",
                     "cdft": "src/repro/kernels/dft.py:75",
                     "irdft": "src/repro/kernels/dft.py:97",
@@ -167,38 +192,52 @@ def wgrad_flops(b, h, o, spatial, modes) -> float:
     return block_flops(b, h, o, spatial, modes) + b * o * math.prod(spatial)
 
 
-def bound_ms(kind, b, h, o, spatial, modes, elem_bytes, peak_flops):
-    """Least time for one launch of `kind` on the card: each input read once
-    and each output written once over the memory rate, against the least
-    operations over the peak rate for the element type. Returns
-    (ms, "bytes"|"operations").
+def bound_parts(kind, b, h, o, spatial, modes, elem_bytes, peak_flops,
+                per_mode=False):
+    """(ms by bytes, ms by operations) of one launch of `kind` on the card:
+    each input read once and each output written once over the memory
+    rate, and the least operations over the peak rate for the element
+    type.
 
     block_fwd reads x, the weights and the operands and writes y;
     gz_recompute reads gy too and writes gz; dx_adjoint reads gz and writes
     dx (the same work with H and O swapped); wgrad reads x and gz and writes
     the f32 weight gradients; the partial variant's launches as
-    ``partial_work`` counts them."""
-    pts = math.prod(spatial)
+    ``partial_work`` counts them. Spectral weights count 2·O·H elements
+    shared and 2·O·H·ΠK per-mode (read once, and written once by wgrad);
+    the operations are the same for both, as a shared W is applied at
+    every mode too."""
+    pts, kk = math.prod(spatial), math.prod(modes)
     mats = sum(2 * 2 * n * k for n, k in zip(spatial, modes))  # 4R operands
     act_in, act_out = b * h * pts, b * o * pts
-    weights = 3 * o * h + o
+    spec_w = 2 * o * h * (kk if per_mode else 1)
+    weights = spec_w + o * h + o
     flops = block_flops(b, h, o, spatial, modes)
     if kind == "block_fwd":
         nbytes = elem_bytes * (act_in + act_out + weights + mats)
     elif kind == "gz_recompute":
         nbytes = elem_bytes * (act_in + 2 * act_out + weights + mats)
     elif kind == "dx_adjoint":
-        nbytes = elem_bytes * (act_out + act_in + 3 * o * h + mats)
+        nbytes = elem_bytes * (act_out + act_in + spec_w + o * h + mats)
+    elif kind == "spectral_fwd":  # the bare layer: no bypass, no bias
+        nbytes = elem_bytes * (act_in + act_out + spec_w + mats)
+        flops -= b * 2 * o * h * pts
     elif kind in PARTIAL_LAUNCHES:
-        flops, elems = partial_work(kind, b, h, o, spatial, modes)
+        flops, elems = partial_work(kind, b, h, o, spatial, modes, per_mode)
         nbytes = elem_bytes * elems
     else:
         nbytes = elem_bytes * (act_in + act_out + mats) + 4 * weights
         flops = wgrad_flops(b, h, o, spatial, modes)
-    t_bytes = nbytes / PEAK_BYTES
-    t_ops = flops / peak_flops
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
+    return 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / peak_flops
+
+
+def bound_ms(kind, b, h, o, spatial, modes, elem_bytes, peak_flops,
+             per_mode=False):
+    """Least time for one launch of `kind` on the card, the larger of
+    ``bound_parts``; returns (ms, "bytes"|"operations")."""
+    t_bytes, t_ops = bound_parts(kind, b, h, o, spatial, modes, elem_bytes,
+                                 peak_flops, per_mode)
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def fft_flops(n: int, real: bool) -> float:
@@ -208,7 +247,7 @@ def fft_flops(n: int, real: bool) -> float:
     return (2.5 if real else 5.0) * n * math.log2(n) if n > 1 else 0.0
 
 
-def partial_work(kind, b, h, o, spatial, modes):
+def partial_work(kind, b, h, o, spatial, modes, per_mode=False):
     """(least operations, elements moved) of one partial-variant launch at
     a block of B=b, H=h, O=o: each row read once and each output written
     once (operands too), against FFTs of the transformed axes.
@@ -218,7 +257,8 @@ def partial_work(kind, b, h, o, spatial, modes):
     the s_1 stage as a row launch over b·h·P (b·o·P) rows of s_1 points
     (complex FFTs; P = Πk_2..k_R); core: z and y pairs, W, both s_1
     operands, an s_1 FFT of every (b, channel, p) column each way and the
-    CGEMM (8 per complex multiply-add)."""
+    CGEMM (8 per complex multiply-add); per-mode W holds 2·O·H·K_1·P
+    elements."""
     n1, k1 = spatial[0], modes[0]
     n_out, p = math.prod(spatial[1:]), math.prod(modes[1:])
     if kind == "rdft":
@@ -232,8 +272,9 @@ def partial_work(kind, b, h, o, spatial, modes):
     if kind in ("cdft", "icdft"):
         rows = b * (h if kind == "cdft" else o) * p
         return rows * fft_flops(n1, False), rows * 2 * (n1 + k1) + 2 * n1 * k1
+    w = 2 * o * h * (k1 * p if per_mode else 1)
     return (b * p * ((h + o) * fft_flops(n1, False) + 8 * o * h * k1),
-            2 * b * p * n1 * (h + o) + 2 * o * h + 4 * n1 * k1)
+            2 * b * p * n1 * (h + o) + w + 4 * n1 * k1)
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -398,17 +439,17 @@ def phase_serve(torch, np, configs, fno_mod, sfs, engine):
 
 def phase_serve_window(torch, np, servers, engine, num_layers,
                        names=("fused", "bf16"), kinds=("block_fwd",),
-                       phase="4"):
-    """Sustained serving, one precision at a time: WINDOW_REQUESTS
+                       phase="4", requests=WINDOW_REQUESTS):
+    """Sustained serving, one precision at a time: `requests`
     single-step requests of seeded sizes 1–8 back to back, each waited for
     (one request in flight, as a client that needs its answer). Latency is
     the host clock from call to answer; throughput is every sample-step over
     the whole window's wall time. `names` are the f32 and bf16 servers,
     `kinds` the launch kinds each layer issues; the sizes are the same
     for every variant."""
-    log(f"== phase {phase}: times — sustained serve window, fno2d full "
-        f"width, {names}")
     srv0 = servers[names[0]]
+    log(f"== phase {phase}: times — sustained serve window, "
+        f"{srv0.cfg.name} full width, {names}")
     shape = (srv0.cfg.in_channels,) + tuple(srv0.cfg.spatial)
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     pool = torch.randn((64,) + shape, generator=gen, device=DEVICE)
@@ -416,8 +457,8 @@ def phase_serve_window(torch, np, servers, engine, num_layers,
     for name in names:
         srv = servers[name]
         rng = np.random.default_rng(3)
-        sizes = rng.integers(1, 9, size=WINDOW_REQUESTS)
-        offs = rng.integers(0, 64 - 8, size=WINDOW_REQUESTS)
+        sizes = rng.integers(1, 9, size=requests)
+        offs = rng.integers(0, 64 - 8, size=requests)
         torch.cuda.synchronize()
         engine.LAUNCHES.clear()
         outs, lat = [], []
@@ -438,7 +479,7 @@ def phase_serve_window(torch, np, servers, engine, num_layers,
         wall = time.perf_counter() - t_all
         dt = srv.cfg.precision.compute_dtype
         launches = engine.LAUNCHES[(kinds[0], dt)]
-        want = {(k, dt): num_layers * WINDOW_REQUESTS for k in kinds}
+        want = {(k, dt): num_layers * requests for k in kinds}
         if dict(engine.LAUNCHES) != want:
             raise AssertionError(f"window launches {dict(engine.LAUNCHES)} "
                                  f"!= {want}")
@@ -447,7 +488,7 @@ def phase_serve_window(torch, np, servers, engine, num_layers,
         lat = np.asarray(lat)
         buckets = np.asarray([srv.buckets[np.searchsorted(srv.buckets, n)]
                               for n in sizes])
-        st = {"requests": WINDOW_REQUESTS, "sample_steps": int(sizes.sum()),
+        st = {"requests": requests, "sample_steps": int(sizes.sum()),
               "wall_s": wall, "sample_steps_per_s": float(sizes.sum()) / wall,
               "latency_ms": {q: float(np.percentile(lat, p)) for q, p in
                              (("p50", 50), ("p99", 99))},
@@ -521,19 +562,37 @@ def backward_mats(spectral, spatial, modes, dtype):
             for k in ("forward", "adjoint", "wgrad")}
 
 
-def run_backward(engine, args, gy, mats, *, plain=False, gz=None):
-    """The backward's three launches (or their plain versions): gz from gy,
-    dx from gz through the adjoint bundle with transposed weights, and the
-    weight gradients from x and gz. A given `gz` feeds dx and wgrad in
-    place of the one computed here."""
+def block_launches(engine, args, gy, gz, mats):
+    """A block's launches, each as fn(plain) running the kernel or its
+    plain version, with the arguments the fused path gives them: the
+    forward; gz from gy; dx from `gz` through the adjoint bundle with the
+    weights' transposed view (as ``ops.fno_block_nd``'s backward passes
+    them); the weight gradients (per mode for per-mode weights)."""
     x, wr, wi, wb, bias = args
-    block = engine.fused_block_plain if plain else engine.fused_block
-    wgrad = engine.fused_wgrad_plain if plain else engine.fused_wgrad
-    gz0 = block(x, wr, wi, wb, bias, mats["forward"], act="gelu_vjp", gy=gy)
-    gz = gz0 if gz is None else gz
-    t = lambda w: w.t().contiguous()
-    dx = block(gz, t(wr), t(wi), t(wb), None, mats["adjoint"], act="linear")
-    return gz0, dx, wgrad(x, gz, mats["wgrad"])
+    wbt = wb.t().contiguous()
+    block = lambda plain: (engine.fused_block_plain if plain
+                           else engine.fused_block)
+    return {
+        "block_fwd": lambda plain: block(plain)(*args, mats["forward"]),
+        "gz_recompute": lambda plain: block(plain)(
+            *args, mats["forward"], act="gelu_vjp", gy=gy),
+        "dx_adjoint": lambda plain: block(plain)(
+            gz, wr.transpose(0, 1), wi.transpose(0, 1), wbt, None,
+            mats["adjoint"], act="linear"),
+        "wgrad": lambda plain: (
+            engine.fused_wgrad_plain if plain else engine.fused_wgrad)(
+                x, gz, mats["wgrad"], per_mode=wr.ndim > 2),
+    }
+
+
+def run_backward(engine, args, gy, mats, *, plain=False, gz=None):
+    """The backward's three launches (or their plain versions). A given
+    `gz` feeds dx and wgrad in place of the one computed here."""
+    fns = block_launches(engine, args, gy, gz, mats)
+    gz0 = fns["gz_recompute"](plain)
+    if gz is None:
+        fns = block_launches(engine, args, gy, gz0, mats)
+    return gz0, fns["dx_adjoint"](plain), fns["wgrad"](plain)
 
 
 def phase_backward_vs_plain(torch, engine, spectral, configs):
@@ -578,14 +637,14 @@ def leaf_err(a, ref) -> float:
 
 
 def phase_train(torch, configs, fno_mod, pde, tree, ts, optim, engine,
-                variant="full", phase="6"):
+                variant="full", phase="6", arch="fno2d"):
     """Step-0 parity of the fused path (full or partial variant) with the
     staged one, the launch structure, and TRAIN_STEPS AdamW steps on one
     batch per precision."""
-    log(f"== phase {phase}: train fno2d at full width, variant {variant}")
+    log(f"== phase {phase}: train {arch} at full width, variant {variant}")
     kinds = (engine.KINDS if variant == "full"
              else engine.PARTIAL_KINDS + engine.KINDS[1:])
-    cfg = configs.with_fuse_block(configs.get_config("fno2d"))
+    cfg = configs.with_fuse_block(configs.get_config(arch))
     staged = dataclasses.replace(cfg, path="staged", fuse_block=False)
     layers = cfg.num_layers
     params = fno_mod.init_fno(torch.Generator().manual_seed(0), cfg, DEVICE)
@@ -662,11 +721,15 @@ def phase_train(torch, configs, fno_mod, pde, tree, ts, optim, engine,
 
 def train_window(torch, np, batch, runs):
     """Median step ms, samples/s and peak memory over TRAIN_WINDOW steps
-    per precision, continuing each run of `runs`."""
+    per precision, continuing each run of `runs`. The peak counts every
+    tensor alive on the card, the other runs' params and AdamW state
+    included; ``resident_bytes`` is what was allocated when the window
+    began."""
     stats = {}
     for dt, (step, p, st) in runs.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
         ms = []
         t_all = time.perf_counter()
         for _ in range(TRAIN_WINDOW):
@@ -683,11 +746,13 @@ def train_window(torch, np, batch, runs):
                      "step_ms_p90": float(np.percentile(ms, 90)),
                      "samples_per_s": b * TRAIN_WINDOW / wall,
                      "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                     "resident_bytes": resident,
                      "final_loss": float(m["loss"])}
         log(f"  {dt}: step ms median {stats[dt]['step_ms_median']:.4f} p90 "
             f"{stats[dt]['step_ms_p90']:.4f}; "
             f"{stats[dt]['samples_per_s']:.2f} samples/s; peak memory "
-            f"{stats[dt]['peak_memory_bytes']} B")
+            f"{stats[dt]['peak_memory_bytes']} B (resident at the start "
+            f"{resident} B)")
     return stats
 
 
@@ -709,20 +774,8 @@ def phase_train_times(torch, np, engine, spectral, ops, configs, batch,
         x, wr, wi, wb, bias = args
         gy = gy32.to(tdt)
         mats = backward_mats(spectral, spatial, modes, dt)
-        t = lambda w: w.t().contiguous()
-        wrt, wit, wbt = t(wr), t(wi), t(wb)
         gz = engine.fused_block(*args, mats["forward"], act="gelu_vjp", gy=gy)
-        launch = {
-            "gz_recompute": lambda plain: (
-                engine.fused_block_plain if plain else engine.fused_block)(
-                    *args, mats["forward"], act="gelu_vjp", gy=gy),
-            "dx_adjoint": lambda plain: (
-                engine.fused_block_plain if plain else engine.fused_block)(
-                    gz, wrt, wit, wbt, None, mats["adjoint"], act="linear"),
-            "wgrad": lambda plain: (
-                engine.fused_wgrad_plain if plain else engine.fused_wgrad)(
-                    x, gz, mats["wgrad"]),
-        }
+        launch = block_launches(engine, args, gy, gz, mats)
         leaves = [a.detach().clone().requires_grad_(True)
                   for a in (x, wr, wi, wb, bias.reshape(-1))]
         y = ops.fno_block_nd(*leaves, modes, path="ref")
@@ -1029,6 +1082,322 @@ def phase_partial_times(torch, engine, spectral, dft, ops, configs, errs,
     return rows, block
 
 
+# ---------------------------------------------------------------------------
+# fno2d-large: per-mode spectral weights [O,H,k_1..k_R], hidden 128
+# ---------------------------------------------------------------------------
+def per_mode_shapes(configs):
+    """Phase 12's shapes: phase 2's odd extents at ranks 1–3 and
+    fno2d-large at full width, B=8."""
+    shapes = [c for c in check_shapes(configs) if c[0].startswith("odd")]
+    big = configs.get_config(LARGE)
+    shapes.append(("fno2d_large_B8", 8, big.hidden, big.hidden, big.spatial,
+                   big.modes))
+    return shapes
+
+
+def per_mode_inputs(b, h, o, spatial, modes, seed, device):
+    """x, per-mode wr/wi [O,H,k_1..k_R] (scaled 1/H), wb, bias [O,1]."""
+    x, _, _, wb, bias = block_inputs(b, h, o, spatial, seed, device)
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    w = lambda: (torch.randn((o, h) + tuple(modes), generator=gen) / h).to(
+        device)
+    return [x, w(), w(), wb, bias]
+
+
+def run_block(engine, args, gy, mats, *, plain=False, gz=None):
+    """The block's four launches (or their plain versions): y, then
+    ``run_backward``'s gz, dx and weight gradients."""
+    block = engine.fused_block_plain if plain else engine.fused_block
+    return (block(*args, mats["forward"]),
+            *run_backward(engine, args, gy, mats, plain=plain, gz=gz))
+
+
+def per_mode_core_case(torch, spectral, b, h, o, spatial, modes, seed):
+    """The core's f32 inputs at a block of this shape with per-mode W, and
+    its s_1 operands by dtype."""
+    r = len(spatial)
+    gen = torch.Generator().manual_seed(seed)
+    rnd = lambda *s, sc=1.0: (sc * torch.randn(s, generator=gen)).to(DEVICE)
+    spec = tuple(modes[r - 1:0:-1])
+    ins = [rnd(b, h, spatial[0], *spec), rnd(b, h, spatial[0], *spec),
+           rnd(o, h, *modes, sc=1.0 / h), rnd(o, h, *modes, sc=1.0 / h)]
+    ops = {dt: spectral.operand_tensors(spatial, modes, dt,
+                                        DEVICE)[2 * r - 2:2 * r + 2]
+           for dt in DTYPES}
+    return ins, ops
+
+
+def phase_per_mode_vs_plain(torch, engine, spectral, configs):
+    log("== phase 12: per-mode kernels vs plain on the card")
+    errs = {}
+    for seed, (name, b, h, o, spatial, modes) in enumerate(
+            per_mode_shapes(configs)):
+        args32 = per_mode_inputs(b, h, o, spatial, modes, 700 + seed, DEVICE)
+        gy32 = torch.randn((b, o) + tuple(spatial),
+                           generator=torch.Generator().manual_seed(seed)
+                           ).to(DEVICE)
+        m32 = backward_mats(spectral, spatial, modes, "float32")
+        # f32: each launch against its plain version on the same inputs.
+        y, gz, dx, dw = run_block(engine, args32, gy32, m32)
+        py, pgz, pdx, pdw = run_block(engine, args32, gy32, m32,
+                                         plain=True, gz=gz)
+        torch.cuda.synchronize()
+        for kind, a, ref in (("block_fwd", [y], [py]),
+                             ("gz_recompute", [gz], [pgz]),
+                             ("dx_adjoint", [dx], [pdx]),
+                             ("wgrad", dw, pdw)):
+            errs[(name, kind, "float32")] = e = errors(a, ref)
+            check(f"{name} per-mode f32 {kind} vs plain", e[1], F32_TOL)
+        del y, dx, dw, py, pgz, pdx, pdw
+        # bf16: the kernels' chain against the f32 plain chain.
+        ref = run_block(engine, args32, gy32, m32, plain=True)
+        args16 = [a.to(torch.bfloat16) for a in args32]
+        m16 = backward_mats(spectral, spatial, modes, "bfloat16")
+        ours = run_block(engine, args16, gy32.to(torch.bfloat16), m16)
+        torch.cuda.synchronize()
+        for kind, a, r in zip(("block_fwd", "gz_recompute", "dx_adjoint"),
+                              ours[:3], ref[:3]):
+            errs[(name, kind, "bfloat16")] = e = errors([a], [r])
+            check(f"{name} per-mode bf16 {kind} vs f32 plain", e[1],
+                  BF16_TOL)
+        errs[(name, "wgrad", "bfloat16")] = e = errors(ours[3], ref[3])
+        check(f"{name} per-mode bf16 wgrad vs f32 plain", e[1], BF16_TOL)
+        del ours, ref, args16
+        if len(spatial) == 1:  # the bare spectral layer (rank-1 partial)
+            x, wr, wi = args32[:3]
+            bare = engine.fused_block(x, wr, wi, None, None, m32["forward"],
+                                      act="linear")
+            pbare = engine.fused_block_plain(x, wr, wi, None, None,
+                                             m32["forward"], act="linear")
+            torch.cuda.synchronize()
+            check(f"{name} per-mode f32 bare spectral vs plain",
+                  rel_err(bare, pbare), F32_TOL)
+            continue
+        ins, ops = per_mode_core_case(torch, spectral, b, h, o, spatial,
+                                      modes, 750 + seed)
+        ref = engine.fused_core_plain(*ins, *ops["float32"])
+        yc = engine.fused_core(*ins, *ops["float32"])
+        yc16 = engine.fused_core(*[a.to(torch.bfloat16) for a in ins],
+                                 *ops["bfloat16"])
+        torch.cuda.synchronize()
+        errs[(name, "core", "float32")] = e = errors(yc, ref)
+        check(f"{name} per-mode f32 core vs plain", e[1], F32_TOL)
+        errs[(name, "core", "bfloat16")] = e = errors(yc16, ref)
+        check(f"{name} per-mode bf16 core vs f32 plain", e[1], BF16_TOL)
+        del ins, ref, yc, yc16
+    return errs
+
+
+def phase_serve_large(torch, np, configs, fno_mod, sfs, engine):
+    """fno2d-large served at full width in both variants: phase 3's 12
+    requests against the staged path, with exact launch counts."""
+    log("== phase 13: serve fno2d-large at full width, full and partial")
+    cfg = configs.with_fuse_block(configs.get_config(LARGE))
+    fused = dataclasses.replace(cfg, path="fused")
+    log(f"  config: hidden={cfg.hidden} layers={cfg.num_layers} "
+        f"spatial={cfg.spatial} modes={cfg.modes} weight_mode="
+        f"{cfg.weight_mode} params={cfg.param_count()}")
+    params = fno_mod.init_fno(torch.Generator().manual_seed(0), cfg, DEVICE)
+    leaves = sum(t.numel() for t in
+                 [v for blk in params["blocks"] for d in blk.values()
+                  for v in d.values()]
+                 + [v for k in ("lift1", "lift2", "proj1", "proj2")
+                    for v in params[k].values()])
+    log(f"  parameters {leaves} "
+        f"(spectral weight {tuple(params['blocks'][0]['spectral']['wr'].shape)})")
+    servers = {}
+    for name, c, variant in (
+            ("fused", fused, "full"),
+            ("bf16", configs.with_precision(fused, "bf16"), "full"),
+            ("partial", fused, "partial"),
+            ("partial_bf16", configs.with_precision(fused, "bf16"),
+             "partial"),
+            ("staged", dataclasses.replace(cfg, path="staged",
+                                           fuse_block=False), "full")):
+        servers[name] = sfs.FNOServer(c, params, device=DEVICE,
+                                      variant=variant, max_batch=8)
+    shape = (cfg.in_channels,) + tuple(cfg.spatial)
+    for srv in servers.values():  # warm every bucket outside the count
+        for b in srv.buckets:
+            srv(torch.zeros((b,) + shape, device=DEVICE))
+        srv(torch.zeros((1,) + shape, device=DEVICE), rollout_steps=4)
+    counts = {}
+    for variant, names, kinds in (
+            ("full", ("fused", "bf16"), ("block_fwd",)),
+            ("partial", ("partial", "partial_bf16"), engine.PARTIAL_KINDS)):
+        plan = [(x, k, names[1] if bf16 else names[0])
+                for x, k, bf16 in serve_requests(torch, np, shape)]
+        expect = expected_launches(plan, kinds, cfg.num_layers,
+                                   servers[names[0]].buckets[-1])
+        torch.cuda.synchronize()
+        engine.LAUNCHES.clear()
+        outs = [servers[name](x, rollout_steps=k) for x, k, name in plan]
+        torch.cuda.synchronize()
+        counts[variant] = dict(engine.LAUNCHES)
+        log(f"  {variant}: launches {counts[variant]} expected {expect}")
+        if counts[variant] != expect:
+            raise AssertionError(f"kernel launches {counts[variant]} != "
+                                 f"{expect}")
+        for (x, k, name), y in zip(plan, outs):
+            if not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"non-finite serve output ({name}, "
+                                     f"K={k})")
+            tol = F32_TOL if name in ("fused", "partial") else BF16_TOL
+            check(f"serve {LARGE} {name} n={x.shape[0]} K={k} vs staged f32",
+                  rel_err(y, servers["staged"](x, rollout_steps=k)), tol)
+        del outs
+    return counts, servers
+
+
+def phase_large_times(torch, engine, spectral, dft, ops, configs, sfs,
+                      fno_mod, errs, serve_counts, train_counts):
+    """CUDA events at fno2d-large B=8 for each per-mode launch beside its
+    plain version and its bound, the row kernels at hidden 128 and the
+    served block forward in both variants; then the bare spectral layer
+    (the rank-1 partial forward) at fno1d full width, B=8, with its
+    launches on a served fno1d partial request."""
+    log("== phase 15: times — per-mode launches at fno2d-large B=8")
+    big = configs.get_config(LARGE)
+    b, h, o = 8, big.hidden, big.hidden
+    spatial, modes = big.spatial, big.modes
+    args32 = per_mode_inputs(b, h, o, spatial, modes, 800, DEVICE)
+    gy32 = torch.randn((b, o) + tuple(spatial),
+                       generator=torch.Generator().manual_seed(801)).to(DEVICE)
+    core_ins, core_ops = per_mode_core_case(torch, spectral, b, h, o,
+                                            spatial, modes, 802)
+    row_cases = partial_cases(torch, spectral, dft, engine, b, h, o, spatial,
+                              modes, 803)
+    rows, extra = [], {}
+    for dt, peak, eb in (("float32", PEAK_F32_FLOPS, 4),
+                         ("bfloat16", PEAK_BF16_FLOPS, 2)):
+        tdt = getattr(torch, dt)
+        args = [a.to(tdt) for a in args32]
+        x, wr, wi, wb, bias = args
+        gy = gy32.to(tdt)
+        mats = backward_mats(spectral, spatial, modes, dt)
+        gz = engine.fused_block(*args, mats["forward"], act="gelu_vjp", gy=gy)
+        cins = [a.to(tdt) for a in core_ins]
+        launch = block_launches(engine, args, gy, gz, mats)
+        launch["core"] = lambda plain: (
+            engine.fused_core_plain if plain else engine.fused_core)(
+                *cins, *core_ops[dt])
+        sources = {"wgrad": (WGRAD_SOURCE, WGRAD_REPLACES),
+                   "core": (CORE_SOURCE, PARTIAL_REPLACES["core"])}
+        for kind, fn in launch.items():
+            kms = time_ms(lambda: fn(False), 10)
+            pms = time_ms(lambda: fn(True), 5)
+            t_bytes, t_ops = bound_parts(kind, b, h, o, spatial, modes, eb,
+                                         peak, per_mode=True)
+            bms, by = bound_ms(kind, b, h, o, spatial, modes, eb, peak,
+                               per_mode=True)
+            log(f"  {dt} {kind} per-mode: kernel_ms={kms:.4f} plain_ms="
+                f"{pms:.4f} bound_us={1e3 * bms:.2f} ({by}; bytes "
+                f"{1e3 * t_bytes:.2f} us, operations {1e3 * t_ops:.2f} us)")
+            src, rep = sources.get(kind, (BLOCK_SOURCE, BLOCK_REPLACES))
+            if kind in ("block_fwd", "core"):
+                launches = serve_counts["full" if kind == "block_fwd"
+                                        else "partial"].get((kind, dt), 0)
+            else:
+                launches = train_counts["full"][dt].get((kind, dt), 0)
+            e = errs[("fno2d_large_B8", kind, dt)]
+            rows.append({
+                "name": f"{kind}_per_mode_{'f32' if dt == 'float32' else 'bf16'}",
+                "route": "cuda", "source": src, "replaces": rep,
+                "launches": launches,
+                "launches_train": train_counts[
+                    "partial" if kind == "core" else "full"][dt].get(
+                        (kind, dt), 0),
+                "max_abs_err": e[0], "scaled_err": e[1],
+                "tol": F32_TOL if dt == "float32" else BF16_TOL,
+                "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
+                "library_ms": None,
+                "library_note": "no single PyTorch call computes it"})
+        for kind in ("rdft", "irdft"):  # the row kernels at hidden 128
+            fn, plain, ins, rmats = row_cases[kind]
+            a = [v.to(tdt) for v in ins]
+            extra[f"{kind}_{dt}_ms"] = time_ms(lambda: fn(*a, *rmats[dt]), 10)
+        # The served block forward, partial (3 launches + tail) and full.
+        bias1 = bias.reshape(-1)
+        with torch.no_grad():
+            for variant in ("partial", "full"):
+                extra[f"block_{variant}_{dt}_ms"] = time_ms(
+                    lambda: ops.fno_block_nd(x, wr, wi, wb, bias1, modes,
+                                             variant=variant), 10)
+        log(f"  {dt} fno2d-large: {extra}")
+        del args, gz, cins
+    del row_cases, core_ins
+    rows += bare_spectral_times(torch, engine, spectral, configs, sfs,
+                                fno_mod)
+    log(f"  max_memory_allocated={torch.cuda.max_memory_allocated()} B")
+    return rows, extra
+
+
+def bare_spectral_times(torch, engine, spectral, configs, sfs, fno_mod):
+    """The block kernel without wb (``spectral_fwd``), the rank-1 partial
+    forward: launches on one served fno1d request of 8 samples through
+    the partial variant, then CUDA events at fno1d full width B=8 beside
+    the plain version and the bound."""
+    c1 = configs.with_fuse_block(configs.get_config("fno1d"))
+    p1 = fno_mod.init_fno(torch.Generator().manual_seed(0), c1, DEVICE)
+    rows = []
+    for dt, peak, eb in (("float32", PEAK_F32_FLOPS, 4),
+                         ("bfloat16", PEAK_BF16_FLOPS, 2)):
+        c = dataclasses.replace(c1, path="fused")
+        if dt == "bfloat16":
+            c = configs.with_precision(c, "bf16")
+        srv = sfs.FNOServer(c, p1, device=DEVICE, variant="partial",
+                            max_batch=8)
+        x8 = torch.randn((8, c1.in_channels) + tuple(c1.spatial),
+                         generator=torch.Generator().manual_seed(810)
+                         ).to(DEVICE)
+        srv(x8)  # warm
+        torch.cuda.synchronize()
+        engine.LAUNCHES.clear()
+        y8 = srv(x8)
+        torch.cuda.synchronize()
+        launches = dict(engine.LAUNCHES)
+        want = {("spectral_fwd", dt): c1.num_layers}
+        if launches != want or not bool(torch.isfinite(y8).all()):
+            raise AssertionError(f"fno1d partial request: launches "
+                                 f"{launches} != {want}, or non-finite")
+        b, h = 8, c1.hidden
+        x, wr, wi = [a.to(getattr(torch, dt)) for a in block_inputs(
+            b, h, h, c1.spatial, 811, DEVICE)[:3]]
+        x32, wr32, wi32 = [a.float() for a in (x, wr, wi)]
+        m = spectral.operand_tensors(c1.spatial, c1.modes, dt, DEVICE)
+        m32 = spectral.operand_tensors(c1.spatial, c1.modes, "float32",
+                                       DEVICE)
+        run = lambda plain: (engine.fused_block_plain if plain
+                             else engine.fused_block)(
+            x, wr, wi, None, None, m, act="linear")
+        ref = engine.fused_block_plain(x32, wr32, wi32, None, None, m32,
+                                       act="linear")
+        e = errors([run(False)], [ref])
+        check(f"fno1d B8 {dt} bare spectral vs f32 plain", e[1],
+              F32_TOL if dt == "float32" else BF16_TOL)
+        kms = time_ms(lambda: run(False), 20)
+        pms = time_ms(lambda: run(True), 10)
+        bms, by = bound_ms("spectral_fwd", b, h, h, c1.spatial, c1.modes,
+                           eb, peak)
+        log(f"  {dt} spectral_fwd fno1d B=8: kernel_ms={kms:.4f} plain_ms="
+            f"{pms:.4f} bound_us={1e3 * bms:.3f} ({by}); launches on one "
+            f"served partial request {launches}")
+        rows.append({
+            "name": f"spectral_fwd_{'f32' if dt == 'float32' else 'bf16'}",
+            "route": "cuda", "source": BLOCK_SOURCE,
+            "replaces": BLOCK_REPLACES,
+            "launches": launches[("spectral_fwd", dt)],
+            "launches_note": "one served fno1d partial request of 8",
+            "max_abs_err": e[0], "scaled_err": e[1],
+            "tol": F32_TOL if dt == "float32" else BF16_TOL,
+            "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None})
+    return rows
+
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1099,12 +1468,44 @@ def main() -> int:
         "11 times", phase_partial_times, torch, engine, spectral, dft, ops,
         configs, part_errs, part_counts, part_train_counts)
     rows += part_rows
+    # fno2d-large: per-mode weights at hidden 128, both variants.
+    pm_errs = timed("12", phase_per_mode_vs_plain, torch, engine, spectral,
+                    configs)
+    large_counts, large_servers = timed("13", phase_serve_large, torch, np,
+                                        configs, fno_mod, sfs, engine)
+    large_layers = large_servers["fused"].cfg.num_layers
+    large_stats = {}
+    for variant, names, kinds in (
+            ("full", ("fused", "bf16"), ("block_fwd",)),
+            ("partial", ("partial", "partial_bf16"), engine.PARTIAL_KINDS)):
+        large_stats[variant] = timed(
+            f"13 window {variant}", phase_serve_window, torch, np,
+            large_servers, engine, large_layers, names=names, kinds=kinds,
+            phase="13", requests=LARGE_WINDOW)
+    del large_servers
+    large_train, large_train_counts = {}, {}
+    for variant in ("full", "partial"):
+        large_batch, large_runs, large_train_counts[variant] = timed(
+            f"14 {variant}", phase_train, torch, configs, fno_mod, pde,
+            tree, ts, optim, engine, variant=variant, phase="14",
+            arch=LARGE)
+        log(f"== phase 14: train window, {LARGE}, variant {variant}")
+        large_train[variant] = timed(f"14 train {variant}", train_window,
+                                     torch, np, large_batch, large_runs)
+        del large_runs
+    large_rows, large_extra = timed(
+        "15", phase_large_times, torch, engine, spectral, dft, ops, configs,
+        sfs, fno_mod, pm_errs, large_counts, large_train_counts)
+    rows += large_rows
     log(f"serve window: {json.dumps(stats)}")
     log(f"train window: {json.dumps(train_stats)}")
     log(f"serve window, partial: {json.dumps(part_stats)}")
     log(f"train window, partial: {json.dumps(part_train)}")
     log(f"block forward, partial vs full: {json.dumps(part_block)}")
     log(f"fno3d partial request ms: {json.dumps(fno3d_ms)}")
+    log(f"{LARGE} serve windows: {json.dumps(large_stats)}")
+    log(f"{LARGE} train windows: {json.dumps(large_train)}")
+    log(f"{LARGE} row kernels and served block: {json.dumps(large_extra)}")
     log(f"phase seconds: {json.dumps(seconds)}")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -1,6 +1,6 @@
 // Fused FNO block for NVIDIA Hopper (sm_90a): one launch computes
 //
-//   z[b,o,s] = Re iDFT_pad( Σ_h DFT_trunc(x[b,h])·(wr + i·wi)[o,h] )[s]
+//   z[b,o,s] = Re iDFT_pad( Σ_h DFT_trunc(x[b,h])·(wr + i·wi)[o,h(,k)] )[s]
 //              + Σ_h wb[o,h]·x[b,h,s] + bias[o]
 //
 // and writes one of three epilogues of it (`act`):
@@ -13,8 +13,9 @@
 //               no wb and no bias, the bare spectral layer.
 //
 // Replaces the TPU kernel repro/kernels/engine.py::fused_fnond_call
-// (_make_fwd_kernel, engine.py:161-427) in those three modes (shared
-// weights, optional bypass and bias epilogue, no lift/proj). Spatial rank
+// (_make_fwd_kernel, engine.py:161-427) in those three modes, with shared
+// weights W[o,h] or per-mode weights W[o,h,k_1..k_R] (the classic FNO
+// layout), optional bypass and bias epilogue, no lift/proj. Spatial rank
 // R ∈ {1,2,3}; element type float or __nv_bfloat16 for x, gy, the weights
 // and the DFT operands; every sum accumulates in f32; the output is written
 // once, at the element type or (out_f32) in f32.
@@ -39,9 +40,16 @@
 //     hidden channels, streaming x over s_1 chunks, and keeps the spectra
 //     A[h, k_1..k_R] (complex, f32) in its own shared memory;
 //   * phase 2 — after a cluster barrier, block r forms the CGEMM
-//     C[o,k] = Σ_h W[o,h]·A[h,k] for its slice of out channels, reading the
-//     other blocks' spectra through distributed shared memory: the spectrum
-//     never touches device memory, and no block recomputes another's DFTs;
+//     C[o,k] = Σ_h W[o,h(,k)]·A[h,k] for its slice of out channels, reading
+//     the other blocks' spectra through distributed shared memory: the
+//     spectrum never touches device memory, and no block recomputes
+//     another's DFTs. Shared weights sit in shared memory; per-mode weights
+//     (at fno2d-large 8 MB per out slice in f32) cannot, so each thread
+//     streams its modes' weights from device memory, neighbouring threads
+//     on neighbouring modes (coalesced). Every cluster reads all of W, so a
+//     batch of B reads it B times: 1.07 GB per launch at fno2d-large B=8.
+//     W is read through element strides of its out and hidden axes, so dx
+//     takes the [H,O(,K)] swap as a view, without a copy;
 //   * phase 3 — per s_1 chunk, the padded inverse chain (s_1 first, real irDFT
 //     on s_R last), then the bypass Σ_h wb·x re-read from L2 (one sample's x
 //     is a few MiB), + bias, the epilogue, and a single write.
@@ -75,8 +83,8 @@ enum Act { kGelu = 0, kGeluVjp = 1, kLinear = 2 };
 template <typename T>
 struct Args {
   const T* x;     // [B, H, n_1..n_R]
-  const T* wr;    // [O, H]
-  const T* wi;    // [O, H]
+  const T* wr;    // [O, H] shared, or [O, H, K] per-mode, at the strides
+  const T* wi;    // below over O and H (modes contiguous)
   const T* wb;    // [O, H], or null: no bypass (the bare spectral layer)
   const T* bias;  // [O], or null: no bias
   const T* gy;    // [B, O, n_1..n_R] for act=gelu_vjp, else null
@@ -88,11 +96,14 @@ struct Args {
   int n[3], k[3];  // extents and modes, axis order 1..R (unused = 1)
   int hs, os;      // hidden / out channels per block of the cluster
   int rows_f, rows_i;  // s_1 rows per forward / inverse chunk
+  long long w_so, w_sh;  // W's element strides of o and h
 };
 
 // kBypass=false (wb null) compiles the bare spectral layer: no wb loads and
 // no bypass loop, while the bypass path keeps its code unchanged.
-template <int R, typename T, bool kBypass>
+// kPerMode=true reads per-mode weights from device memory in phase 2;
+// kPerMode=false stages the shared weights' rows in shared memory.
+template <int R, typename T, bool kBypass, bool kPerMode>
 __global__ void __launch_bounds__(kThreads)
 fused_block_kernel(const Args<T> a) {
   extern __shared__ float smem[];
@@ -110,22 +121,26 @@ fused_block_kernel(const Args<T> a) {
   const int o0 = rank * os, no = max(0, min(os, O - o0));
 
   // Shared memory: spectra A of my hidden slice, CGEMM result C of my out
-  // slice, my rows of the weights, then the work area of phases 1 and 3.
+  // slice, my rows of the weights (wb only, with per-mode W), then the work
+  // area of phases 1 and 3.
   float* Ar = smem;
   float* Ai = Ar + hs * K;
   float* Cr = Ai + hs * K;
   float* Ci = Cr + os * K;
   float* Wr = Ci + os * K;
-  float* Wi = Wr + os * H;
-  float* Wb = Wi + os * H;
+  float* Wi = Wr + (kPerMode ? 0 : os * H);
+  float* Wb = Wi + (kPerMode ? 0 : os * H);
   float* Bs = Wb + os * H;
   float* work = Bs + kMaxOut;
 
   for (int i = tid; i < no * H; i += kThreads) {
-    const int gi = (o0 + i / H) * H + i % H;
-    Wr[i] = ld(a.wr + gi);
-    Wi[i] = ld(a.wi + gi);
-    Wb[i] = kBypass ? ld(a.wb + gi) : 0.f;
+    const int o = o0 + i / H, h = i % H;
+    if (!kPerMode) {
+      const size_t at = o * a.w_so + h * a.w_sh;
+      Wr[i] = ld(a.wr + at);
+      Wi[i] = ld(a.wi + at);
+    }
+    Wb[i] = kBypass ? ld(a.wb + o * H + h) : 0.f;
   }
   for (int i = tid; i < no; i += kThreads)
     Bs[i] = a.bias ? ld(a.bias + o0 + i) : 0.f;
@@ -140,8 +155,10 @@ fused_block_kernel(const Args<T> a) {
   cluster.sync();
 
   // Phase 2: CGEMM over the whole hidden axis, reading every block's spectra
-  // through distributed shared memory.
+  // through distributed shared memory. Per-mode: W[o0 + o, h, kk] at
+  // wbase + o·w_so + h·w_sh.
   for (int kk = tid; kk < PHASE_BOUND(2, K); kk += kThreads) {
+    const size_t wbase = static_cast<size_t>(o0) * a.w_so + kk;
     float cr[kMaxOut], ci[kMaxOut];
 #pragma unroll
     for (int o = 0; o < kMaxOut; ++o) cr[o] = ci[o] = 0.f;
@@ -157,7 +174,15 @@ fused_block_kernel(const Args<T> a) {
 #pragma unroll
         for (int o = 0; o < kMaxOut; ++o) {
           if (o < no) {
-            const float wr = Wr[o * H + h], wi = Wi[o * H + h];
+            float wr, wi;
+            if (kPerMode) {
+              const size_t at = wbase + o * a.w_so + h * a.w_sh;
+              wr = ld(a.wr + at);
+              wi = ld(a.wi + at);
+            } else {
+              wr = Wr[o * H + h];
+              wi = Wi[o * H + h];
+            }
             cr[o] = fmaf(wr, ar, fmaf(-wi, ai, cr[o]));
             ci[o] = fmaf(wr, ai, fmaf(wi, ar, ci[o]));
           }
@@ -265,35 +290,46 @@ fused_block_kernel(const Args<T> a) {
   }
 }
 
-template <int R, typename T, bool kBypass>
+template <int R, typename T, bool kBypass, bool kPerMode>
 cudaError_t launch_kernel(const Args<T>& a, int batch, int cl,
                           int smem_bytes, cudaStream_t stream) {
+  auto* kernel = fused_block_kernel<R, T, kBypass, kPerMode>;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = fno::configure(fused_block_kernel<R, T, kBypass>, batch,
-                                   cl, smem_bytes, stream, &cfg, &attr);
+  cudaError_t err = fno::configure(kernel, batch, cl, smem_bytes, stream,
+                                   &cfg, &attr);
   if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&cfg, fused_block_kernel<R, T, kBypass>, a);
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+template <int R, typename T, bool kPerMode>
+cudaError_t launch_mode(const Args<T>& a, int batch, int cl, int smem_bytes,
+                        cudaStream_t stream) {
+  return a.wb ? launch_kernel<R, T, true, kPerMode>(a, batch, cl, smem_bytes,
+                                                    stream)
+              : launch_kernel<R, T, false, kPerMode>(a, batch, cl,
+                                                     smem_bytes, stream);
+}
+
 template <int R, typename T>
-cudaError_t launch(const Args<T>& a, int batch, int cl, int smem_bytes,
-                   cudaStream_t stream) {
-  return a.wb ? launch_kernel<R, T, true>(a, batch, cl, smem_bytes, stream)
-              : launch_kernel<R, T, false>(a, batch, cl, smem_bytes, stream);
+cudaError_t launch(const Args<T>& a, int per_mode, int batch, int cl,
+                   int smem_bytes, cudaStream_t stream) {
+  return per_mode
+             ? launch_mode<R, T, true>(a, batch, cl, smem_bytes, stream)
+             : launch_mode<R, T, false>(a, batch, cl, smem_bytes, stream);
 }
 
 template <typename T>
 int max_clusters_for(int rank, int cl, int smem_bytes, int* n) {
   switch (rank) {
-    case 1: return static_cast<int>(
-        fno::max_clusters(fused_block_kernel<1, T, true>, cl, smem_bytes, n));
-    case 2: return static_cast<int>(
-        fno::max_clusters(fused_block_kernel<2, T, true>, cl, smem_bytes, n));
-    case 3: return static_cast<int>(
-        fno::max_clusters(fused_block_kernel<3, T, true>, cl, smem_bytes, n));
+    case 1: return static_cast<int>(fno::max_clusters(
+        fused_block_kernel<1, T, true, false>, cl, smem_bytes, n));
+    case 2: return static_cast<int>(fno::max_clusters(
+        fused_block_kernel<2, T, true, false>, cl, smem_bytes, n));
+    case 3: return static_cast<int>(fno::max_clusters(
+        fused_block_kernel<3, T, true, false>, cl, smem_bytes, n));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -302,7 +338,7 @@ template <typename T>
 int dispatch(int rank, int act, int out_f32, const void* x, const void* wr,
              const void* wi, const void* wb, const void* bias, const void* gy,
              const void* const* mats, void* y, const int* dims,
-             const int* plan, void* stream) {
+             const int* plan, const int* wl, void* stream) {
   Args<T> a = {};
   a.x = static_cast<const T*>(x);
   a.wr = static_cast<const T*>(wr);
@@ -332,15 +368,21 @@ int dispatch(int rank, int act, int out_f32, const void* x, const void* wr,
   a.rows_f = plan[3];
   a.rows_i = plan[4];
   const int smem_bytes = plan[5];
+  const int per_mode = wl[0];
+  a.w_so = wl[1];
+  a.w_sh = wl[2];
   if (a.os > kMaxOut || act < kGelu || act > kLinear ||
       (act == kGeluVjp) != (gy != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (rank) {
-    case 1: return static_cast<int>(launch<1, T>(a, batch, cl, smem_bytes, s));
-    case 2: return static_cast<int>(launch<2, T>(a, batch, cl, smem_bytes, s));
-    case 3: return static_cast<int>(launch<3, T>(a, batch, cl, smem_bytes, s));
+    case 1: return static_cast<int>(
+        launch<1, T>(a, per_mode, batch, cl, smem_bytes, s));
+    case 2: return static_cast<int>(
+        launch<2, T>(a, per_mode, batch, cl, smem_bytes, s));
+    case 3: return static_cast<int>(
+        launch<3, T>(a, per_mode, batch, cl, smem_bytes, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -354,6 +396,8 @@ int dispatch(int rank, int act, int out_f32, const void* x, const void* wr,
 // mats: 4·rank device pointers (forward re/im per stage, then inverse).
 // dims: {B, H, O, n_1, n_2, n_3, k_1, k_2, k_3}.
 // plan: {cluster, hidden/block, out/block, rows_f, rows_i, smem bytes}.
+// wl: {per_mode, stride of o, stride of h}: wr, wi are [O, H] (per_mode =
+// 0) or [O, H, K] with the modes contiguous, at these element strides.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int fused_block_forward(int dtype, int rank, int act, int out_f32,
                                    const void* x, const void* wr,
@@ -361,14 +405,14 @@ extern "C" int fused_block_forward(int dtype, int rank, int act, int out_f32,
                                    const void* bias, const void* gy,
                                    const void* const* mats, void* y,
                                    const int* dims, const int* plan,
-                                   void* stream) {
+                                   const int* wl, void* stream) {
   if (dtype == 0) {
     return dispatch<float>(rank, act, out_f32, x, wr, wi, wb, bias, gy, mats,
-                           y, dims, plan, stream);
+                           y, dims, plan, wl, stream);
   }
   if (dtype == 1) {
     return dispatch<__nv_bfloat16>(rank, act, out_f32, x, wr, wi, wb, bias,
-                                   gy, mats, y, dims, plan, stream);
+                                   gy, mats, y, dims, plan, wl, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,14 +3,17 @@
 // axes (s_2..s_R) were already transformed by the row kernels:
 //
 //   A[h,k_1]   = Σ_{i<s_1} z[b,h,i,p] · f[i,k_1]   truncated cDFT along s_1
-//   C[o,k_1]   = Σ_h (wr + i·wi)[o,h] · A[h,k_1]     CGEMM over hidden
+//   C[o,k_1]   = Σ_h (wr + i·wi)[o,h(,k_1,p)] · A[h,k_1]   CGEMM over hidden
 //   y[b,p,o,j] = Σ_{k_1} C[o,k_1] · g[k_1,j]       padded icDFT along s_1
 //
 // z is the complex pair [B, H, s_1, P] with P = Π(K_R..K_2) flattened, so one
 // kernel serves every rank; y is the pair [B, P, O, s_1], the reference's
-// layout ([B, K_R..K_2, O, s_1]). Replaces the TPU kernel
-// repro/kernels/engine.py::fused_fnond_core_call (_make_core_kernel), shared
-// weights. Element type float or __nv_bfloat16 for z, the weights and the
+// layout ([B, K_R..K_2, O, s_1]) with either weights. Replaces the TPU
+// kernel repro/kernels/engine.py::fused_fnond_core_call (_make_core_kernel)
+// with shared weights [O,H] or per-mode weights [O,H,K_1,K_2..K_R] (whose
+// per-mode output layout [K_R..K_2,B,O,s_1] the port does not copy: the
+// caller's permute is the same for both). Element type float or
+// __nv_bfloat16 for z, the weights and the
 // operands; every stage accumulates in f32 and the spectra A and C stay f32
 // in shared memory; y is written once, at the element type.
 //
@@ -29,6 +32,11 @@
 // threads, two per SM. Each thread keeps kTP outputs so that one operand
 // load feeds kTP multiply-adds. z is gathered with stride P (a block reads
 // one column); the neighbouring columns' blocks share those sectors in L2.
+// Per-mode weights for one column are O·H·K_1 values (4 MB in f32 at
+// fno2d-large), too many for shared memory: the CGEMM reads them from
+// device memory, each (o, h, k_1) one value of a P-long run that the
+// column's neighbours share, so a launch reads W once per sample and
+// uses 4 of every 32 bytes a load fetches.
 #include "fno_common.cuh"
 
 namespace {
@@ -57,24 +65,29 @@ struct Args {
   T* yr;        // [B, P, O, n1]
   T* yi;
   int H, O, n1, K1, P;
+  int K2;       // per-mode: K_2, which decodes p = (k_R..k_2)
   int rows;     // s_1 rows per chunk of the forward stage
 };
 
-template <typename T>
+template <typename T, bool kPerMode>
 __global__ void __launch_bounds__(kThreads) fused_core_kernel(const Args<T> a) {
   const int H = a.H, O = a.O, n1 = a.n1, K1 = a.K1, P = a.P;
   const int p = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  // Shared memory: the weights, the spectrum A, then a work area that holds
-  // a chunk of z in the forward stage and C after it.
+  // Shared memory: the shared weights, the spectrum A, then a work area
+  // that holds a chunk of z in the forward stage and C after it.
   float* Wr = dyn_smem();
-  float* Wi = Wr + O * H;
-  float* Ar = Wi + O * H;        // [H][K1]
+  float* Wi = Wr + (kPerMode ? 0 : O * H);
+  float* Ar = Wi + (kPerMode ? 0 : O * H);  // [H][K1]
   float* Ai = Ar + H * K1;
   float* work = Ai + H * K1;
-  for (int i = tid; i < O * H; i += kThreads) {
+  for (int i = tid; i < (kPerMode ? 0 : O * H); i += kThreads) {
     Wr[i] = ld(a.wr + i);
     Wi[i] = ld(a.wi + i);
   }
+  // Per-mode: W[o,h,k_1,k_2..k_R] of this column at
+  // ((o·H + h)·K1 + k_1)·P + pm, with p = k_R·…·K_2 + k_2 the spectrum's
+  // (reversed) order and pm the weight's (k_2..k_R) order.
+  const int pm = (p % a.K2) * (P / a.K2) + p / a.K2;
   for (int i = tid; i < H * K1; i += kThreads) Ar[i] = Ai[i] = 0.f;
 
   // Truncated cDFT along s_1, streamed over chunks of rows:
@@ -134,7 +147,16 @@ __global__ void __launch_bounds__(kThreads) fused_core_kernel(const Args<T> a) {
 #pragma unroll
       for (int u = 0; u < kTP; ++u) {
         const int o = min(o0 + u, O - 1);
-        const float wr = Wr[o * H + h], wi = Wi[o * H + h];
+        float wr, wi;
+        if (kPerMode) {
+          const size_t at =
+              (static_cast<size_t>(o * H + h) * K1 + k) * P + pm;
+          wr = ld(a.wr + at);
+          wi = ld(a.wi + at);
+        } else {
+          wr = Wr[o * H + h];
+          wi = Wi[o * H + h];
+        }
         cr[u] = fmaf(wr, ar, fmaf(-wi, ai, cr[u]));
         ci[u] = fmaf(wr, ai, fmaf(wi, ar, ci[u]));
       }
@@ -199,14 +221,17 @@ int launch(const void* const* ptrs, void* yr, void* yi, const int* dims,
   a.n1 = dims[3];
   a.K1 = dims[4];
   a.P = dims[5];
+  const int per_mode = dims[6];
+  a.K2 = dims[7];
   a.rows = rows;
   if (batch < 1 || a.H < 1 || a.O < 1 || a.n1 < 1 || a.K1 < 1 || a.P < 1 ||
-      rows < 1) {
+      rows < 1 || a.K2 < 1 || a.P % a.K2 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  auto* kernel = per_mode ? fused_core_kernel<T, true>
+                          : fused_core_kernel<T, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_core_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.P, batch, 1);
@@ -215,7 +240,7 @@ int launch(const void* const* ptrs, void* yr, void* yi, const int* dims,
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = nullptr;
   cfg.numAttrs = 0;
-  err = cudaLaunchKernelEx(&cfg, fused_core_kernel<T>, a);
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -224,10 +249,11 @@ int launch(const void* const* ptrs, void* yr, void* yi, const int* dims,
 
 // C entry, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16 (z, the
 // weights, the operands and y). ptrs: device pointers {zr, zi, wr, wi, fr,
-// fi, gr, gi}; yr, yi: the outputs [B, P, O, n1]. dims: {B, H, O, n1, K1, P}.
+// fi, gr, gi}; yr, yi: the outputs [B, P, O, n1]. dims: {B, H, O, n1, K1, P,
+// per_mode, K2}: per_mode = 1 takes wr, wi as [O, H, K1, K2..KR], contiguous.
 // rows: s_1 rows per forward chunk; smem_bytes: the block's dynamic shared
-// memory (4·(2·O·H + 2·H·K1 + max(2·H·rows, 2·O·K1))). Returns the
-// cudaError_t of the launch (0 on success).
+// memory (4·(2·O·H + 2·H·K1 + max(2·H·rows, 2·O·K1)), without the 2·O·H
+// per-mode). Returns the cudaError_t of the launch (0 on success).
 extern "C" int fused_core(int dtype, const void* const* ptrs, void* yr,
                           void* yi, const int* dims, int rows, int smem_bytes,
                           void* stream) {

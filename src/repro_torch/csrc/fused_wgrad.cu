@@ -3,7 +3,9 @@
 // one launch emits
 //
 //   dW  [O,H] = conj( Σ_{b,k} Ĝ[b,o,k]·A[b,h,k] )  (dwr, dwi: real part as
-//               is, imaginary part negated),
+//               is, imaginary part negated) for shared weights, or
+//   dW  [O,H,K] = conj( Σ_b Ĝ[b,o,k]·A[b,h,k] )  for per-mode weights (the
+//               parameter layout [O,H,k_1..k_R]),
 //   dW_b[O,H] = Σ_{b,s} gz[b,o,s]·x[b,h,s],
 //   dbias[O]  = Σ_{b,s} gz[b,o,s],
 //
@@ -11,7 +13,8 @@
 // chain of gz (the transposed inverse transforms), both formed here and
 // never written to device memory. Replaces the TPU kernel
 // repro/kernels/engine.py::fused_fnond_wgrad_call (_make_wgrad_kernel,
-// engine.py:561-699) with shared weights and with_bypass=True. Element type
+// engine.py:561-699) with shared or per-mode weights and with_bypass=True.
+// Element type
 // float or __nv_bfloat16 for x, gz and the operands; every sum accumulates
 // in f32 and the outputs are f32 (the reference emits them at the param
 // dtype, f32 under both precision presets).
@@ -44,6 +47,16 @@
 //     takes a ticket on its rank's counter; the last of the B blocks of rank
 //     r to arrive sums the B partials of out slice r in sample order and
 //     writes the outputs. The wrapper zeroes the counters for each launch.
+//   * per-mode weights: per-sample dW partials would take B·2·O·H·K floats
+//     (1.07 GB at fno2d-large B=8), so phase 2 instead writes the sample's
+//     spectra A and Ĝ of this block's channels to the workspace (2·(H+O)·K
+//     floats per sample, 16.8 MB there) and the last block of rank r forms
+//     dW[o,h,k] of out slice r from them, summing the samples in order
+//     (it reads every rank's A, so each cluster syncs after writing). It
+//     stages Ĝ of the whole batch over a chunk of modes in shared memory;
+//     each thread takes kHP hidden channels of one mode, so every staged Ĝ
+//     value feeds kHP complex multiply-adds. Only CL blocks do this
+//     reduction (16 of 132 SMs at fno2d-large).
 #include <cooperative_groups.h>
 
 #include "fno_common.cuh"
@@ -55,6 +68,7 @@ using fno::ld;
 namespace {
 
 constexpr int kMaxOut = 8;  // out channels per block (registers)
+constexpr int kHP = 2;      // hidden channels per thread, per-mode reduction
 
 // Loop bound of phase i (1..3) below. Built with -DFUSED_WGRAD_ELIDE=<mask>,
 // the phases whose bit (1 << i) is set run no iteration: the output is then
@@ -70,10 +84,11 @@ struct Args {
   const T* gz;      // [B, O, n_1..n_R]
   fno::Mats<T> fx;  // forward chain of x, stage i (axis R-i): [n, k]
   fno::Mats<T> fg;  // adjoint-forward chain of gz, stage i: [n, k]
-  float* ws;        // [B][3·O·H + O] per-sample partials
+  float* ws;        // [B][3·O·H + O (+ 2·(H+O)·K per-mode)] per-sample
+                    // partials, then the spectra A [2][H][K], Ĝ [2][O][K]
   unsigned* tickets;  // [cluster], zero at launch
-  float* dwr;       // [O, H]
-  float* dwi;       // [O, H]
+  float* dwr;       // [O, H], or [O, H, K] per-mode
+  float* dwi;       // same
   float* dwb;       // [O, H]
   float* dbias;     // [O]
   int H, O;
@@ -81,9 +96,10 @@ struct Args {
   int hs, os;       // hidden / out channels per block of the cluster
   int rows_f;       // s_1 rows per forward-chain chunk
   int cols;         // points per chunk of the dW_b reduction
+  int kc;           // per-mode: modes per chunk of the batch reduction
 };
 
-template <int R, typename T>
+template <int R, typename T, bool kPerMode>
 __global__ void __launch_bounds__(kThreads)
 fused_wgrad_kernel(const Args<T> a) {
   extern __shared__ float smem[];
@@ -97,8 +113,10 @@ fused_wgrad_kernel(const Args<T> a) {
   const int K = g.K, S = g.S, ldk = K + 1;
   const int h0 = rank * hs, nh = max(0, min(hs, H - h0));
   const int o0 = rank * os, no = max(0, min(os, O - o0));
-  const int wsn = 3 * O * H + O;  // floats of one sample's partials
+  // Floats of one sample's partials (and, per-mode, spectra).
+  const int wsn = 3 * O * H + O + (kPerMode ? 2 * (H + O) * K : 0);
   float* wsb = a.ws + static_cast<size_t>(b) * wsn;
+  float* wsp = wsb + 3 * O * H + O;  // per-mode spectra of this sample
 
   // Shared memory: spectra A of my hidden slice and Ĝ of my out slice, the
   // last-block flag, then the work area of each phase.
@@ -122,10 +140,29 @@ fused_wgrad_kernel(const Args<T> a) {
                            work);
   cluster.sync();
 
-  // Phase 2: dW[o,h] of this sample for my out slice and every h. Thread
-  // (h, kg) sums the modes k ≡ kg (mod KG) for all my o, then the KG
-  // partials are summed in a fixed order.
-  {
+  if constexpr (kPerMode) {
+    // Phase 2, per-mode: this sample's spectra of my channels to the
+    // workspace, for the batch reduction.
+    for (int i = tid; i < PHASE_BOUND(2, nh * K); i += kThreads) {
+      const int c = i / K, kk = i % K;
+      const size_t at = static_cast<size_t>(h0 + c) * K + kk;
+      wsp[at] = Ar[c * ldk + kk];
+      wsp[static_cast<size_t>(H) * K + at] = Ai[c * ldk + kk];
+    }
+    for (int i = tid; i < PHASE_BOUND(2, no * K); i += kThreads) {
+      const int c = i / K, kk = i % K;
+      const size_t at = static_cast<size_t>(2 * H + o0 + c) * K + kk;
+      wsp[at] = Gr[c * ldk + kk];
+      wsp[static_cast<size_t>(O) * K + at] = Gi[c * ldk + kk];
+    }
+    // The batch reduction of rank r reads every rank's A: each sample's
+    // blocks have all written theirs before any of them takes a ticket.
+    __threadfence();
+    cluster.sync();
+  } else {
+    // Phase 2: dW[o,h] of this sample for my out slice and every h. Thread
+    // (h, kg) sums the modes k ≡ kg (mod KG) for all my o, then the KG
+    // partials are summed in a fixed order.
     const int KG = kThreads / H;
     const int h = tid % H, kg = tid / H;
     float* red = work;  // [KG][2][os][H]
@@ -248,12 +285,16 @@ fused_wgrad_kernel(const Args<T> a) {
     float sr = 0.f, si = 0.f, sb = 0.f;
     for (int q = 0; q < nb; ++q) {
       const float* p = a.ws + static_cast<size_t>(q) * wsn;
-      sr += __ldcg(p + at);
-      si += __ldcg(p + O * H + at);
+      if (!kPerMode) {
+        sr += __ldcg(p + at);
+        si += __ldcg(p + O * H + at);
+      }
       sb += __ldcg(p + 2 * O * H + at);
     }
-    a.dwr[at] = sr;
-    a.dwi[at] = si;
+    if (!kPerMode) {
+      a.dwr[at] = sr;
+      a.dwi[at] = si;
+    }
     a.dwb[at] = sb;
   }
   for (int o = tid; o < no; o += kThreads) {
@@ -262,30 +303,105 @@ fused_wgrad_kernel(const Args<T> a) {
       s += __ldcg(a.ws + static_cast<size_t>(q) * wsn + 3 * O * H + o0 + o);
     a.dbias[o0 + o] = s;
   }
+  if constexpr (kPerMode) {
+    // dW[o,h,k] = conj(Σ_b Ĝ[b,o,k]·A[b,h,k]) for my out slice, over chunks
+    // of kc modes: Ĝ of the whole batch staged as gs[b][2][os][kc], A read
+    // from the workspace (coalesced over k), samples summed in order.
+    const int kc = a.kc;
+    const size_t spo = 3 * O * H + O;  // the spectra's offset in a sample
+    float* gs = work;
+    const int hg = (H + kHP - 1) / kHP;
+    for (int k0 = 0; k0 < K; k0 += kc) {
+      const int nk = min(kc, K - k0);
+      __syncthreads();  // the previous chunk is consumed
+      for (int i = tid; i < nb * 2 * no * nk; i += kThreads) {
+        const int kk = i % nk, o = i / nk % no, c = i / nk / no % 2;
+        const int q = i / nk / no / 2;
+        const float* g = a.ws + static_cast<size_t>(q) * wsn + spo +
+                         static_cast<size_t>(2 * H + c * O + o0 + o) * K;
+        gs[((q * 2 + c) * os + o) * kc + kk] = __ldcg(g + k0 + kk);
+      }
+      __syncthreads();
+      for (int idx = tid; idx < hg * nk; idx += kThreads) {
+        const int kk = idx % nk, hq = idx / nk * kHP;
+        float accr[kHP][kMaxOut], acci[kHP][kMaxOut];
+#pragma unroll
+        for (int u = 0; u < kHP; ++u) {
+#pragma unroll
+          for (int o = 0; o < kMaxOut; ++o) accr[u][o] = acci[u][o] = 0.f;
+        }
+        for (int q = 0; q < nb; ++q) {
+          const float* sp = a.ws + static_cast<size_t>(q) * wsn + spo + k0 +
+                            kk;
+          float ar[kHP], ai[kHP];
+#pragma unroll
+          for (int u = 0; u < kHP; ++u) {
+            const size_t h = min(hq + u, H - 1);
+            ar[u] = __ldcg(sp + h * K);
+            ai[u] = __ldcg(sp + (H + h) * K);
+          }
+          const float* g = gs + (q * 2 * os) * kc + kk;
+#pragma unroll
+          for (int o = 0; o < kMaxOut; ++o) {
+            if (o < no) {
+              const float gr = g[o * kc], gi = g[(os + o) * kc];
+#pragma unroll
+              for (int u = 0; u < kHP; ++u) {
+                accr[u][o] = fmaf(gr, ar[u], fmaf(-gi, ai[u], accr[u][o]));
+                acci[u][o] = fmaf(gr, ai[u], fmaf(gi, ar[u], acci[u][o]));
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kHP; ++u) {
+          if (hq + u >= H) break;
+#pragma unroll
+          for (int o = 0; o < kMaxOut; ++o) {
+            if (o < no) {
+              const size_t at =
+                  (static_cast<size_t>(o0 + o) * H + hq + u) * K + k0 + kk;
+              a.dwr[at] = accr[u][o];
+              a.dwi[at] = -acci[u][o];  // conj
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int R, typename T, bool kPerMode>
+cudaError_t launch_kernel(const Args<T>& a, int batch, int cl,
+                          int smem_bytes, cudaStream_t stream) {
+  auto* kernel = fused_wgrad_kernel<R, T, kPerMode>;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = fno::configure(kernel, batch, cl, smem_bytes, stream,
+                                   &cfg, &attr);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 template <int R, typename T>
-cudaError_t launch(const Args<T>& a, int batch, int cl, int smem_bytes,
-                   cudaStream_t stream) {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cudaError_t err = fno::configure(fused_wgrad_kernel<R, T>, batch, cl,
-                                   smem_bytes, stream, &cfg, &attr);
-  if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&cfg, fused_wgrad_kernel<R, T>, a);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+cudaError_t launch(const Args<T>& a, int per_mode, int batch, int cl,
+                   int smem_bytes, cudaStream_t stream) {
+  return per_mode
+             ? launch_kernel<R, T, true>(a, batch, cl, smem_bytes, stream)
+             : launch_kernel<R, T, false>(a, batch, cl, smem_bytes, stream);
 }
 
 template <typename T>
 int max_clusters_for(int rank, int cl, int smem_bytes, int* n) {
   switch (rank) {
-    case 1: return static_cast<int>(
-        fno::max_clusters(fused_wgrad_kernel<1, T>, cl, smem_bytes, n));
-    case 2: return static_cast<int>(
-        fno::max_clusters(fused_wgrad_kernel<2, T>, cl, smem_bytes, n));
-    case 3: return static_cast<int>(
-        fno::max_clusters(fused_wgrad_kernel<3, T>, cl, smem_bytes, n));
+    case 1: return static_cast<int>(fno::max_clusters(
+        fused_wgrad_kernel<1, T, false>, cl, smem_bytes, n));
+    case 2: return static_cast<int>(fno::max_clusters(
+        fused_wgrad_kernel<2, T, false>, cl, smem_bytes, n));
+    case 3: return static_cast<int>(fno::max_clusters(
+        fused_wgrad_kernel<3, T, false>, cl, smem_bytes, n));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -323,14 +439,20 @@ int dispatch(int rank, const void* x, const void* gz,
   a.rows_f = plan[3];
   a.cols = plan[4];
   const int smem_bytes = plan[5];
-  if (a.os > kMaxOut || a.H > kThreads || a.cols < 1) {
+  const int per_mode = plan[6];
+  a.kc = plan[7];
+  if (a.os > kMaxOut || a.H > kThreads || a.cols < 1 ||
+      (per_mode && a.kc < 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (rank) {
-    case 1: return static_cast<int>(launch<1, T>(a, batch, cl, smem_bytes, s));
-    case 2: return static_cast<int>(launch<2, T>(a, batch, cl, smem_bytes, s));
-    case 3: return static_cast<int>(launch<3, T>(a, batch, cl, smem_bytes, s));
+    case 1: return static_cast<int>(
+        launch<1, T>(a, per_mode, batch, cl, smem_bytes, s));
+    case 2: return static_cast<int>(
+        launch<2, T>(a, per_mode, batch, cl, smem_bytes, s));
+    case 3: return static_cast<int>(
+        launch<3, T>(a, per_mode, batch, cl, smem_bytes, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -339,10 +461,12 @@ int dispatch(int rank, const void* x, const void* gz,
 
 // C entry, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16 (x, gz,
 // operands). mats: 4·rank device pointers (the x chain's re/im per stage,
-// then the gz chain's). ws: B·(3·O·H + O) floats of scratch; tickets:
-// `cluster` zeroed unsigned ints. outs: {dwr, dwi, dwb [O,H], dbias [O]},
-// float32. dims: {B, H, O, n_1, n_2, n_3, k_1, k_2, k_3}.
-// plan: {cluster, hidden/block, out/block, rows_f, cols, smem bytes}.
+// then the gz chain's). ws: B·(3·O·H + O) floats of scratch, plus
+// B·2·(H+O)·K per-mode; tickets: `cluster` zeroed unsigned ints. outs:
+// {dwr, dwi [O,H] (per-mode [O,H,K]), dwb [O,H], dbias [O]}, float32.
+// dims: {B, H, O, n_1, n_2, n_3, k_1, k_2, k_3}.
+// plan: {cluster, hidden/block, out/block, rows_f, cols, smem bytes,
+// per_mode, modes per chunk of the per-mode batch reduction}.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int fused_wgrad(int dtype, int rank, const void* x, const void* gz,
                            const void* const* mats, void* ws, void* tickets,

@@ -4,9 +4,10 @@ counts.
 Counterpart of ``repro/kernels/engine.py``:
 
 * ``fused_block`` — ``fused_fnond_call`` with the block epilogue
-  (``csrc/fused_block.cu``), shared weights, in three modes:
+  (``csrc/fused_block.cu``), shared [O,H] or per-mode [O,H,k_1..k_R]
+  weights, in three modes:
 
-      z = Re iDFT_pad(Σ_h DFT_trunc(x_h)·(wr+i·wi)[o,h]) + Σ_h wb[o,h]·x_h
+      z = Re iDFT_pad(Σ_h DFT_trunc(x_h)·(wr+i·wi)[o,h(,k)]) + Σ_h wb[o,h]·x_h
           (+ bias[o])
       act="gelu"      y  = gelu_tanh(z)       the block forward;
       act="gelu_vjp"  gz = gy·gelu_tanh'(z)   the backward's recompute;
@@ -17,12 +18,15 @@ Counterpart of ``repro/kernels/engine.py``:
   layer, the rank-1 partial variant's forward.
 
 * ``fused_wgrad`` — ``fused_fnond_wgrad_call(with_bypass=True)``
-  (``csrc/fused_wgrad.cu``): dW = conj(Σ Ĝ·A), dW_b = Σ gz·xᵀ, dbias = Σ gz.
+  (``csrc/fused_wgrad.cu``): dW = conj(Σ Ĝ·A) (summed over the modes for
+  shared weights, one per mode for per-mode ones), dW_b = Σ gz·xᵀ,
+  dbias = Σ gz.
 
 * ``fused_core`` — ``fused_fnond_core_call`` (``csrc/fused_core.cu``), the
   partial variant's middle: truncated cDFT along s_1 → CGEMM → padded icDFT
   along s_1 on a spectrum whose outer axes are already transformed
-  (``kernels.dft`` holds the row kernels around it).
+  (``kernels.dft`` holds the row kernels around it), shared or per-mode
+  weights.
 
 Each wrapper validates its operands, plans its launch and launches on a CUDA
 tensor, and runs its plain version on a CPU tensor; on a CUDA tensor it
@@ -122,7 +126,12 @@ def fused_block_plain(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
     m = [t.to(_F32) for t in mats]
     zr, zi = _chain(x, m[:2 * r])
     w_r, w_i = wr.to(_F32), wi.to(_F32)
-    cg = lambda a, w: torch.tensordot(a, w, dims=([1], [1]))
+    if wr.ndim == 2:
+        cg = lambda a, w: torch.tensordot(a, w, dims=([1], [1]))
+    else:  # per-mode: the spectrum is K_R..K_1, the weight K_1..K_R
+        fwd = "uvw"[:r]
+        eq = f"bh{fwd[::-1]},oh{fwd}->b{fwd[::-1]}o"
+        cg = lambda a, w: torch.einsum(eq, a, w)
     tr, ti = cg(zr, w_r) - cg(zi, w_i), cg(zr, w_i) + cg(zi, w_r)
     inv = m[2 * r:]
     for i in range(r):  # [B,K_R..K_1,O] -> [B,O,s_1..s_R]
@@ -144,8 +153,8 @@ def fused_block_plain(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
 
 
 def fused_wgrad_plain(x: torch.Tensor, gz: torch.Tensor,
-                      mats: Sequence[torch.Tensor]
-                      ) -> Tuple[torch.Tensor, ...]:
+                      mats: Sequence[torch.Tensor], *,
+                      per_mode: bool = False) -> Tuple[torch.Tensor, ...]:
     """The weight-gradient kernel's function in plain PyTorch, in f32.
     Arguments and results as ``fused_wgrad``."""
     r = x.ndim - 2
@@ -154,8 +163,13 @@ def fused_wgrad_plain(x: torch.Tensor, gz: torch.Tensor,
     gr, gi = _chain(gz, m[2 * r:])
     red = [0] + list(range(2, 2 + r))  # batch and every spectral axis
     dot = lambda p, q: torch.tensordot(p, q, dims=(red, red))
-    dwr = dot(gr, ar) - dot(gi, ai)
-    dwi = -(dot(gr, ai) + dot(gi, ar))  # conj
+    sdot = dot
+    if per_mode:  # batch only; dW in the parameter layout [O,H,K_1..K_R]
+        fwd = "uvw"[:r]
+        eq = f"bo{fwd[::-1]},bh{fwd[::-1]}->oh{fwd}"
+        sdot = lambda p, q: torch.einsum(eq, p, q)
+    dwr = sdot(gr, ar) - sdot(gi, ai)
+    dwi = -(sdot(gr, ai) + sdot(gi, ar))  # conj
     g32 = gz.to(_F32)
     dwb = dot(g32, x.to(_F32))
     dbias = g32.sum(dim=red).reshape(-1, 1)
@@ -173,7 +187,12 @@ def fused_core_plain(zr: torch.Tensor, zi: torch.Tensor, wr: torch.Tensor,
     z_r, z_i = f(zr).movedim(2, -1), f(zi).movedim(2, -1)  # [B,H,…,s_1]
     a_r = z_r @ f(fr) - z_i @ f(fi)                       # [B,H,…,K_1]
     a_i = z_r @ f(fi) + z_i @ f(fr)
-    cg = lambda a, w: torch.einsum("oh,bh...k->b...ok", f(w), a)
+    if wr.ndim == 2:
+        eq = "oh,bh...k->b...ok"
+    else:  # per-mode [O,H,K_1,K_2..K_R] against A [B,H,K_R..K_2,K_1]
+        spec = "pqr"[:zr.ndim - 3]
+        eq = f"ohk{spec},bh{spec[::-1]}k->b{spec[::-1]}ok"
+    cg = lambda a, w: torch.einsum(eq, f(w), a)
     c_r = cg(a_r, wr) - cg(a_i, wi)                       # [B,…,O,K_1]
     c_i = cg(a_i, wr) + cg(a_r, wi)
     y_r = c_r @ f(gr) - c_i @ f(gi)                       # [B,…,O,s_1]
@@ -219,11 +238,33 @@ def _check_smem(smem: int, what: str, hidden, out, spatial, modes) -> None:
             f"(limit {_SMEM_LIMIT}); this shape needs a tiled kernel")
 
 
+def _grow(plan_fn: Callable, max_cluster: int, *args) -> Dict[str, int]:
+    """`plan_fn` at `max_cluster`, or at Hopper's clusters of 16 when the
+    smaller cluster cannot hold the shape (too many out channels per block
+    or too much shared memory); raises the larger cluster's ValueError when
+    neither can."""
+    try:
+        return plan_fn(*args, max_cluster)
+    except ValueError:
+        if max_cluster >= _MAX_CLUSTER:
+            raise
+        return plan_fn(*args, _MAX_CLUSTER)
+
+
 def launch_plan(hidden: int, out: int, spatial: Sequence[int],
-                modes: Sequence[int],
-                max_cluster: int = _PORTABLE_CLUSTER) -> Dict[str, int]:
+                modes: Sequence[int], max_cluster: int = _PORTABLE_CLUSTER,
+                per_mode: bool = False) -> Dict[str, int]:
     """The block kernel's cluster size, channel slices, chunk rows and
-    shared memory; raises ValueError for shapes the kernel cannot hold."""
+    shared memory, at clusters of up to `max_cluster` blocks or of 16 when
+    those cannot hold the shape; raises ValueError for shapes the kernel
+    cannot hold. Shared weights are staged in shared memory (3 rows of
+    [os,H]: wr, wi, wb); per-mode weights [O,H,K] are read from device
+    memory as the CGEMM streams over the modes, so only wb is staged."""
+    return _grow(_launch_plan, max_cluster, hidden, out, spatial, modes,
+                 per_mode)
+
+
+def _launch_plan(hidden, out, spatial, modes, per_mode, max_cluster):
     r = len(spatial)
     n = list(spatial) + [1] * (3 - r)
     k = list(modes) + [1] * (3 - r)
@@ -236,7 +277,8 @@ def launch_plan(hidden: int, out: int, spatial: Sequence[int],
     inv = os_ * rows_i * p + (2 * os_ * rows_i * kp if r >= 2 else 0)
     if r == 3:
         inv += 2 * os_ * rows_i * n[1] * k[2]
-    floats = 2 * hs * kk + 2 * os_ * kk + 3 * os_ * hidden + _MAX_OUT
+    w_rows = 1 if per_mode else 3
+    floats = 2 * hs * kk + 2 * os_ * kk + w_rows * os_ * hidden + _MAX_OUT
     smem = 4 * (floats + max(fwd, inv))
     _check_smem(smem, "fused block kernel", hidden, out, spatial, modes)
     return {"cluster": cl, "hs": hs, "os": os_, "rows_f": rows_f,
@@ -244,10 +286,19 @@ def launch_plan(hidden: int, out: int, spatial: Sequence[int],
 
 
 def wgrad_plan(hidden: int, out: int, spatial: Sequence[int],
-               modes: Sequence[int],
-               max_cluster: int = _PORTABLE_CLUSTER) -> Dict[str, int]:
+               modes: Sequence[int], max_cluster: int = _PORTABLE_CLUSTER,
+               per_mode: bool = False) -> Dict[str, int]:
     """The weight-gradient kernel's cluster size, channel slices, chunk
-    sizes and shared memory; raises ValueError for shapes it cannot hold."""
+    sizes, work area (floats) and shared memory, at clusters of up to
+    `max_cluster` blocks or of 16 when those cannot hold the shape; raises
+    ValueError for shapes it cannot hold. With per-mode weights the work
+    area also stages the batch's Ĝ over a chunk of modes in the batch
+    reduction (``wgrad_mode_chunk``)."""
+    return _grow(_wgrad_plan, max_cluster, hidden, out, spatial, modes,
+                 per_mode)
+
+
+def _wgrad_plan(hidden, out, spatial, modes, per_mode, max_cluster):
     if hidden > _THREADS:
         raise ValueError(f"fused wgrad kernel takes at most {_THREADS} "
                          f"hidden channels, got {hidden}")
@@ -261,23 +312,39 @@ def wgrad_plan(hidden: int, out: int, spatial: Sequence[int],
     rows_f, fwd = _chain_rows(spatial, modes)
     cols = min(pts, _WGRAD_COLS)
     groups = _THREADS // hidden  # mode / point groups per hidden channel
-    work = max(fwd, 2 * groups * os_ * hidden,
+    work = max(fwd, 0 if per_mode else 2 * groups * os_ * hidden,
                hidden * (cols + 1) + os_ * cols,
                groups * os_ * hidden + groups * os_)
     floats = 2 * (hs + os_) * (kk + 1) + 4 + work
     smem = 4 * floats
     _check_smem(smem, "fused wgrad kernel", hidden, out, spatial, modes)
     return {"cluster": cl, "hs": hs, "os": os_, "rows_f": rows_f,
-            "cols": cols, "smem": smem}
+            "cols": cols, "work": work, "smem": smem}
 
 
-def core_plan(hidden: int, out: int, n1: int, k1: int) -> Dict[str, int]:
-    """The core kernel's s_1 rows per forward chunk and shared memory (the
-    weights, the spectrum A, then z's chunk or C); raises ValueError for
-    shapes a block cannot hold."""
+def wgrad_mode_chunk(plan: Dict[str, int], batch: int, modes) -> int:
+    """Modes per chunk of the per-mode wgrad kernel's batch reduction: the
+    last block of each cluster rank stages Ĝ of every sample over a chunk
+    of modes, [B][2][os][chunk] floats, in the plan's work area."""
+    kk = 1
+    for m in modes:
+        kk *= m
+    chunk = min(kk, plan["work"] // (2 * batch * plan["os"]))
+    if chunk < 1:
+        raise ValueError(f"per-mode wgrad cannot stage a batch of {batch} "
+                         f"in {plan['work']} floats of shared memory")
+    return chunk
+
+
+def core_plan(hidden: int, out: int, n1: int, k1: int,
+              per_mode: bool = False) -> Dict[str, int]:
+    """The core kernel's s_1 rows per forward chunk and shared memory
+    (shared weights, the spectrum A, then z's chunk or C; per-mode weights
+    are read from device memory, not staged); raises ValueError for shapes
+    a block cannot hold."""
     rows = min(n1, max(1, _CORE_CHUNK // hidden))
-    floats = 2 * out * hidden + 2 * hidden * k1 + max(2 * hidden * rows,
-                                                      2 * out * k1)
+    w = 0 if per_mode else 2 * out * hidden
+    floats = w + 2 * hidden * k1 + max(2 * hidden * rows, 2 * out * k1)
     smem = 4 * floats
     if smem > _SMEM_LIMIT:
         raise ValueError(
@@ -313,16 +380,31 @@ def _check_mats(mats, spatial, inverse: bool):
     return tuple(modes)
 
 
-def _check_tensors(what, x, ops):
+def _modes_contiguous(t: torch.Tensor) -> bool:
+    """Whether t's axes after the first two are contiguous (from the
+    strides alone: the wrappers check every launch's operands)."""
+    step = 1
+    for n, stride in zip(t.shape[:1:-1], t.stride()[:1:-1]):
+        if n > 1 and stride != step:
+            return False
+        step *= n
+    return True
+
+
+def _check_tensors(what, x, ops, views=()):
+    """dtype, device and grad checks of every operand: those of `ops` must
+    be contiguous, `views` (spectral weights, which may be seen through
+    swapped out and hidden axes) contiguous over their modes."""
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"{what} takes float32 or bfloat16, got {x.dtype}")
-    for t in ops:
+    if not (all(t.is_contiguous() for t in ops)
+            and all(_modes_contiguous(t) for t in views)):
+        raise ValueError(f"{what} operands must be contiguous")
+    for t in (*ops, *views):
         if t.dtype != x.dtype or t.device != x.device:
             raise TypeError(f"{what} operands must share x's dtype and "
                             f"device ({x.dtype}, {x.device}), got "
                             f"{t.dtype} on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{what} operands must be contiguous")
         if t.requires_grad:
             raise RuntimeError(
                 f"{what} takes no tensor that requires grad: it launches one "
@@ -339,7 +421,22 @@ def _check_rank(x):
     return r
 
 
+def _check_weights(what, wr, wi, o, h, modes):
+    """Shared [O,H] or per-mode [O,H,k_1..k_R] spectral weights, the modes
+    those of the operand bundle; returns True for per-mode weights."""
+    shared, per_mode = (o, h), (o, h) + tuple(modes)
+    for name, t in (("wr", wr), ("wi", wi)):
+        if tuple(t.shape) not in (shared, per_mode):
+            raise ValueError(f"{what}: {name} must be shared [O,H]={shared} "
+                             f"or per-mode [O,H,k_1..k_R]={per_mode} (the "
+                             f"operands' modes), got {tuple(t.shape)}")
+    if wr.shape != wi.shape or wr.stride() != wi.stride():
+        raise ValueError(f"{what}: wr and wi must share shape and strides")
+    return wr.ndim > 2
+
+
 def _check(x, wr, wi, wb, bias, mats, act, gy, out_dtype):
+    """Returns (spatial, modes, per_mode)."""
     _check_rank(x)
     if act not in _ACT_CODES:
         raise ValueError(f"act must be one of {tuple(_ACT_CODES)}, got "
@@ -355,20 +452,21 @@ def _check(x, wr, wi, wb, bias, mats, act, gy, out_dtype):
                          "layer: act='linear' and no bias")
     h = x.shape[1]
     o = wr.shape[0]
+    spatial = tuple(x.shape[2:])
+    modes = _check_mats(mats, spatial, inverse=True)
+    per_mode = _check_weights("fused block", wr, wi, o, h, modes)
     extra = tuple(t for t in (wb, bias, gy) if t is not None)
-    _check_tensors("fused block", x, (x, wr, wi, *extra, *mats))
-    for name, t in (("wr", wr), ("wi", wi), ("wb", wb)):
-        if t is not None and tuple(t.shape) != (o, h):
-            raise ValueError(f"{name} must be [O,H]=({o},{h}), got "
-                             f"{tuple(t.shape)}")
+    _check_tensors("fused block", x, (x, *extra, *mats), (wr, wi))
+    if wb is not None and tuple(wb.shape) != (o, h):
+        raise ValueError(f"wb must be [O,H]=({o},{h}), got "
+                         f"{tuple(wb.shape)}")
     if bias is not None and tuple(bias.shape) != (o, 1):
         raise ValueError(f"bias must be [O,1]=({o},1), got "
                          f"{tuple(bias.shape)}")
-    spatial = tuple(x.shape[2:])
     if gy is not None and tuple(gy.shape) != (x.shape[0], o) + spatial:
         raise ValueError(f"gy must be [B,O,s…]={(x.shape[0], o) + spatial}, "
                          f"got {tuple(gy.shape)}")
-    return spatial, _check_mats(mats, spatial, inverse=True)
+    return spatial, modes, per_mode
 
 
 def _check_wgrad(x, gz, mats):
@@ -383,22 +481,21 @@ def _check_wgrad(x, gz, mats):
 
 
 def _check_core(zr, zi, wr, wi, fr, fi, gr, gi):
+    """Returns True for per-mode weights [O,H,K_1,K_2..K_R]."""
     if zr.ndim < 3:
         raise ValueError(f"z must be [B,H,s_1,K_R..K_2], got shape "
                          f"{tuple(zr.shape)}")
-    if wr.ndim != 2:
-        raise ValueError("the fused core kernel takes shared [O,H] weights; "
-                         "per-mode weights [O,H,k…] are not ported yet "
-                         "(ROADMAP Queue B item 1.5)")
     _check_tensors("fused core", zr, (zr, zi, wr, wi, fr, fi, gr, gi))
     h, n1 = zr.shape[1], zr.shape[2]
     o, k1 = wr.shape[0], fr.shape[1]
-    for name, t, want in (("zi", zi, tuple(zr.shape)), ("wr", wr, (o, h)),
-                          ("wi", wi, (o, h)), ("fr", fr, (n1, k1)),
+    per_mode = _check_weights("fused core", wr, wi, o, h,
+                              (k1,) + tuple(zr.shape[3:][::-1]))
+    for name, t, want in (("zi", zi, tuple(zr.shape)), ("fr", fr, (n1, k1)),
                           ("fi", fi, (n1, k1)), ("gr", gr, (k1, n1)),
                           ("gi", gi, (k1, n1))):
         if tuple(t.shape) != want:
             raise ValueError(f"{name} must be {want}, got {tuple(t.shape)}")
+    return per_mode
 
 
 @functools.lru_cache(maxsize=64)
@@ -415,12 +512,16 @@ def _max_clusters(lib, prefix: str, dtype_code: int, rank: int,
 
 
 def _pick(plan_fn: Callable, lib, prefix: str, dtype_code: int, batch: int,
-          hidden: int, out: int, spatial, modes) -> Dict[str, int]:
+          hidden: int, out: int, spatial, modes,
+          per_mode: bool) -> Dict[str, int]:
     """Clusters of 16 blocks halve a sample's time but the card holds fewer
     of them at once: take 16 when the whole batch fits in one wave of
-    16-block clusters (asked of the card), else the portable 8."""
-    plan = plan_fn(hidden, out, spatial, modes)
-    big = plan_fn(hidden, out, spatial, modes, _MAX_CLUSTER)
+    16-block clusters (asked of the card), else the portable 8 — unless
+    the portable 8 cannot hold the shape (hidden 128: more than 8 out
+    channels per block), when the plan is 16 and a batch larger than one
+    wave runs in waves."""
+    plan = plan_fn(hidden, out, spatial, modes, _PORTABLE_CLUSTER, per_mode)
+    big = plan_fn(hidden, out, spatial, modes, _MAX_CLUSTER, per_mode)
     if big["cluster"] <= plan["cluster"]:
         return plan
     fits = _max_clusters(lib, prefix, dtype_code, len(spatial),
@@ -429,17 +530,18 @@ def _pick(plan_fn: Callable, lib, prefix: str, dtype_code: int, batch: int,
 
 
 def pick_plan(lib, dtype_code: int, batch: int, hidden: int, out: int,
-              spatial, modes) -> Dict[str, int]:
+              spatial, modes, per_mode: bool = False) -> Dict[str, int]:
     """The block kernel's plan for this batch on this card."""
     return _pick(launch_plan, lib, "fused_block", dtype_code, batch, hidden,
-                 out, spatial, modes)
+                 out, spatial, modes, per_mode)
 
 
 def pick_wgrad_plan(lib, dtype_code: int, batch: int, hidden: int,
-                    out: int, spatial, modes) -> Dict[str, int]:
+                    out: int, spatial, modes,
+                    per_mode: bool = False) -> Dict[str, int]:
     """The weight-gradient kernel's plan for this batch on this card."""
     return _pick(wgrad_plan, lib, "fused_wgrad", dtype_code, batch, hidden,
-                 out, spatial, modes)
+                 out, spatial, modes, per_mode)
 
 
 def _ints(v):
@@ -462,17 +564,22 @@ def _launch(lib, x, wr, wi, wb, bias, mats, spatial, modes, stream, *,
     checks)."""
     b, h = x.shape[:2]
     o = wr.shape[0]
+    per_mode = wr.ndim > 2
     code = _DTYPE_CODES[x.dtype]
-    plan = pick_plan(lib, code, b, h, o, spatial, modes)
+    plan = pick_plan(lib, code, b, h, o, spatial, modes, per_mode)
     od = out_dtype or x.dtype
     y = torch.empty((b, o) + tuple(spatial), dtype=od, device=x.device)
     pl = _ints([plan["cluster"], plan["hs"], plan["os"], plan["rows_f"],
                 plan["rows_i"], plan["smem"]])
+    # The weights' element strides of their out and hidden axes (dx takes
+    # a transposed view, without a copy); per-mode, the modes are
+    # contiguous.
+    wl = _ints([int(per_mode), wr.stride(0), wr.stride(1)])
     ptrs = (ctypes.c_void_p * len(mats))(*[m.data_ptr() for m in mats])
     err = lib.fused_block_forward(
         code, len(spatial), _ACT_CODES[act], int(od == _F32), x.data_ptr(),
         wr.data_ptr(), wi.data_ptr(), _ptr(wb), _ptr(bias), _ptr(gy),
-        ptrs, y.data_ptr(), _dims(b, h, o, spatial, modes), pl, stream)
+        ptrs, y.data_ptr(), _dims(b, h, o, spatial, modes), pl, wl, stream)
     if err != 0:
         msg = lib.fused_block_error_string(err).decode()
         raise RuntimeError(f"fused block kernel launch failed: {msg} "
@@ -480,20 +587,30 @@ def _launch(lib, x, wr, wi, wb, bias, mats, spatial, modes, stream, *,
     return y
 
 
-def _launch_wgrad(lib, x, gz, mats, spatial, modes, stream):
+def _launch_wgrad(lib, x, gz, mats, spatial, modes, stream,
+                  per_mode=False):
     """Allocate the outputs and scratch and launch the weight-gradient
     kernel through the C entry (no checks)."""
     b, h = x.shape[:2]
     o = gz.shape[1]
     code = _DTYPE_CODES[x.dtype]
-    plan = pick_wgrad_plan(lib, code, b, h, o, spatial, modes)
+    plan = pick_wgrad_plan(lib, code, b, h, o, spatial, modes, per_mode)
+    chunk = wgrad_mode_chunk(plan, b, modes) if per_mode else 0
     dev = x.device
-    ws = torch.empty((b, 3 * o * h + o), dtype=_F32, device=dev)
+    kk = 1
+    for m in modes:
+        kk *= m
+    # Per sample: the dW, dW_b and dbias partials, then (per-mode) the
+    # spectra A [2][H][K] and Ĝ [2][O][K] for the batch reduction.
+    ws = torch.empty((b, 3 * o * h + o + (2 * (h + o) * kk if per_mode
+                                          else 0)), dtype=_F32, device=dev)
     tickets = torch.zeros((plan["cluster"],), dtype=torch.int32, device=dev)
-    outs = [torch.empty((o, h), dtype=_F32, device=dev) for _ in range(3)]
+    dw = (o, h) + (tuple(modes) if per_mode else ())
+    outs = [torch.empty(dw, dtype=_F32, device=dev) for _ in range(2)]
+    outs.append(torch.empty((o, h), dtype=_F32, device=dev))
     outs.append(torch.empty((o, 1), dtype=_F32, device=dev))
     pl = _ints([plan["cluster"], plan["hs"], plan["os"], plan["rows_f"],
-                plan["cols"], plan["smem"]])
+                plan["cols"], plan["smem"], int(per_mode), chunk])
     ptrs = (ctypes.c_void_p * len(mats))(*[m.data_ptr() for m in mats])
     optrs = (ctypes.c_void_p * 4)(*[t.data_ptr() for t in outs])
     err = lib.fused_wgrad(code, len(spatial), x.data_ptr(), gz.data_ptr(),
@@ -512,7 +629,8 @@ def _launch_core(lib, zr, zi, wr, wi, fr, fi, gr, gi, stream):
     b, h, n1 = zr.shape[:3]
     spec = tuple(zr.shape[3:])
     o, k1 = wr.shape[0], fr.shape[1]
-    plan = core_plan(h, o, n1, k1)
+    per_mode = wr.ndim > 2
+    plan = core_plan(h, o, n1, k1, per_mode)
     shape = (b,) + spec + (o, n1)
     yr = torch.empty(shape, dtype=zr.dtype, device=zr.device)
     yi = torch.empty(shape, dtype=zr.dtype, device=zr.device)
@@ -521,8 +639,11 @@ def _launch_core(lib, zr, zi, wr, wi, fr, fi, gr, gi, stream):
     p = 1
     for k in spec:
         p *= k
+    # Per-mode weights [O,H,K_1,K_2..K_R]: K_2 decodes p = (k_R..k_2).
+    k2 = spec[-1] if spec else 1
     err = lib.fused_core(_DTYPE_CODES[zr.dtype], ptrs, yr.data_ptr(),
-                         yi.data_ptr(), _ints([b, h, o, n1, k1, p]),
+                         yi.data_ptr(),
+                         _ints([b, h, o, n1, k1, p, int(per_mode), k2]),
                          plan["rows"], plan["smem"], stream)
     if err != 0:
         msg = lib.fused_core_error_string(err).decode()
@@ -547,8 +668,11 @@ def fused_block(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """One FNO block kernel launch in one of its three epilogue modes.
 
-    x: [B,H,s_1..s_R] float32 or bfloat16; wr/wi/wb: [O,H] (wb=None: the
-    bare spectral layer, with act="linear" and no bias); bias: [O,1] or
+    x: [B,H,s_1..s_R] float32 or bfloat16; wr/wi: shared [O,H] or
+    per-mode [O,H,k_1..k_R] (the operands' modes; any strides over O and
+    H, so dx can take a transposed view, contiguous over the modes);
+    wb: [O,H] (wb=None: the bare spectral layer, with act="linear" and no
+    bias); bias: [O,1] or
     None; mats: the 4R operands of ``core.spectral.operand_tensors`` (R
     forward-slot stages [n,k], axis s_R first, then R inverse-slot stages
     [k,n], axis s_1 first; the "adjoint" bundle for dx), all at x's dtype
@@ -557,7 +681,8 @@ def fused_block(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
     default). A CPU tensor runs ``fused_block_plain``; a CUDA tensor
     launches the kernel or raises.
     """
-    spatial, modes = _check(x, wr, wi, wb, bias, mats, act, gy, out_dtype)
+    spatial, modes, _ = _check(x, wr, wi, wb, bias, mats, act, gy,
+                               out_dtype)
     if not _on_card(x, "fused block"):
         return fused_block_plain(x, wr, wi, wb, bias, mats, act=act, gy=gy,
                                  out_dtype=out_dtype)
@@ -572,7 +697,8 @@ def fused_block(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
 
 
 def fused_wgrad(x: torch.Tensor, gz: torch.Tensor,
-                mats: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+                mats: Sequence[torch.Tensor], *,
+                per_mode: bool = False) -> Tuple[torch.Tensor, ...]:
     """The block's weight gradients in one kernel launch.
 
     x: [B,H,s_1..s_R] float32 or bfloat16 (the block input); gz:
@@ -580,16 +706,17 @@ def fused_wgrad(x: torch.Tensor, gz: torch.Tensor,
     ``core.spectral.operand_tensors(kind="wgrad")`` (R forward stages for x,
     then R adjoint-forward stages for gz, each [n,k], axis s_R first), all
     at x's dtype and contiguous. Returns float32 (dwr, dwi, dwb [O,H],
-    dbias [O,1]). A CPU tensor runs ``fused_wgrad_plain``; a CUDA tensor
-    launches the kernel or raises.
+    dbias [O,1]); with per_mode, dwr and dwi are one per mode, in the
+    parameter layout [O,H,k_1..k_R]. A CPU tensor runs
+    ``fused_wgrad_plain``; a CUDA tensor launches the kernel or raises.
     """
     spatial, modes = _check_wgrad(x, gz, mats)
     if not _on_card(x, "fused wgrad"):
-        return fused_wgrad_plain(x, gz, mats)
+        return fused_wgrad_plain(x, gz, mats, per_mode=per_mode)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         outs = _launch_wgrad(build.load_fused_wgrad(), x, gz, mats, spatial,
-                             modes, stream)
+                             modes, stream, per_mode)
     LAUNCHES[("wgrad", _dtype_name(x.dtype))] += 1
     return outs
 
@@ -602,10 +729,12 @@ def fused_core(zr: torch.Tensor, zi: torch.Tensor, wr: torch.Tensor,
     cDFT along s_1 → CGEMM over hidden → padded icDFT along s_1.
 
     z: the pair [B,H,s_1,K_R..K_2] (outer axes already transformed),
-    float32 or bfloat16; wr/wi: shared [O,H]; fr/fi: [s_1,K_1] (forward
-    cDFT); gr/gi: [K_1,s_1] (padded inverse), all at z's dtype and
-    contiguous. Returns the y pair [B,K_R..K_2,O,s_1] at z's dtype (the
-    reference's layout; the caller transposes). A CPU tensor runs
+    float32 or bfloat16; wr/wi: shared [O,H] or per-mode [O,H,K_1..K_R];
+    fr/fi: [s_1,K_1] (forward cDFT); gr/gi: [K_1,s_1] (padded inverse),
+    all at z's dtype and contiguous. Returns the y pair
+    [B,K_R..K_2,O,s_1] at z's dtype with either weights (the reference's
+    shared layout; its per-mode kernel emits [K_R..K_2,B,O,s_1]; the
+    caller transposes). A CPU tensor runs
     ``fused_core_plain``; a CUDA tensor launches the kernel or raises.
     """
     _check_core(zr, zi, wr, wi, fr, fi, gr, gi)

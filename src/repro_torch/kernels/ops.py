@@ -6,7 +6,8 @@
   path="fused"  — the CUDA kernels                    (reference "pallas")
 
 The oracles accumulate in f32, never fuse, and differentiate through torch
-autograd. The fused path is the whole FNO block, shared weights only, as a
+autograd. The fused path is the whole FNO block, with shared [O,H] or
+per-mode [O,H,k_1..k_R] spectral weights, as a
 ``torch.autograd.Function`` with the reference's launch structure:
 
   variant="full"    one block-kernel launch forward;
@@ -218,7 +219,9 @@ def _fnond_partial(x, wr, wi, modes, pol: PrecisionPolicy):
     # The core's operands: forward cDFT along s_1 (forward stage R-1) and
     # inverse cDFT along s_1 (inverse stage 0) of the block bundle.
     yr, yi = engine.fused_core(zr, zi, wr, wi, *mats[2 * r - 2:2 * r + 2])
-    # [B,K_R..K_2,O,s_1] -> [B,O,s_1,K_R..K_2]
+    # [B,K_R..K_2,O,s_1] -> [B,O,s_1,K_R..K_2], with per-mode weights too:
+    # the port's core keeps the shared layout where the reference's
+    # per-mode kernel emits [K_R..K_2,B,O,s_1].
     s = r - 1
     perm = (0, s + 1, s + 2) + tuple(range(1, s + 1))
     tr, ti = yr.permute(perm), yi.permute(perm)
@@ -296,13 +299,18 @@ class _FusedBlock(torch.autograd.Function):
                                 act="gelu_vjp", gy=_c(gy.to(xc.dtype)))
         # (2) dx = spectral_adjoint(gz) + wbᵀ·gz: the same kernel with the
         # adjoint operands, (out, hidden)-swapped weights, no bias, linear
-        # epilogue, emitted at the primal dtype.
-        dx = engine.fused_block(gz, _c(wrc.t()), _c(wic.t()), _c(wbc.t()),
-                                None, _mats(xc, modes, pol, "adjoint"),
+        # epilogue, emitted at the primal dtype. Axes 0 and 1 swap, without
+        # conjugation, as the reference swaps them: a transposed view,
+        # which the kernel reads through its strides (no 134 MB copy of
+        # fno2d-large's per-mode W).
+        dx = engine.fused_block(gz, wrc.transpose(0, 1),
+                                wic.transpose(0, 1), _c(wbc.t()), None,
+                                _mats(xc, modes, pol, "adjoint"),
                                 act="linear", out_dtype=x.dtype)
-        # (3) dW, dW_b, dbias from one wgrad launch, in f32.
+        # (3) dW (per mode, in the parameter layout, for per-mode weights),
+        # dW_b, dbias from one wgrad launch, in f32.
         dwr, dwi, dwb, db = engine.fused_wgrad(
-            xc, gz, _mats(xc, modes, pol, "wgrad"))
+            xc, gz, _mats(xc, modes, pol, "wgrad"), per_mode=wr.ndim > 2)
         return (dx, dwr.to(wr.dtype), dwi.to(wi.dtype), dwb.to(wb.dtype),
                 db.reshape(bias.shape).to(bias.dtype), None, None, None)
 
@@ -314,8 +322,8 @@ def fno_block_nd(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
                  policy: Optional[PrecisionPolicy] = None) -> torch.Tensor:
     """One whole FNO block: y = gelu(spectral(x) + x·W_bᵀ + bias).
 
-    x: [B,H,s_1..s_R]; wr/wi: [O,H] (or [O,H,k_1..k_R] on the oracle
-    paths); wb: [O,H] bypass (y_o += Σ_h x_h·wb[o,h]); bias: [O].
+    x: [B,H,s_1..s_R]; wr/wi: shared [O,H] or per-mode [O,H,k_1..k_R];
+    wb: [O,H] bypass (y_o += Σ_h x_h·wb[o,h]); bias: [O].
     path="fused" runs ``_FusedBlock``: with variant="full" ONE kernel launch
     forward, with "partial" the paper's partial fusion (rdft → core →
     irdft launches and the staged tail; rank 1: the bare spectral layer
@@ -330,8 +338,5 @@ def fno_block_nd(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
         return _fno_block_oracle(x, wr, wi, wb, bias, modes, path, policy)
     if path != "fused":
         raise ValueError(f"unknown path {path!r}; known: {PATHS}")
-    if wr.ndim != 2:
-        raise ValueError("the fused block kernel takes shared [O,H] "
-                         "weights; per-mode weights are not ported yet")
     return _FusedBlock.apply(x, wr, wi, wb, bias, modes,
                              policy or _default_policy(x), variant)

@@ -1,23 +1,30 @@
 """Where the fused kernels' time goes, phase by phase, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.block_phases [--batch 8]
+        [--arch fno2d-large]
 
 Builds ``csrc/fused_block.cu`` and ``csrc/fused_wgrad.cu`` as they are and
 with each phase's loop elided (``-DFUSED_BLOCK_ELIDE=<mask>`` /
 ``-DFUSED_WGRAD_ELIDE=<mask>``, see ``PHASE_BOUND`` in the sources: the
 output is then wrong and only the time counts), times every variant at
-fno2d full width with CUDA events, in turns over several rounds, and prints
+fno2d full width (or ``--arch``'s: fno2d-large runs the per-mode modes)
+with CUDA events, in turns over several rounds, and prints
 each phase's time as the whole kernel's median minus the median of the
 variant without that phase.
 
 fused_block (the block forward):
   phase 1 — truncated forward DFT chain of each block's hidden slice;
-  phase 2 — CGEMM over distributed shared memory;
+  phase 2 — CGEMM over distributed shared memory (per-mode: W streamed
+            from device memory);
   phase 3 — padded inverse chain, bypass, bias, gelu and the write of y.
 fused_wgrad (the weight gradients):
   phase 1 — the forward chain of x and the adjoint-forward chain of gz;
-  phase 2 — the dW reduction over distributed shared memory;
+  phase 2 — the dW reduction over distributed shared memory (per-mode:
+            the sample's spectra written to the workspace);
   phase 3 — the dW_b and dbias reductions over the points.
+No variant elides the per-mode wgrad's batch reduction (the last block of
+each cluster rank forming dW of its out slice): it stays in "rest", the
+variant without phases.
 
 The last line is one JSON object with the medians. Needs an NVIDIA GPU.
 """
@@ -31,7 +38,7 @@ import subprocess
 
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import FNO_IDS, get_config
 from repro_torch.core import spectral
 from repro_torch.kernels import build, engine
 
@@ -64,6 +71,8 @@ def _time(fn, iters: int) -> float:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="fno2d",
+                    choices=[a for a in FNO_IDS if a.startswith("fno2d")])
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=5)
@@ -85,15 +94,18 @@ def main() -> None:
     for (kernel, variant, _), path in zip(jobs, paths):
         libs.setdefault(kernel, {})[variant] = KERNELS[kernel][2](path)
 
-    cfg = get_config("fno2d")
+    cfg = get_config(args.arch)
+    per_mode = cfg.weight_mode == "per_mode"
     b, h = args.batch, cfg.hidden
     spatial, modes = cfg.spatial, cfg.modes
     gen = torch.Generator().manual_seed(0)
     x32 = torch.randn((b, h) + tuple(spatial), generator=gen).cuda()
     gz32 = torch.randn((b, h) + tuple(spatial), generator=gen).cuda()
-    ws32 = [(torch.randn((h, h), generator=gen) / h).cuda()
-            for _ in range(3)] + [torch.zeros((h, 1)).cuda()]
-    report = {"card": smi, "batch": b, "config": "fno2d"}
+    wshape = (h, h) + (tuple(modes) if per_mode else ())
+    ws32 = [(torch.randn(wshape, generator=gen) / h).cuda()
+            for _ in range(2)] + [(torch.randn((h, h), generator=gen)
+                                   / h).cuda(), torch.zeros((h, 1)).cuda()]
+    report = {"card": smi, "batch": b, "config": args.arch}
     for kernel in KERNELS:
         report[kernel] = {}
         for dt in ("float32", "bfloat16"):
@@ -109,7 +121,8 @@ def main() -> None:
                 mats = spectral.operand_tensors(spatial, modes, dt, "cuda",
                                                 "wgrad")
                 run = lambda lib: engine._launch_wgrad(lib, x, gz, mats,
-                                                       spatial, modes, stream)
+                                                       spatial, modes, stream,
+                                                       per_mode)
             times = {name: [] for name in VARIANTS}
             for rnd in range(args.rounds):
                 order = list(VARIANTS) if rnd % 2 == 0 else list(VARIANTS)[::-1]

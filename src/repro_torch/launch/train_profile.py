@@ -1,9 +1,9 @@
 """Where a training step's time goes on the card: a ``torch.profiler`` trace
-of fno2d training steps at full width (or, with ``--serve``, of served
-requests).
+of FNO training steps at full width (fno2d unless ``--arch`` names another
+2D model, e.g. fno2d-large), or, with ``--serve``, of served requests.
 
     PYTHONPATH=src python -m repro_torch.launch.train_profile [--dtype bf16]
-        [--serve] [--variant partial]
+        [--serve] [--variant partial] [--arch fno2d-large]
 
 Runs warm-up steps, then traces ``--steps`` train steps (fused path, batch
 8 of Darcy data from seed 0, AdamW) with CPU and CUDA activities, and
@@ -25,7 +25,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import get_config, with_precision
+from repro_torch.configs import FNO_IDS, get_config, with_precision
 from repro_torch.configs.fno import with_fuse_block
 from repro_torch.core import fno as fno_mod
 from repro_torch.data import pde
@@ -37,6 +37,9 @@ from repro_torch.train.train_step import make_train_step
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="fno2d",
+                    choices=[a for a in FNO_IDS if a.startswith("fno2d")],
+                    help="a 2D FNO at full width (Darcy data)")
     ap.add_argument("--dtype", default="f32", choices=["f32", "bf16"])
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--top", type=int, default=15)
@@ -54,7 +57,7 @@ def main() -> None:
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = with_precision(with_fuse_block(get_config("fno2d")), args.dtype)
+    cfg = with_precision(with_fuse_block(get_config(args.arch)), args.dtype)
     cfg = dataclasses.replace(cfg, path="fused")
     params = fno_mod.init_fno(torch.Generator().manual_seed(0), cfg, "cuda")
     batch = pde.darcy_batch(0, 0, 8, cfg.spatial[0], device="cuda")
@@ -95,7 +98,8 @@ def main() -> None:
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:args.top]
     what = "serve" if args.serve else "train"
-    print(f"{what} variant={args.variant} dtype={args.dtype} "
+    print(f"{what} arch={args.arch} variant={args.variant} "
+          f"dtype={args.dtype} "
           f"steps={args.steps}: wall "
           f"{wall_ms:.4f} ms per step, device busy {device_ms:.4f} ms per step, idle share "
           f"{1 - device_ms / wall_ms:.4f}")
@@ -106,7 +110,8 @@ def main() -> None:
                      "calls_per_step": e.count / args.steps})
         print(f"  {ms:9.4f} ms  {e.count / args.steps:7.1f} calls  "
               f"{e.key[:80]}")
-    print(json.dumps({"card": smi, "what": what, "variant": args.variant,
+    print(json.dumps({"card": smi, "what": what, "arch": args.arch,
+                      "variant": args.variant,
                       "dtype": args.dtype,
                       "steps": args.steps,
                       "wall_ms_per_step": wall_ms,

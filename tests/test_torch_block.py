@@ -201,11 +201,30 @@ def test_wrapper_raises_off_cpu_and_cuda():
 
 
 def test_per_mode_weights_rejected_on_fused_path():
+    """Per-mode weights [O,H,k_1..k_R] were once refused on the fused path;
+    they now run there (forward and grads, both variants) and match the
+    staged path. Only weights whose modes differ from the block's are
+    refused."""
     args, modes = _block_args(2, 0)
     x, wr, wi, wb, bias = (torch.from_numpy(a) for a in args)
-    wpm = wr[..., None, None].expand(*wr.shape, *modes).contiguous()
+    rng = np.random.default_rng(1)
+    wpm = [torch.tensor(rng.normal(size=tuple(wr.shape) + modes) / 8,
+                        dtype=torch.float32) for _ in range(2)]
+    for variant in ("full", "partial"):
+        leaves = {p: [t.clone().requires_grad_(True)
+                      for t in (x, *wpm, wb, bias)]
+                  for p in ("fused", "staged")}
+        ys = {p: tops.fno_block_nd(*leaves[p], modes, path=p,
+                                   variant=variant) for p in leaves}
+        _allclose_rel(_np(ys["fused"]), _np(ys["staged"]), 2e-4)
+        grads = {p: torch.autograd.grad(torch.sin(ys[p]).sum(), leaves[p])
+                 for p in leaves}
+        for a, b in zip(grads["fused"], grads["staged"]):
+            assert a.shape == b.shape
+            _allclose_rel(_np(a), _np(b), 2e-4)
+    bad = wpm[0][..., :4]
     with pytest.raises(ValueError, match="per-mode"):
-        tops.fno_block_nd(x, wpm, wpm, wb, bias, modes, path="fused")
+        tops.fno_block_nd(x, bad, bad, wb, bias, modes, path="fused")
 
 
 def test_launch_plan_full_width_and_limits():
@@ -216,8 +235,11 @@ def test_launch_plan_full_width_and_limits():
     assert small["cluster"] == 4 and small["os"] == 2
     with pytest.raises(ValueError, match="shared memory"):
         engine.launch_plan(32, 32, (64, 64, 64), (16, 16, 16))
+    # 128 out channels: clusters of 16 (8 per block), since 8 blocks cannot
+    # hold them; 256 are more than a cluster of 16 holds.
+    assert engine.launch_plan(128, 128, (32, 32), (8, 8))["cluster"] == 16
     with pytest.raises(ValueError, match="out channels"):
-        engine.launch_plan(128, 128, (32, 32), (8, 8))
+        engine.launch_plan(256, 256, (32, 32), (8, 8))
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

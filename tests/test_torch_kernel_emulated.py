@@ -9,11 +9,13 @@ clusters run in grid order, blocks of a launch without clusters one at a
 time), loaded through the same ``ctypes`` signatures and launch plans as
 on the card, and compared with the kernels' plain PyTorch versions: the
 block forward, the bare spectral layer, the backward's three launches (gz
-recompute, dx adjoint, wgrad), the row DFTs and the partial-fusion core.
+recompute, dx adjoint, wgrad), the row DFTs and the partial-fusion core,
+with shared and with per-mode weights.
 This checks the kernels' indexing, chunking, masking, cluster exchange and
 the wgrad kernel's batch reduction at every rank without a GPU; mutated
 copies of the new sources (a dropped imaginary term, an off-by-one on a
-ragged edge) must fail the same comparison. The card itself is checked by
+ragged edge, a wrong mode index, a dropped conj) must fail the same
+comparison. The card itself is checked by
 tests/test_torch_kernel_gpu.py and chip_smoke.py.
 """
 import shutil
@@ -155,9 +157,10 @@ def test_emulated_kernel_rejects_too_many_out_channels(emulated,
 def test_emulated_backward_kernels_match_plain(emulated, emulated_wgrad,
                                                case, dtype):
     """The backward's three launches: gz = gy·gelu'(z) (recompute mode),
-    dx through the adjoint bundle with transposed weights (linear mode, no
-    bias, emitted in f32), and dW, dW_b, dbias from the wgrad kernel,
-    against the plain versions in f32 (bf16: 2e-2, f32: 2e-4)."""
+    dx through the adjoint bundle with the weights' transposed view, read
+    through its strides as the fused path passes it (linear mode, no bias,
+    emitted in f32), and dW, dW_b, dbias from the wgrad kernel, against
+    the plain versions in f32 (bf16: 2e-2, f32: 2e-4)."""
     spatial, modes, b, h, o = case
     x, wr, wi, wb, bias = _inputs(spatial, b, h, o, seed=len(spatial) + o)
     gy = torch.randn((b, o) + spatial,
@@ -171,7 +174,7 @@ def test_emulated_backward_kernels_match_plain(emulated, emulated_wgrad,
     gz = engine._launch(emulated, t(x), t(wr), t(wi), t(wb), t(bias),
                         mats["forward"], spatial, modes, None,
                         act="gelu_vjp", gy=t(gy))
-    dx = engine._launch(emulated, gz, t(wr.t()), t(wi.t()), t(wb.t()), None,
+    dx = engine._launch(emulated, gz, t(wr).t(), t(wi).t(), t(wb.t()), None,
                         mats["adjoint"], spatial, modes, None, act="linear",
                         out_dtype=torch.float32)
     dw = engine._launch_wgrad(emulated_wgrad, t(x), gz, mats["wgrad"],
@@ -326,3 +329,182 @@ def test_emulated_mutations_are_caught(tmp_path, monkeypatch, mutation):
         ref = engine.fused_core_plain(*args)
         outs = engine._launch_core(lib, *args, None)
     assert max(_rel_err(a, r) for a, r in zip(outs, ref)) > 2e-4
+
+
+# Per-mode weights [O,H,k_1..k_R]: the odd extents at ranks 1–3 and a
+# cluster of 16 blocks with one hidden channel each.
+PM_CASES = [CASES[0], CASES[1], CASES[2], CASES[6]]
+
+
+def _per_mode_inputs(spatial, modes, b, h, o, seed):
+    x, _, _, wb, bias = _inputs(spatial, b, h, o, seed)
+    rng = np.random.default_rng(seed + 1)
+    w = lambda: torch.tensor(rng.normal(size=(o, h) + modes) / h,
+                             dtype=torch.float32)
+    return [x, w(), w(), wb, bias]
+
+
+def _per_mode_launches(lib, wlib, args, gy, spatial, modes, dtype):
+    """The per-mode forward, gz recompute, dx adjoint (weights as the
+    transposed view ops passes), bare spectral layer and wgrad launches at
+    `dtype`; returns their outputs in that order."""
+    tdt = getattr(torch, dtype)
+    x, wr, wi, wb, bias = [a.to(tdt) for a in args]
+    mats = {k: spectral.operand_tensors(spatial, modes, dtype, "cpu", k)
+            for k in ("forward", "adjoint", "wgrad")}
+    run = lambda *a, **kw: engine._launch(lib, *a, spatial, modes, None,
+                                          **kw)
+    y = run(x, wr, wi, wb, bias, mats["forward"])
+    gz = run(x, wr, wi, wb, bias, mats["forward"], act="gelu_vjp",
+             gy=gy.to(tdt))
+    dx = run(gz, wr.transpose(0, 1), wi.transpose(0, 1),
+             wb.t().contiguous(), None, mats["adjoint"], act="linear",
+             out_dtype=torch.float32)
+    bare = run(x, wr, wi, None, None, mats["forward"], act="linear")
+    dw = engine._launch_wgrad(wlib, x, gz, mats["wgrad"], spatial, modes,
+                              None, per_mode=True)
+    return (y, gz, dx, bare) + tuple(dw)
+
+
+def _per_mode_plain(args, gy, gz, spatial, modes):
+    x, wr, wi, wb, bias = args
+    m32 = {k: spectral.operand_tensors(spatial, modes, "float32", "cpu", k)
+           for k in ("forward", "adjoint", "wgrad")}
+    plain = engine.fused_block_plain
+    gz = gz.float()
+    return ((plain(x, wr, wi, wb, bias, m32["forward"]),
+             plain(x, wr, wi, wb, bias, m32["forward"], act="gelu_vjp",
+                   gy=gy),
+             plain(gz, wr.transpose(0, 1), wi.transpose(0, 1),
+                   wb.t().contiguous(), None, m32["adjoint"], act="linear"),
+             plain(x, wr, wi, None, None, m32["forward"], act="linear"))
+            + engine.fused_wgrad_plain(x, gz, m32["wgrad"], per_mode=True))
+
+
+_PM_NAMES = ("y", "gz", "dx", "bare", "dwr", "dwi", "dwb", "dbias")
+
+
+@pytest.mark.parametrize("chunk,dtype", [(None, "float32"),
+                                         (None, "bfloat16"),
+                                         (7, "float32")],
+                         ids=["chunk_fits-f32", "chunk_fits-bf16",
+                              "chunk_7-f32"])
+@pytest.mark.parametrize("case", PM_CASES, ids=lambda c: f"{c[0]}x{c[1]}")
+def test_emulated_per_mode_kernels_match_plain(emulated, emulated_wgrad,
+                                               monkeypatch, case, chunk,
+                                               dtype):
+    """Per-mode weights through every block-kernel mode (the dx adjoint
+    reads the [H,O,K] swap through strides) and the per-mode wgrad, whose
+    batch reduction runs over chunks of modes (chunk_7: ragged ones) and
+    reads every cluster rank's spectra (the clusters of 16 case: one
+    hidden channel per rank), against the plain versions (f32 2e-4; bf16
+    2e-2 of the f32 chain)."""
+    spatial, modes, b, h, o = case
+    if chunk is not None:
+        monkeypatch.setattr(engine, "wgrad_mode_chunk",
+                            lambda *a: chunk)
+    args = _per_mode_inputs(spatial, modes, b, h, o, seed=80 + len(spatial))
+    gy = torch.randn((b, o) + spatial,
+                     generator=torch.Generator().manual_seed(o))
+    outs = _per_mode_launches(emulated, emulated_wgrad, args, gy, spatial,
+                              modes, dtype)
+    refs = _per_mode_plain(args, gy, outs[1], spatial, modes)
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    assert tuple(outs[4].shape) == (o, h) + modes
+    for name, a, ref in zip(_PM_NAMES, outs, refs):
+        assert a.shape == ref.shape and bool(torch.isfinite(a).all()), name
+        assert _rel_err(a, ref) <= tol, (name, _rel_err(a, ref))
+
+
+def _per_mode_core_inputs(case, seed):
+    args = _core_inputs(case, seed)
+    b, h, o, n1, k1, spec = case
+    rng = np.random.default_rng(seed + 1)
+    w = lambda: torch.tensor(rng.normal(size=(o, h, k1) + spec[::-1]) / h,
+                             dtype=torch.float32)
+    return args[:2] + [w(), w()] + args[4:]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CORE_CASES, ids=str)
+def test_emulated_per_mode_core_matches_plain(emulated_core, monkeypatch,
+                                              case, dtype):
+    """The core with per-mode weights [O,H,K_1,K_2..K_R] (their mode order
+    reversed against the spectrum's K_R..K_2), several s_1 chunks."""
+    monkeypatch.setattr(engine, "_CORE_CHUNK", 16)
+    args = _per_mode_core_inputs(case, seed=case[3] + 1)
+    ref = engine.fused_core_plain(*args)
+    tdt = getattr(torch, dtype)
+    y = engine._launch_core(emulated_core, *[a.to(tdt) for a in args], None)
+    for a, r in zip(y, ref):
+        assert a.dtype == tdt and a.shape == r.shape
+        assert _rel_err(a, r) <= (2e-4 if dtype == "float32" else 2e-2)
+
+
+# Mutations of the per-mode paths: (source, what, (old, new)).
+PER_MODE_MUTATIONS = [
+    ("fused_block", "wrong mode index",
+     ("const size_t wbase = static_cast<size_t>(o0) * a.w_so + kk;",
+      "const size_t wbase = static_cast<size_t>(o0) * a.w_so + (kk ^ 1);")),
+    ("fused_wgrad", "dropped conj",
+     ("a.dwi[at] = -acci[u][o];  // conj", "a.dwi[at] = acci[u][o];")),
+    ("fused_core", "wrong mode index",
+     ("const int pm = (p % a.K2) * (P / a.K2) + p / a.K2;",
+      "const int pm = p;")),
+]
+
+
+@pytest.mark.parametrize("mutation", PER_MODE_MUTATIONS,
+                         ids=lambda m: f"{m[0]}-{m[1].replace(' ', '_')}")
+def test_emulated_per_mode_mutations_are_caught(tmp_path, monkeypatch,
+                                                mutation):
+    name, _, edit = mutation
+    lib = _compile(tmp_path, name, edit)
+    if name == "fused_core":  # rank 3: K_2 != K_3, so p and pm differ
+        lib = build.load_core_library(lib)
+        args = _per_mode_core_inputs(CORE_CASES[1], seed=2)
+        outs, refs = engine._launch_core(lib, *args, None), \
+            engine.fused_core_plain(*args)
+    else:
+        spatial, modes, b, h, o = CASES[1]
+        args = _per_mode_inputs(spatial, modes, b, h, o, seed=90)
+        x, wr, wi, wb, bias = args
+        m = {k: spectral.operand_tensors(spatial, modes, "float32", "cpu", k)
+             for k in ("forward", "wgrad")}
+        if name == "fused_block":
+            lib = build.load_block_library(lib)
+            outs = (engine._launch(lib, *args, m["forward"], spatial, modes,
+                                   None),)
+            refs = (engine.fused_block_plain(*args, m["forward"]),)
+        else:
+            lib = build.load_wgrad_library(lib)
+            gz = torch.randn((b, o) + spatial,
+                             generator=torch.Generator().manual_seed(3))
+            outs = engine._launch_wgrad(lib, x, gz, m["wgrad"], spatial,
+                                        modes, None, per_mode=True)
+            refs = engine.fused_wgrad_plain(x, gz, m["wgrad"], per_mode=True)
+    assert max(_rel_err(a, r) for a, r in zip(outs, refs)) > 2e-4
+
+
+def test_emulated_per_mode_waves_of_16_block_clusters(emulated,
+                                                      emulated_wgrad):
+    """72 out channels need clusters of 16 (the portable 8 would take 9
+    per block); a batch of 5 is more than the emulated card holds at once
+    (4), so the launch runs in waves — per-mode forward and wgrad."""
+    spatial, modes, b, h, o = (12,), (4,), 5, 72, 72
+    assert engine.pick_plan(emulated, 0, b, h, o, spatial, modes,
+                            True)["cluster"] == 16
+    assert engine.pick_wgrad_plan(emulated_wgrad, 0, b, h, o, spatial, modes,
+                                  True)["cluster"] == 16
+    args = _per_mode_inputs(spatial, modes, b, h, o, seed=95)
+    gz = torch.randn((b, o) + spatial,
+                     generator=torch.Generator().manual_seed(96))
+    m = {k: spectral.operand_tensors(spatial, modes, "float32", "cpu", k)
+         for k in ("forward", "wgrad")}
+    y = engine._launch(emulated, *args, m["forward"], spatial, modes, None)
+    assert _rel_err(y, engine.fused_block_plain(*args, m["forward"])) <= 2e-4
+    dw = engine._launch_wgrad(emulated_wgrad, args[0], gz, m["wgrad"],
+                              spatial, modes, None, per_mode=True)
+    ref = engine.fused_wgrad_plain(args[0], gz, m["wgrad"], per_mode=True)
+    for a, r in zip(dw, ref):
+        assert _rel_err(a, r) <= 2e-4

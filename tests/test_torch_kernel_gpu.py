@@ -5,7 +5,9 @@ spectral layer (no bypass), the partial variant's rdft / cdft / irdft and
 core launches, f32 (relative 2e-4) and bf16 (2e-2 against the f32 plain
 version), the launch counter, the fused model (both variants) against the
 staged path, and one fused training step of each variant against the
-staged one. Every test needs an NVIDIA GPU (marker ``gpu``) and skips without
+staged one; then the per-mode modes of the block, wgrad and core kernels
+(weights [O,H,k_1..k_R]) at ranks 1–3 and at fno2d-large's width, and a
+per-mode fused training step. Every test needs an NVIDIA GPU (marker ``gpu``) and skips without
 one; on the card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernel_gpu.py
@@ -142,7 +144,7 @@ def _backward_launches(device, spatial, modes, dtype, b=2, h=8, o=6,
     t = lambda a: a.to(tdt).contiguous()
     gz = engine.fused_block(t(x), t(wr), t(wi), t(wb), t(bias),
                             mats["forward"], act="gelu_vjp", gy=t(gy))
-    dx = engine.fused_block(gz, t(wr.t()), t(wi.t()), t(wb.t()), None,
+    dx = engine.fused_block(gz, t(wr).t(), t(wi).t(), t(wb.t()), None,
                             mats["adjoint"], act="linear",
                             out_dtype=torch.float32)
     dw = engine.fused_wgrad(t(x), gz, mats["wgrad"])
@@ -361,5 +363,124 @@ def test_partial_train_step_matches_staged_on_card(cuda):
                                      params, batch)
     assert abs(float(loss) - float(loss_s)) <= 2e-4 * abs(float(loss_s))
     for a, b in zip(tree.leaves(grads), tree.leaves(grads_s)):
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= 2e-4 * scale
+
+
+def _per_mode_weights(device, o, h, modes, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [(torch.randn((o, h) + tuple(modes), generator=gen) / h).to(device)
+            for _ in range(2)]
+
+
+def _per_mode_launches(device, spatial, modes, dtype, b=2, h=8, o=6,
+                       seed=0):
+    """Per-mode forward, gz, dx (the transposed view), bare layer and wgrad
+    from the kernels at `dtype`, and the plain versions in f32."""
+    x, _, _, wb, bias = _args(device, spatial, b, h, o, seed)
+    wr, wi = _per_mode_weights(device, o, h, modes, seed)
+    gy = torch.randn((b, o) + tuple(spatial),
+                     generator=torch.Generator().manual_seed(seed)).to(device)
+    tdt = getattr(torch, dtype)
+    t = lambda a: a.to(tdt).contiguous()
+    sw = lambda a: a.transpose(0, 1)
+
+    def chain(block, wgrad, dt, cast):
+        m = {k: spectral.operand_tensors(spatial, modes, dt, device, k)
+             for k in ("forward", "adjoint", "wgrad")}
+        a = [cast(v) for v in (x, wr, wi, wb, bias)]
+        y = block(*a, m["forward"])
+        gz = block(*a, m["forward"], act="gelu_vjp", gy=cast(gy))
+        dx = block(gz, sw(a[1]), sw(a[2]), a[3].t().contiguous(), None,
+                   m["adjoint"], act="linear")
+        bare = block(a[0], a[1], a[2], None, None, m["forward"],
+                     act="linear")
+        return (y, gz, dx, bare) + tuple(wgrad(a[0], gz, m["wgrad"],
+                                               per_mode=True))
+
+    ours = chain(engine.fused_block, engine.fused_wgrad, dtype, t)
+    plain = chain(engine.fused_block_plain, engine.fused_wgrad_plain,
+                  "float32", lambda a: a)
+    torch.cuda.synchronize()
+    return ours, plain
+
+
+_PM_NAMES = ("y", "gz", "dx", "bare", "dwr", "dwi", "dwb", "dbias")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rank", [1, 2, 3])
+def test_per_mode_kernels_match_plain(cuda, rank, dtype):
+    spatial, modes = _CASES[rank]
+    ours, plain = _per_mode_launches(cuda, spatial, modes, dtype,
+                                     seed=20 + rank)
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    assert tuple(ours[4].shape) == (6, 8) + tuple(modes)
+    for name, a, b in zip(_PM_NAMES, ours, plain):
+        assert a.is_cuda and bool(torch.isfinite(a).all()), name
+        assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
+
+
+def test_per_mode_kernels_at_fno2d_large_width(cuda):
+    """Hidden 128: clusters of 16, W streamed from device memory, B=2."""
+    cfg = configs.get_config("fno2d-large")
+    ours, plain = _per_mode_launches(cuda, cfg.spatial, cfg.modes,
+                                     "float32", b=2, h=cfg.hidden,
+                                     o=cfg.hidden, seed=9)
+    for name, a, b in zip(_PM_NAMES, ours, plain):
+        assert _rel_err(a, b) <= 2e-4, (name, _rel_err(a, b))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [(2, 8, 6, 16, 5, (9,)),
+                                  (1, 5, 7, 33, 4, (3, 5))], ids=str)
+def test_per_mode_core_kernel_matches_plain(cuda, case, dtype):
+    b, h, o, n1, k1, spec = case
+    gen = torch.Generator().manual_seed(n1)
+    rnd = lambda *s: torch.randn(s, generator=gen).to(cuda)
+    zr, zi = rnd(b, h, n1, *spec), rnd(b, h, n1, *spec)
+    wr, wi = rnd(o, h, k1, *spec[::-1]) / h, rnd(o, h, k1, *spec[::-1]) / h
+    f = [torch.from_numpy(m).to(cuda) for m in spectral.cdft_mats(n1, k1)]
+    g = [torch.from_numpy(m).to(cuda)
+         for m in spectral.cdft_mats(n1, k1, True)]
+    args = [zr, zi, wr, wi, *f, *g]
+    ref = engine.fused_core_plain(*args)
+    tdt = getattr(torch, dtype)
+    y = engine.fused_core(*[a.to(tdt) for a in args])
+    torch.cuda.synchronize()
+    for a, r in zip(y, ref):
+        assert a.dtype == tdt and a.shape == r.shape
+        assert _rel_err(a, r) <= (2e-4 if dtype == "float32" else 2e-2)
+
+
+def test_per_mode_wgrad_is_deterministic(cuda):
+    spatial, modes = _CASES[2]
+    x = _args(cuda, spatial, b=5)[0]
+    gz = torch.randn((5, 6) + spatial, device=cuda)
+    mats = spectral.operand_tensors(spatial, modes, "float32", cuda, "wgrad")
+    one = engine.fused_wgrad(x, gz, mats, per_mode=True)
+    two = engine.fused_wgrad(x, gz, mats, per_mode=True)
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("variant", ["full", "partial"])
+def test_per_mode_train_step_matches_staged_on_card(cuda, variant):
+    """One AdamW step of the reduced model with per-mode weights, fused
+    against staged, and every leaf's gradient to its own magnitude."""
+    cfg = dataclasses.replace(
+        configs.with_fuse_block(configs.get_config("fno2d-large",
+                                                   reduced=True)),
+        weight_mode="per_mode")
+    params = tfno.init_fno(torch.Generator().manual_seed(0), cfg, cuda)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"x": torch.randn((2, cfg.in_channels) + tuple(cfg.spatial),
+                              generator=gen).to(cuda),
+             "y": torch.randn((2, cfg.out_channels) + tuple(cfg.spatial),
+                              generator=gen).to(cuda)}
+    grads = [tree.leaves(value_and_grad(
+        make_loss_fn(cfg, fno_path=p, fno_variant=variant), params,
+        batch)[1]) for p in ("fused", "staged")]
+    for a, b in zip(*grads):
         scale = max(float(b.abs().max()), 1e-30)
         assert float((a - b).abs().max()) <= 2e-4 * scale

@@ -298,17 +298,18 @@ def test_partial_launch_structure(rank, monkeypatch):
 
 
 def test_partial_contract():
-    """Unknown variants, per-mode weights on the core, and tensors that
-    require grad are refused, never served by another path."""
+    """Unknown variants, per-mode weights on the core whose modes differ
+    from the operands', and tensors that require grad are refused, never
+    served by another path."""
     args, modes = _block_args(2, 150)
     t = [torch.from_numpy(a) for a in args]
     with pytest.raises(ValueError, match="variant"):
         tops.fno_block_nd(*t, modes, variant="half")
     z = torch.zeros((1, 8, 16, 9))
     f = tspec.operand_tensors((16, 32), (5, 9), "float32", "cpu")
-    with pytest.raises(ValueError, match="Queue B item 1.5"):
-        engine.fused_core(z, z, torch.zeros(6, 8, 5, 9),
-                          torch.zeros(6, 8, 5, 9), *f[2:6])
+    with pytest.raises(ValueError, match="per-mode"):  # modes (5, 8)
+        engine.fused_core(z, z, torch.zeros(6, 8, 5, 8),
+                          torch.zeros(6, 8, 5, 8), *f[2:6])
     with pytest.raises(ValueError, match="bare spectral"):
         engine.fused_block(t[0], t[1], t[2], None, t[4].reshape(-1, 1),
                            tspec.operand_tensors((16, 32), modes, "float32",
