@@ -83,7 +83,34 @@ fatal:
      2·O·H·ΠK), the row kernels at hidden 128 and the served block forward
      in both variants; and the bare spectral layer (the rank-1 partial
      forward) at fno1d full width B=8, with its launches on one served
-     fno1d partial request.
+     fno1d partial request;
+  16. kernel vs plain, spectral-only and cgemm — the bare layer's
+     launches (forward; dx through the adjoint bundle, counted
+     spectral_dx; the bypass-free wgrad, spectral_wgrad) at phase 2's odd
+     extents (ranks 1–3, shared and per-mode W), fno2d full width B=8 and
+     fno2d-large full width B=8, and ``ops.cgemm`` at the reference's test
+     cases and the FNO's CGEMM shapes (64,64,8192) and (128,128,8192),
+     f32 ≤ 2e-4 and bf16 ≤ 2e-2 of the f32 plain version;
+  17. serve spectral-only — ``FNOServer`` for fno2d at full width with
+     ``fuse_block=False`` (the paper's fusion: the kernels fuse each
+     spectral conv, the bypass, bias and GELU are PyTorch ops), both
+     variants: phase 3's 12 requests against the staged path with exact
+     launch counts (full: spectral_fwd; partial: rdft, core, irdft; no
+     block_fwd), then SPECTRAL_WINDOW single-step requests per precision
+     and variant beside phase 4's whole-block window;
+  18. train spectral-only — phase 6 and phase 7's window with
+     ``fuse_block=False``: fno2d (Darcy batch 8, both variants, f32 and
+     bf16) and fno2d-large (f32, both variants): step-0 parity of every
+     leaf, exactly num_layers launches of each of spectral_fwd (or rdft,
+     core, irdft), spectral_dx and spectral_wgrad per step and none of
+     the whole-block kinds, the loss falls over 20 steps, 30 timed steps
+     and peak device memory beside the whole-block windows;
+  19. times, spectral-only and cgemm — CUDA events at fno2d B=8 and
+     fno2d-large B=8 for spectral_fwd, spectral_dx and spectral_wgrad
+     beside their plain versions, the staged torch.fft layer (a
+     yardstick) and their bounds, and ``cgemm`` at (64,64,8192) and
+     (128,128,8192) beside its plain version, ``torch.matmul`` on
+     complex64 (f32) and its bound.
 
 Each phase's seconds are printed. The last two lines are a
 ``{"kernels": [...]}`` JSON object and ``{"ok": true, "device": {...}}``.
@@ -119,11 +146,21 @@ BLOCK_SOURCE = "src/repro_torch/csrc/fused_block.cu"
 WGRAD_SOURCE = "src/repro_torch/csrc/fused_wgrad.cu"
 BACKWARD = ("gz_recompute", "dx_adjoint", "wgrad")
 PARTIAL_LAUNCHES = ("rdft", "cdft", "icdft", "irdft", "core")
+SPECTRAL = ("spectral_fwd", "spectral_dx", "spectral_wgrad")
 DTYPES = ("float32", "bfloat16")
 ROWS_SOURCE = "src/repro_torch/csrc/dft_rows.cu"
 CORE_SOURCE = "src/repro_torch/csrc/fused_core.cu"
 LARGE = "fno2d-large"        # per-mode weights, hidden 128 (phases 12–15)
 LARGE_WINDOW = 200         # requests per precision in phase 13's window
+SPECTRAL_WINDOW = 200     # requests per precision and variant, phase 17
+QUEUE_CYCLES = 100_000_000  # ~50 ms of device spin ahead of queued timing
+CGEMM_SOURCE = "src/repro_torch/csrc/cgemm.cu"
+CGEMM_REPLACES = "src/repro/kernels/cgemm.py:45"
+# ops.cgemm's shapes (M, K, N): the reference's test cases, then the FNO's
+# CGEMM (out channels × hidden × B·ΠK at fno2d and fno2d-large, B=8).
+CGEMM_SHAPES = ((32, 16, 24), (128, 128, 128), (37, 19, 23), (256, 8, 64),
+                (130, 257, 129), (64, 64, 8192), (128, 128, 8192))
+CGEMM_FNO = CGEMM_SHAPES[-2:]
 PARTIAL_REPLACES = {"rdft": "src/repro/kernels/dft.py:44",
                     "cdft": "src/repro/kernels/dft.py:75",
                     "irdft": "src/repro/kernels/dft.py:97",
@@ -202,9 +239,11 @@ def bound_parts(kind, b, h, o, spatial, modes, elem_bytes, peak_flops,
     block_fwd reads x, the weights and the operands and writes y;
     gz_recompute reads gy too and writes gz; dx_adjoint reads gz and writes
     dx (the same work with H and O swapped); wgrad reads x and gz and writes
-    the f32 weight gradients; the partial variant's launches as
-    ``partial_work`` counts them. Spectral weights count 2·O·H elements
-    shared and 2·O·H·ΠK per-mode (read once, and written once by wgrad);
+    the f32 weight gradients; the bare layer's spectral_fwd, spectral_dx
+    and spectral_wgrad do the same without the bypass, the bias and dW_b;
+    the partial variant's launches as ``partial_work`` counts them.
+    Spectral weights count 2·O·H elements shared and 2·O·H·ΠK per-mode
+    (read once, and written once by wgrad);
     the operations are the same for both, as a shared W is applied at
     every mode too."""
     pts, kk = math.prod(spatial), math.prod(modes)
@@ -219,8 +258,11 @@ def bound_parts(kind, b, h, o, spatial, modes, elem_bytes, peak_flops,
         nbytes = elem_bytes * (act_in + 2 * act_out + weights + mats)
     elif kind == "dx_adjoint":
         nbytes = elem_bytes * (act_out + act_in + spec_w + o * h + mats)
-    elif kind == "spectral_fwd":  # the bare layer: no bypass, no bias
+    elif kind in ("spectral_fwd", "spectral_dx"):  # no bypass, no bias
         nbytes = elem_bytes * (act_in + act_out + spec_w + mats)
+        flops -= b * 2 * o * h * pts
+    elif kind == "spectral_wgrad":  # dW only
+        nbytes = elem_bytes * (act_in + act_out + mats) + 4 * spec_w
         flops -= b * 2 * o * h * pts
     elif kind in PARTIAL_LAUNCHES:
         flops, elems = partial_work(kind, b, h, o, spatial, modes, per_mode)
@@ -237,6 +279,21 @@ def bound_ms(kind, b, h, o, spatial, modes, elem_bytes, peak_flops,
     ``bound_parts``; returns (ms, "bytes"|"operations")."""
     t_bytes, t_ops = bound_parts(kind, b, h, o, spatial, modes, elem_bytes,
                                  peak_flops, per_mode)
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def cgemm_bound_parts(m, k, n, elem_bytes, peak_flops):
+    """(ms by bytes, ms by operations) of one (M,K)·(K,N) complex product:
+    the A, B and C planes each moved once, 8 operations per complex
+    multiply-add."""
+    nbytes = elem_bytes * 2 * (m * k + k * n + m * n)
+    return 1e3 * nbytes / PEAK_BYTES, 1e3 * 8 * m * k * n / peak_flops
+
+
+def cgemm_bound(m, k, n, elem_bytes, peak_flops):
+    """Least time of the complex product, the larger of
+    ``cgemm_bound_parts``; returns (ms, "bytes"|"operations")."""
+    t_bytes, t_ops = cgemm_bound_parts(m, k, n, elem_bytes, peak_flops)
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -277,13 +334,19 @@ def partial_work(kind, b, h, o, spatial, modes, per_mode=False):
             2 * b * p * n1 * (h + o) + w + 4 * n1 * k1)
 
 
-def time_ms(fn, iters: int, warmup: int = 3) -> float:
+def time_ms(fn, iters: int, warmup: int = 3, queued: bool = False) -> float:
+    """Device ms per call of `fn` over `iters` calls between CUDA events.
+    Launches of tens of µs are paced by the host's enqueue (the wrapper's
+    checks and the ctypes call); queued=True enqueues them all behind a
+    spin on the card first, so the events time the device alone."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -637,14 +700,19 @@ def leaf_err(a, ref) -> float:
 
 
 def phase_train(torch, configs, fno_mod, pde, tree, ts, optim, engine,
-                variant="full", phase="6", arch="fno2d"):
-    """Step-0 parity of the fused path (full or partial variant) with the
+                variant="full", phase="6", arch="fno2d", fuse_block=True,
+                presets=("f32", "bf16")):
+    """Step-0 parity of the fused path (full or partial variant; whole-block
+    kernels, or with fuse_block=False the spectral-layer kernels) with the
     staged one, the launch structure, and TRAIN_STEPS AdamW steps on one
-    batch per precision."""
-    log(f"== phase {phase}: train {arch} at full width, variant {variant}")
-    kinds = (engine.KINDS if variant == "full"
-             else engine.PARTIAL_KINDS + engine.KINDS[1:])
-    cfg = configs.with_fuse_block(configs.get_config(arch))
+    batch per precision preset."""
+    log(f"== phase {phase}: train {arch} at full width, variant {variant}, "
+        f"fuse_block {fuse_block}")
+    bwd = engine.KINDS[1:] if fuse_block else engine.SPECTRAL_KINDS[1:]
+    fwd = ((engine.KINDS[0] if fuse_block else engine.SPECTRAL_KINDS[0],)
+           if variant == "full" else engine.PARTIAL_KINDS)
+    kinds = fwd + bwd
+    cfg = configs.with_fuse_block(configs.get_config(arch), fuse_block)
     staged = dataclasses.replace(cfg, path="staged", fuse_block=False)
     layers = cfg.num_layers
     params = fno_mod.init_fno(torch.Generator().manual_seed(0), cfg, DEVICE)
@@ -660,7 +728,8 @@ def phase_train(torch, configs, fno_mod, pde, tree, ts, optim, engine,
     log(f"  staged f32: loss {float(loss_ref):.6f} grad_norm {gn_ref:.6f}")
     total = TRAIN_STEPS + TRAIN_WINDOW
     runs, counts = {}, {}
-    for preset, tol in (("f32", F32_TOL), ("bf16", BF16_GRAD_TOL)):
+    for preset in presets:
+        tol = F32_TOL if preset == "f32" else BF16_GRAD_TOL
         c = dataclasses.replace(configs.with_precision(cfg, preset),
                                 path="fused")
         dt = c.precision.compute_dtype
@@ -1398,6 +1467,288 @@ def bare_spectral_times(torch, engine, spectral, configs, sfs, fno_mod):
 
 
 
+# ---------------------------------------------------------------------------
+# The spectral-only path (fuse_block off: the paper's fusion of each
+# spectral conv, the bypass, bias and GELU in PyTorch) and the standalone
+# complex product
+# ---------------------------------------------------------------------------
+def spectral_shapes(configs):
+    """Phase 16's shapes (name, B, H, O, spatial, modes, per_mode): phase
+    2's odd extents at ranks 1–3 with shared and per-mode W, fno2d at full
+    width and fno2d-large (per-mode W) at full width, B=8."""
+    odd = [c for c in check_shapes(configs) if c[0].startswith("odd")]
+    shapes = [c + (False,) for c in odd]
+    shapes += [(f"{c[0]}_per_mode",) + c[1:] + (True,) for c in odd]
+    full, big = configs.get_config("fno2d"), configs.get_config(LARGE)
+    shapes.append(("fno2d_B8", 8, full.hidden, full.hidden, full.spatial,
+                   full.modes, False))
+    shapes.append(("fno2d_large_B8", 8, big.hidden, big.hidden, big.spatial,
+                   big.modes, True))
+    return shapes
+
+
+def spectral_inputs(torch, b, h, o, spatial, modes, per_mode, seed):
+    """x [B,H,s…], gy [B,O,s…] and wr, wi (shared [O,H] or per-mode
+    [O,H,k…], scaled 1/H) in f32 on the card."""
+    if per_mode:
+        x, wr, wi = per_mode_inputs(b, h, o, spatial, modes, seed,
+                                    DEVICE)[:3]
+    else:
+        x, wr, wi = block_inputs(b, h, o, spatial, seed, DEVICE)[:3]
+    gy = torch.randn((b, o) + tuple(spatial),
+                     generator=torch.Generator().manual_seed(seed)).to(DEVICE)
+    return x, gy, wr, wi
+
+
+def spectral_launches(engine, x, gy, wr, wi, mats):
+    """The bare layer's launches as the spectral-only path issues them,
+    each as fn(plain) running the kernel or its plain version: the
+    forward; dx from gy through the adjoint bundle with the weights'
+    transposed view (counted spectral_dx); the bypass-free wgrad (per mode
+    for per-mode weights)."""
+    wrt, wit = wr.transpose(0, 1), wi.transpose(0, 1)
+    block = lambda plain: (engine.fused_block_plain if plain
+                           else engine.fused_block)
+    return {
+        "spectral_fwd": lambda plain: block(plain)(
+            x, wr, wi, None, None, mats["forward"], act="linear"),
+        "spectral_dx": lambda plain: block(plain)(
+            gy, wrt, wit, None, None, mats["adjoint"], act="linear",
+            **({} if plain else {"adjoint": True})),
+        "spectral_wgrad": lambda plain: (
+            engine.fused_wgrad_plain if plain else engine.fused_wgrad)(
+                x, gy, mats["wgrad"], per_mode=wr.ndim > 2,
+                with_bypass=False),
+    }
+
+
+def cgemm_planes(torch, m, k, n, seed):
+    """ar, ai [M,K], br, bi [K,N] in f32 on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(s, generator=gen).to(DEVICE)
+            for s in ((m, k), (m, k), (k, n), (k, n))]
+
+
+def phase_spectral_vs_plain(torch, engine, spectral, configs, ops,
+                            cgemm_k):
+    """The bare layer's three launches and the complex product against
+    their plain versions (f32 ≤ 2e-4 on the same inputs, bf16 ≤ 2e-2 of
+    the f32 plain version); then ``ops.cgemm`` driven at the FNO's CGEMM
+    shapes with the counts set to 0: its launches."""
+    log("== phase 16: kernel vs plain on the card, spectral-only launches "
+        "and cgemm")
+    errs = {}
+    for seed, (name, b, h, o, spatial, modes, pm) in enumerate(
+            spectral_shapes(configs)):
+        ins32 = spectral_inputs(torch, b, h, o, spatial, modes, pm,
+                                900 + seed)
+        run32 = spectral_launches(engine, *ins32, backward_mats(
+            spectral, spatial, modes, "float32"))
+        ins16 = [a.to(torch.bfloat16) for a in ins32]
+        run16 = spectral_launches(engine, *ins16, backward_mats(
+            spectral, spatial, modes, "bfloat16"))
+        for kind in run32:
+            ref = as_tuple(run32[kind](True))
+            errs[(name, kind, "float32")] = e = errors(
+                as_tuple(run32[kind](False)), ref)
+            check(f"{name} f32 {kind} vs plain", e[1], F32_TOL)
+            errs[(name, kind, "bfloat16")] = e = errors(
+                as_tuple(run16[kind](False)), ref)
+            check(f"{name} bf16 {kind} vs f32 plain", e[1], BF16_TOL)
+            del ref
+        del ins32, ins16, run32, run16
+    for seed, (m, k, n) in enumerate(CGEMM_SHAPES):
+        planes = cgemm_planes(torch, m, k, n, 950 + seed)
+        ref = cgemm_k.cgemm_plain(*planes)
+        for dt, tol in (("float32", F32_TOL), ("bfloat16", BF16_TOL)):
+            out = cgemm_k.cgemm(*[p.to(getattr(torch, dt)) for p in planes])
+            errs[((m, k, n), "cgemm", dt)] = e = errors(out, ref)
+            check(f"cgemm ({m},{k},{n}) {dt} vs f32 plain", e[1], tol)
+    # ops.cgemm, the standalone op (no model path runs it, in the
+    # reference neither), driven once per FNO CGEMM shape and precision.
+    counts = {}
+    for mkn in CGEMM_FNO:
+        ins = [[p.to(getattr(torch, dt)) for p in
+                cgemm_planes(torch, *mkn, 970)] for dt in DTYPES]
+        torch.cuda.synchronize()
+        engine.LAUNCHES.clear()
+        outs = [ops.cgemm(*planes) for planes in ins]
+        torch.cuda.synchronize()
+        counts[mkn] = dict(engine.LAUNCHES)
+        want = {("cgemm", dt): 1 for dt in DTYPES}
+        log(f"  ops.cgemm {mkn}: launches {counts[mkn]}")
+        if counts[mkn] != want or not all(bool(torch.isfinite(c).all())
+                                          for pair in outs for c in pair):
+            raise AssertionError(f"ops.cgemm {mkn} launches {counts[mkn]} "
+                                 f"!= {want}, or non-finite")
+    return errs, counts
+
+
+def phase_serve_spectral(torch, np, configs, sfs, engine, servers):
+    """fno2d at full width with fuse_block off, both variants: phase 3's
+    12 requests against the staged path, with exact launch counts."""
+    log("== phase 17: serve fno2d spectral-only (fuse_block off), full "
+        "width, full and partial")
+    cfg = dataclasses.replace(servers["fused"].cfg, fuse_block=False)
+    c16 = configs.with_precision(cfg, "bf16")
+    params = servers["fused"].params
+    names = {"full": ("spectral", "spectral_bf16"),
+             "partial": ("spectral_partial", "spectral_partial_bf16")}
+    for variant, (n32, n16) in names.items():
+        for name, c in ((n32, cfg), (n16, c16)):
+            servers[name] = sfs.FNOServer(c, params, device=DEVICE,
+                                          variant=variant, max_batch=8)
+    shape = (cfg.in_channels,) + tuple(cfg.spatial)
+    for pair in names.values():  # warm every bucket outside the count
+        for name in pair:
+            srv = servers[name]
+            for b in srv.buckets:
+                srv(torch.zeros((b,) + shape, device=DEVICE))
+            srv(torch.zeros((1,) + shape, device=DEVICE), rollout_steps=4)
+    counts = {}
+    for variant, kinds in (("full", ("spectral_fwd",)),
+                           ("partial", engine.PARTIAL_KINDS)):
+        n32, n16 = names[variant]
+        plan = [(x, k, n16 if bf16 else n32)
+                for x, k, bf16 in serve_requests(torch, np, shape)]
+        expect = expected_launches(plan, kinds, cfg.num_layers,
+                                   servers[n32].buckets[-1])
+        torch.cuda.synchronize()
+        engine.LAUNCHES.clear()
+        outs = [servers[name](x, rollout_steps=k) for x, k, name in plan]
+        torch.cuda.synchronize()
+        counts[variant] = dict(engine.LAUNCHES)
+        log(f"  {variant}: launches {counts[variant]} expected {expect}")
+        if counts[variant] != expect:
+            raise AssertionError(f"kernel launches {counts[variant]} != "
+                                 f"{expect}")
+        for (x, k, name), y in zip(plan, outs):
+            if not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"non-finite serve output ({name}, "
+                                     f"K={k})")
+            check(f"serve {name} n={x.shape[0]} K={k} vs staged f32",
+                  rel_err(y, servers["staged"](x, rollout_steps=k)),
+                  BF16_TOL if name == n16 else F32_TOL)
+        del outs
+    return counts, names
+
+
+def phase_spectral_times(torch, engine, spectral, ops, configs, cgemm_k,
+                         errs, serve_counts, train_counts, cgemm_counts):
+    """CUDA events for the bare layer's launches at fno2d B=8 (shared W)
+    and fno2d-large B=8 (per-mode W) and for the complex product at the
+    FNO's CGEMM shapes, beside the plain versions, a library call where
+    one computes the same function, and the bounds. Per-mode rows carry
+    their bf16 times as extra keys: fno2d-large trains spectral-only in
+    f32 only, so its bf16 launches are on no driven path."""
+    log("== phase 19: times — spectral-only launches at fno2d and "
+        "fno2d-large B=8, cgemm")
+    rows = []
+    for arch, pm in (("fno2d", False), (LARGE, True)):
+        c = configs.get_config(arch)
+        b, h, o = 8, c.hidden, c.hidden
+        key = "fno2d_large_B8" if pm else "fno2d_B8"
+        ins32 = spectral_inputs(torch, b, h, o, c.spatial, c.modes, pm, 960)
+        by_kind = {}
+        for dt, peak, eb in (("float32", PEAK_F32_FLOPS, 4),
+                             ("bfloat16", PEAK_BF16_FLOPS, 2)):
+            x, gy, wr, wi = [a.to(getattr(torch, dt)) for a in ins32]
+            launch = spectral_launches(engine, x, gy, wr, wi, backward_mats(
+                spectral, c.spatial, c.modes, dt))
+            fft_ms = time_ms(lambda: ops.spectral_layer_nd(
+                x, wr, wi, c.modes, path="ref"), 5)
+            for kind, fn in launch.items():
+                t_bytes, t_ops = bound_parts(kind, b, h, o, c.spatial,
+                                             c.modes, eb, peak, per_mode=pm)
+                bms, by = bound_ms(kind, b, h, o, c.spatial, c.modes, eb,
+                                   peak, per_mode=pm)
+                t = {"ms": time_ms(lambda: fn(False), 10),
+                     "plain_ms": time_ms(lambda: fn(True), 5),
+                     "bound_ms": bms, "bound_by": by,
+                     "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
+                     "max_abs_err": errs[(key, kind, dt)][0],
+                     "scaled_err": errs[(key, kind, dt)][1]}
+                by_kind[(kind, dt)] = t
+                log(f"  {arch} {dt} {kind}: kernel_ms={t['ms']:.4f} "
+                    f"plain_ms={t['plain_ms']:.4f} torch_fft_layer_ms="
+                    f"{fft_ms:.4f} bound_us={1e3 * bms:.2f} ({by}; bytes "
+                    f"{1e3 * t_bytes:.2f} us, operations "
+                    f"{1e3 * t_ops:.2f} us)")
+                if kind == "spectral_fwd":
+                    t["torch_fft_layer_ms"] = fft_ms
+            del x, gy, wr, wi, launch
+        del ins32
+        tc = train_counts[(arch, "full")]
+        for kind in SPECTRAL:
+            for dt in (("float32",) if pm else DTYPES):
+                t = by_kind[(kind, dt)]
+                suffix = "_per_mode" if pm else (
+                    "_fno2d" if kind == "spectral_fwd" else "")
+                row = {
+                    "name": f"{kind}{suffix}_"
+                            f"{'f32' if dt == 'float32' else 'bf16'}",
+                    "route": "cuda",
+                    "source": (WGRAD_SOURCE if kind == "spectral_wgrad"
+                               else BLOCK_SOURCE),
+                    "replaces": (WGRAD_REPLACES if kind == "spectral_wgrad"
+                                 else BLOCK_REPLACES),
+                    "shape": f"{arch} B=8",
+                    "launches": (serve_counts["full"].get((kind, dt), 0)
+                                 if kind == "spectral_fwd" and not pm
+                                 else tc[dt].get((kind, dt), 0)),
+                    "launches_train": tc[dt].get((kind, dt), 0),
+                    "tol": F32_TOL if dt == "float32" else BF16_TOL,
+                    "library_ms": None,
+                    "library_note": "no single PyTorch call computes it",
+                    **t}
+                if pm:  # bf16 beside the f32 row
+                    t16 = by_kind[(kind, "bfloat16")]
+                    row.update({f"{k}_bf16": t16[k] for k in
+                                ("ms", "plain_ms", "bound_ms",
+                                 "max_abs_err", "scaled_err")})
+                rows.append(row)
+    for seed, (m, k, n) in enumerate(CGEMM_FNO):
+        planes32 = cgemm_planes(torch, m, k, n, 980 + seed)
+        a_c = torch.complex(planes32[0], planes32[1])  # built beforehand
+        b_c = torch.complex(planes32[2], planes32[3])
+        lib_ms = time_ms(lambda: torch.matmul(a_c, b_c), 20, queued=True)
+        lib_paced = time_ms(lambda: torch.matmul(a_c, b_c), 20)
+        for dt, peak, eb in (("float32", PEAK_F32_FLOPS, 4),
+                             ("bfloat16", PEAK_BF16_FLOPS, 2)):
+            planes = [p.to(getattr(torch, dt)) for p in planes32]
+            kms = time_ms(lambda: cgemm_k.cgemm(*planes), 20, queued=True)
+            paced = time_ms(lambda: cgemm_k.cgemm(*planes), 20)
+            pms = time_ms(lambda: cgemm_k.cgemm_plain(*planes), 10,
+                          queued=True)
+            t_bytes, t_ops = cgemm_bound_parts(m, k, n, eb, peak)
+            bms, by = cgemm_bound(m, k, n, eb, peak)
+            lib = lib_ms if dt == "float32" else None
+            log(f"  cgemm ({m},{k},{n}) {dt}: kernel_ms={kms:.4f} plain_ms="
+                f"{pms:.4f} library_ms={lib} bound_us={1e3 * bms:.2f} "
+                f"({by}); paced by the host: kernel_ms={paced:.4f} "
+                f"library_ms={lib_paced:.4f}")
+            e = errs[((m, k, n), "cgemm", dt)]
+            rows.append({
+                "name": f"cgemm_{m}x{k}x{n}_"
+                        f"{'f32' if dt == 'float32' else 'bf16'}",
+                "route": "cuda", "source": CGEMM_SOURCE,
+                "replaces": CGEMM_REPLACES, "shape": f"M={m} K={k} N={n}",
+                "launches": cgemm_counts[(m, k, n)].get(("cgemm", dt), 0),
+                "launches_note": "ops.cgemm driven once at this shape; no "
+                                 "model path runs it (nor the reference's)",
+                "max_abs_err": e[0], "scaled_err": e[1],
+                "tol": F32_TOL if dt == "float32" else BF16_TOL,
+                "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
+                "library_ms": lib, "ms_host_paced": paced,
+                "timing": "queued behind a device spin: device time only",
+                "library_note": ("torch.matmul on complex64 tensors built "
+                                 "beforehand" if lib is not None else
+                                 "no complex bf16 product in PyTorch")})
+        del planes32, a_c, b_c
+    return rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1415,6 +1766,7 @@ def main() -> int:
     from repro_torch.core import spectral
     from repro_torch.data import pde
     from repro_torch.kernels import build, dft, engine, ops
+    from repro_torch.kernels import cgemm as cgemm_k
     from repro_torch.train import serve_fno_step as sfs
     from repro_torch.train import train_step as ts
 
@@ -1497,6 +1849,52 @@ def main() -> int:
         "15", phase_large_times, torch, engine, spectral, dft, ops, configs,
         sfs, fno_mod, pm_errs, large_counts, large_train_counts)
     rows += large_rows
+    # The spectral-only path (fuse_block off) and the complex product.
+    sp_errs, cgemm_counts = timed("16", phase_spectral_vs_plain, torch,
+                                  engine, spectral, configs, ops, cgemm_k)
+    sp_counts, sp_names = timed("17", phase_serve_spectral, torch, np,
+                                configs, sfs, engine, servers)
+    sp_stats = {}
+    for variant, kinds in (("full", ("spectral_fwd",)),
+                           ("partial", engine.PARTIAL_KINDS)):
+        sp_stats[variant] = timed(
+            f"17 window {variant}", phase_serve_window, torch, np, servers,
+            engine, layers, names=sp_names[variant], kinds=kinds,
+            phase="17", requests=SPECTRAL_WINDOW)
+    sp_train, sp_train_counts = {}, {}
+    for arch, presets in (("fno2d", ("f32", "bf16")), (LARGE, ("f32",))):
+        for variant in ("full", "partial"):
+            sp_batch, sp_runs, sp_train_counts[(arch, variant)] = timed(
+                f"18 {arch} {variant}", phase_train, torch, configs,
+                fno_mod, pde, tree, ts, optim, engine, variant=variant,
+                phase="18", arch=arch, fuse_block=False, presets=presets)
+            log(f"== phase 18: train window, {arch}, variant {variant}, "
+                f"spectral-only")
+            sp_train[f"{arch} {variant}"] = timed(
+                f"18 train {arch} {variant}", train_window, torch, np,
+                sp_batch, sp_runs)
+            del sp_runs
+    rows += timed("19", phase_spectral_times, torch, engine, spectral, ops,
+                  configs, cgemm_k, sp_errs, sp_counts, sp_train_counts,
+                  cgemm_counts)
+    window = lambda st: {dt: {"p50": v["latency_ms"]["p50"],
+                              "p99": v["latency_ms"]["p99"],
+                              "sample_steps_per_s": v["sample_steps_per_s"]}
+                         for dt, v in st.items()}
+    serve_vs = {"whole_block": window(stats),
+                "spectral_only": {v: window(st) for v, st in
+                                  sp_stats.items()}}
+    log(f"fno2d serve, whole-block (phase 4) vs spectral-only (phase 17): "
+        f"{json.dumps(serve_vs)}")
+    median = lambda st: {dt: v["step_ms_median"] for dt, v in st.items()}
+    train_vs = {"fno2d whole_block full": median(train_stats),
+                "fno2d whole_block partial": median(part_train)}
+    train_vs.update({f"{LARGE} whole_block {v}": median(st)
+                     for v, st in large_train.items()})
+    train_vs.update({f"{k} spectral_only": median(st)
+                     for k, st in sp_train.items()})
+    log(f"train step ms median, whole-block vs spectral-only: "
+        f"{json.dumps(train_vs)}")
     log(f"serve window: {json.dumps(stats)}")
     log(f"train window: {json.dumps(train_stats)}")
     log(f"serve window, partial: {json.dumps(part_stats)}")
@@ -1506,6 +1904,8 @@ def main() -> int:
     log(f"{LARGE} serve windows: {json.dumps(large_stats)}")
     log(f"{LARGE} train windows: {json.dumps(large_train)}")
     log(f"{LARGE} row kernels and served block: {json.dumps(large_extra)}")
+    log(f"serve windows, spectral-only: {json.dumps(sp_stats)}")
+    log(f"train windows, spectral-only: {json.dumps(sp_train)}")
     log(f"phase seconds: {json.dumps(seconds)}")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

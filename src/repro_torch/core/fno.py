@@ -7,9 +7,12 @@
 With ``cfg.fuse_block`` on the fused path each whole block runs as ONE
 kernel launch forward (``variant="full"``; ``"partial"`` runs the paper's
 partial fusion, three launches and the staged tail) and three backward
-(``kernels.ops.fno_block_nd``); the staged composition stays the oracle
-and the only form on the "ref"/"staged" paths, where torch autograd
-differentiates it. Params are a plain dict with the reference's
+(``kernels.ops.fno_block_nd``). Without it, the fused path fuses what the
+paper fuses: each layer's spectral conv is one launch forward (three with
+``"partial"``) and two backward (``kernels.ops.spectral_layer_nd``), and
+the bypass, bias and GELU are PyTorch ops. The staged composition stays
+the oracle and the only form on the "ref"/"staged" paths, where torch
+autograd differentiates it. Params are a plain dict with the reference's
 layout (``lift1``, ``lift2``, ``proj1``, ``proj2``, ``blocks``), so a JAX
 param tree carries over leaf for leaf (``repro_torch.convert``).
 
@@ -92,15 +95,14 @@ def init_fno(gen: torch.Generator, cfg: FNOConfig,
 def apply_fno(params: Dict[str, Any], cfg: FNOConfig, x: torch.Tensor,
               *, path: str = None, variant: str = "full") -> torch.Tensor:
     """x: [B, in_channels, *spatial] -> [B, out_channels, *spatial], at the
-    policy's compute dtype. The fused path needs ``cfg.fuse_block`` (its
-    kernels are the whole block); `variant` picks full or partial fusion
-    there (the oracle paths compute the same function either way)."""
+    policy's compute dtype. On the fused path ``cfg.fuse_block`` runs each
+    block as the whole-block kernels, and without it each spectral conv as
+    the spectral-layer kernels with the rest of the block in PyTorch;
+    `variant` picks full or partial fusion there (the oracle paths compute
+    the same function either way)."""
     path = path or cfg.path
     pol = cfg.precision
-    fuse = path == "fused"
-    if fuse and not cfg.fuse_block:
-        raise ValueError("path='fused' runs whole-block kernels: set "
-                         "cfg.fuse_block (configs.with_fuse_block)")
+    fuse = path == "fused" and cfg.fuse_block
     x = x.to(torch_dtype(pol.compute_dtype))
     h = _gelu(_dense(params["lift1"], x))
     h = _dense(params["lift2"], h)
@@ -111,7 +113,7 @@ def apply_fno(params: Dict[str, Any], cfg: FNOConfig, x: torch.Tensor,
                                       policy=pol)
             continue
         s = sc.apply_spectral_nd(blk["spectral"], h, cfg.modes, path=path,
-                                 policy=pol)
+                                 variant=variant, policy=pol)
         h = _gelu(s.to(h.dtype) + _dense(blk["bypass"], h))
     return _dense(params["proj2"], _gelu(_dense(params["proj1"], h)))
 

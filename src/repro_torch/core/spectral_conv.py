@@ -31,11 +31,16 @@ def init_spectral_nd(gen: torch.Generator, in_ch: int, out_ch: int,
 
 def apply_spectral_nd(params: Dict[str, torch.Tensor], x: torch.Tensor,
                       modes: Sequence[int], *, path: str = "staged",
+                      variant: str = "full",
                       policy: Optional[PrecisionPolicy] = None
                       ) -> torch.Tensor:
-    """x: [B, C_in, *spatial] -> [B, C_out, *spatial] on an oracle path."""
+    """x: [B, C_in, *spatial] -> [B, C_out, *spatial]: the bare spectral
+    layer, on the fused path the paper's fused FFT→CGEMM→iFFT with its
+    fused backward (`variant` "full" or "partial"; at rank 1 both are the
+    one launch, as the reference's ``apply_spectral_1d`` has no variant),
+    or an oracle path ("ref"/"staged")."""
     return ops.spectral_layer_nd(x, params["wr"], params["wi"], modes,
-                                 path=path, policy=policy)
+                                 path=path, variant=variant, policy=policy)
 
 
 def apply_fno_block_nd(spec_params: Dict[str, torch.Tensor],

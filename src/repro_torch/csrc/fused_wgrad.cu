@@ -11,10 +11,12 @@
 //
 // where A = the truncated forward DFT chain of x and Ĝ = the adjoint-forward
 // chain of gz (the transposed inverse transforms), both formed here and
-// never written to device memory. Replaces the TPU kernel
+// never written to device memory. Without the bypass (kBypass=false, the
+// bare spectral layer's backward) only dW is formed: phase 3 below, its
+// partials and its outputs are compiled away. Replaces the TPU kernel
 // repro/kernels/engine.py::fused_fnond_wgrad_call (_make_wgrad_kernel,
-// engine.py:561-699) with shared or per-mode weights and with_bypass=True.
-// Element type
+// engine.py:561-699) with shared or per-mode weights, with_bypass True or
+// False. Element type
 // float or __nv_bfloat16 for x, gz and the operands; every sum accumulates
 // in f32 and the outputs are f32 (the reference emits them at the param
 // dtype, f32 under both precision presets).
@@ -84,13 +86,15 @@ struct Args {
   const T* gz;      // [B, O, n_1..n_R]
   fno::Mats<T> fx;  // forward chain of x, stage i (axis R-i): [n, k]
   fno::Mats<T> fg;  // adjoint-forward chain of gz, stage i: [n, k]
-  float* ws;        // [B][3·O·H + O (+ 2·(H+O)·K per-mode)] per-sample
-                    // partials, then the spectra A [2][H][K], Ĝ [2][O][K]
+  float* ws;        // per sample: the dW partials [2][O][H] (shared W), the
+                    // dW_b and dbias partials [O][H], [O] (with the
+                    // bypass), then the spectra A [2][H][K], Ĝ [2][O][K]
+                    // (per-mode W)
   unsigned* tickets;  // [cluster], zero at launch
   float* dwr;       // [O, H], or [O, H, K] per-mode
   float* dwi;       // same
-  float* dwb;       // [O, H]
-  float* dbias;     // [O]
+  float* dwb;       // [O, H], null without the bypass
+  float* dbias;     // [O], null without the bypass
   int H, O;
   int n[3], k[3];   // extents and modes, axis order 1..R (unused = 1)
   int hs, os;       // hidden / out channels per block of the cluster
@@ -99,7 +103,10 @@ struct Args {
   int kc;           // per-mode: modes per chunk of the batch reduction
 };
 
-template <int R, typename T, bool kPerMode>
+// kBypass=false compiles phase 3 (dW_b, dbias) away: the bare spectral
+// layer's backward. kPerMode=true forms dW per mode in the batch
+// reduction; kPerMode=false sums the modes in phase 2.
+template <int R, typename T, bool kBypass, bool kPerMode>
 __global__ void __launch_bounds__(kThreads)
 fused_wgrad_kernel(const Args<T> a) {
   extern __shared__ float smem[];
@@ -113,10 +120,13 @@ fused_wgrad_kernel(const Args<T> a) {
   const int K = g.K, S = g.S, ldk = K + 1;
   const int h0 = rank * hs, nh = max(0, min(hs, H - h0));
   const int o0 = rank * os, no = max(0, min(os, O - o0));
-  // Floats of one sample's partials (and, per-mode, spectra).
-  const int wsn = 3 * O * H + O + (kPerMode ? 2 * (H + O) * K : 0);
+  // Floats of one sample's workspace: the dW partials, the dW_b and dbias
+  // partials (at nd), then the per-mode spectra (at np_).
+  const int nd = kPerMode ? 0 : 2 * O * H;
+  const int np_ = nd + (kBypass ? O * H + O : 0);
+  const int wsn = np_ + (kPerMode ? 2 * (H + O) * K : 0);
   float* wsb = a.ws + static_cast<size_t>(b) * wsn;
-  float* wsp = wsb + 3 * O * H + O;  // per-mode spectra of this sample
+  float* wsp = wsb + np_;  // per-mode spectra of this sample
 
   // Shared memory: spectra A of my hidden slice and Ĝ of my out slice, the
   // last-block flag, then the work area of each phase.
@@ -210,7 +220,7 @@ fused_wgrad_kernel(const Args<T> a) {
 
   // Phase 3: dW_b[o,h] and dbias[o] of this sample for my out slice. Thread
   // (h, sg) sums the points j ≡ sg (mod SG) of each chunk for all my o.
-  {
+  if constexpr (kBypass) {
     const int SG = kThreads / H;
     const int h = tid % H, sg = tid / H;
     const int cs = a.cols;
@@ -263,12 +273,12 @@ fused_wgrad_kernel(const Args<T> a) {
       const int o = i / H, hc = i % H;
       float s = 0.f;
       for (int q = 0; q < SG; ++q) s += red[(q * os + o) * H + hc];
-      wsb[2 * O * H + (o0 + o) * H + hc] = s;
+      wsb[nd + (o0 + o) * H + hc] = s;
     }
     for (int o = tid; o < no; o += kThreads) {
       float s = 0.f;
       for (int q = 0; q < SG; ++q) s += redb[q * os + o];
-      wsb[3 * O * H + o0 + o] = s;
+      wsb[nd + O * H + o0 + o] = s;
     }
   }
 
@@ -280,35 +290,40 @@ fused_wgrad_kernel(const Args<T> a) {
   __syncthreads();
   if (!*last) return;
   __threadfence();
-  for (int i = tid; i < no * H; i += kThreads) {
-    const int at = (o0 + i / H) * H + i % H;
-    float sr = 0.f, si = 0.f, sb = 0.f;
-    for (int q = 0; q < nb; ++q) {
-      const float* p = a.ws + static_cast<size_t>(q) * wsn;
-      if (!kPerMode) {
-        sr += __ldcg(p + at);
-        si += __ldcg(p + O * H + at);
+  if constexpr (!kPerMode || kBypass) {  // the [O,H] sums
+    for (int i = tid; i < no * H; i += kThreads) {
+      const int at = (o0 + i / H) * H + i % H;
+      float sr = 0.f, si = 0.f, sb = 0.f;
+      for (int q = 0; q < nb; ++q) {
+        const float* p = a.ws + static_cast<size_t>(q) * wsn;
+        if (!kPerMode) {
+          sr += __ldcg(p + at);
+          si += __ldcg(p + O * H + at);
+        }
+        if (kBypass) sb += __ldcg(p + nd + at);
       }
-      sb += __ldcg(p + 2 * O * H + at);
+      if (!kPerMode) {
+        a.dwr[at] = sr;
+        a.dwi[at] = si;
+      }
+      if (kBypass) a.dwb[at] = sb;
     }
-    if (!kPerMode) {
-      a.dwr[at] = sr;
-      a.dwi[at] = si;
-    }
-    a.dwb[at] = sb;
   }
-  for (int o = tid; o < no; o += kThreads) {
-    float s = 0.f;
-    for (int q = 0; q < nb; ++q)
-      s += __ldcg(a.ws + static_cast<size_t>(q) * wsn + 3 * O * H + o0 + o);
-    a.dbias[o0 + o] = s;
+  if constexpr (kBypass) {
+    for (int o = tid; o < no; o += kThreads) {
+      float s = 0.f;
+      for (int q = 0; q < nb; ++q)
+        s += __ldcg(a.ws + static_cast<size_t>(q) * wsn + nd + O * H + o0 +
+                    o);
+      a.dbias[o0 + o] = s;
+    }
   }
   if constexpr (kPerMode) {
     // dW[o,h,k] = conj(Σ_b Ĝ[b,o,k]·A[b,h,k]) for my out slice, over chunks
     // of kc modes: Ĝ of the whole batch staged as gs[b][2][os][kc], A read
     // from the workspace (coalesced over k), samples summed in order.
     const int kc = a.kc;
-    const size_t spo = 3 * O * H + O;  // the spectra's offset in a sample
+    const size_t spo = np_;  // the spectra's offset in a sample
     float* gs = work;
     const int hg = (H + kHP - 1) / kHP;
     for (int k0 = 0; k0 < K; k0 += kc) {
@@ -371,10 +386,10 @@ fused_wgrad_kernel(const Args<T> a) {
   }
 }
 
-template <int R, typename T, bool kPerMode>
+template <int R, typename T, bool kBypass, bool kPerMode>
 cudaError_t launch_kernel(const Args<T>& a, int batch, int cl,
                           int smem_bytes, cudaStream_t stream) {
-  auto* kernel = fused_wgrad_kernel<R, T, kPerMode>;
+  auto* kernel = fused_wgrad_kernel<R, T, kBypass, kPerMode>;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err = fno::configure(kernel, batch, cl, smem_bytes, stream,
@@ -385,23 +400,33 @@ cudaError_t launch_kernel(const Args<T>& a, int batch, int cl,
   return cudaGetLastError();
 }
 
+template <int R, typename T, bool kBypass>
+cudaError_t launch_modes(const Args<T>& a, int per_mode, int batch, int cl,
+                         int smem_bytes, cudaStream_t stream) {
+  return per_mode ? launch_kernel<R, T, kBypass, true>(a, batch, cl,
+                                                       smem_bytes, stream)
+                  : launch_kernel<R, T, kBypass, false>(a, batch, cl,
+                                                        smem_bytes, stream);
+}
+
 template <int R, typename T>
-cudaError_t launch(const Args<T>& a, int per_mode, int batch, int cl,
-                   int smem_bytes, cudaStream_t stream) {
-  return per_mode
-             ? launch_kernel<R, T, true>(a, batch, cl, smem_bytes, stream)
-             : launch_kernel<R, T, false>(a, batch, cl, smem_bytes, stream);
+cudaError_t launch(const Args<T>& a, int per_mode, int bypass, int batch,
+                   int cl, int smem_bytes, cudaStream_t stream) {
+  return bypass ? launch_modes<R, T, true>(a, per_mode, batch, cl,
+                                           smem_bytes, stream)
+                : launch_modes<R, T, false>(a, per_mode, batch, cl,
+                                            smem_bytes, stream);
 }
 
 template <typename T>
 int max_clusters_for(int rank, int cl, int smem_bytes, int* n) {
   switch (rank) {
     case 1: return static_cast<int>(fno::max_clusters(
-        fused_wgrad_kernel<1, T, false>, cl, smem_bytes, n));
+        fused_wgrad_kernel<1, T, true, false>, cl, smem_bytes, n));
     case 2: return static_cast<int>(fno::max_clusters(
-        fused_wgrad_kernel<2, T, false>, cl, smem_bytes, n));
+        fused_wgrad_kernel<2, T, true, false>, cl, smem_bytes, n));
     case 3: return static_cast<int>(fno::max_clusters(
-        fused_wgrad_kernel<3, T, false>, cl, smem_bytes, n));
+        fused_wgrad_kernel<3, T, true, false>, cl, smem_bytes, n));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -441,18 +466,19 @@ int dispatch(int rank, const void* x, const void* gz,
   const int smem_bytes = plan[5];
   const int per_mode = plan[6];
   a.kc = plan[7];
+  const int bypass = plan[8];
   if (a.os > kMaxOut || a.H > kThreads || a.cols < 1 ||
-      (per_mode && a.kc < 1)) {
+      (per_mode && a.kc < 1) || (bypass && !(a.dwb && a.dbias))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (rank) {
     case 1: return static_cast<int>(
-        launch<1, T>(a, per_mode, batch, cl, smem_bytes, s));
+        launch<1, T>(a, per_mode, bypass, batch, cl, smem_bytes, s));
     case 2: return static_cast<int>(
-        launch<2, T>(a, per_mode, batch, cl, smem_bytes, s));
+        launch<2, T>(a, per_mode, bypass, batch, cl, smem_bytes, s));
     case 3: return static_cast<int>(
-        launch<3, T>(a, per_mode, batch, cl, smem_bytes, s));
+        launch<3, T>(a, per_mode, bypass, batch, cl, smem_bytes, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -461,12 +487,13 @@ int dispatch(int rank, const void* x, const void* gz,
 
 // C entry, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16 (x, gz,
 // operands). mats: 4·rank device pointers (the x chain's re/im per stage,
-// then the gz chain's). ws: B·(3·O·H + O) floats of scratch, plus
-// B·2·(H+O)·K per-mode; tickets: `cluster` zeroed unsigned ints. outs:
-// {dwr, dwi [O,H] (per-mode [O,H,K]), dwb [O,H], dbias [O]}, float32.
+// then the gz chain's). ws: B·(2·O·H (shared W) + O·H + O (bypass) +
+// 2·(H+O)·K (per-mode W)) floats of scratch; tickets: `cluster` zeroed
+// unsigned ints. outs: {dwr, dwi [O,H] (per-mode [O,H,K]), dwb [O,H],
+// dbias [O]}, float32; dwb and dbias null without the bypass.
 // dims: {B, H, O, n_1, n_2, n_3, k_1, k_2, k_3}.
 // plan: {cluster, hidden/block, out/block, rows_f, cols, smem bytes,
-// per_mode, modes per chunk of the per-mode batch reduction}.
+// per_mode, modes per chunk of the per-mode batch reduction, bypass}.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int fused_wgrad(int dtype, int rank, const void* x, const void* gz,
                            const void* const* mats, void* ws, void* tickets,
@@ -484,7 +511,9 @@ extern "C" int fused_wgrad(int dtype, int rank, const void* x, const void* gz,
 }
 
 // Writes to *n how many clusters of `cl` blocks (with `smem_bytes` of shared
-// memory each) the card can run at once; returns the cudaError_t.
+// memory each) the card can run at once, asked of one instance (shared
+// weights, with the bypass) for all: they take the same shared memory;
+// returns the cudaError_t.
 extern "C" int fused_wgrad_max_clusters(int dtype, int rank, int cl,
                                         int smem_bytes, int* n) {
   if (dtype == 0) return max_clusters_for<float>(rank, cl, smem_bytes, n);

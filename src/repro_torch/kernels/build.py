@@ -25,7 +25,7 @@ from typing import Dict, List, Sequence
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # csrc/<name>.cu, one library each
-SOURCES = ("fused_block", "fused_wgrad", "dft_rows", "fused_core")
+SOURCES = ("fused_block", "fused_wgrad", "dft_rows", "fused_core", "cgemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -173,3 +173,20 @@ def load_dft_rows() -> ctypes.CDLL:
 def load_fused_core() -> ctypes.CDLL:
     """The partial-fusion core library, built from ``csrc/fused_core.cu``."""
     return load_core_library(build("fused_core"))
+
+
+def load_cgemm_library(path: Path) -> ctypes.CDLL:
+    """Load a complex-product library and declare its C signatures."""
+    lib = ctypes.CDLL(str(path))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.cgemm.argtypes = [i, vp, i, i, i, vp]
+    lib.cgemm.restype = i
+    lib.cgemm_error_string.argtypes = [i]
+    lib.cgemm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_cgemm() -> ctypes.CDLL:
+    """The complex-product library, built from ``csrc/cgemm.cu``."""
+    return load_cgemm_library(build("cgemm"))

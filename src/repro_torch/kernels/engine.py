@@ -15,12 +15,15 @@ Counterpart of ``repro/kernels/engine.py``:
                                               transposed weights: dx.
 
   With wb=None (no bypass, no bias, act="linear") it is the bare spectral
-  layer, the rank-1 partial variant's forward.
+  layer: its forward (the spectral-only path's, and the rank-1 partial
+  variant's), and, with the adjoint bundle, transposed weights and
+  adjoint=True, its backward's dx.
 
-* ``fused_wgrad`` — ``fused_fnond_wgrad_call(with_bypass=True)``
-  (``csrc/fused_wgrad.cu``): dW = conj(Σ Ĝ·A) (summed over the modes for
-  shared weights, one per mode for per-mode ones), dW_b = Σ gz·xᵀ,
-  dbias = Σ gz.
+* ``fused_wgrad`` — ``fused_fnond_wgrad_call`` (``csrc/fused_wgrad.cu``):
+  dW = conj(Σ Ĝ·A) (summed over the modes for shared weights, one per mode
+  for per-mode ones) and, with_bypass=True (the block's backward),
+  dW_b = Σ gz·xᵀ and dbias = Σ gz; with_bypass=False is the bare spectral
+  layer's backward.
 
 * ``fused_core`` — ``fused_fnond_core_call`` (``csrc/fused_core.cu``), the
   partial variant's middle: truncated cDFT along s_1 → CGEMM → padded icDFT
@@ -31,8 +34,9 @@ Counterpart of ``repro/kernels/engine.py``:
 Each wrapper validates its operands, plans its launch and launches on a CUDA
 tensor, and runs its plain version on a CPU tensor; on a CUDA tensor it
 launches or raises, it never falls back. The wrappers take no tensor that
-requires grad: ``kernels.ops.fno_block_nd`` is the differentiable entry,
-and its backward calls them on detached tensors.
+requires grad: ``kernels.ops.fno_block_nd`` and ``spectral_layer_nd`` are
+the differentiable entries, and their backwards call them on detached
+tensors.
 On the card, compare against the plain versions with
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (callers set it).
 """
@@ -53,13 +57,16 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODES = {"gelu": 0, "gelu_vjp": 1, "linear": 2}
 # Launch kind counted per epilogue mode: with a bypass the linear mode runs
 # only as the backward's dx adjoint; without one it is the bare spectral
-# layer ("spectral_fwd").
+# layer, counted "spectral_fwd" or, asked with adjoint=True, "spectral_dx".
 _ACT_KINDS = {"gelu": "block_fwd", "gelu_vjp": "gz_recompute",
               "linear": "dx_adjoint"}
-# The kinds of one full-variant training step, and of one partial-variant
-# block forward (kernels.dft counts "rdft", "cdft" and "irdft").
+# The kinds of one full-variant block's training step, of one
+# partial-variant forward (kernels.dft counts "rdft", "cdft" and "irdft"),
+# and of one spectral-only layer's training step (fuse_block off: the bare
+# layer forward, its dx and its bypass-free wgrad).
 KINDS = ("block_fwd", "gz_recompute", "dx_adjoint", "wgrad")
 PARTIAL_KINDS = ("rdft", "core", "irdft")
+SPECTRAL_KINDS = ("spectral_fwd", "spectral_dx", "spectral_wgrad")
 
 # Kernel launches by (kind, element type), e.g. ("block_fwd", "float32"):
 # each wrapper adds one where it launches its kernel and nowhere else.
@@ -154,7 +161,8 @@ def fused_block_plain(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
 
 def fused_wgrad_plain(x: torch.Tensor, gz: torch.Tensor,
                       mats: Sequence[torch.Tensor], *,
-                      per_mode: bool = False) -> Tuple[torch.Tensor, ...]:
+                      per_mode: bool = False,
+                      with_bypass: bool = True) -> Tuple[torch.Tensor, ...]:
     """The weight-gradient kernel's function in plain PyTorch, in f32.
     Arguments and results as ``fused_wgrad``."""
     r = x.ndim - 2
@@ -170,6 +178,8 @@ def fused_wgrad_plain(x: torch.Tensor, gz: torch.Tensor,
         sdot = lambda p, q: torch.einsum(eq, p, q)
     dwr = sdot(gr, ar) - sdot(gi, ai)
     dwi = -(sdot(gr, ai) + sdot(gi, ar))  # conj
+    if not with_bypass:
+        return dwr, dwi
     g32 = gz.to(_F32)
     dwb = dot(g32, x.to(_F32))
     dbias = g32.sum(dim=red).reshape(-1, 1)
@@ -588,9 +598,10 @@ def _launch(lib, x, wr, wi, wb, bias, mats, spatial, modes, stream, *,
 
 
 def _launch_wgrad(lib, x, gz, mats, spatial, modes, stream,
-                  per_mode=False):
+                  per_mode=False, with_bypass=True):
     """Allocate the outputs and scratch and launch the weight-gradient
-    kernel through the C entry (no checks)."""
+    kernel through the C entry (no checks); returns (dwr, dwi, dwb,
+    dbias), or (dwr, dwi) without the bypass."""
     b, h = x.shape[:2]
     o = gz.shape[1]
     code = _DTYPE_CODES[x.dtype]
@@ -600,17 +611,21 @@ def _launch_wgrad(lib, x, gz, mats, spatial, modes, stream,
     kk = 1
     for m in modes:
         kk *= m
-    # Per sample: the dW, dW_b and dbias partials, then (per-mode) the
-    # spectra A [2][H][K] and Ĝ [2][O][K] for the batch reduction.
-    ws = torch.empty((b, 3 * o * h + o + (2 * (h + o) * kk if per_mode
-                                          else 0)), dtype=_F32, device=dev)
+    # Per sample: the dW partials (shared W), the dW_b and dbias partials
+    # (with the bypass), then the spectra A [2][H][K] and Ĝ [2][O][K] for
+    # the batch reduction (per-mode W).
+    wsn = ((2 * (h + o) * kk if per_mode else 2 * o * h)
+           + (o * h + o if with_bypass else 0))
+    ws = torch.empty((b, wsn), dtype=_F32, device=dev)
     tickets = torch.zeros((plan["cluster"],), dtype=torch.int32, device=dev)
     dw = (o, h) + (tuple(modes) if per_mode else ())
     outs = [torch.empty(dw, dtype=_F32, device=dev) for _ in range(2)]
-    outs.append(torch.empty((o, h), dtype=_F32, device=dev))
-    outs.append(torch.empty((o, 1), dtype=_F32, device=dev))
+    if with_bypass:
+        outs.append(torch.empty((o, h), dtype=_F32, device=dev))
+        outs.append(torch.empty((o, 1), dtype=_F32, device=dev))
     pl = _ints([plan["cluster"], plan["hs"], plan["os"], plan["rows_f"],
-                plan["cols"], plan["smem"], int(per_mode), chunk])
+                plan["cols"], plan["smem"], int(per_mode), chunk,
+                int(with_bypass)])
     ptrs = (ctypes.c_void_p * len(mats))(*[m.data_ptr() for m in mats])
     optrs = (ctypes.c_void_p * 4)(*[t.data_ptr() for t in outs])
     err = lib.fused_wgrad(code, len(spatial), x.data_ptr(), gz.data_ptr(),
@@ -665,7 +680,8 @@ def fused_block(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
                 wb: Optional[torch.Tensor], bias: Optional[torch.Tensor],
                 mats: Sequence[torch.Tensor], *, act: str = "gelu",
                 gy: Optional[torch.Tensor] = None,
-                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                out_dtype: Optional[torch.dtype] = None,
+                adjoint: bool = False) -> torch.Tensor:
     """One FNO block kernel launch in one of its three epilogue modes.
 
     x: [B,H,s_1..s_R] float32 or bfloat16; wr/wi: shared [O,H] or
@@ -678,11 +694,16 @@ def fused_block(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
     [k,n], axis s_1 first; the "adjoint" bundle for dx), all at x's dtype
     and contiguous. act: "gelu" (y), "gelu_vjp" (gz from gy [B,O,s…]) or
     "linear" (z). Returns [B,O,s_1..s_R] at `out_dtype` (x's dtype by
-    default). A CPU tensor runs ``fused_block_plain``; a CUDA tensor
-    launches the kernel or raises.
+    default). adjoint=True marks a bare launch (wb=None) as the spectral
+    layer's backward dx, counted "spectral_dx" rather than
+    "spectral_fwd"; the operands make it one. A CPU tensor runs
+    ``fused_block_plain``; a CUDA tensor launches the kernel or raises.
     """
     spatial, modes, _ = _check(x, wr, wi, wb, bias, mats, act, gy,
                                out_dtype)
+    if adjoint and (wb is not None or act != "linear"):
+        raise ValueError("adjoint=True marks the bare spectral layer's dx: "
+                         "wb=None and act='linear'")
     if not _on_card(x, "fused block"):
         return fused_block_plain(x, wr, wi, wb, bias, mats, act=act, gy=gy,
                                  out_dtype=out_dtype)
@@ -691,33 +712,41 @@ def fused_block(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
         y = _launch(build.load_fused_block(), x, wr, wi, wb, bias, mats,
                     spatial, modes, stream, act=act, gy=gy,
                     out_dtype=out_dtype)
-    kind = "spectral_fwd" if wb is None else _ACT_KINDS[act]
+    if wb is None:
+        kind = "spectral_dx" if adjoint else "spectral_fwd"
+    else:
+        kind = _ACT_KINDS[act]
     LAUNCHES[(kind, _dtype_name(x.dtype))] += 1
     return y
 
 
 def fused_wgrad(x: torch.Tensor, gz: torch.Tensor,
-                mats: Sequence[torch.Tensor], *,
-                per_mode: bool = False) -> Tuple[torch.Tensor, ...]:
-    """The block's weight gradients in one kernel launch.
+                mats: Sequence[torch.Tensor], *, per_mode: bool = False,
+                with_bypass: bool = True) -> Tuple[torch.Tensor, ...]:
+    """The block's (or the bare spectral layer's) weight gradients in one
+    kernel launch.
 
     x: [B,H,s_1..s_R] float32 or bfloat16 (the block input); gz:
     [B,O,s_1..s_R] (the pre-activation cotangent); mats: the 4R operands of
     ``core.spectral.operand_tensors(kind="wgrad")`` (R forward stages for x,
     then R adjoint-forward stages for gz, each [n,k], axis s_R first), all
     at x's dtype and contiguous. Returns float32 (dwr, dwi, dwb [O,H],
-    dbias [O,1]); with per_mode, dwr and dwi are one per mode, in the
-    parameter layout [O,H,k_1..k_R]. A CPU tensor runs
-    ``fused_wgrad_plain``; a CUDA tensor launches the kernel or raises.
+    dbias [O,1]), or (dwr, dwi) with with_bypass=False (the bare spectral
+    layer's backward, counted "spectral_wgrad"); with per_mode, dwr and
+    dwi are one per mode, in the parameter layout [O,H,k_1..k_R]. A CPU
+    tensor runs ``fused_wgrad_plain``; a CUDA tensor launches the kernel
+    or raises.
     """
     spatial, modes = _check_wgrad(x, gz, mats)
     if not _on_card(x, "fused wgrad"):
-        return fused_wgrad_plain(x, gz, mats, per_mode=per_mode)
+        return fused_wgrad_plain(x, gz, mats, per_mode=per_mode,
+                                 with_bypass=with_bypass)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         outs = _launch_wgrad(build.load_fused_wgrad(), x, gz, mats, spatial,
-                             modes, stream, per_mode)
-    LAUNCHES[("wgrad", _dtype_name(x.dtype))] += 1
+                             modes, stream, per_mode, with_bypass)
+    kind = "wgrad" if with_bypass else "spectral_wgrad"
+    LAUNCHES[(kind, _dtype_name(x.dtype))] += 1
     return outs
 
 

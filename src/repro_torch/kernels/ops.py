@@ -6,8 +6,13 @@
   path="fused"  — the CUDA kernels                    (reference "pallas")
 
 The oracles accumulate in f32, never fuse, and differentiate through torch
-autograd. The fused path is the whole FNO block, with shared [O,H] or
-per-mode [O,H,k_1..k_R] spectral weights, as a
+autograd. On the fused path, the bare spectral layer
+(``spectral_layer_nd``, the paper's FFT→CGEMM→iFFT fusion; the model runs
+it with ``fuse_block`` off) is a ``torch.autograd.Function`` with one
+forward launch (variant "full") or the partial variant's three, and two
+backward launches: dx through the same kernel in adjoint mode, and the
+bypass-free wgrad. The whole FNO block, with shared [O,H] or per-mode
+[O,H,k_1..k_R] spectral weights, is another
 ``torch.autograd.Function`` with the reference's launch structure:
 
   variant="full"    one block-kernel launch forward;
@@ -20,9 +25,9 @@ per-mode [O,H,k_1..k_R] spectral weights, as a
 
 and three launches backward for both (gz recompute, dx adjoint, fused
 wgrad): partial and full compute the same function, so one adjoint serves
-both. The standalone transforms (``truncated_rdft`` …) run the row kernels
-on the fused path. The kernels mask their own ragged edges, so nothing here
-pads.
+both. The standalone transforms (``truncated_rdft`` …) and ``cgemm`` run
+their kernels on the fused path. The kernels mask their own ragged edges,
+so nothing here pads.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import PrecisionPolicy, torch_dtype
 from repro_torch.core import spectral
+from repro_torch.kernels import cgemm as cgemm_k
 from repro_torch.kernels import dft, engine
 from repro_torch.kernels import ref as ref_k
 
@@ -85,13 +91,22 @@ def _fnond_staged(x, wr, wi, modes, pol: Optional[PrecisionPolicy] = None):
 
 def spectral_layer_nd(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
                       modes: Sequence[int], *, path: str = "staged",
+                      variant: str = "full",
                       policy: Optional[PrecisionPolicy] = None
                       ) -> torch.Tensor:
-    """The bare rank-R spectral layer on an oracle path ("ref"/"staged").
-    x: [B,H,s_1..s_R]; w: [O,H] or [O,H,k_1..k_R]. Its fused kernel is not
-    ported yet; on the fused path use the whole block (``fno_block_nd``).
+    """The bare rank-R spectral layer y = Re iDFT(Σ_h DFT(x_h)·W[o,h(,k)]).
+
+    x: [B,H,s_1..s_R]; w: [O,H] or [O,H,k_1..k_R]. path="fused" runs
+    ``_SpectralLayer``: with variant="full" ONE kernel launch forward, with
+    "partial" the paper's partial fusion (rdft → core → irdft; rank 1: the
+    one launch), and two launches backward for both (dx through the
+    adjoint, the bypass-free wgrad). "ref"/"staged" are the oracles
+    (partial and full are one function). The result is at the policy's
+    compute dtype (x's dtype without a policy; f32 on "ref" without one).
     """
     modes = _modes_key(modes)
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; known: {VARIANTS}")
     if path == "ref":
         if policy is not None:  # oracle runs in f32, emits at compute dtype
             y32 = ref_k.ref_fnond(x.to(_F32), wr.to(_F32), wi.to(_F32),
@@ -100,8 +115,47 @@ def spectral_layer_nd(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
         return ref_k.ref_fnond(x, wr, wi, modes)
     if path == "staged":
         return _fnond_staged(x, wr, wi, modes, policy)
-    raise ValueError(f"spectral_layer_nd runs on 'ref' or 'staged', not "
-                     f"{path!r}: the fused path fuses the whole block")
+    _check_path(path)
+    return _SpectralLayer.apply(x, wr, wi, modes,
+                                policy or _default_policy(x), variant)
+
+
+def spectral_layer_1d(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
+                      modes: int, *, path: str = "fused",
+                      policy: Optional[PrecisionPolicy] = None
+                      ) -> torch.Tensor:
+    """Rank-1 spectral layer, x [B,H,N], w [O,H] or [O,H,modes]: one
+    launch forward (rank 1 has no partial variant)."""
+    _check_rank("spectral_layer_1d", x, 1)
+    return spectral_layer_nd(x, wr, wi, (modes,), path=path, policy=policy)
+
+
+def spectral_layer_2d(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
+                      modes: Tuple[int, int], *, path: str = "fused",
+                      variant: str = "full",
+                      policy: Optional[PrecisionPolicy] = None
+                      ) -> torch.Tensor:
+    """Rank-2 spectral layer, x [B,H,X,Y], w [O,H] or [O,H,kx,ky]."""
+    _check_rank("spectral_layer_2d", x, 2)
+    return spectral_layer_nd(x, wr, wi, modes, path=path, variant=variant,
+                             policy=policy)
+
+
+def spectral_layer_3d(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
+                      modes: Tuple[int, int, int], *, path: str = "fused",
+                      variant: str = "full",
+                      policy: Optional[PrecisionPolicy] = None
+                      ) -> torch.Tensor:
+    """Rank-3 spectral layer, x [B,H,X,Y,Z], w [O,H] or [O,H,kx,ky,kz]."""
+    _check_rank("spectral_layer_3d", x, 3)
+    return spectral_layer_nd(x, wr, wi, modes, path=path, variant=variant,
+                             policy=policy)
+
+
+def _check_rank(what, x, rank):
+    if x.ndim != 2 + rank:
+        raise ValueError(f"{what} takes x [B,H] + {rank} spatial axes, got "
+                         f"shape {tuple(x.shape)}")
 
 
 # ---------------------------------------------------------------------------
@@ -168,6 +222,18 @@ def padded_icdft(xr: torch.Tensor, xi: torch.Tensor, n: int, *,
         return spectral.padded_icdft(xr, xi, n)
     mats = _row_mats("icdft", (n,), (xr.shape[-1],), xr, operand_dtype)
     return dft.cdft(xr.contiguous(), xi.contiguous(), *mats)
+
+
+def cgemm(ar: torch.Tensor, ai: torch.Tensor, br: torch.Tensor,
+          bi: torch.Tensor, *, path: str = "fused"
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(M,K)x(K,N) complex matmul of (re, im) planes. "ref"/"staged": the
+    four f32 products; "fused": the CGEMM kernel (the plain version on a
+    CPU tensor), emitted at ar's dtype."""
+    _check_path(path)
+    if path in ("ref", "staged"):
+        return ref_k.ref_cgemm(ar, ai, br, bi)
+    return cgemm_k.cgemm(*(t.contiguous() for t in (ar, ai, br, bi)))
 
 
 # ---------------------------------------------------------------------------
@@ -262,6 +328,49 @@ def _operands(x, wr, wi, wb, bias, pol):
     the bias is [O] here and [O,1] at the kernel."""
     cp = torch_dtype(pol.compute_dtype)
     return tuple(_c(a.to(cp)) for a in (x, wr, wi, wb, bias.reshape(-1, 1)))
+
+
+class _SpectralLayer(torch.autograd.Function):
+    """The bare spectral layer with the reference's custom VJP
+    (``ops._spectral_layer_nd_pallas``, ``_fnond_vjp_fwd``/``_bwd``):
+    forward is one bare block-kernel launch (variant "full") or the
+    partial variant's three launches, and saves only the primals;
+    backward, for both (they compute one linear map), is two launches —
+    dx through the same kernel with the adjoint bundle and the weights'
+    transposed view, emitted at the primal dtype, and dW from the wgrad
+    kernel without its bypass phase, in f32, cast to the param dtype (per
+    mode, in the parameter layout, for per-mode weights). Operands run at
+    the compute dtype."""
+
+    @staticmethod
+    def forward(ctx, x, wr, wi, modes, pol, variant):
+        ctx.save_for_backward(x, wr, wi)
+        ctx.modes, ctx.pol = modes, pol
+        cp = torch_dtype(pol.compute_dtype)
+        xc, wrc, wic = (_c(a.to(cp)) for a in (x, wr, wi))
+        if variant == "full":
+            return engine.fused_block(xc, wrc, wic, None, None,
+                                      _mats(xc, modes, pol, "forward"),
+                                      act="linear")
+        return _fnond_partial(xc, wrc, wic, modes, pol)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, wr, wi = ctx.saved_tensors
+        modes, pol = ctx.modes, ctx.pol
+        cp = torch_dtype(pol.compute_dtype)
+        xc, wrc, wic, gyc = (_c(a.to(cp)) for a in (x, wr, wi, gy))
+        # dx = spectral_adjoint(gy): the bare kernel with the adjoint
+        # bundle and (out, hidden)-swapped weights, read as a view.
+        dx = engine.fused_block(gyc, wrc.transpose(0, 1),
+                                wic.transpose(0, 1), None, None,
+                                _mats(xc, modes, pol, "adjoint"),
+                                act="linear", out_dtype=x.dtype,
+                                adjoint=True)
+        dwr, dwi = engine.fused_wgrad(xc, gyc, _mats(xc, modes, pol, "wgrad"),
+                                      per_mode=wr.ndim > 2,
+                                      with_bypass=False)
+        return dx, dwr.to(wr.dtype), dwi.to(wi.dtype), None, None, None
 
 
 class _FusedBlock(torch.autograd.Function):

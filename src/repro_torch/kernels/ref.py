@@ -70,3 +70,10 @@ def ref_padded_icdft(xr: torch.Tensor, xi: torch.Tensor, n: int):
     xf = torch.complex(xr.to(torch.float32), xi.to(torch.float32))
     out = torch.fft.ifft(F.pad(xf, [0, n - xr.shape[-1]]), n=n, dim=-1)
     return out.real.contiguous(), out.imag.contiguous()
+
+
+def ref_cgemm(ar: torch.Tensor, ai: torch.Tensor, br: torch.Tensor,
+              bi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Complex matmul (..., M, K) x (K, N) as 4 real matmuls, in float32."""
+    a, b, c, d = (t.to(torch.float32) for t in (ar, ai, br, bi))
+    return a @ c - b @ d, a @ d + b @ c

@@ -8,7 +8,10 @@ GPU (``--device cpu`` runs the plain versions), asserts every output is
 finite, and prints samples/s beside the device's name. On the fused path
 every FNO layer is one launch of the CUDA block kernel (``--variant
 full``) or the paper's partial fusion (``--variant partial``: row rDFT,
-fused core and row irDFT launches, then the block tail).
+fused core and row irDFT launches, then the block tail). With
+``--no-fuse-block`` the kernels fuse the spectral conv only, as the
+paper does (the bare layer kernel, or the partial variant's three
+launches), and the bypass, bias and GELU run as PyTorch ops.
 """
 from __future__ import annotations
 
@@ -40,6 +43,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="full: one block kernel per layer; partial: the "
                          "paper's partial fusion")
     ap.add_argument("--dtype", default="f32", choices=["f32", "bf16"])
+    ap.add_argument("--no-fuse-block", action="store_true",
+                    help="fused path: fuse each spectral conv only, with "
+                         "the bypass, bias and GELU in PyTorch")
     ap.add_argument("--rollout-steps", type=int, default=1,
                     help="serve K-step autoregressive rollouts (the carry "
                          "stays on the device between steps)")
@@ -62,7 +68,8 @@ def device_name(device: torch.device) -> str:
 def run(args) -> dict:
     cfg = with_precision(get_config(args.arch, reduced=args.reduced),
                          args.dtype)
-    cfg = with_fuse_block(cfg, args.path == "fused")
+    cfg = with_fuse_block(cfg, args.path == "fused"
+                          and not args.no_fuse_block)
     cfg = dataclasses.replace(cfg, path=args.path)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -94,14 +101,15 @@ def run(args) -> dict:
     samples = int(sizes.sum())
     out = {
         "arch": args.arch, "path": args.path, "variant": args.variant,
-        "dtype": args.dtype,
+        "fuse_block": cfg.fuse_block, "dtype": args.dtype,
         "device": device_name(dev), "buckets": list(server.buckets),
         "rollout_steps": args.rollout_steps, "requests": args.requests,
         "samples": samples, "padded": server.stats["padded"],
         "seconds": dt, "samples_per_s": samples / max(dt, 1e-9),
     }
     print(f"serve_fno arch={args.arch} path={args.path} "
-          f"variant={args.variant} dtype={args.dtype} "
+          f"variant={args.variant} fuse_block={cfg.fuse_block} "
+          f"dtype={args.dtype} "
           f"device={out['device']} buckets={list(server.buckets)}")
     print(f"  served {args.requests} requests / {samples} samples "
           f"(rollout K={args.rollout_steps}) in {dt * 1e3:.3f} ms "

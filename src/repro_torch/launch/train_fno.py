@@ -12,7 +12,10 @@ Darcy 2D, diffusion 3D), with AdamW and the reference's warmup-cosine
 schedule, in a plain step loop (no checkpointing). On the fused path every
 FNO block trains through the hand-written kernels: one launch forward
 (``--variant full``; ``partial`` runs the paper's partial fusion, three
-launches and the staged tail) and three backward. Runs on the GPU by
+launches and the staged tail) and three backward. With
+``--no-fuse-block`` the kernels fuse each spectral conv only, as the
+paper does: one launch forward (three partial) and two backward, with the
+bypass, bias and GELU in PyTorch. Runs on the GPU by
 default; ``--device cpu`` runs the kernels' plain versions. Prints loss
 and grad norm per step beside the device's name.
 """
@@ -51,6 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dtype", default="f32", choices=["f32", "bf16"],
                     help="bf16: bf16 compute and DFT operands with f32 "
                          "master params, accumulators and AdamW update")
+    ap.add_argument("--no-fuse-block", action="store_true",
+                    help="fused path: fuse each spectral conv only, with "
+                         "the bypass, bias and GELU in PyTorch")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain versions)")
     return ap
@@ -80,8 +86,8 @@ def run(args) -> dict:
     dev = _device(args.device)
     cfg = with_precision(get_config(args.arch, reduced=args.reduced),
                          args.dtype)
-    cfg = dataclasses.replace(with_fuse_block(cfg, args.path == "fused"),
-                              path=args.path)
+    fuse = args.path == "fused" and not args.no_fuse_block
+    cfg = dataclasses.replace(with_fuse_block(cfg, fuse), path=args.path)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
@@ -93,7 +99,8 @@ def run(args) -> dict:
     data = batch_fn(cfg, args.batch, dev)
     state = opt.init(params)
     print(f"train_fno arch={cfg.name} params={cfg.param_count()} "
-          f"path={args.path} variant={args.variant} dtype={args.dtype} "
+          f"path={args.path} variant={args.variant} "
+          f"fuse_block={cfg.fuse_block} dtype={args.dtype} "
           f"batch={args.batch} "
           f"steps={args.steps} device={name}")
     history = []
@@ -110,7 +117,7 @@ def run(args) -> dict:
         print(f"  step {i + 1:5d} loss {loss:.6f} gnorm {gnorm:.6f} "
               f"{1e3 * dt:.1f} ms on {name}")
     return {"arch": cfg.name, "path": args.path, "variant": args.variant,
-            "dtype": args.dtype,
+            "fuse_block": cfg.fuse_block, "dtype": args.dtype,
             "device": name, "history": history}
 
 

@@ -3,15 +3,17 @@ of FNO training steps at full width (fno2d unless ``--arch`` names another
 2D model, e.g. fno2d-large), or, with ``--serve``, of served requests.
 
     PYTHONPATH=src python -m repro_torch.launch.train_profile [--dtype bf16]
-        [--serve] [--variant partial] [--arch fno2d-large]
+        [--serve] [--variant partial] [--arch fno2d-large] [--no-fuse-block]
 
 Runs warm-up steps, then traces ``--steps`` train steps (fused path, batch
 8 of Darcy data from seed 0, AdamW) with CPU and CUDA activities, and
 prints the device time per step by kernel (top entries), the device's busy
 time against the step's wall time (its idle share), and the host time per
 step. With ``--serve`` a step is one request of those 8 samples to
-``FNOServer``, waited for as a client would. The last line is one JSON
-object. Needs an NVIDIA GPU.
+``FNOServer``, waited for as a client would. ``--no-fuse-block`` profiles
+the spectral-only path (the kernels fuse each spectral conv; the bypass,
+bias and GELU are PyTorch ops). The last line is one JSON object. Needs
+an NVIDIA GPU.
 """
 from __future__ import annotations
 
@@ -48,6 +50,9 @@ def main() -> None:
     ap.add_argument("--variant", default="full",
                     choices=["full", "partial"],
                     help="full or partial fusion of the blocks' forward")
+    ap.add_argument("--no-fuse-block", action="store_true",
+                    help="fuse each spectral conv only (the paper's "
+                         "design), not the whole block")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("train_profile: needs an NVIDIA GPU")
@@ -57,7 +62,8 @@ def main() -> None:
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = with_precision(with_fuse_block(get_config(args.arch)), args.dtype)
+    cfg = with_precision(with_fuse_block(get_config(args.arch),
+                                         not args.no_fuse_block), args.dtype)
     cfg = dataclasses.replace(cfg, path="fused")
     params = fno_mod.init_fno(torch.Generator().manual_seed(0), cfg, "cuda")
     batch = pde.darcy_batch(0, 0, 8, cfg.spatial[0], device="cuda")
@@ -99,7 +105,7 @@ def main() -> None:
                  reverse=True)[:args.top]
     what = "serve" if args.serve else "train"
     print(f"{what} arch={args.arch} variant={args.variant} "
-          f"dtype={args.dtype} "
+          f"fuse_block={cfg.fuse_block} dtype={args.dtype} "
           f"steps={args.steps}: wall "
           f"{wall_ms:.4f} ms per step, device busy {device_ms:.4f} ms per step, idle share "
           f"{1 - device_ms / wall_ms:.4f}")
@@ -112,6 +118,7 @@ def main() -> None:
               f"{e.key[:80]}")
     print(json.dumps({"card": smi, "what": what, "arch": args.arch,
                       "variant": args.variant,
+                      "fuse_block": cfg.fuse_block,
                       "dtype": args.dtype,
                       "steps": args.steps,
                       "wall_ms_per_step": wall_ms,

@@ -21,6 +21,7 @@ from repro.core import fno as jfno
 from repro_torch import configs as tconfigs
 from repro_torch.convert import params_from_jax
 from repro_torch.core import fno as tfno
+from repro_torch.kernels import engine
 
 ARCHS = ["fno1d", "fno2d", "fno3d"]
 
@@ -125,12 +126,28 @@ def test_params_from_jax_widens_bf16_leaves():
     torch.testing.assert_close(out["b"], torch.arange(4.0))
 
 
-def test_fused_path_needs_fuse_block():
+def test_fused_path_needs_fuse_block(monkeypatch):
+    """The fused path runs the whole-block kernel only with
+    ``cfg.fuse_block``; without it each layer's spectral conv is the bare
+    spectral-layer kernel and the bypass, bias and GELU are PyTorch ops.
+    Both compute the same function."""
     cfg = dataclasses.replace(tconfigs.get_config("fno1d", reduced=True),
                               path="fused")
     params = tfno.init_fno(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(ValueError, match="fuse_block"):
-        tfno.apply_fno(params, cfg, torch.zeros(1, 1, 64))
+    x = torch.randn((2, 1, 64), generator=torch.Generator().manual_seed(1))
+    calls = []
+    block = engine.fused_block
+
+    def spy(*a, **kw):
+        calls.append("spectral" if a[3] is None else "block")
+        return block(*a, **kw)
+    monkeypatch.setattr(engine, "fused_block", spy)
+    y = tfno.apply_fno(params, cfg, x)
+    assert calls == ["spectral"] * cfg.num_layers
+    calls.clear()
+    y_block = tfno.apply_fno(params, tconfigs.with_fuse_block(cfg), x)
+    assert calls == ["block"] * cfg.num_layers
+    _allclose_rel(_np(y), _np(y_block), 2e-4)
 
 
 def test_relative_l2_matches_reference():

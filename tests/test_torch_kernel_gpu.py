@@ -7,8 +7,12 @@ version), the launch counter, the fused model (both variants) against the
 staged path, and one fused training step of each variant against the
 staged one; then the per-mode modes of the block, wgrad and core kernels
 (weights [O,H,k_1..k_R]) at ranks 1–3 and at fno2d-large's width, and a
-per-mode fused training step. Every test needs an NVIDIA GPU (marker ``gpu``) and skips without
-one; on the card:
+per-mode fused training step; then the spectral-only path's launches (the
+bare layer's dx, the bypass-free wgrad, shared and per-mode, counted
+"spectral_dx" and "spectral_wgrad"), the complex product ``cgemm``, and a
+spectral-only (``fuse_block`` off) training step of each variant. Every
+test needs an NVIDIA GPU (marker ``gpu``) and skips without one; on the
+card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernel_gpu.py
 """
@@ -21,6 +25,7 @@ import torch
 from repro_torch import configs, tree
 from repro_torch.core import fno as tfno
 from repro_torch.core import spectral
+from repro_torch.kernels import cgemm as cgemm_k
 from repro_torch.kernels import dft, engine
 from repro_torch.kernels import ops as tops
 from repro_torch.optim.adamw import AdamW
@@ -482,5 +487,96 @@ def test_per_mode_train_step_matches_staged_on_card(cuda, variant):
         make_loss_fn(cfg, fno_path=p, fno_variant=variant), params,
         batch)[1]) for p in ("fused", "staged")]
     for a, b in zip(*grads):
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= 2e-4 * scale
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("per_mode", [False, True],
+                         ids=["shared", "per_mode"])
+@pytest.mark.parametrize("rank", [1, 2, 3])
+def test_spectral_backward_kernels_match_plain(cuda, rank, per_mode, dtype):
+    """The bare layer's backward: dx (the block kernel without wb, the
+    adjoint bundle, the weights' transposed view, emitted in f32) and the
+    wgrad kernel without its bypass phase, against the plain versions in
+    f32, each counted once under its own kind."""
+    spatial, modes = _CASES[rank]
+    x, wr, wi = _args(cuda, spatial, seed=30 + rank)[:3]
+    if per_mode:
+        wr, wi = _per_mode_weights(cuda, 6, 8, modes, 30 + rank)
+    gy = torch.randn((2, 6) + spatial,
+                     generator=torch.Generator().manual_seed(rank)).to(cuda)
+    tdt = getattr(torch, dtype)
+    m = {d: {k: spectral.operand_tensors(spatial, modes, d, cuda, k)
+             for k in ("adjoint", "wgrad")} for d in ("float32", dtype)}
+    sw = lambda a: a.transpose(0, 1)
+    dx32 = engine.fused_block_plain(gy, sw(wr), sw(wi), None, None,
+                                    m["float32"]["adjoint"], act="linear")
+    dw32 = engine.fused_wgrad_plain(x, gy, m["float32"]["wgrad"],
+                                    per_mode=per_mode, with_bypass=False)
+    before = dict(engine.LAUNCHES)
+    w_r, w_i = wr.to(tdt), wi.to(tdt)
+    dx = engine.fused_block(gy.to(tdt), sw(w_r), sw(w_i), None, None,
+                            m[dtype]["adjoint"], act="linear",
+                            out_dtype=torch.float32, adjoint=True)
+    dw = engine.fused_wgrad(x.to(tdt), gy.to(tdt), m[dtype]["wgrad"],
+                            per_mode=per_mode, with_bypass=False)
+    torch.cuda.synchronize()
+    for kind in ("spectral_dx", "spectral_wgrad"):
+        assert engine.LAUNCHES[(kind, dtype)] == \
+            before.get((kind, dtype), 0) + 1, kind
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    assert len(dw) == 2
+    for name, a, b in zip(("dx", "dwr", "dwi"), (dx, *dw), (dx32, *dw32)):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mkn", [(37, 19, 23), (130, 257, 129),
+                                 (64, 64, 8192)], ids=str)
+def test_cgemm_kernel_matches_plain(cuda, mkn, dtype):
+    m, k, n = mkn
+    gen = torch.Generator().manual_seed(m + n)
+    planes = [torch.randn(s, generator=gen).to(cuda)
+              for s in ((m, k), (m, k), (k, n), (k, n))]
+    ref = cgemm_k.cgemm_plain(*planes)
+    tdt = getattr(torch, dtype)
+    before = engine.LAUNCHES[("cgemm", dtype)]
+    out = tops.cgemm(*[p.to(tdt) for p in planes])
+    torch.cuda.synchronize()
+    assert engine.LAUNCHES[("cgemm", dtype)] == before + 1
+    for a, r in zip(out, ref):
+        assert a.dtype == tdt and a.is_cuda and a.shape == (m, n)
+        assert _rel_err(a, r) <= (2e-4 if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.parametrize("variant", ["full", "partial"])
+def test_spectral_only_train_step_matches_staged_on_card(cuda, variant):
+    """Reduced fno2d with fuse_block off: the loss and every leaf's
+    gradient of the fused path (the spectral-layer kernels, the bypass,
+    bias and GELU in PyTorch) against the staged path, and exactly
+    num_layers launches of each spectral-only kind per step."""
+    cfg = configs.get_config("fno2d", reduced=True)
+    assert not cfg.fuse_block
+    params = tfno.init_fno(torch.Generator().manual_seed(0), cfg, cuda)
+    gen = torch.Generator().manual_seed(3)
+    batch = {"x": torch.randn((2, cfg.in_channels) + tuple(cfg.spatial),
+                              generator=gen).to(cuda),
+             "y": torch.randn((2, cfg.out_channels) + tuple(cfg.spatial),
+                              generator=gen).to(cuda)}
+    engine.LAUNCHES.clear()
+    loss, grads = value_and_grad(
+        make_loss_fn(cfg, fno_path="fused", fno_variant=variant), params,
+        batch)
+    torch.cuda.synchronize()
+    kinds = (engine.SPECTRAL_KINDS if variant == "full"
+             else engine.PARTIAL_KINDS + engine.SPECTRAL_KINDS[1:])
+    assert dict(engine.LAUNCHES) == {(k, "float32"): cfg.num_layers
+                                     for k in kinds}
+    loss_s, grads_s = value_and_grad(make_loss_fn(cfg, fno_path="staged"),
+                                     params, batch)
+    assert abs(float(loss) - float(loss_s)) <= 2e-4 * abs(float(loss_s))
+    for a, b in zip(tree.leaves(grads), tree.leaves(grads_s)):
         scale = max(float(b.abs().max()), 1e-30)
         assert float((a - b).abs().max()) <= 2e-4 * scale
