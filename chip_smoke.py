@@ -50,8 +50,7 @@ fatal:
      width with phase 3's 12 requests: finite, equal to the staged path and
      to the full variant within the tolerances, exactly num_layers ×
      Σ(chunks × K) launches of each of rdft, core and irdft and no
-     block_fwd; then fno3d at full width serves batches of 1 and 2 through
-     the partial path (f32 and bf16) against the staged path;
+     block_fwd (phase 21 serves fno3d through the partial path);
   10. train partial — phase 6 with ``fno_variant="partial"``: num_layers
      launches of each of rdft, core, irdft, gz_recompute, dx_adjoint and
      wgrad per step;
@@ -110,7 +109,35 @@ fatal:
      beside their plain versions, the staged torch.fft layer (a
      yardstick) and their bounds, and ``cgemm`` at (64,64,8192) and
      (128,128,8192) beside its plain version, ``torch.matmul`` on
-     complex64 (f32) and its bound.
+     complex64 (f32) and its bound;
+  20. fno3d kernels vs plain, and the linear block — the rank-3 preset at
+     full width (hidden 32, 4 layers, 64³, modes 16³: clusters of 16 and
+     3 s_1 rows per forward-chain chunk), B=1 and B=8: the block forward,
+     gz recompute, dx adjoint, wgrad, the bare forward and dx and the
+     bypass-free wgrad against their plain versions (f32 ≤ 2e-4, bf16
+     ≤ 2e-2 of the f32 plain chain), with the card's cluster occupancy
+     and the waves B=8 takes; the partial variant's launches (rdft, cdft,
+     icdft, irdft, core) at B=8 likewise; then the linear (TP-partial)
+     block — wb, a
+     bias, no activation, f32 out — at the odd extents (ranks 1–3), fno2d
+     and fno3d full width, and ``ops.fno_block_nd(act="linear")`` driven
+     forward and backward once at fno2d and fno3d B=8 per precision with
+     the counts set to 0: one block_linear, one dx_adjoint, one wgrad,
+     no gz_recompute, and equal to the staged path;
+  21. serve fno3d — ``FNOServer`` at full width, max_batch 8, in the four
+     fused designs (whole-block and spectral-only, full and partial
+     variant): phase 3's 12 requests against the staged path with exact
+     launch counts, then FNO3D_WINDOW single-step requests per precision
+     for the whole-block and spectral-only full variants;
+  22. train fno3d — phase 6 and phase 7's window at full width, diffusion
+     batch 8, in the four fused designs, f32 and bf16: step-0 parity of
+     every leaf, exactly num_layers launches of each kind per step, the
+     loss falls over 20 steps, 30 timed steps and peak device memory;
+  23. times, fno3d — CUDA events at fno3d B=8 for every launch of the
+     four designs (block forward, gz, dx, wgrad; bare forward, dx and
+     wgrad; rdft, core and irdft) and the linear block beside their plain
+     versions, the row launches' torch.fft call or, for a fused launch,
+     the staged torch.fft block or layer (a yardstick), and their bounds.
 
 Each phase's seconds are printed. The last two lines are a
 ``{"kernels": [...]}`` JSON object and ``{"ok": true, "device": {...}}``.
@@ -153,6 +180,13 @@ CORE_SOURCE = "src/repro_torch/csrc/fused_core.cu"
 LARGE = "fno2d-large"        # per-mode weights, hidden 128 (phases 12–15)
 LARGE_WINDOW = 200         # requests per precision in phase 13's window
 SPECTRAL_WINDOW = 200     # requests per precision and variant, phase 17
+FNO3D = "fno3d"            # the rank-3 preset at full width (phases 20–23)
+FNO3D_WINDOW = 200         # requests per precision and design, phase 21
+# fno3d's fused designs: (fuse_block, variant) by name.
+FNO3D_DESIGNS = {"block full": (True, "full"),
+                 "block partial": (True, "partial"),
+                 "spectral full": (False, "full"),
+                 "spectral partial": (False, "partial")}
 QUEUE_CYCLES = 100_000_000  # ~50 ms of device spin ahead of queued timing
 CGEMM_SOURCE = "src/repro_torch/csrc/cgemm.cu"
 CGEMM_REPLACES = "src/repro/kernels/cgemm.py:45"
@@ -237,10 +271,12 @@ def bound_parts(kind, b, h, o, spatial, modes, elem_bytes, peak_flops,
     type.
 
     block_fwd reads x, the weights and the operands and writes y;
-    gz_recompute reads gy too and writes gz; dx_adjoint reads gz and writes
-    dx (the same work with H and O swapped); wgrad reads x and gz and writes
-    the f32 weight gradients; the bare layer's spectral_fwd, spectral_dx
-    and spectral_wgrad do the same without the bypass, the bias and dW_b;
+    block_linear (the TP-partial block) does the same and writes y in
+    f32; gz_recompute reads gy too and writes gz; dx_adjoint reads gz and
+    writes dx (the same work with H and O swapped); wgrad reads x and gz
+    and writes the f32 weight gradients; the bare layer's spectral_fwd,
+    spectral_dx and spectral_wgrad do the same without the bypass, the
+    bias and dW_b;
     the partial variant's launches as ``partial_work`` counts them.
     Spectral weights count 2·O·H elements shared and 2·O·H·ΠK per-mode
     (read once, and written once by wgrad);
@@ -254,6 +290,8 @@ def bound_parts(kind, b, h, o, spatial, modes, elem_bytes, peak_flops,
     flops = block_flops(b, h, o, spatial, modes)
     if kind == "block_fwd":
         nbytes = elem_bytes * (act_in + act_out + weights + mats)
+    elif kind == "block_linear":
+        nbytes = elem_bytes * (act_in + weights + mats) + 4 * act_out
     elif kind == "gz_recompute":
         nbytes = elem_bytes * (act_in + 2 * act_out + weights + mats)
     elif kind == "dx_adjoint":
@@ -641,7 +679,8 @@ def block_launches(engine, args, gy, gz, mats):
             *args, mats["forward"], act="gelu_vjp", gy=gy),
         "dx_adjoint": lambda plain: block(plain)(
             gz, wr.transpose(0, 1), wi.transpose(0, 1), wbt, None,
-            mats["adjoint"], act="linear"),
+            mats["adjoint"], act="linear",
+            **({} if plain else {"adjoint": True})),
         "wgrad": lambda plain: (
             engine.fused_wgrad_plain if plain else engine.fused_wgrad)(
                 x, gz, mats["wgrad"], per_mode=wr.ndim > 2),
@@ -699,9 +738,9 @@ def leaf_err(a, ref) -> float:
     return float((a - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
 
 
-def phase_train(torch, configs, fno_mod, pde, tree, ts, optim, engine,
-                variant="full", phase="6", arch="fno2d", fuse_block=True,
-                presets=("f32", "bf16")):
+def phase_train(torch, configs, fno_mod, batch_fn, tree, ts, optim,
+                engine, variant="full", phase="6", arch="fno2d",
+                fuse_block=True, presets=("f32", "bf16")):
     """Step-0 parity of the fused path (full or partial variant; whole-block
     kernels, or with fuse_block=False the spectral-layer kernels) with the
     staged one, the launch structure, and TRAIN_STEPS AdamW steps on one
@@ -716,10 +755,10 @@ def phase_train(torch, configs, fno_mod, pde, tree, ts, optim, engine,
     staged = dataclasses.replace(cfg, path="staged", fuse_block=False)
     layers = cfg.num_layers
     params = fno_mod.init_fno(torch.Generator().manual_seed(0), cfg, DEVICE)
-    batch = pde.darcy_batch(0, 0, 8, cfg.spatial[0], device=DEVICE)
+    batch = batch_fn(cfg, 8, DEVICE)(0)
     for k, v in batch.items():
         if not bool(torch.isfinite(v).all()):
-            raise AssertionError(f"non-finite Darcy batch {k}")
+            raise AssertionError(f"non-finite training batch {k}")
     log(f"  batch x {tuple(batch['x'].shape)} y {tuple(batch['y'].shape)}; "
         f"params {cfg.param_count()}")
     loss_ref, g_ref = ts.value_and_grad(
@@ -931,25 +970,31 @@ def partial_cases(torch, spectral, dft, engine, b, h, o, spatial, modes,
     }
 
 
+def check_partial(torch, cases, name, errs):
+    """Each of ``partial_cases``' launches against its plain version: f32
+    on the same inputs (≤ 2e-4), bf16 against the f32 plain version
+    (≤ 2e-2); the errors go into `errs` by (name, kind, dtype)."""
+    for kind, (fn, plain, ins, mats) in cases.items():
+        ref = as_tuple(plain(*ins, *mats["float32"]))
+        y = as_tuple(fn(*ins, *mats["float32"]))
+        torch.cuda.synchronize()
+        errs[(name, kind, "float32")] = e = errors(y, ref)
+        check(f"{name} f32 {kind} vs plain", e[1], F32_TOL)
+        y16 = as_tuple(fn(*[a.to(torch.bfloat16) for a in ins],
+                          *mats["bfloat16"]))
+        torch.cuda.synchronize()
+        errs[(name, kind, "bfloat16")] = e = errors(y16, ref)
+        check(f"{name} bf16 {kind} vs f32 plain", e[1], BF16_TOL)
+
+
 def phase_partial_vs_plain(torch, engine, spectral, dft, configs):
     log("== phase 8: kernel vs plain on the card, partial launches")
     errs = {}
     for seed, (name, b, h, o, spatial, modes) in enumerate(
             partial_shapes(configs)):
-        cases = partial_cases(torch, spectral, dft, engine, b, h, o,
-                              spatial, modes, 500 + seed)
-        for kind, (fn, plain, ins, mats) in cases.items():
-            ref = as_tuple(plain(*ins, *mats["float32"]))
-            y = as_tuple(fn(*ins, *mats["float32"]))
-            torch.cuda.synchronize()
-            errs[(name, kind, "float32")] = e = errors(y, ref)
-            check(f"{name} f32 {kind} vs plain", e[1], F32_TOL)
-            y16 = as_tuple(fn(*[a.to(torch.bfloat16) for a in ins],
-                              *mats["bfloat16"]))
-            torch.cuda.synchronize()
-            errs[(name, kind, "bfloat16")] = e = errors(y16, ref)
-            check(f"{name} bf16 {kind} vs f32 plain", e[1], BF16_TOL)
-        del cases
+        check_partial(torch, partial_cases(torch, spectral, dft, engine, b,
+                                           h, o, spatial, modes, 500 + seed),
+                      name, errs)
     # The block kernel without wb and bias: the bare spectral layer that
     # the rank-1 partial variant runs.
     name, b, h, o, spatial, modes = check_shapes(configs)[0]
@@ -969,8 +1014,8 @@ def phase_partial_vs_plain(torch, engine, spectral, dft, configs):
     return errs
 
 
-def phase_serve_partial(torch, np, configs, fno_mod, sfs, engine, servers):
-    log("== phase 9: serve the partial variant, fno2d and fno3d full width")
+def phase_serve_partial(torch, np, sfs, engine, servers):
+    log("== phase 9: serve the partial variant, fno2d full width")
     cfg = servers["fused"].cfg
     params = servers["fused"].params
     for name, base in (("partial", "fused"), ("partial_bf16", "bf16")):
@@ -1003,64 +1048,33 @@ def phase_serve_partial(torch, np, configs, fno_mod, sfs, engine, servers):
               rel_err(y, servers["staged"](x, rollout_steps=k)), tol)
         check(f"serve {name} n={x.shape[0]} K={k} vs full variant f32",
               rel_err(y, servers["fused"](x, rollout_steps=k)), tol)
-
-    # fno3d at full width: the full-fusion kernels cannot hold it; the
-    # partial path serves it.
-    c3 = configs.with_fuse_block(configs.get_config("fno3d"))
-    p3 = fno_mod.init_fno(torch.Generator().manual_seed(0), c3)
-    srv3 = {name: sfs.FNOServer(c, p3, device=DEVICE, variant="partial",
-                                max_batch=2)
-            for name, c in (("f32", dataclasses.replace(c3, path="fused")),
-                            ("bf16", configs.with_precision(
-                                dataclasses.replace(c3, path="fused"),
-                                "bf16")))}
-    staged3 = sfs.FNOServer(dataclasses.replace(c3, path="staged",
-                                                fuse_block=False), p3,
-                            device=DEVICE, max_batch=2)
-    gen = torch.Generator().manual_seed(4)
-    reqs = [torch.randn((n, c3.in_channels) + tuple(c3.spatial),
-                        generator=gen).to(DEVICE) for n in (1, 2)]
-    torch.cuda.synchronize()
-    engine.LAUNCHES.clear()
-    outs3 = {name: [srv(x) for x in reqs] for name, srv in srv3.items()}
-    torch.cuda.synchronize()
-    want = {(k, dt): c3.num_layers * len(reqs)
-            for k in engine.PARTIAL_KINDS for dt in DTYPES}
-    counts3 = dict(engine.LAUNCHES)
-    log(f"  fno3d launches {counts3}")
-    if counts3 != want:
-        raise AssertionError(f"fno3d launches {counts3} != {want}")
-    ms3 = {}
-    for i, x in enumerate(reqs):
-        ref = staged3(x)
-        for name, tol in (("f32", F32_TOL), ("bf16", BF16_TOL)):
-            y = outs3[name][i]
-            if not bool(torch.isfinite(y).all()):
-                raise AssertionError(f"non-finite fno3d output ({name})")
-            check(f"serve fno3d {name} n={x.shape[0]} vs staged f32",
-                  rel_err(y, ref), tol)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            srv3[name](x)
-            torch.cuda.synchronize()
-            ms3[f"{name}_B{x.shape[0]}"] = 1e3 * (time.perf_counter() - t0)
-    log(f"  fno3d request ms (host clock, after one warm request): {ms3}")
-    return counts, ms3
+    return counts
 
 
-def library_call(torch, kind, ins, n, k):
+def library_call(torch, kind, ins, spatial, modes):
     """The one torch.fft call that computes a row launch's function, on its
-    f32 inputs (a yardstick; the port never calls it), or None (core)."""
+    f32 inputs (a yardstick; the port never calls it), or None (core).
+    rdft / irdft transform the outer axes s_2..s_R (rfftn / irfftn over
+    the flattened rows viewed as those axes; the kernels' spectrum
+    columns run k_R..k_2), cdft / icdft the s_1 axis."""
+    n1, k1 = spatial[0], modes[0]
+    osp, omd = tuple(spatial[1:]), tuple(modes[1:])
+    axes = tuple(range(-len(osp), 0))
     if kind == "rdft":
-        return lambda: torch.fft.rfft(ins[0], dim=-1)[..., :k]
+        x = ins[0].view(*ins[0].shape[:-1], *osp)
+        keep = (Ellipsis,) + tuple(slice(0, k) for k in omd)
+        return lambda: torch.fft.rfftn(x, dim=axes)[keep]
     if kind == "core":
         return None
     c = torch.complex(*ins)
     if kind == "cdft":
-        return lambda: torch.fft.fft(c, dim=-1)[..., :k]
+        return lambda: torch.fft.fft(c, dim=-1)[..., :k1]
     if kind == "icdft":
-        return lambda: torch.fft.ifft(c, n=n, dim=-1)
-    return lambda: torch.fft.irfft(c, n=n, dim=-1)
+        return lambda: torch.fft.ifft(c, n=n1, dim=-1)
+    c = c.view(*c.shape[:-1], *omd[::-1])  # columns k_R..k_2
+    lead = c.dim() - len(omd)
+    c = c.permute(*range(lead), *reversed(range(lead, c.dim())))
+    return lambda: torch.fft.irfftn(c, s=osp, dim=axes)
 
 
 def phase_partial_times(torch, engine, spectral, dft, ops, configs, errs,
@@ -1074,9 +1088,6 @@ def phase_partial_times(torch, engine, spectral, dft, ops, configs, errs,
     f3 = configs.get_config("fno3d")
     cases3 = partial_cases(torch, spectral, dft, engine, 1, f3.hidden,
                            f3.hidden, f3.spatial, f3.modes, 601)
-    # (axis length, kept modes) of each launch's library call
-    nk = {"rdft": (spatial[1], modes[1]), "irdft": (spatial[1], modes[1]),
-          "cdft": (spatial[0], modes[0]), "icdft": (spatial[0], modes[0])}
     rows = []
     for dt, peak, eb in (("float32", PEAK_F32_FLOPS, 4),
                          ("bfloat16", PEAK_BF16_FLOPS, 2)):
@@ -1086,7 +1097,7 @@ def phase_partial_times(torch, engine, spectral, dft, ops, configs, errs,
             fn, plain, ins, mats = cases[kind]
             a = [x.to(tdt) for x in ins]
             m = mats[dt]
-            lib = library_call(torch, kind, ins, *nk.get(kind, (0, 0)))
+            lib = library_call(torch, kind, ins, spatial, modes)
             t[kind] = {
                 "ms": time_ms(lambda: fn(*a, *m), 20),
                 "plain_ms": time_ms(lambda: plain(*a, *m), 10),
@@ -1749,6 +1760,408 @@ def phase_spectral_times(torch, engine, spectral, ops, configs, cgemm_k,
     return rows
 
 
+# ---------------------------------------------------------------------------
+# fno3d at full width on every fused path, and the linear (TP-partial) block
+# ---------------------------------------------------------------------------
+def fno3d_shapes(configs):
+    """Phase 20's fno3d shapes: full width at B=1 and B=8."""
+    f3 = configs.get_config(FNO3D)
+    return [(f"fno3d_B{b}", b, f3.hidden, f3.hidden, f3.spatial, f3.modes)
+            for b in (1, 8)]
+
+
+def linear_shapes(configs):
+    """The linear block's shapes: phase 2's odd extents at ranks 1–3, fno2d
+    and fno3d at full width, B=8."""
+    shapes = [c for c in check_shapes(configs) if c[0].startswith("odd")]
+    shapes.append(next(c for c in check_shapes(configs)
+                       if c[0] == "fno2d_B8"))
+    return shapes + fno3d_shapes(configs)[1:]
+
+
+def linear_block(engine, args, mats, f32, plain=False):
+    """The linear (TP-partial) block launch: wb, the bias, no activation,
+    y in f32 — or its plain version."""
+    fn = engine.fused_block_plain if plain else engine.fused_block
+    return fn(*args, mats, act="linear", out_dtype=f32)
+
+
+def cluster_waves(engine, build, configs):
+    """The card's answer for fno3d's plans: how many clusters of the
+    block and wgrad kernels it holds at once, and the waves B=8 takes."""
+    f3 = configs.get_config(FNO3D)
+    h, spatial, modes = f3.hidden, f3.spatial, f3.modes
+    waves = {}
+    for dt, code in (("float32", 0), ("bfloat16", 1)):
+        for kind, lib, pick, prefix in (
+                ("block", build.load_fused_block(), engine.pick_plan,
+                 "fused_block"),
+                ("wgrad", build.load_fused_wgrad(), engine.pick_wgrad_plan,
+                 "fused_wgrad")):
+            plan = pick(lib, code, 8, h, h, spatial, modes)
+            fits = engine._max_clusters(lib, prefix, code, len(spatial),
+                                        plan["cluster"], plan["smem"])
+            if fits < 1:
+                raise AssertionError(f"fno3d {kind} {dt}: the card holds no "
+                                     f"cluster of plan {plan}")
+            waves[f"{kind} {dt}"] = {"plan": plan, "clusters_at_once": fits,
+                                     "waves_at_B8": -(-8 // fits)}
+            log(f"  fno3d {kind} {dt}: plan {plan}; the card holds {fits} "
+                f"clusters of {plan['cluster']} at once: B=8 takes "
+                f"{-(-8 // fits)} wave(s)")
+    return waves
+
+
+def phase_fno3d_vs_plain(torch, engine, spectral, dft, ops, configs, build):
+    """fno3d's launches at full width (the partial variant's at B=8, the
+    served and trained batch; phase 8 checks them at B=1) and the linear
+    block against their plain versions, the card's cluster occupancy,
+    and the linear block driven through ``ops.fno_block_nd`` with its
+    launches counted."""
+    log("== phase 20: kernel vs plain on the card, fno3d full width and "
+        "the linear (TP-partial) block")
+    waves = cluster_waves(engine, build, configs)
+    errs = {}
+    bf16 = torch.bfloat16
+    for seed, (name, b, h, o, spatial, modes) in enumerate(
+            fno3d_shapes(configs)):
+        args32 = block_inputs(b, h, o, spatial, 1000 + seed, DEVICE)
+        gy32 = torch.randn((b, o) + tuple(spatial),
+                           generator=torch.Generator().manual_seed(1000 + seed)
+                           ).to(DEVICE)
+        m32 = backward_mats(spectral, spatial, modes, "float32")
+        m16 = backward_mats(spectral, spatial, modes, "bfloat16")
+        x, wr, wi = args32[:3]
+        # f32: each launch against its plain version on the same inputs.
+        y, gz, dx, dw = run_block(engine, args32, gy32, m32)
+        py, pgz, pdx, pdw = run_block(engine, args32, gy32, m32, plain=True,
+                                      gz=gz)
+        got = {"block_fwd": ([y], [py]), "gz_recompute": ([gz], [pgz]),
+               "dx_adjoint": ([dx], [pdx]), "wgrad": (dw, pdw)}
+        for kind, fn in spectral_launches(engine, x, gy32, wr, wi,
+                                          m32).items():
+            got[kind] = (as_tuple(fn(False)), as_tuple(fn(True)))
+        torch.cuda.synchronize()
+        for kind, (a, ref) in got.items():
+            errs[(name, kind, "float32")] = e = errors(a, ref)
+            check(f"{name} f32 {kind} vs plain", e[1], F32_TOL)
+        del y, gz, dx, dw, py, pgz, pdx, pdw, got
+        # bf16: the kernels' chain against the f32 plain chain.
+        ref = dict(zip(engine.KINDS, run_block(engine, args32, gy32, m32,
+                                               plain=True)))
+        ours = dict(zip(engine.KINDS, run_block(
+            engine, [a.to(bf16) for a in args32], gy32.to(bf16), m16)))
+        sp32 = spectral_launches(engine, x, gy32, wr, wi, m32)
+        sp16 = spectral_launches(engine, *[a.to(bf16) for a in
+                                           (x, gy32, wr, wi)], m16)
+        for kind in SPECTRAL:
+            ref[kind], ours[kind] = sp32[kind](True), sp16[kind](False)
+        torch.cuda.synchronize()
+        for kind in ours:
+            errs[(name, kind, "bfloat16")] = e = errors(
+                as_tuple(ours[kind]), as_tuple(ref[kind]))
+            check(f"{name} bf16 {kind} vs f32 plain", e[1], BF16_TOL)
+        del ref, ours, sp32, sp16
+    name, b, h, o, spatial, modes = fno3d_shapes(configs)[1]
+    check_partial(torch, partial_cases(torch, spectral, dft, engine, b, h, o,
+                                       spatial, modes, 1040), name, errs)
+    # The linear block: wb, a bias, no activation, f32 out.
+    f32 = torch.float32
+    for seed, (name, b, h, o, spatial, modes) in enumerate(
+            linear_shapes(configs)):
+        args32 = block_inputs(b, h, o, spatial, 1050 + seed, DEVICE)
+        m32 = spectral.operand_tensors(spatial, modes, "float32", DEVICE)
+        m16 = spectral.operand_tensors(spatial, modes, "bfloat16", DEVICE)
+        ref = linear_block(engine, args32, m32, f32, plain=True)
+        y = linear_block(engine, args32, m32, f32)
+        y16 = linear_block(engine, [a.to(bf16) for a in args32], m16, f32)
+        torch.cuda.synchronize()
+        if y.dtype != f32 or y16.dtype != f32:
+            raise AssertionError(f"linear block emitted {y16.dtype}, not f32")
+        errs[(name, "block_linear", "float32")] = e = errors([y], [ref])
+        check(f"{name} f32 block_linear (bias, f32 out) vs plain", e[1],
+              F32_TOL)
+        errs[(name, "block_linear", "bfloat16")] = e = errors([y16], [ref])
+        check(f"{name} bf16 block_linear (bias, f32 out) vs f32 plain",
+              e[1], BF16_TOL)
+    linear_counts = drive_linear_block(torch, engine, ops, configs)
+    return errs, waves, linear_counts
+
+
+def drive_linear_block(torch, engine, ops, configs):
+    """``ops.fno_block_nd(act="linear", out_dtype=f32)`` forward and
+    backward once per precision at fno2d and fno3d B=8 (f32 master
+    leaves), with the counts set to 0 just before: one block_linear, one
+    dx_adjoint and one wgrad each, no gz_recompute; the output and every
+    grad against the staged path's autograd (f32 ≤ 2e-4, bf16 output
+    ≤ 2e-2 and grads ≤ 5e-2, each leaf to its own magnitude)."""
+    counts = {}
+    for name, b, h, o, spatial, modes in linear_shapes(configs)[-2:]:
+        x, wr, wi, wb, bias = block_inputs(b, h, o, spatial, 1080, DEVICE)
+        leaves = lambda: [a.detach().clone().requires_grad_(True)
+                          for a in (x, wr, wi, wb, bias.reshape(-1))]
+        staged = leaves()
+        y_ref = ops.fno_block_nd(*staged, modes, path="staged", act="linear")
+        g_ref = torch.autograd.grad(torch.sin(y_ref).sum(), staged)
+        runs = {}
+        torch.cuda.synchronize()
+        engine.LAUNCHES.clear()
+        for preset in ("f32", "bf16"):
+            ls = leaves()
+            y = ops.fno_block_nd(
+                *ls, modes, policy=configs.PrecisionPolicy.from_name(preset),
+                act="linear", out_dtype=torch.float32)
+            runs[preset] = (y, torch.autograd.grad(torch.sin(y).sum(), ls))
+        torch.cuda.synchronize()
+        counts[name] = dict(engine.LAUNCHES)
+        want = {(k, dt): 1 for k in engine.LINEAR_KINDS for dt in DTYPES}
+        log(f"  {name} ops.fno_block_nd(act='linear') forward+backward, f32 "
+            f"and bf16: launches {counts[name]}")
+        if counts[name] != want:
+            raise AssertionError(f"linear block launches {counts[name]} != "
+                                 f"{want}")
+        for preset, (y, g) in runs.items():
+            fwd_tol, grad_tol = ((F32_TOL, F32_TOL) if preset == "f32"
+                                 else (BF16_TOL, BF16_GRAD_TOL))
+            if y.dtype != torch.float32:
+                raise AssertionError(f"linear block {preset} emitted "
+                                     f"{y.dtype}")
+            check(f"{name} {preset} linear block vs staged",
+                  rel_err(y.detach(), y_ref.detach()), fwd_tol)
+            for leaf, a, r in zip(("x", "wr", "wi", "wb", "bias"), g, g_ref):
+                check(f"{name} {preset} linear block grad {leaf} vs staged",
+                      leaf_err(a, r), grad_tol)
+    return counts
+
+
+def phase_serve_fno3d(torch, np, configs, fno_mod, sfs, engine):
+    """fno3d at full width in the four fused designs: phase 3's 12
+    requests against the staged path with exact launch counts (the
+    staged outputs are computed once for all designs)."""
+    log("== phase 21: serve fno3d at full width, every fused design")
+    base = configs.get_config(FNO3D)
+    log(f"  config: hidden={base.hidden} layers={base.num_layers} "
+        f"spatial={base.spatial} modes={base.modes} params "
+        f"{base.param_count()}")
+    params = fno_mod.init_fno(torch.Generator().manual_seed(0), base, DEVICE)
+    staged = sfs.FNOServer(dataclasses.replace(base, path="staged",
+                                               fuse_block=False), params,
+                           device=DEVICE, max_batch=8)
+    shape = (base.in_channels,) + tuple(base.spatial)
+    reqs = serve_requests(torch, np, shape)
+    refs = [staged(x, rollout_steps=k) for x, k, _ in reqs]
+    servers, counts = {}, {}
+    for design, (fuse, variant) in FNO3D_DESIGNS.items():
+        c = dataclasses.replace(configs.with_fuse_block(base, fuse),
+                                path="fused")
+        names = (f"{design} f32", f"{design} bf16")
+        for name, cc in zip(names, (c, configs.with_precision(c, "bf16"))):
+            srv = servers[name] = sfs.FNOServer(cc, params, device=DEVICE,
+                                                variant=variant, max_batch=8)
+            for b in srv.buckets:  # warm every bucket outside the count
+                srv(torch.zeros((b,) + shape, device=DEVICE))
+            srv(torch.zeros((1,) + shape, device=DEVICE), rollout_steps=4)
+        kinds = ((engine.KINDS[0] if fuse else engine.SPECTRAL_KINDS[0],)
+                 if variant == "full" else engine.PARTIAL_KINDS)
+        plan = [(x, k, names[1] if bf16 else names[0])
+                for x, k, bf16 in reqs]
+        expect = expected_launches(plan, kinds, base.num_layers,
+                                   servers[names[0]].buckets[-1])
+        torch.cuda.synchronize()
+        engine.LAUNCHES.clear()
+        outs = [servers[name](x, rollout_steps=k) for x, k, name in plan]
+        torch.cuda.synchronize()
+        counts[design] = dict(engine.LAUNCHES)
+        log(f"  {design}: launches {counts[design]} expected {expect}")
+        if counts[design] != expect:
+            raise AssertionError(f"kernel launches {counts[design]} != "
+                                 f"{expect}")
+        for (x, k, name), y, ref in zip(plan, outs, refs):
+            if not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"non-finite serve output ({name}, "
+                                     f"K={k})")
+            check(f"serve fno3d {name} n={x.shape[0]} K={k} vs staged f32",
+                  rel_err(y, ref), BF16_TOL if name == names[1] else F32_TOL)
+        del outs
+    return counts, servers
+
+
+def fno3d_partial_times(torch, engine, spectral, dft, configs, errs,
+                        serve_counts, train_counts):
+    """The partial variant's launches at fno3d B=8 (rdft and irdft over
+    the outer 64×64 axes, the core over s_1): CUDA events beside the
+    plain version, the torch.fft call (none for the core) and the bound;
+    launches summed over the two partial designs of phases 21 and 22."""
+    f3 = configs.get_config(FNO3D)
+    b, h, o = 8, f3.hidden, f3.hidden
+    spatial, modes = f3.spatial, f3.modes
+    cases = partial_cases(torch, spectral, dft, engine, b, h, o, spatial,
+                          modes, 1220)
+    designs = ("block partial", "spectral partial")
+    rows = []
+    for dt, peak, eb in (("float32", PEAK_F32_FLOPS, 4),
+                         ("bfloat16", PEAK_BF16_FLOPS, 2)):
+        for kind in ("rdft", "core", "irdft"):
+            fn, plain, ins, mats = cases[kind]
+            a = [x.to(getattr(torch, dt)) for x in ins]
+            m = mats[dt]
+            lib = library_call(torch, kind, ins, spatial, modes)
+            kms = time_ms(lambda: fn(*a, *m), 10)
+            pms = time_ms(lambda: plain(*a, *m), 3)
+            lms = time_ms(lib, 10) if lib else None
+            t_bytes, t_ops = bound_parts(kind, b, h, o, spatial, modes, eb,
+                                         peak)
+            bms, by = bound_ms(kind, b, h, o, spatial, modes, eb, peak)
+            launches = sum(serve_counts[d].get((kind, dt), 0)
+                           for d in designs)
+            train = sum(train_counts[d][dt].get((kind, dt), 0)
+                        for d in designs)
+            e = errs[("fno3d_B8", kind, dt)]
+            log(f"  {dt} {kind} fno3d B=8: kernel_ms={kms:.4f} plain_ms="
+                f"{pms:.4f} library_ms={lms} bound_us={1e3 * bms:.2f} "
+                f"({by}); launches {launches} served, {train} in 20 "
+                f"training steps")
+            rows.append({
+                "name": f"{kind}_fno3d_{'f32' if dt == 'float32' else 'bf16'}",
+                "route": "cuda",
+                "source": CORE_SOURCE if kind == "core" else ROWS_SOURCE,
+                "replaces": PARTIAL_REPLACES[kind],
+                "shape": "fno3d B=8", "launches": launches,
+                "launches_train": train,
+                "launches_note": "summed over the whole-block and "
+                                 "spectral-only partial designs",
+                "max_abs_err": e[0], "scaled_err": e[1],
+                "tol": F32_TOL if dt == "float32" else BF16_TOL,
+                "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
+                "library_ms": lms,
+                **({"library_note": "no single PyTorch call computes "
+                                    "cDFT_s1 -> CGEMM -> icDFT_s1"}
+                   if kind == "core" else {})})
+    del cases
+    return rows
+
+
+def phase_fno3d_times(torch, engine, spectral, dft, ops, configs, errs,
+                      serve_counts, train_counts, linear_counts):
+    """CUDA events at fno3d B=8 for each launch of the four designs and
+    the linear block, beside the plain version, the library call (the
+    row launches' torch.fft call; for a fused launch, where no single
+    PyTorch call computes it, the staged torch.fft block or layer as a
+    yardstick) and the bound."""
+    log("== phase 23: times — fno3d launches at B=8")
+    f3 = configs.get_config(FNO3D)
+    b, h, o = 8, f3.hidden, f3.hidden
+    spatial, modes = f3.spatial, f3.modes
+    args32 = block_inputs(b, h, o, spatial, 1200, DEVICE)
+    gy32 = torch.randn((b, o) + tuple(spatial),
+                       generator=torch.Generator().manual_seed(1201)
+                       ).to(DEVICE)
+    # Where each kind's launches on the main path were counted: the served
+    # forward's (serve) and the training step's (train) design.
+    served = {"block_fwd": "block full", "spectral_fwd": "spectral full"}
+    rows = []
+    for dt, peak, eb in (("float32", PEAK_F32_FLOPS, 4),
+                         ("bfloat16", PEAK_BF16_FLOPS, 2)):
+        tdt = getattr(torch, dt)
+        args = [a.to(tdt) for a in args32]
+        x, wr, wi, wb, bias = args
+        gy = gy32.to(tdt)
+        mats = backward_mats(spectral, spatial, modes, dt)
+        gz = engine.fused_block(*args, mats["forward"], act="gelu_vjp", gy=gy)
+        launch = block_launches(engine, args, gy, gz, mats)
+        launch.update(spectral_launches(engine, x, gy, wr, wi, mats))
+        launch["block_linear"] = lambda plain: linear_block(
+            engine, args, mats["forward"], torch.float32, plain)
+        bias1 = bias.reshape(-1)
+        fft_block = time_ms(lambda: ops.fno_block_nd(
+            x, wr, wi, wb, bias1, modes, path="ref"), 5)
+        fft_layer = time_ms(lambda: ops.spectral_layer_nd(
+            x, wr, wi, modes, path="ref"), 5)
+        # The block forward at B=1 and at B=7 (one wave of the 7 clusters
+        # of 16 the card holds) beside B=8 (two waves).
+        waves = {f"ms_b{n}": time_ms(lambda: engine.fused_block(
+            x[:n], wr, wi, wb, bias, mats["forward"]), 10) for n in (1, 7)}
+        log(f"  {dt} block_fwd fno3d by batch: {waves}")
+        for kind, fn in launch.items():
+            kms = time_ms(lambda: fn(False), 10)
+            pms = time_ms(lambda: fn(True), 3)
+            t_bytes, t_ops = bound_parts(kind, b, h, o, spatial, modes, eb,
+                                         peak)
+            bms, by = bound_ms(kind, b, h, o, spatial, modes, eb, peak)
+            fft = fft_layer if kind in SPECTRAL else fft_block
+            design = "spectral full" if kind in SPECTRAL else "block full"
+            if kind == "block_linear":
+                launches = linear_counts["fno3d_B8"].get((kind, dt), 0)
+                train = None
+            else:
+                train = train_counts[design][dt].get((kind, dt), 0)
+                launches = (serve_counts[served[kind]].get((kind, dt), 0)
+                            if kind in served else train)
+            e = errs[("fno3d_B8", kind, dt)]
+            log(f"  {dt} {kind} fno3d B=8: kernel_ms={kms:.4f} plain_ms="
+                f"{pms:.4f} torch_fft_ms={fft:.4f} bound_us={1e3 * bms:.2f} "
+                f"({by}; bytes {1e3 * t_bytes:.2f} us, operations "
+                f"{1e3 * t_ops:.2f} us); launches {launches} served/driven, "
+                f"{train} in 20 training steps")
+            wgrad = kind in ("wgrad", "spectral_wgrad")
+            rows.append({
+                "name": f"{kind}_fno3d_{'f32' if dt == 'float32' else 'bf16'}",
+                "route": "cuda",
+                "source": WGRAD_SOURCE if wgrad else BLOCK_SOURCE,
+                "replaces": WGRAD_REPLACES if wgrad else BLOCK_REPLACES,
+                "shape": "fno3d B=8", "launches": launches,
+                "launches_train": train,
+                **({"launches_note": "ops.fno_block_nd(act='linear') driven "
+                                     "forward and backward once at this "
+                                     "shape"}
+                   if kind == "block_linear" else {}),
+                "max_abs_err": e[0], "scaled_err": e[1],
+                "tol": F32_TOL if dt == "float32" else BF16_TOL,
+                "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
+                "library_ms": None,
+                "library_note": "no single PyTorch call computes it",
+                ("torch_fft_layer_ms" if kind in SPECTRAL
+                 else "torch_fft_ms"): fft,
+                **(waves if kind == "block_fwd" else {})})
+        del args, gz, launch
+    rows += fno3d_partial_times(torch, engine, spectral, dft, configs, errs,
+                                serve_counts, train_counts)
+    # The linear block at fno2d B=8 (its other driven shape).
+    c2 = configs.get_config("fno2d")
+    args32 = block_inputs(8, c2.hidden, c2.hidden, c2.spatial, 1210, DEVICE)
+    for dt, peak, eb in (("float32", PEAK_F32_FLOPS, 4),
+                         ("bfloat16", PEAK_BF16_FLOPS, 2)):
+        args = [a.to(getattr(torch, dt)) for a in args32]
+        mats = spectral.operand_tensors(c2.spatial, c2.modes, dt, DEVICE)
+        run = lambda plain: linear_block(engine, args, mats, torch.float32,
+                                         plain)
+        kms, pms = time_ms(lambda: run(False), 20), time_ms(
+            lambda: run(True), 10)
+        bms, by = bound_ms("block_linear", 8, c2.hidden, c2.hidden,
+                           c2.spatial, c2.modes, eb, peak)
+        e = errs[("fno2d_B8", "block_linear", dt)]
+        log(f"  {dt} block_linear fno2d B=8: kernel_ms={kms:.4f} plain_ms="
+            f"{pms:.4f} bound_us={1e3 * bms:.2f} ({by})")
+        rows.append({
+            "name": "block_linear_fno2d_"
+                    f"{'f32' if dt == 'float32' else 'bf16'}",
+            "route": "cuda", "source": BLOCK_SOURCE,
+            "replaces": BLOCK_REPLACES, "shape": "fno2d B=8",
+            "launches": linear_counts["fno2d_B8"].get(("block_linear", dt),
+                                                      0),
+            "launches_note": "ops.fno_block_nd(act='linear') driven forward "
+                             "and backward once at this shape",
+            "max_abs_err": e[0], "scaled_err": e[1],
+            "tol": F32_TOL if dt == "float32" else BF16_TOL,
+            "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes it"})
+    log(f"  max_memory_allocated={torch.cuda.max_memory_allocated()} B")
+    return rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1764,8 +2177,8 @@ def main() -> int:
     from repro_torch import configs, optim, tree
     from repro_torch.core import fno as fno_mod
     from repro_torch.core import spectral
-    from repro_torch.data import pde
     from repro_torch.kernels import build, dft, engine, ops
+    from repro_torch.launch.train_fno import batch_fn
     from repro_torch.kernels import cgemm as cgemm_k
     from repro_torch.train import serve_fno_step as sfs
     from repro_torch.train import train_step as ts
@@ -1795,7 +2208,8 @@ def main() -> int:
     bwd_errs = timed("5", phase_backward_vs_plain, torch, engine, spectral,
                      configs)
     batch, runs, train_counts = timed("6", phase_train, torch, configs,
-                                      fno_mod, pde, tree, ts, optim, engine)
+                                      fno_mod, batch_fn, tree, ts, optim,
+                                      engine)
     train_stats, bwd_rows = timed(
         "7", phase_train_times, torch, np, engine, spectral, ops, configs,
         batch, runs, train_counts, bwd_errs)
@@ -1805,10 +2219,10 @@ def main() -> int:
     rows += bwd_rows
     part_errs = timed("8", phase_partial_vs_plain, torch, engine, spectral,
                       dft, configs)
-    part_counts, fno3d_ms = timed("9", phase_serve_partial, torch, np,
-                                  configs, fno_mod, sfs, engine, servers)
+    part_counts = timed("9", phase_serve_partial, torch, np, sfs, engine,
+                        servers)
     _, part_runs, part_train_counts = timed(
-        "10", phase_train, torch, configs, fno_mod, pde, tree, ts, optim,
+        "10", phase_train, torch, configs, fno_mod, batch_fn, tree, ts, optim,
         engine, variant="partial", phase="10")
     part_stats = timed("11 window", phase_serve_window, torch, np, servers,
                        engine, layers, names=("partial", "partial_bf16"),
@@ -1838,7 +2252,7 @@ def main() -> int:
     large_train, large_train_counts = {}, {}
     for variant in ("full", "partial"):
         large_batch, large_runs, large_train_counts[variant] = timed(
-            f"14 {variant}", phase_train, torch, configs, fno_mod, pde,
+            f"14 {variant}", phase_train, torch, configs, fno_mod, batch_fn,
             tree, ts, optim, engine, variant=variant, phase="14",
             arch=LARGE)
         log(f"== phase 14: train window, {LARGE}, variant {variant}")
@@ -1866,7 +2280,7 @@ def main() -> int:
         for variant in ("full", "partial"):
             sp_batch, sp_runs, sp_train_counts[(arch, variant)] = timed(
                 f"18 {arch} {variant}", phase_train, torch, configs,
-                fno_mod, pde, tree, ts, optim, engine, variant=variant,
+                fno_mod, batch_fn, tree, ts, optim, engine, variant=variant,
                 phase="18", arch=arch, fuse_block=False, presets=presets)
             log(f"== phase 18: train window, {arch}, variant {variant}, "
                 f"spectral-only")
@@ -1877,6 +2291,36 @@ def main() -> int:
     rows += timed("19", phase_spectral_times, torch, engine, spectral, ops,
                   configs, cgemm_k, sp_errs, sp_counts, sp_train_counts,
                   cgemm_counts)
+    # fno3d at full width on every fused path, and the linear block.
+    f3_errs, f3_waves, linear_counts = timed(
+        "20", phase_fno3d_vs_plain, torch, engine, spectral, dft, ops,
+        configs, build)
+    f3_serve_counts, f3_servers = timed("21", phase_serve_fno3d, torch, np,
+                                        configs, fno_mod, sfs, engine)
+    f3_layers = configs.get_config(FNO3D).num_layers
+    f3_stats = {}
+    for design, kind in (("block full", "block_fwd"),
+                         ("spectral full", "spectral_fwd")):
+        f3_stats[design] = timed(
+            f"21 window {design}", phase_serve_window, torch, np,
+            f3_servers, engine, f3_layers,
+            names=(f"{design} f32", f"{design} bf16"), kinds=(kind,),
+            phase="21", requests=FNO3D_WINDOW)
+    del f3_servers
+    f3_train, f3_train_counts = {}, {}
+    for design, (fuse, variant) in FNO3D_DESIGNS.items():
+        f3_batch, f3_runs, f3_train_counts[design] = timed(
+            f"22 {design}", phase_train, torch, configs, fno_mod, batch_fn,
+            tree, ts, optim, engine, variant=variant, phase="22", arch=FNO3D,
+            fuse_block=fuse)
+        log(f"== phase 22: train window, {FNO3D}, {design}")
+        f3_train[design] = timed(f"22 train {design}", train_window, torch,
+                                 np, f3_batch, f3_runs)
+        del f3_runs
+    rows += timed("23", phase_fno3d_times, torch, engine, spectral, dft,
+                  ops,
+                  configs, f3_errs, f3_serve_counts, f3_train_counts,
+                  linear_counts)
     window = lambda st: {dt: {"p50": v["latency_ms"]["p50"],
                               "p99": v["latency_ms"]["p99"],
                               "sample_steps_per_s": v["sample_steps_per_s"]}
@@ -1900,12 +2344,16 @@ def main() -> int:
     log(f"serve window, partial: {json.dumps(part_stats)}")
     log(f"train window, partial: {json.dumps(part_train)}")
     log(f"block forward, partial vs full: {json.dumps(part_block)}")
-    log(f"fno3d partial request ms: {json.dumps(fno3d_ms)}")
     log(f"{LARGE} serve windows: {json.dumps(large_stats)}")
     log(f"{LARGE} train windows: {json.dumps(large_train)}")
     log(f"{LARGE} row kernels and served block: {json.dumps(large_extra)}")
     log(f"serve windows, spectral-only: {json.dumps(sp_stats)}")
     log(f"train windows, spectral-only: {json.dumps(sp_train)}")
+    log(f"{FNO3D} cluster occupancy: {json.dumps(f3_waves)}")
+    log(f"{FNO3D} serve windows: {json.dumps(f3_stats)}")
+    log(f"{FNO3D} train windows: {json.dumps(f3_train)}")
+    log(f"{FNO3D} train step ms median: "
+        f"{json.dumps({k: median(st) for k, st in f3_train.items()})}")
     log(f"phase seconds: {json.dumps(seconds)}")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

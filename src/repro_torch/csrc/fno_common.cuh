@@ -132,8 +132,8 @@ __device__ void stage(const float* in_r, const float* in_i, int pre, int n,
 // stage ACCUMULATES the spectrum of channel c into out_{r,i}[c·ldo + k]
 // (k = k_1·Kp + k', the caller zeroes it). `work` holds
 // rf·P (+ 2·rf·Kp at R ≥ 2, + 2·rf·n2·k3 at R = 3) floats
-// (engine.launch_plan's `fwd`). Every thread of the block calls it; it ends
-// synchronised.
+// (engine._chain_work); the last chunk may be short. Every thread of the
+// block calls it; it ends synchronised.
 template <int R, typename T>
 __device__ void forward_chain(const T* src, int nch, const Geom& g, int rf,
                               const Mats<T>& m, float* out_r, float* out_i,

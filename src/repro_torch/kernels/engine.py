@@ -11,8 +11,10 @@ Counterpart of ``repro/kernels/engine.py``:
           (+ bias[o])
       act="gelu"      y  = gelu_tanh(z)       the block forward;
       act="gelu_vjp"  gz = gy·gelu_tanh'(z)   the backward's recompute;
-      act="linear"    y  = z                  with the adjoint bundle and
-                                              transposed weights: dx.
+      act="linear"    y  = z                  the linear (TP-partial)
+                                              block, or, with the adjoint
+                                              bundle and transposed
+                                              weights, the backward's dx.
 
   With wb=None (no bypass, no bias, act="linear") it is the bare spectral
   layer: its forward (the spectral-only path's, and the rank-1 partial
@@ -55,18 +57,31 @@ from repro_torch.kernels import build
 _F32 = torch.float32
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODES = {"gelu": 0, "gelu_vjp": 1, "linear": 2}
-# Launch kind counted per epilogue mode: with a bypass the linear mode runs
-# only as the backward's dx adjoint; without one it is the bare spectral
-# layer, counted "spectral_fwd" or, asked with adjoint=True, "spectral_dx".
-_ACT_KINDS = {"gelu": "block_fwd", "gelu_vjp": "gz_recompute",
-              "linear": "dx_adjoint"}
 # The kinds of one full-variant block's training step, of one
 # partial-variant forward (kernels.dft counts "rdft", "cdft" and "irdft"),
-# and of one spectral-only layer's training step (fuse_block off: the bare
-# layer forward, its dx and its bypass-free wgrad).
+# of one spectral-only layer's training step (fuse_block off: the bare
+# layer forward, its dx and its bypass-free wgrad), and of one linear
+# (TP-partial) block's training step: its forward, then dx and wgrad with
+# no gz recompute.
 KINDS = ("block_fwd", "gz_recompute", "dx_adjoint", "wgrad")
 PARTIAL_KINDS = ("rdft", "core", "irdft")
 SPECTRAL_KINDS = ("spectral_fwd", "spectral_dx", "spectral_wgrad")
+LINEAR_KINDS = ("block_linear", "dx_adjoint", "wgrad")
+
+
+def launch_kind(wb, act: str, adjoint: bool) -> str:
+    """The kind a block-kernel launch is counted as, from what the caller
+    asked, never guessed from the operands: adjoint=True is a backward's
+    dx ("dx_adjoint" with the bypass, "spectral_dx" without); otherwise
+    "block_fwd", "gz_recompute", and for act="linear" the linear block's
+    forward ("block_linear") or, without wb, the bare layer's
+    ("spectral_fwd")."""
+    if adjoint:
+        return "dx_adjoint" if wb is not None else "spectral_dx"
+    if act == "linear":
+        return "block_linear" if wb is not None else "spectral_fwd"
+    return {"gelu": "block_fwd", "gelu_vjp": "gz_recompute"}[act]
+
 
 # Kernel launches by (kind, element type), e.g. ("block_fwd", "float32"):
 # each wrapper adds one where it launches its kernel and nowhere else.
@@ -227,17 +242,37 @@ def _cluster_slices(hidden: int, out: int, max_cluster: int):
 
 
 def _chain_rows(spatial, modes):
-    """s_1 rows per forward-chain chunk (enough outputs for every thread's
-    registers) and the chain's work area in floats."""
+    """The most s_1 rows per forward-chain chunk: enough outputs for every
+    thread's registers in the chain's stages."""
+    k = list(modes) + [1] * (3 - len(modes))
+    return min(spatial[0], max(1, _TP * _THREADS // (k[1] * k[2])))
+
+
+def _chain_work(spatial, modes, rows_f):
+    """The forward chain's work area in floats at `rows_f` s_1 rows per
+    chunk (``fno::forward_chain``'s `work`)."""
     r = len(spatial)
     n = list(spatial) + [1] * (3 - r)
     k = list(modes) + [1] * (3 - r)
     kp = k[1] * k[2]
-    rows_f = min(n[0], max(1, _TP * _THREADS // kp))
     fwd = rows_f * n[1] * n[2] + (2 * rows_f * kp if r >= 2 else 0)
     if r == 3:
         fwd += 2 * rows_f * n[1] * k[2]
-    return rows_f, fwd
+    return fwd
+
+
+def _fit_rows(spatial, modes, smem_at):
+    """(rows_f, smem): the most s_1 rows per forward-chain chunk, up to
+    ``_chain_rows``, whose plan fits a block's shared memory, and that
+    plan's bytes; `smem_at(rows_f)` gives a plan's bytes. Where even one
+    row does not fit, rows_f=1 and its (too many) bytes: the caller's
+    ``_check_smem`` raises."""
+    rows_f = _chain_rows(spatial, modes)
+    smem = smem_at(rows_f)
+    while smem > _SMEM_LIMIT and rows_f > 1:
+        rows_f -= 1
+        smem = smem_at(rows_f)
+    return rows_f, smem
 
 
 def _check_smem(smem: int, what: str, hidden, out, spatial, modes) -> None:
@@ -267,9 +302,11 @@ def launch_plan(hidden: int, out: int, spatial: Sequence[int],
     """The block kernel's cluster size, channel slices, chunk rows and
     shared memory, at clusters of up to `max_cluster` blocks or of 16 when
     those cannot hold the shape; raises ValueError for shapes the kernel
-    cannot hold. Shared weights are staged in shared memory (3 rows of
-    [os,H]: wr, wi, wb); per-mode weights [O,H,K] are read from device
-    memory as the CGEMM streams over the modes, so only wb is staged."""
+    cannot hold. The forward chain's chunk takes the most s_1 rows, up to
+    the register-filling count, that fit (fno3d: 3 of 8). Shared weights
+    are staged in shared memory (3 rows of [os,H]: wr, wi, wb); per-mode
+    weights [O,H,K] are read from device memory as the CGEMM streams over
+    the modes, so only wb is staged."""
     return _grow(_launch_plan, max_cluster, hidden, out, spatial, modes,
                  per_mode)
 
@@ -282,14 +319,14 @@ def _launch_plan(hidden, out, spatial, modes, per_mode, max_cluster):
     p = n[1] * n[2]          # points per s_1 row
     kp = k[1] * k[2]         # modes per k_1
     kk = k[0] * kp
-    rows_f, fwd = _chain_rows(spatial, modes)
     rows_i = min(n[0], max(1, _PTS * _THREADS // p))
     inv = os_ * rows_i * p + (2 * os_ * rows_i * kp if r >= 2 else 0)
     if r == 3:
         inv += 2 * os_ * rows_i * n[1] * k[2]
     w_rows = 1 if per_mode else 3
     floats = 2 * hs * kk + 2 * os_ * kk + w_rows * os_ * hidden + _MAX_OUT
-    smem = 4 * (floats + max(fwd, inv))
+    rows_f, smem = _fit_rows(spatial, modes, lambda rf: 4 * (
+        floats + max(_chain_work(spatial, modes, rf), inv)))
     _check_smem(smem, "fused block kernel", hidden, out, spatial, modes)
     return {"cluster": cl, "hs": hs, "os": os_, "rows_f": rows_f,
             "rows_i": rows_i, "smem": smem}
@@ -319,14 +356,15 @@ def _wgrad_plan(hidden, out, spatial, modes, per_mode, max_cluster):
     pts = 1
     for s in spatial:
         pts *= s
-    rows_f, fwd = _chain_rows(spatial, modes)
     cols = min(pts, _WGRAD_COLS)
     groups = _THREADS // hidden  # mode / point groups per hidden channel
-    work = max(fwd, 0 if per_mode else 2 * groups * os_ * hidden,
+    rest = max(0 if per_mode else 2 * groups * os_ * hidden,
                hidden * (cols + 1) + os_ * cols,
                groups * os_ * hidden + groups * os_)
-    floats = 2 * (hs + os_) * (kk + 1) + 4 + work
-    smem = 4 * floats
+    base = 2 * (hs + os_) * (kk + 1) + 4
+    rows_f, smem = _fit_rows(spatial, modes, lambda rf: 4 * (
+        base + max(_chain_work(spatial, modes, rf), rest)))
+    work = max(_chain_work(spatial, modes, rows_f), rest)
     _check_smem(smem, "fused wgrad kernel", hidden, out, spatial, modes)
     return {"cluster": cl, "hs": hs, "os": os_, "rows_f": rows_f,
             "cols": cols, "work": work, "smem": smem}
@@ -694,16 +732,17 @@ def fused_block(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
     [k,n], axis s_1 first; the "adjoint" bundle for dx), all at x's dtype
     and contiguous. act: "gelu" (y), "gelu_vjp" (gz from gy [B,O,s…]) or
     "linear" (z). Returns [B,O,s_1..s_R] at `out_dtype` (x's dtype by
-    default). adjoint=True marks a bare launch (wb=None) as the spectral
-    layer's backward dx, counted "spectral_dx" rather than
-    "spectral_fwd"; the operands make it one. A CPU tensor runs
-    ``fused_block_plain``; a CUDA tensor launches the kernel or raises.
+    default). adjoint=True marks a linear launch as a backward's dx
+    (the block's, "dx_adjoint", or without wb the bare layer's,
+    "spectral_dx"); the operands make it one, and the kind it is counted
+    as is ``launch_kind``'s. A CPU tensor runs ``fused_block_plain``; a
+    CUDA tensor launches the kernel or raises.
     """
     spatial, modes, _ = _check(x, wr, wi, wb, bias, mats, act, gy,
                                out_dtype)
-    if adjoint and (wb is not None or act != "linear"):
-        raise ValueError("adjoint=True marks the bare spectral layer's dx: "
-                         "wb=None and act='linear'")
+    if adjoint and act != "linear":
+        raise ValueError("adjoint=True marks a backward's dx, which takes "
+                         "act='linear'")
     if not _on_card(x, "fused block"):
         return fused_block_plain(x, wr, wi, wb, bias, mats, act=act, gy=gy,
                                  out_dtype=out_dtype)
@@ -712,11 +751,7 @@ def fused_block(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
         y = _launch(build.load_fused_block(), x, wr, wi, wb, bias, mats,
                     spatial, modes, stream, act=act, gy=gy,
                     out_dtype=out_dtype)
-    if wb is None:
-        kind = "spectral_dx" if adjoint else "spectral_fwd"
-    else:
-        kind = _ACT_KINDS[act]
-    LAUNCHES[(kind, _dtype_name(x.dtype))] += 1
+    LAUNCHES[(launch_kind(wb, act, adjoint), _dtype_name(x.dtype))] += 1
     return y
 
 

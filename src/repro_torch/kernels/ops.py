@@ -25,9 +25,11 @@ bypass-free wgrad. The whole FNO block, with shared [O,H] or per-mode
 
 and three launches backward for both (gz recompute, dx adjoint, fused
 wgrad): partial and full compute the same function, so one adjoint serves
-both. The standalone transforms (``truncated_rdft`` …) and ``cgemm`` run
-their kernels on the fused path. The kernels mask their own ragged edges,
-so nothing here pads.
+both. The linear block (``act="linear"``, the TP-sharded block's partial
+pre-activation) has no gz recompute: two launches backward. The
+standalone transforms (``truncated_rdft`` …) and ``cgemm`` run their
+kernels on the fused path. The kernels mask their own ragged edges, so
+nothing here pads.
 """
 from __future__ import annotations
 
@@ -296,22 +298,25 @@ def _fnond_partial(x, wr, wi, modes, pol: PrecisionPolicy):
     return _outer_inv_batched(tr, ti, spatial, sd)
 
 
-def _block_tail(s, x, wb, bias, out_dtype):
-    """The staged block epilogue — bypass GEMM + bias + gelu on a spectral
-    output s; z accumulates in f32, the single down-cast is the return."""
+def _block_tail(s, x, wb, bias, out_dtype, act="gelu"):
+    """The staged block epilogue — bypass GEMM + bias + the activation
+    (gelu, or none for act="linear") on a spectral output s; z accumulates
+    in f32, the single down-cast is the return."""
     byp = torch.einsum("oh,bh...->bo...", wb.to(x.dtype).to(_F32),
                        x.to(_F32))
     z = (s.to(_F32) + byp
          + bias.to(_F32).reshape((1, -1) + (1,) * (x.ndim - 2)))
-    return F.gelu(z, approximate="tanh").to(out_dtype)
+    if act == "gelu":
+        z = F.gelu(z, approximate="tanh")
+    return z.to(out_dtype)
 
 
-def _fno_block_oracle(x, wr, wi, wb, bias, modes, path, pol):
+def _fno_block_oracle(x, wr, wi, wb, bias, modes, path, pol, act="gelu"):
     """Staged parity oracle: spectral layer (ref/staged) + bypass + bias +
-    gelu — the exact math the one-kernel fused path computes."""
+    activation — the exact math the one-kernel fused path computes."""
     s = spectral_layer_nd(x, wr, wi, modes, path=path, policy=pol)
     cp = torch_dtype(pol.compute_dtype) if pol is not None else x.dtype
-    return _block_tail(s, x.to(cp), wb, bias, s.dtype)
+    return _block_tail(s, x.to(cp), wb, bias, s.dtype, act)
 
 
 def _mats(x, modes, pol, kind):
@@ -380,32 +385,39 @@ class _FusedBlock(torch.autograd.Function):
     staged tail, and saves only the primals (never z); backward, for both,
     is three launches — gz = gy·gelu'(z) with z recomputed, dx through the
     adjoint pipeline with transposed weights, and dW, dW_b, dbias from the
-    wgrad kernel. The compute-dtype casts live inside, so every grad comes
-    back at its primal's dtype (f32 master params get f32 grads under
-    bf16)."""
+    wgrad kernel. With act="linear" (the TP-partial block: no activation,
+    emitted at `out_dtype`) z is the output, so gz is gy and the backward
+    is the last two launches. The compute-dtype casts live inside, so
+    every grad comes back at its primal's dtype (f32 master params get
+    f32 grads under bf16)."""
 
     @staticmethod
-    def forward(ctx, x, wr, wi, wb, bias, modes, pol, variant):
+    def forward(ctx, x, wr, wi, wb, bias, modes, pol, variant, act,
+                out_dtype):
         ctx.save_for_backward(x, wr, wi, wb, bias)
-        ctx.modes, ctx.pol = modes, pol
+        ctx.modes, ctx.pol, ctx.act = modes, pol, act
         ops_ = _operands(x, wr, wi, wb, bias, pol)
         if variant == "full":
             return engine.fused_block(*ops_,
-                                      _mats(ops_[0], modes, pol, "forward"))
+                                      _mats(ops_[0], modes, pol, "forward"),
+                                      act=act, out_dtype=out_dtype)
         xc, wrc, wic, wbc, bc = ops_
         s = _fnond_partial(xc, wrc, wic, modes, pol)
-        return _block_tail(s, xc, wbc, bc, xc.dtype)
+        return _block_tail(s, xc, wbc, bc, out_dtype or xc.dtype, act)
 
     @staticmethod
     def backward(ctx, gy):
         x, wr, wi, wb, bias = ctx.saved_tensors
         modes, pol = ctx.modes, ctx.pol
         xc, wrc, wic, wbc, bc = _operands(x, wr, wi, wb, bias, pol)
-        # (1) recompute z through the forward kernel; its epilogue forms
-        # gz = gy·gelu'(z), so z never reaches device memory.
-        gz = engine.fused_block(xc, wrc, wic, wbc, bc,
-                                _mats(xc, modes, pol, "forward"),
-                                act="gelu_vjp", gy=_c(gy.to(xc.dtype)))
+        if ctx.act == "linear":  # z is the output: gz = gy, no recompute
+            gz = _c(gy.to(xc.dtype))
+        else:
+            # (1) recompute z through the forward kernel; its epilogue
+            # forms gz = gy·gelu'(z), so z never reaches device memory.
+            gz = engine.fused_block(xc, wrc, wic, wbc, bc,
+                                    _mats(xc, modes, pol, "forward"),
+                                    act="gelu_vjp", gy=_c(gy.to(xc.dtype)))
         # (2) dx = spectral_adjoint(gz) + wbᵀ·gz: the same kernel with the
         # adjoint operands, (out, hidden)-swapped weights, no bias, linear
         # epilogue, emitted at the primal dtype. Axes 0 and 1 swap, without
@@ -415,21 +427,25 @@ class _FusedBlock(torch.autograd.Function):
         dx = engine.fused_block(gz, wrc.transpose(0, 1),
                                 wic.transpose(0, 1), _c(wbc.t()), None,
                                 _mats(xc, modes, pol, "adjoint"),
-                                act="linear", out_dtype=x.dtype)
+                                act="linear", out_dtype=x.dtype,
+                                adjoint=True)
         # (3) dW (per mode, in the parameter layout, for per-mode weights),
         # dW_b, dbias from one wgrad launch, in f32.
         dwr, dwi, dwb, db = engine.fused_wgrad(
             xc, gz, _mats(xc, modes, pol, "wgrad"), per_mode=wr.ndim > 2)
         return (dx, dwr.to(wr.dtype), dwi.to(wi.dtype), dwb.to(wb.dtype),
-                db.reshape(bias.shape).to(bias.dtype), None, None, None)
+                db.reshape(bias.shape).to(bias.dtype), None, None, None,
+                None, None)
 
 
 def fno_block_nd(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
                  wb: torch.Tensor, bias: torch.Tensor,
                  modes: Sequence[int], *, path: str = "fused",
                  variant: str = "full",
-                 policy: Optional[PrecisionPolicy] = None) -> torch.Tensor:
-    """One whole FNO block: y = gelu(spectral(x) + x·W_bᵀ + bias).
+                 policy: Optional[PrecisionPolicy] = None,
+                 act: str = "gelu",
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """One whole FNO block: y = act(spectral(x) + x·W_bᵀ + bias).
 
     x: [B,H,s_1..s_R]; wr/wi: shared [O,H] or per-mode [O,H,k_1..k_R];
     wb: [O,H] bypass (y_o += Σ_h x_h·wb[o,h]); bias: [O].
@@ -439,13 +455,23 @@ def fno_block_nd(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
     and the tail), and three launches backward for both; "ref"/"staged"
     are the staged parity oracles (partial and full are one function). The
     result is at the policy's compute dtype (x's dtype without a policy).
+
+    act: "gelu" (the standard block) or "linear" (the pre-activation only:
+    the TP-sharded block's partial, reduced over shards before the
+    nonlinearity; its backward skips the gz recompute, two launches).
+    out_dtype (fused path only) overrides the emitted dtype: the TP
+    partial is emitted at the accumulator dtype, f32 under bf16.
     """
     modes = _modes_key(modes)
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; known: {VARIANTS}")
+    if act not in ("gelu", "linear"):
+        raise ValueError(f"act must be 'gelu' or 'linear', got {act!r}")
     if path in ("ref", "staged"):
-        return _fno_block_oracle(x, wr, wi, wb, bias, modes, path, policy)
+        return _fno_block_oracle(x, wr, wi, wb, bias, modes, path, policy,
+                                 act)
     if path != "fused":
         raise ValueError(f"unknown path {path!r}; known: {PATHS}")
     return _FusedBlock.apply(x, wr, wi, wb, bias, modes,
-                             policy or _default_policy(x), variant)
+                             policy or _default_policy(x), variant, act,
+                             out_dtype)

@@ -7,7 +7,8 @@ Builds ``csrc/fused_block.cu`` and ``csrc/fused_wgrad.cu`` as they are and
 with each phase's loop elided (``-DFUSED_BLOCK_ELIDE=<mask>`` /
 ``-DFUSED_WGRAD_ELIDE=<mask>``, see ``PHASE_BOUND`` in the sources: the
 output is then wrong and only the time counts), times every variant at
-fno2d full width (or ``--arch``'s: fno2d-large runs the per-mode modes)
+fno2d full width (or ``--arch``'s: fno2d-large runs the per-mode modes,
+fno3d the rank-3 chain at 3 s_1 rows a chunk)
 with CUDA events, in turns over several rounds, and prints
 each phase's time as the whole kernel's median minus the median of the
 variant without that phase.
@@ -71,8 +72,7 @@ def _time(fn, iters: int) -> float:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", default="fno2d",
-                    choices=[a for a in FNO_IDS if a.startswith("fno2d")])
+    ap.add_argument("--arch", default="fno2d", choices=list(FNO_IDS))
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=5)

@@ -1,12 +1,13 @@
 """Where a training step's time goes on the card: a ``torch.profiler`` trace
 of FNO training steps at full width (fno2d unless ``--arch`` names another
-2D model, e.g. fno2d-large), or, with ``--serve``, of served requests.
+model: fno2d-large, fno3d), or, with ``--serve``, of served requests.
 
     PYTHONPATH=src python -m repro_torch.launch.train_profile [--dtype bf16]
         [--serve] [--variant partial] [--arch fno2d-large] [--no-fuse-block]
 
 Runs warm-up steps, then traces ``--steps`` train steps (fused path, batch
-8 of Darcy data from seed 0, AdamW) with CPU and CUDA activities, and
+8 of the arch's PDE data from seed 0 — Darcy in 2D, diffusion in 3D —,
+AdamW) with CPU and CUDA activities, and
 prints the device time per step by kernel (top entries), the device's busy
 time against the step's wall time (its idle share), and the host time per
 step. With ``--serve`` a step is one request of those 8 samples to
@@ -30,7 +31,7 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.configs import FNO_IDS, get_config, with_precision
 from repro_torch.configs.fno import with_fuse_block
 from repro_torch.core import fno as fno_mod
-from repro_torch.data import pde
+from repro_torch.launch.train_fno import batch_fn
 from repro_torch.optim.adamw import AdamW
 from repro_torch.optim.schedule import constant
 from repro_torch.train.serve_fno_step import FNOServer
@@ -39,9 +40,8 @@ from repro_torch.train.train_step import make_train_step
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", default="fno2d",
-                    choices=[a for a in FNO_IDS if a.startswith("fno2d")],
-                    help="a 2D FNO at full width (Darcy data)")
+    ap.add_argument("--arch", default="fno2d", choices=list(FNO_IDS),
+                    help="the FNO at full width")
     ap.add_argument("--dtype", default="f32", choices=["f32", "bf16"])
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--top", type=int, default=15)
@@ -66,7 +66,7 @@ def main() -> None:
                                          not args.no_fuse_block), args.dtype)
     cfg = dataclasses.replace(cfg, path="fused")
     params = fno_mod.init_fno(torch.Generator().manual_seed(0), cfg, "cuda")
-    batch = pde.darcy_batch(0, 0, 8, cfg.spatial[0], device="cuda")
+    batch = batch_fn(cfg, 8, "cuda")(0)
     opt = AdamW(lr=constant(1e-4))
     step = make_train_step(cfg, opt, fno_path="fused",
                            fno_variant=args.variant)

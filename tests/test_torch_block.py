@@ -186,8 +186,13 @@ def test_wgrad_plan_full_width_and_limits():
     assert plan["cols"] == 128 and plan["smem"] <= 232448
     big = engine.wgrad_plan(64, 64, (128, 128), (32, 32), 16)
     assert big["cluster"] == 16 and big["smem"] < plan["smem"]
+    # fno3d at full width plans (clusters of 16, 3 s_1 rows a chunk); 64³
+    # with modes 32³ does not fit even at one row a chunk.
+    f3 = engine.wgrad_plan(32, 32, (64, 64, 64), (16, 16, 16))
+    assert f3["cluster"] == 16 and f3["rows_f"] == 3
+    assert f3["smem"] <= 232448
     with pytest.raises(ValueError, match="shared memory"):
-        engine.wgrad_plan(32, 32, (64, 64, 64), (16, 16, 16))
+        engine.wgrad_plan(32, 32, (64, 64, 64), (32, 32, 32))
     with pytest.raises(ValueError, match="hidden channels"):
         engine.wgrad_plan(1024, 8, (16,), (4,))
 
@@ -233,8 +238,11 @@ def test_launch_plan_full_width_and_limits():
     assert plan["smem"] <= 232448
     small = engine.launch_plan(8, 6, (16, 32), (5, 9))
     assert small["cluster"] == 4 and small["os"] == 2
+    f3 = engine.launch_plan(32, 32, (64, 64, 64), (16, 16, 16))  # fno3d
+    assert f3["cluster"] == 16 and f3["rows_f"] == 3
+    assert f3["smem"] <= 232448
     with pytest.raises(ValueError, match="shared memory"):
-        engine.launch_plan(32, 32, (64, 64, 64), (16, 16, 16))
+        engine.launch_plan(32, 32, (64, 64, 64), (32, 32, 32))
     # 128 out channels: clusters of 16 (8 per block), since 8 blocks cannot
     # hold them; 256 are more than a cluster of 16 holds.
     assert engine.launch_plan(128, 128, (32, 32), (8, 8))["cluster"] == 16

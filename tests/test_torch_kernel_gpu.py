@@ -10,9 +10,13 @@ staged one; then the per-mode modes of the block, wgrad and core kernels
 per-mode fused training step; then the spectral-only path's launches (the
 bare layer's dx, the bypass-free wgrad, shared and per-mode, counted
 "spectral_dx" and "spectral_wgrad"), the complex product ``cgemm``, and a
-spectral-only (``fuse_block`` off) training step of each variant. Every
-test needs an NVIDIA GPU (marker ``gpu``) and skips without one; on the
-card:
+spectral-only (``fuse_block`` off) training step of each variant; then
+fno3d at full width (hidden 32, 64³, modes 16³: clusters of 16, 3 s_1 rows
+per forward-chain chunk) — every launch of its fused designs against the
+plain versions and a training step of each design against the staged one
+— and the linear (TP-partial) block, counted "block_linear", with its
+two backward launches. Every test needs an NVIDIA GPU (marker ``gpu``)
+and skips without one; on the card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernel_gpu.py
 """
@@ -25,6 +29,8 @@ import torch
 from repro_torch import configs, tree
 from repro_torch.core import fno as tfno
 from repro_torch.core import spectral
+from repro_torch.data import pde
+from repro_torch.kernels import build
 from repro_torch.kernels import cgemm as cgemm_k
 from repro_torch.kernels import dft, engine
 from repro_torch.kernels import ops as tops
@@ -580,3 +586,124 @@ def test_spectral_only_train_step_matches_staged_on_card(cuda, variant):
     for a, b in zip(tree.leaves(grads), tree.leaves(grads_s)):
         scale = max(float(b.abs().max()), 1e-30)
         assert float((a - b).abs().max()) <= 2e-4 * scale
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernels_at_fno3d_full_width(cuda, dtype):
+    """fno3d at full width, B=2: both kernels plan clusters of 16 and 3 s_1
+    rows per forward-chain chunk (ragged last chunk); the block forward,
+    gz, dx, the bare forward and dx, and both wgrads against the plain
+    versions in f32 (bf16: 2e-2 of the f32 chain)."""
+    cfg = configs.get_config("fno3d")
+    sp, md, h = cfg.spatial, cfg.modes, cfg.hidden
+    code = 0 if dtype == "float32" else 1
+    for plan in (engine.pick_plan(build.load_fused_block(), code, 2, h, h,
+                                  sp, md),
+                 engine.pick_wgrad_plan(build.load_fused_wgrad(), code, 2, h,
+                                        h, sp, md)):
+        assert plan["cluster"] == 16 and plan["rows_f"] == 3
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    ours, plain = _backward_launches(cuda, sp, md, dtype, b=2, h=h, o=h,
+                                     seed=12)
+    for name, a, b in zip(("gz", "dx", "dwr", "dwi", "dwb", "dbias"), ours,
+                          plain):
+        assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
+    x, wr, wi, wb, bias = _args(cuda, sp, b=2, h=h, o=h, seed=13)
+    gy = torch.randn((2, h) + tuple(sp),
+                     generator=torch.Generator().manual_seed(13)).to(cuda)
+    tdt = getattr(torch, dtype)
+    m = {d: {k: spectral.operand_tensors(sp, md, d, cuda, k)
+             for k in ("forward", "adjoint", "wgrad")}
+         for d in ("float32", dtype)}
+    t = lambda a: a.to(tdt)
+    sw = lambda a: a.transpose(0, 1)
+    ours = [engine.fused_block(*map(t, (x, wr, wi, wb, bias)),
+                               m[dtype]["forward"]),
+            engine.fused_block(t(x), t(wr), t(wi), None, None,
+                               m[dtype]["forward"], act="linear"),
+            engine.fused_block(t(gy), sw(t(wr)), sw(t(wi)), None, None,
+                               m[dtype]["adjoint"], act="linear",
+                               adjoint=True),
+            *engine.fused_wgrad(t(x), t(gy), m[dtype]["wgrad"],
+                                with_bypass=False)]
+    m32 = m["float32"]
+    plain = [engine.fused_block_plain(x, wr, wi, wb, bias, m32["forward"]),
+             engine.fused_block_plain(x, wr, wi, None, None, m32["forward"],
+                                      act="linear"),
+             engine.fused_block_plain(gy, sw(wr), sw(wi), None, None,
+                                      m32["adjoint"], act="linear"),
+             *engine.fused_wgrad_plain(x, gy, m32["wgrad"],
+                                       with_bypass=False)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("y", "bare", "bare_dx", "bare_dwr", "bare_dwi"),
+                          ours, plain):
+        assert a.is_cuda and bool(torch.isfinite(a).all()), name
+        assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
+
+
+_FNO3D_DESIGNS = [(True, "full"), (True, "partial"), (False, "full"),
+                  (False, "partial")]
+
+
+@pytest.mark.parametrize("fuse_block,variant", _FNO3D_DESIGNS,
+                         ids=[f"{'block' if f else 'spectral'}-{v}"
+                              for f, v in _FNO3D_DESIGNS])
+def test_fno3d_train_step_matches_staged_on_card(cuda, fuse_block, variant):
+    """fno3d at full width, a diffusion batch of 2: the loss and every
+    leaf's gradient of the fused design against the staged path, and
+    exactly num_layers launches of each of its kinds."""
+    cfg = configs.with_fuse_block(configs.get_config("fno3d"), fuse_block)
+    params = tfno.init_fno(torch.Generator().manual_seed(0), cfg, cuda)
+    batch = pde.diffusion3d_batch(0, 0, 2, cfg.spatial[0], device=cuda)
+    engine.LAUNCHES.clear()
+    loss, grads = value_and_grad(
+        make_loss_fn(cfg, fno_path="fused", fno_variant=variant), params,
+        batch)
+    torch.cuda.synchronize()
+    kinds = engine.KINDS if fuse_block else engine.SPECTRAL_KINDS
+    if variant == "partial":
+        kinds = engine.PARTIAL_KINDS + kinds[1:]
+    assert dict(engine.LAUNCHES) == {(k, "float32"): cfg.num_layers
+                                     for k in kinds}
+    loss_s, grads_s = value_and_grad(
+        make_loss_fn(dataclasses.replace(cfg, fuse_block=False),
+                     fno_path="staged"), params, batch)
+    assert abs(float(loss) - float(loss_s)) <= 2e-4 * abs(float(loss_s))
+    for a, b in zip(tree.leaves(grads), tree.leaves(grads_s)):
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= 2e-4 * scale
+
+
+@pytest.mark.parametrize("variant", ["full", "partial"])
+def test_linear_block_matches_staged_on_card(cuda, variant):
+    """The linear (TP-partial) block under bf16 (f32 master leaves): y in
+    f32 within 2e-2 of the staged f32 block, every grad of Σ sin(y) within
+    5e-2 of the staged grads (a cotangent of ones leaves dW's imaginary
+    part exactly zero); full: one block_linear launch forward, then one
+    dx_adjoint and one wgrad, no gz_recompute."""
+    spatial, modes = _CASES[3]
+    x, wr, wi, wb, bias = _args(cuda, spatial, seed=40)
+    leaves = lambda: [a.detach().clone().requires_grad_(True)
+                      for a in (x, wr, wi, wb, bias.reshape(-1))]
+    ref_leaves = leaves()
+    y_ref = tops.fno_block_nd(*ref_leaves, modes, path="staged",
+                              act="linear")
+    g_ref = torch.autograd.grad(torch.sin(y_ref).sum(), ref_leaves)
+    ls = leaves()
+    engine.LAUNCHES.clear()
+    y = tops.fno_block_nd(*ls, modes, variant=variant,
+                          policy=configs.PrecisionPolicy.from_name("bf16"),
+                          act="linear", out_dtype=torch.float32)
+    fwd = dict(engine.LAUNCHES)
+    g = torch.autograd.grad(torch.sin(y).sum(), ls)
+    torch.cuda.synchronize()
+    bwd = {k: v - fwd.get(k, 0) for k, v in engine.LAUNCHES.items()
+           if v - fwd.get(k, 0)}
+    want_fwd = ({("block_linear", "bfloat16"): 1} if variant == "full" else
+                {(k, "bfloat16"): 1 for k in engine.PARTIAL_KINDS})
+    assert fwd == want_fwd
+    assert bwd == {("dx_adjoint", "bfloat16"): 1, ("wgrad", "bfloat16"): 1}
+    assert y.dtype == torch.float32 and _rel_err(y, y_ref) <= 2e-2
+    for a, b in zip(g, g_ref):
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= 5e-2 * scale

@@ -280,8 +280,8 @@ def test_partial_launch_structure(rank, monkeypatch):
             return fn(*a, **kw)
         monkeypatch.setattr(mod, name, wrapped)
 
-    kind = lambda a, kw: ("spectral_fwd" if a[3] is None else
-                          engine._ACT_KINDS[kw.get("act", "gelu")])
+    kind = lambda a, kw: engine.launch_kind(a[3], kw.get("act", "gelu"),
+                                            kw.get("adjoint", False))
     spy(dft, "rdft")
     spy(dft, "cdft")
     spy(dft, "irdft")

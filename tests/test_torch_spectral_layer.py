@@ -387,11 +387,11 @@ def test_spectral_layer_contract():
         tops.spectral_layer_3d(tx, twr, twi, modes + (3,))
     with pytest.raises(ValueError, match="path"):
         tops.spectral_layer_nd(tx, twr, twi, modes, path="pallas")
-    # adjoint=True names the bare layer's dx only.
+    # adjoint=True names a backward's dx: the linear epilogue only.
     mats = tspec.operand_tensors(x.shape[2:], modes, "float32", "cpu")
     with pytest.raises(ValueError, match="adjoint=True"):
         engine.fused_block(tx, twr, twi, torch.zeros(6, 8), None, mats,
-                           act="linear", adjoint=True)
+                           act="gelu", adjoint=True)
 
 
 def _chip_smoke():
