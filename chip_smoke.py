@@ -137,7 +137,29 @@ fatal:
      four designs (block forward, gz, dx, wgrad; bare forward, dx and
      wgrad; rdft, core and irdft) and the linear block beside their plain
      versions, the row launches' torch.fft call or, for a fused launch,
-     the staged torch.fft block or layer (a yardstick), and their bounds.
+     the staged torch.fft block or layer (a yardstick), and their bounds;
+  24. fused ends vs plain — the block kernel's ends mode (the lifting MLP
+     folded into the first block, the projection MLP into the last; one
+     launch with both for a 1-layer model) against its plain version at
+     fno2d and fno3d full width B=8 and fno2d-large (per-mode W) B=1 and
+     B=8: lift, proj and both, f32 ≤ 2e-4, bf16 ≤ 2e-2 of the f32 plain
+     version;
+  25. serve with the fused ends — ``FNOServer`` for fno2d and fno3d at
+     full width with ``fuse_ends``: phase 3's 12 requests against the
+     staged model without the ends, exactly 2 block_ends and
+     num_layers - 2 block_fwd launches per forward, then a sustained
+     window per precision (ENDS_SERVED requests);
+  26. train with the fused ends — phase 6 and phase 7's window for fno2d
+     (Darcy) and fno3d (diffusion), batch 8, f32 and bf16: step-0 loss,
+     grad norm and every leaf against the staged model without the
+     ends, per step 2 block_ends and num_layers - 2 of each of the
+     whole-block kinds (the end blocks' backward is staged PyTorch and
+     launches no kernel), the loss falls over 20 steps, 30 timed steps
+     and peak device memory beside the whole-block windows;
+  27. times, fused ends — CUDA events at fno2d and fno3d B=8 for the
+     lift and the projection launch (and both in one) beside their plain
+     versions, the staged end MLP with the torch.fft block (a
+     yardstick) and their bounds with the MLPs' bytes and operations.
 
 Each phase's seconds are printed. The last two lines are a
 ``{"kernels": [...]}`` JSON object and ``{"ok": true, "device": {...}}``.
@@ -187,6 +209,12 @@ FNO3D_DESIGNS = {"block full": (True, "full"),
                  "block partial": (True, "partial"),
                  "spectral full": (False, "full"),
                  "spectral partial": (False, "partial")}
+# The fused model ends (phases 24–27): checked at three presets, served
+# and trained at two, with a sustained window of this many requests per
+# precision.
+ENDS_ARCHS = ("fno2d", "fno3d", "fno2d-large")
+ENDS_SERVED = {"fno2d": 200, "fno3d": 50}
+ENDS = ("lift", "proj", "both")
 QUEUE_CYCLES = 100_000_000  # ~50 ms of device spin ahead of queued timing
 CGEMM_SOURCE = "src/repro_torch/csrc/cgemm.cu"
 CGEMM_REPLACES = "src/repro/kernels/cgemm.py:45"
@@ -264,7 +292,7 @@ def wgrad_flops(b, h, o, spatial, modes) -> float:
 
 
 def bound_parts(kind, b, h, o, spatial, modes, elem_bytes, peak_flops,
-                per_mode=False):
+                per_mode=False, ends=None):
     """(ms by bytes, ms by operations) of one launch of `kind` on the card:
     each input read once and each output written once over the memory
     rate, and the least operations over the peak rate for the element
@@ -277,7 +305,13 @@ def bound_parts(kind, b, h, o, spatial, modes, elem_bytes, peak_flops,
     and writes the f32 weight gradients; the bare layer's spectral_fwd,
     spectral_dx and spectral_wgrad do the same without the bypass, the
     bias and dW_b;
-    the partial variant's launches as ``partial_work`` counts them.
+    the partial variant's launches as ``partial_work`` counts them;
+    block_ends (a block with the model's end MLPs, ends=(C_in, L, Lp,
+    C_out), L=0 without the lift, Lp=0 without the projection) reads the
+    raw input [B,C_in,s…] with the lift and writes [B,C_out,s…] with the
+    projection, reads the MLPs' weights once, and adds their
+    multiply-adds (2 operations each; the tanh of their GELUs is not
+    counted).
     Spectral weights count 2·O·H elements shared and 2·O·H·ΠK per-mode
     (read once, and written once by wgrad);
     the operations are the same for both, as a shared W is applied at
@@ -302,6 +336,15 @@ def bound_parts(kind, b, h, o, spatial, modes, elem_bytes, peak_flops,
     elif kind == "spectral_wgrad":  # dW only
         nbytes = elem_bytes * (act_in + act_out + mats) + 4 * spec_w
         flops -= b * 2 * o * h * pts
+    elif kind == "block_ends":
+        cin, lw, lp, cout = ends
+        a_in = b * (cin if lw else h) * pts
+        a_out = b * (cout if lp else o) * pts
+        mlp = ((lw * cin + lw + h * lw + h if lw else 0)
+               + (lp * o + lp + cout * lp + cout if lp else 0))
+        nbytes = elem_bytes * (a_in + a_out + weights + mats + mlp)
+        flops += 2 * b * pts * ((lw * (cin + h) if lw else 0)
+                                + (lp * (o + cout) if lp else 0))
     elif kind in PARTIAL_LAUNCHES:
         flops, elems = partial_work(kind, b, h, o, spatial, modes, per_mode)
         nbytes = elem_bytes * elems
@@ -312,11 +355,11 @@ def bound_parts(kind, b, h, o, spatial, modes, elem_bytes, peak_flops,
 
 
 def bound_ms(kind, b, h, o, spatial, modes, elem_bytes, peak_flops,
-             per_mode=False):
+             per_mode=False, ends=None):
     """Least time for one launch of `kind` on the card, the larger of
     ``bound_parts``; returns (ms, "bytes"|"operations")."""
     t_bytes, t_ops = bound_parts(kind, b, h, o, spatial, modes, elem_bytes,
-                                 peak_flops, per_mode)
+                                 peak_flops, per_mode, ends)
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -540,14 +583,15 @@ def phase_serve(torch, np, configs, fno_mod, sfs, engine):
 
 def phase_serve_window(torch, np, servers, engine, num_layers,
                        names=("fused", "bf16"), kinds=("block_fwd",),
-                       phase="4", requests=WINDOW_REQUESTS):
+                       phase="4", requests=WINDOW_REQUESTS, per_request=None):
     """Sustained serving, one precision at a time: `requests`
     single-step requests of seeded sizes 1–8 back to back, each waited for
     (one request in flight, as a client that needs its answer). Latency is
     the host clock from call to answer; throughput is every sample-step over
     the whole window's wall time. `names` are the f32 and bf16 servers,
-    `kinds` the launch kinds each layer issues; the sizes are the same
-    for every variant."""
+    `kinds` the launch kinds each layer launches (`per_request`: launches of
+    each kind per request, num_layers each by default); the sizes are the
+    same for every variant."""
     srv0 = servers[names[0]]
     log(f"== phase {phase}: times — sustained serve window, "
         f"{srv0.cfg.name} full width, {names}")
@@ -580,7 +624,8 @@ def phase_serve_window(torch, np, servers, engine, num_layers,
         wall = time.perf_counter() - t_all
         dt = srv.cfg.precision.compute_dtype
         launches = engine.LAUNCHES[(kinds[0], dt)]
-        want = {(k, dt): num_layers * requests for k in kinds}
+        per = per_request or {k: num_layers for k in kinds}
+        want = {(k, dt): n * requests for k, n in per.items()}
         if dict(engine.LAUNCHES) != want:
             raise AssertionError(f"window launches {dict(engine.LAUNCHES)} "
                                  f"!= {want}")
@@ -740,20 +785,27 @@ def leaf_err(a, ref) -> float:
 
 def phase_train(torch, configs, fno_mod, batch_fn, tree, ts, optim,
                 engine, variant="full", phase="6", arch="fno2d",
-                fuse_block=True, presets=("f32", "bf16")):
+                fuse_block=True, presets=("f32", "bf16"), fuse_ends=False):
     """Step-0 parity of the fused path (full or partial variant; whole-block
-    kernels, or with fuse_block=False the spectral-layer kernels) with the
+    kernels, or with fuse_block=False the spectral-layer kernels; with
+    fuse_ends the end MLPs folded into the first and last block) with the
     staged one, the launch structure, and TRAIN_STEPS AdamW steps on one
     batch per precision preset."""
     log(f"== phase {phase}: train {arch} at full width, variant {variant}, "
-        f"fuse_block {fuse_block}")
+        f"fuse_block {fuse_block}, fuse_ends {fuse_ends}")
     bwd = engine.KINDS[1:] if fuse_block else engine.SPECTRAL_KINDS[1:]
     fwd = ((engine.KINDS[0] if fuse_block else engine.SPECTRAL_KINDS[0],)
            if variant == "full" else engine.PARTIAL_KINDS)
-    kinds = fwd + bwd
     cfg = configs.with_fuse_block(configs.get_config(arch), fuse_block)
+    cfg = configs.with_fuse_ends(cfg, fuse_ends)
     staged = dataclasses.replace(cfg, path="staged", fuse_block=False)
     layers = cfg.num_layers
+    # Launches of each kind per training step: num_layers each, or with the
+    # ends two block_ends and the interior blocks' four kinds.
+    per_step = {k: layers for k in fwd + bwd}
+    if fuse_ends:
+        per_step = {k: n for k, n in [("block_ends", 2)] + [
+            (k, layers - 2) for k in engine.KINDS] if n}
     params = fno_mod.init_fno(torch.Generator().manual_seed(0), cfg, DEVICE)
     batch = batch_fn(cfg, 8, DEVICE)(0)
     for k, v in batch.items():
@@ -779,7 +831,7 @@ def phase_train(torch, configs, fno_mod, batch_fn, tree, ts, optim,
             params, batch)
         torch.cuda.synchronize()
         one = dict(engine.LAUNCHES)
-        want = {(k, dt): layers for k in kinds}
+        want = {(k, dt): n for k, n in per_step.items()}
         log(f"  {preset}: launches for one forward+backward {one}")
         if one != want:
             raise AssertionError(f"launches {one} != {want}")
@@ -814,7 +866,7 @@ def phase_train(torch, configs, fno_mod, batch_fn, tree, ts, optim,
             losses.append(m["loss"])
         torch.cuda.synchronize()
         counts[dt] = dict(engine.LAUNCHES)
-        want = {(k, dt): layers * TRAIN_STEPS for k in kinds}
+        want = {(k, dt): n * TRAIN_STEPS for k, n in per_step.items()}
         if counts[dt] != want:
             raise AssertionError(f"launches {counts[dt]} != {want}")
         losses = [float(v) for v in losses]
@@ -2162,6 +2214,230 @@ def phase_fno3d_times(torch, engine, spectral, dft, ops, configs, errs,
     return rows
 
 
+def ends_dims(cfg):
+    """(C_in, L, Lp, C_out) of a preset's model ends: both MLPs are
+    lifting_dim wide (2·hidden by default)."""
+    lw = cfg.lifting_dim or 2 * cfg.hidden
+    return cfg.in_channels, lw, lw, cfg.out_channels
+
+
+def ends_inputs(torch, cfg, b, seed):
+    """x (the hidden input), x_in (the raw input), the block's operands
+    [wr, wi, wb, bias] and the two ends in the kernel's layout (lift
+    (l1 [L,C_in], b1 [L,1], l2 [H,L], b2 [H,1]), proj (p1 [Lp,H],
+    b1 [Lp,1], p2 [C_out,Lp], b2 [C_out,1])), f32 on the card."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    mk = lambda *s, sc=1.0: torch.tensor(sc * rng.normal(size=s),
+                                         dtype=torch.float32, device=DEVICE)
+    h, spatial = cfg.hidden, tuple(cfg.spatial)
+    cin, lw, lp, cout = ends_dims(cfg)
+    wshape = (h, h) + (tuple(cfg.modes) if cfg.weight_mode == "per_mode"
+                       else ())
+    block = [mk(*wshape, sc=1.0 / h), mk(*wshape, sc=1.0 / h),
+             mk(h, h, sc=1.0 / h), mk(h, 1, sc=0.3)]
+    lift = (mk(lw, cin, sc=0.7), mk(lw, 1, sc=0.3), mk(h, lw, sc=lw ** -0.5),
+            mk(h, 1, sc=0.3))
+    proj = (mk(lp, h, sc=h ** -0.5), mk(lp, 1, sc=0.3),
+            mk(cout, lp, sc=lp ** -0.5), mk(cout, 1, sc=0.3))
+    return mk(b, h, *spatial), mk(b, cin, *spatial), block, lift, proj
+
+
+def ends_launch(engine, which, x, xin, block, lift, proj, mats,
+                plain=False):
+    """The lift, proj or both launch of the block kernel (or its plain
+    version) on the inputs of ``ends_inputs``."""
+    fn = engine.fused_block_plain if plain else engine.fused_block
+    if which == "lift":
+        return fn(xin, *block, mats, lift=lift)
+    if which == "proj":
+        return fn(x, *block, mats, proj=proj)
+    return fn(xin, *block, mats, lift=lift, proj=proj)
+
+
+def ends_dims_of(which, cfg):
+    """``bound_parts``' ends=(C_in, L, Lp, C_out) of one ends launch."""
+    cin, lw, lp, cout = ends_dims(cfg)
+    return (cin, lw if which != "proj" else 0, lp if which != "lift" else 0,
+            cout)
+
+
+def phase_ends_vs_plain(torch, engine, spectral, configs):
+    """The block kernel's ends mode against its plain version at fno2d,
+    fno3d (B=8) and fno2d-large (per-mode W, B=1 and B=8) full width: the
+    lift, the projection and both in one launch, f32 ≤ 2e-4 and bf16
+    ≤ 2e-2 of the f32 plain version."""
+    log("== phase 24: kernel vs plain on the card, the fused model ends")
+    errs = {}
+    bf16 = torch.bfloat16
+    for seed, arch in enumerate(ENDS_ARCHS):
+        cfg = configs.get_config(arch)
+        spatial, modes = cfg.spatial, cfg.modes
+        m32 = spectral.operand_tensors(spatial, modes, "float32", DEVICE)
+        m16 = spectral.operand_tensors(spatial, modes, "bfloat16", DEVICE)
+        for b in ((1, 8) if arch == LARGE else (8,)):
+            x, xin, block, lift, proj = ends_inputs(torch, cfg, b,
+                                                    2400 + seed)
+            c16 = lambda ts: [t.to(bf16) for t in ts]
+            for which in ENDS:
+                ref = ends_launch(engine, which, x, xin, block, lift, proj,
+                                  m32, plain=True)
+                y = ends_launch(engine, which, x, xin, block, lift, proj,
+                                m32)
+                y16 = ends_launch(engine, which, x.to(bf16), xin.to(bf16),
+                                  c16(block), c16(lift), c16(proj), m16)
+                torch.cuda.synchronize()
+                name = f"{arch}_B{b} {which}"
+                errs[(arch, b, which, "float32")] = e = errors([y], [ref])
+                check(f"{name} f32 block_ends vs plain", e[1], F32_TOL)
+                errs[(arch, b, which, "bfloat16")] = e = errors([y16], [ref])
+                check(f"{name} bf16 block_ends vs f32 plain", e[1], BF16_TOL)
+                del ref, y, y16
+            del x, xin, block, lift, proj
+    return errs
+
+
+def phase_serve_ends(torch, np, configs, fno_mod, sfs, engine):
+    """fno2d and fno3d at full width with the fused ends: phase 3's 12
+    requests with exact launch counts (2 block_ends and num_layers - 2
+    block_fwd per forward) against the staged model without the ends,
+    then a sustained window of ENDS_SERVED[arch] requests per precision."""
+    log("== phase 25: serve fno2d and fno3d with the fused ends at full "
+        "width")
+    counts, stats = {}, {}
+    for arch, window in ENDS_SERVED.items():
+        base = configs.with_fuse_block(configs.get_config(arch))
+        layers = base.num_layers
+        params = fno_mod.init_fno(torch.Generator().manual_seed(0), base,
+                                  DEVICE)
+        staged = sfs.FNOServer(dataclasses.replace(base, path="staged",
+                                                   fuse_block=False),
+                               params, device=DEVICE, max_batch=8)
+        shape = (base.in_channels,) + tuple(base.spatial)
+        reqs = serve_requests(torch, np, shape)
+        refs = [staged(x, rollout_steps=k) for x, k, _ in reqs]
+        del staged
+        c = dataclasses.replace(configs.with_fuse_ends(base), path="fused")
+        names = (f"{arch} ends f32", f"{arch} ends bf16")
+        servers = {}
+        for name, cc in zip(names, (c, configs.with_precision(c, "bf16"))):
+            srv = servers[name] = sfs.FNOServer(cc, params, device=DEVICE,
+                                                max_batch=8)
+            for b in srv.buckets:  # warm every bucket outside the count
+                srv(torch.zeros((b,) + shape, device=DEVICE))
+            srv(torch.zeros((1,) + shape, device=DEVICE), rollout_steps=4)
+        plan = [(x, k, names[1] if bf16 else names[0])
+                for x, k, bf16 in reqs]
+        top = servers[names[0]].buckets[-1]
+        expect = expected_launches(plan, ("block_ends",), 2, top)
+        expect.update(expected_launches(plan, ("block_fwd",), layers - 2,
+                                        top))
+        torch.cuda.synchronize()
+        engine.LAUNCHES.clear()
+        outs = [servers[name](x, rollout_steps=k) for x, k, name in plan]
+        torch.cuda.synchronize()
+        counts[arch] = dict(engine.LAUNCHES)
+        log(f"  {arch} ends: launches {counts[arch]} expected {expect}")
+        if counts[arch] != expect:
+            raise AssertionError(f"kernel launches {counts[arch]} != "
+                                 f"{expect}")
+        for (x, k, name), y, ref in zip(plan, outs, refs):
+            if not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"non-finite serve output ({name}, "
+                                     f"K={k})")
+            check(f"serve {name} n={x.shape[0]} K={k} vs staged f32",
+                  rel_err(y, ref), BF16_TOL if name == names[1] else F32_TOL)
+        del outs, refs
+        stats[arch] = phase_serve_window(
+            torch, np, servers, engine, layers, names=names,
+            kinds=("block_ends", "block_fwd"), phase="25", requests=window,
+            per_request={"block_ends": 2, "block_fwd": layers - 2})
+        del servers
+    return counts, stats
+
+
+def phase_ends_times(torch, engine, spectral, ops, configs, errs,
+                     serve_counts, train_counts):
+    """CUDA events at fno2d and fno3d B=8 for the lift and the projection
+    launch (and both in one, the 1-layer model's) beside the plain
+    version, the staged yardstick (the end MLP as PyTorch ops and the
+    torch.fft block, one unit) and the bound with the MLPs' bytes and
+    multiply-adds."""
+    log("== phase 27: times — the ends launches at B=8")
+    rows = []
+    bf16 = torch.bfloat16
+    for seed, arch in enumerate(ENDS_SERVED):
+        cfg = configs.get_config(arch)
+        b, h = 8, cfg.hidden
+        spatial, modes = cfg.spatial, cfg.modes
+        x32, xin32, block32, lift32, proj32 = ends_inputs(torch, cfg, b,
+                                                          2700 + seed)
+        for dt, peak, eb in (("float32", PEAK_F32_FLOPS, 4),
+                             ("bfloat16", PEAK_BF16_FLOPS, 2)):
+            c = lambda ts: [t.to(getattr(torch, dt)) for t in ts]
+            x, xin = x32.to(getattr(torch, dt)), xin32.to(getattr(torch, dt))
+            block, lift, proj = c(block32), c(lift32), c(proj32)
+            mats = spectral.operand_tensors(spatial, modes, dt, DEVICE)
+            wr, wi, wb, bias = block
+            # The model's layout of the ends for the staged yardstick.
+            model = lambda e: (e[0].t(), e[1].reshape(-1), e[2].t(),
+                               e[3].reshape(-1))
+            both_ms = None
+            for which in ENDS:
+                run = lambda plain: ends_launch(engine, which, x, xin, block,
+                                                lift, proj, mats, plain)
+                kms = time_ms(lambda: run(False), 10)
+                if which == "both":
+                    both_ms = kms
+                    continue
+                pms = time_ms(lambda: run(True), 3)
+                inp = xin if which == "lift" else x
+                stage = lambda: ops.fno_block_ends_nd(
+                    inp, wr, wi, wb, bias.reshape(-1), modes,
+                    lift=model(lift) if which == "lift" else None,
+                    proj=model(proj) if which == "proj" else None,
+                    path="ref")
+                fft = time_ms(stage, 5)
+                dims = ends_dims_of(which, cfg)
+                t_bytes, t_ops = bound_parts("block_ends", b, h, h, spatial,
+                                             modes, eb, peak, ends=dims)
+                bms, by = bound_ms("block_ends", b, h, h, spatial, modes,
+                                   eb, peak, ends=dims)
+                launches = serve_counts[arch].get(("block_ends", dt), 0)
+                train = train_counts[arch][dt].get(("block_ends", dt), 0)
+                e = errs[(arch, 8, which, dt)]
+                log(f"  {dt} block_ends {which} {arch} B=8: kernel_ms="
+                    f"{kms:.4f} plain_ms={pms:.4f} staged_ms={fft:.4f} "
+                    f"bound_us={1e3 * bms:.2f} ({by}; bytes "
+                    f"{1e3 * t_bytes:.2f} us, operations {1e3 * t_ops:.2f} "
+                    f"us); block_ends launches {launches} served, {train} "
+                    f"in 20 training steps")
+                rows.append({
+                    "name": f"block_ends_{which}_{arch}_"
+                            f"{'f32' if dt == 'float32' else 'bf16'}",
+                    "route": "cuda", "source": BLOCK_SOURCE,
+                    "replaces": BLOCK_REPLACES, "shape": f"{arch} B=8",
+                    "launches": launches, "launches_train": train,
+                    "launches_note": "block_ends launches of phase 25's "
+                                     "requests: one lift and one projection "
+                                     "launch per forward, counted together",
+                    "max_abs_err": e[0], "scaled_err": e[1],
+                    "tol": F32_TOL if dt == "float32" else BF16_TOL,
+                    "ms": kms, "plain_ms": pms, "bound_ms": bms,
+                    "bound_by": by, "bound_bytes_ms": t_bytes,
+                    "bound_operations_ms": t_ops, "library_ms": None,
+                    "library_note": "no single PyTorch call computes it",
+                    "torch_fft_ms": fft,
+                    "torch_fft_note": f"the staged {which} MLP and the "
+                                      f"torch.fft block, one unit"})
+            log(f"  {dt} block_ends both {arch} B=8 (the 1-layer model's "
+                f"launch): kernel_ms={both_ms:.4f}")
+            rows[-2]["ms_both"] = both_ms
+            del x, xin, block, lift, proj, mats
+    log(f"  max_memory_allocated={torch.cuda.max_memory_allocated()} B")
+    return rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2321,6 +2597,24 @@ def main() -> int:
                   ops,
                   configs, f3_errs, f3_serve_counts, f3_train_counts,
                   linear_counts)
+    # The fused model ends (cfg.fuse_ends) at fno2d and fno3d.
+    t_ends = time.perf_counter()
+    ends_errs = timed("24", phase_ends_vs_plain, torch, engine, spectral,
+                      configs)
+    ends_serve_counts, ends_stats = timed(
+        "25", phase_serve_ends, torch, np, configs, fno_mod, sfs, engine)
+    ends_train, ends_train_counts = {}, {}
+    for arch in ENDS_SERVED:
+        e_batch, e_runs, ends_train_counts[arch] = timed(
+            f"26 {arch}", phase_train, torch, configs, fno_mod, batch_fn,
+            tree, ts, optim, engine, phase="26", arch=arch, fuse_ends=True)
+        log(f"== phase 26: train window, {arch}, fused ends")
+        ends_train[arch] = timed(f"26 train {arch}", train_window, torch,
+                                 np, e_batch, e_runs)
+        del e_runs
+    rows += timed("27", phase_ends_times, torch, engine, spectral, ops,
+                  configs, ends_errs, ends_serve_counts, ends_train_counts)
+    log(f"phases 24-27 (fused ends): {time.perf_counter() - t_ends:.1f} s")
     window = lambda st: {dt: {"p50": v["latency_ms"]["p50"],
                               "p99": v["latency_ms"]["p99"],
                               "sample_steps_per_s": v["sample_steps_per_s"]}
@@ -2354,6 +2648,16 @@ def main() -> int:
     log(f"{FNO3D} train windows: {json.dumps(f3_train)}")
     log(f"{FNO3D} train step ms median: "
         f"{json.dumps({k: median(st) for k, st in f3_train.items()})}")
+    log(f"serve windows, fused ends: {json.dumps(ends_stats)}")
+    log(f"train windows, fused ends: {json.dumps(ends_train)}")
+    ends_vs = {arch: {"ends": median(ends_train[arch]),
+                      "whole_block": median(train_stats if arch == "fno2d"
+                                            else f3_train["block full"]),
+                      "ends_peak_bytes": {dt: v["peak_memory_bytes"] for
+                                          dt, v in ends_train[arch].items()}}
+               for arch in ENDS_SERVED}
+    log(f"train step ms median, fused ends vs whole-block: "
+        f"{json.dumps(ends_vs)}")
     log(f"phase seconds: {json.dumps(seconds)}")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

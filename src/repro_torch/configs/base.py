@@ -79,6 +79,11 @@ class FNOConfig:
     # Whole-block fusion on the fused path: spectral + 1x1 bypass + bias +
     # GELU in ONE kernel launch per layer (kernels/ops.fno_block_nd).
     fuse_block: bool = False
+    # Fold the lifting MLP into the FIRST fused block launch and the
+    # projection MLP into the LAST one (kernels/ops.fno_block_ends_nd), so
+    # the lifted and projected activations never reach device memory.
+    # Fused path with fuse_block only; ignored otherwise.
+    fuse_ends: bool = False
 
     @property
     def precision(self) -> PrecisionPolicy:

@@ -22,6 +22,13 @@ def with_fuse_block(cfg: FNOConfig, on: bool = True) -> FNOConfig:
     return dataclasses.replace(cfg, fuse_block=on)
 
 
+def with_fuse_ends(cfg: FNOConfig, on: bool = True) -> FNOConfig:
+    """Fold the lifting MLP into the first fused block launch and the
+    projection MLP into the last one (fused path with fuse_block; ignored
+    otherwise)."""
+    return dataclasses.replace(cfg, fuse_ends=on)
+
+
 def fno1d() -> FNOConfig:
     return FNOConfig(
         name="fno1d", ndim=1, hidden=64, num_layers=4,

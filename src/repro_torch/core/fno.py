@@ -12,9 +12,12 @@ paper fuses: each layer's spectral conv is one launch forward (three with
 ``"partial"``) and two backward (``kernels.ops.spectral_layer_nd``), and
 the bypass, bias and GELU are PyTorch ops. The staged composition stays
 the oracle and the only form on the "ref"/"staged" paths, where torch
-autograd differentiates it. Params are a plain dict with the reference's
-layout (``lift1``, ``lift2``, ``proj1``, ``proj2``, ``blocks``), so a JAX
-param tree carries over leaf for leaf (``repro_torch.convert``).
+autograd differentiates it. With ``cfg.fuse_ends`` (and ``fuse_block``,
+on the fused path) the lifting MLP folds into the first block's launch
+and the projection MLP into the last one's. Params are a plain dict with
+the reference's layout (``lift1``, ``lift2``, ``proj1``, ``proj2``,
+``blocks``), so a JAX param tree carries over leaf for leaf
+(``repro_torch.convert``).
 
 Mixed precision: params stay at the param dtype; ``apply_fno`` casts the
 input once to the compute dtype and the dense/bypass layers follow the
@@ -30,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import FNOConfig, torch_dtype
 from repro_torch.core import spectral_conv as sc
+from repro_torch.kernels import ops
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -44,28 +48,9 @@ def _dense_init(gen: torch.Generator, din: int, dout: int,
             "b": torch.zeros((dout,), dtype=dtype, device=device)}
 
 
-class _AddBias(torch.autograd.Function):
-    """y [B, C, *sp] + bias [C] cast to y's dtype. The reference broadcasts
-    the bias BEFORE that cast, so the cast's backward upcasts the cotangent
-    and the bias grad is summed over batch and space in f32 (a bf16 sum
-    over a coherent cotangent field swamps). This gives that grad without
-    a broadcast copy of the bias in the forward."""
-
-    @staticmethod
-    def forward(ctx, y, b):
-        ctx.b_dtype = b.dtype
-        return y + b.to(y.dtype).reshape((1, -1) + (1,) * (y.ndim - 2))
-
-    @staticmethod
-    def backward(ctx, g):
-        dims = (0,) + tuple(range(2, g.ndim))
-        return g, g.sum(dim=dims, dtype=torch.float32).to(ctx.b_dtype)
-
-
 def _dense(p, x: torch.Tensor) -> torch.Tensor:
     """Pointwise over channels of x [B, C, *sp]; follows x's dtype."""
-    y = torch.einsum("bc...,cd->bd...", x, p["w"].to(x.dtype))
-    return _AddBias.apply(y, p["b"])
+    return ops.pointwise(p["w"], p["b"], x)
 
 
 def init_fno(gen: torch.Generator, cfg: FNOConfig,
@@ -103,18 +88,34 @@ def apply_fno(params: Dict[str, Any], cfg: FNOConfig, x: torch.Tensor,
     path = path or cfg.path
     pol = cfg.precision
     fuse = path == "fused" and cfg.fuse_block
+    # cfg.fuse_ends: the lifting MLP runs inside the first block's launch
+    # and the projection MLP inside the last one's (one launch for both
+    # on a 1-layer model), so an L-layer forward is still L launches.
+    ends_on = fuse and cfg.fuse_ends
     x = x.to(torch_dtype(pol.compute_dtype))
-    h = _gelu(_dense(params["lift1"], x))
-    h = _dense(params["lift2"], h)
-    for blk in params["blocks"]:
+    if ends_on:
+        h = x
+    else:
+        h = _gelu(_dense(params["lift1"], x))
+        h = _dense(params["lift2"], h)
+    last = len(params["blocks"]) - 1
+    mlp = lambda a, b: (params[a]["w"], params[a]["b"], params[b]["w"],
+                        params[b]["b"])
+    for i, blk in enumerate(params["blocks"]):
         if fuse:
+            ends = None
+            if ends_on and i in (0, last):
+                ends = (mlp("lift1", "lift2") if i == 0 else None,
+                        mlp("proj1", "proj2") if i == last else None)
             h = sc.apply_fno_block_nd(blk["spectral"], blk["bypass"], h,
                                       cfg.modes, path=path, variant=variant,
-                                      policy=pol)
+                                      policy=pol, ends=ends)
             continue
         s = sc.apply_spectral_nd(blk["spectral"], h, cfg.modes, path=path,
                                  variant=variant, policy=pol)
         h = _gelu(s.to(h.dtype) + _dense(blk["bypass"], h))
+    if ends_on:
+        return h
     return _dense(params["proj2"], _gelu(_dense(params["proj1"], h)))
 
 

@@ -6,7 +6,7 @@ Channel-first layout [B, C, *spatial].
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -47,8 +47,8 @@ def apply_fno_block_nd(spec_params: Dict[str, torch.Tensor],
                        byp_params: Dict[str, torch.Tensor], x: torch.Tensor,
                        modes: Sequence[int], *, path: str = "fused",
                        variant: str = "full",
-                       policy: Optional[PrecisionPolicy] = None
-                       ) -> torch.Tensor:
+                       policy: Optional[PrecisionPolicy] = None,
+                       ends: Optional[Tuple] = None) -> torch.Tensor:
     """One whole FNO block — gelu(spectral(x) + 1×1 bypass + bias) — as a
     single kernel launch on the fused path (variant="full"), or the paper's
     partial fusion (variant="partial": row DFT, fused core, row iDFT, then
@@ -56,8 +56,17 @@ def apply_fno_block_nd(spec_params: Dict[str, torch.Tensor],
 
     spec_params: {"wr","wi"}; byp_params: {"w","b"} from
     ``core.fno._dense_init``, where w is [C_in, C_out] — transposed here to
-    the kernel's [O,H] layout."""
+    the kernel's [O,H] layout.
+
+    ends: an optional (lift, proj) pair of the model's end-MLP params
+    ((w, b, w, b) tuples or None) folded into this block's launch
+    (``ops.fno_block_ends_nd``)."""
     wb = byp_params["w"].transpose(0, 1)
+    if ends is not None and any(e is not None for e in ends):
+        return ops.fno_block_ends_nd(
+            x, spec_params["wr"], spec_params["wi"], wb, byp_params["b"],
+            tuple(modes), lift=ends[0], proj=ends[1], path=path,
+            variant=variant, policy=policy)
     return ops.fno_block_nd(x, spec_params["wr"], spec_params["wi"], wb,
                             byp_params["b"], tuple(modes), path=path,
                             variant=variant, policy=policy)

@@ -1,8 +1,9 @@
 // Device helpers shared by the fused FNO block kernel (fused_block.cu) and
 // the fused weight-gradient kernel (fused_wgrad.cu): element loads and
 // stores, the tanh GELU and its derivative, one truncated-DFT stage on
-// shared-memory tensors, and the streamed forward DFT chain of a run of
-// channels. Every sum accumulates in f32.
+// shared-memory tensors, one s_1 chunk of the forward DFT chain, and the
+// streamed forward DFT chain of a run of channels. Every sum accumulates in
+// f32.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -19,6 +20,16 @@ __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+
+// v rounded to T and back: the value a T store then load would give.
+template <typename T>
+__device__ __forceinline__ float round_to(float v);
+template <>
+__device__ __forceinline__ float round_to<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16(v));
 }
 
 constexpr float kGeluC = 0.7978845608028654f;  // sqrt(2/pi)
@@ -127,6 +138,52 @@ __device__ void stage(const float* in_r, const float* in_i, int pre, int n,
   }
 }
 
+// One s_1 chunk of the truncated forward DFT chain of one real channel:
+// xs [nr][P] holds rows c0..c0+nr of s_1 in shared memory, `tmp` the
+// stages' intermediates (2·rf·Kp floats at R ≥ 2, + 2·rf·n2·k3 at R = 3);
+// the s_1 stage ACCUMULATES the spectrum into out_{r,i}[k] (k = k_1·Kp + k').
+// Every thread of the block calls it; it ends synchronised.
+template <int R, typename T>
+__device__ void chain_chunk(const float* xs, int nr, int c0, const Geom& g,
+                            int rf, const Mats<T>& m, float* out_r,
+                            float* out_i, float* tmp) {
+  const float* zr = xs;  // [nr][Kp] spectrum of the inner axes
+  const float* zi = nullptr;
+  if constexpr (R == 2) {
+    float* z2r = tmp;
+    float* z2i = z2r + rf * g.Kp;
+    stage<T, false, true, false, kTP>(xs, nullptr, nr, g.n2, 1, m.r[0],
+                                      m.i[0], g.k2, g.k2, z2r, z2i);
+    zr = z2r;
+    zi = z2i;
+    __syncthreads();
+  } else if constexpr (R == 3) {
+    float* z1r = tmp;  // [nr][n2][k3]
+    float* z1i = z1r + rf * g.n2 * g.k3;
+    stage<T, false, true, false, kTP>(xs, nullptr, nr * g.n2, g.n3, 1,
+                                      m.r[0], m.i[0], g.k3, g.k3, z1r, z1i);
+    __syncthreads();
+    float* z2r = z1i + rf * g.n2 * g.k3;  // [nr][k2][k3]
+    float* z2i = z2r + rf * g.Kp;
+    stage<T, true, true, false, kTP>(z1r, z1i, nr, g.n2, g.k3, m.r[1],
+                                     m.i[1], g.k2, g.k2, z2r, z2i);
+    zr = z2r;
+    zi = z2i;
+    __syncthreads();
+  }
+  // A[k_1][k'] += Σ_{r<nr} Z[r][k'] · F_1[c0 + r][k_1]
+  const T* f1r = m.r[R - 1] + c0 * g.k1;
+  const T* f1i = m.i[R - 1] + c0 * g.k1;
+  if constexpr (R == 1) {
+    stage<T, false, true, true, 1>(zr, nullptr, 1, nr, 1, f1r, f1i, g.k1,
+                                   g.k1, out_r, out_i);
+  } else {
+    stage<T, true, true, true, 1>(zr, zi, 1, nr, g.Kp, f1r, f1i, g.k1, g.k1,
+                                  out_r, out_i);
+  }
+  __syncthreads();
+}
+
 // Truncated forward DFT chain of `nch` real channels src[c][s] (channel
 // stride S), axis s_R first, streamed over chunks of `rf` s_1 rows; the s_1
 // stage ACCUMULATES the spectrum of channel c into out_{r,i}[c·ldo + k]
@@ -146,42 +203,8 @@ __device__ void forward_chain(const T* src, int nch, const Geom& g, int rf,
       for (int i = threadIdx.x; i < nr * g.P; i += blockDim.x)
         xs[i] = ld(xh + c0 * g.P + i);
       __syncthreads();
-      const float* zr = xs;  // [nr][Kp] spectrum of the inner axes
-      const float* zi = nullptr;
-      if constexpr (R == 2) {
-        float* z2r = xs + rf * g.P;
-        float* z2i = z2r + rf * g.Kp;
-        stage<T, false, true, false, kTP>(xs, nullptr, nr, g.n2, 1, m.r[0],
-                                          m.i[0], g.k2, g.k2, z2r, z2i);
-        zr = z2r;
-        zi = z2i;
-        __syncthreads();
-      } else if constexpr (R == 3) {
-        float* z1r = xs + rf * g.P;  // [nr][n2][k3]
-        float* z1i = z1r + rf * g.n2 * g.k3;
-        stage<T, false, true, false, kTP>(xs, nullptr, nr * g.n2, g.n3, 1,
-                                          m.r[0], m.i[0], g.k3, g.k3, z1r,
-                                          z1i);
-        __syncthreads();
-        float* z2r = z1i + rf * g.n2 * g.k3;  // [nr][k2][k3]
-        float* z2i = z2r + rf * g.Kp;
-        stage<T, true, true, false, kTP>(z1r, z1i, nr, g.n2, g.k3, m.r[1],
-                                         m.i[1], g.k2, g.k2, z2r, z2i);
-        zr = z2r;
-        zi = z2i;
-        __syncthreads();
-      }
-      // A[k_1][k'] += Σ_{r<nr} Z[r][k'] · F_1[c0 + r][k_1]
-      const T* f1r = m.r[R - 1] + c0 * g.k1;
-      const T* f1i = m.i[R - 1] + c0 * g.k1;
-      if constexpr (R == 1) {
-        stage<T, false, true, true, 1>(zr, nullptr, 1, nr, 1, f1r, f1i, g.k1,
-                                       g.k1, out_r + c * ldo, out_i + c * ldo);
-      } else {
-        stage<T, true, true, true, 1>(zr, zi, 1, nr, g.Kp, f1r, f1i, g.k1,
-                                      g.k1, out_r + c * ldo, out_i + c * ldo);
-      }
-      __syncthreads();
+      chain_chunk<R, T>(xs, nr, c0, g, rf, m, out_r + c * ldo,
+                        out_i + c * ldo, xs + rf * g.P);
     }
   }
 }

@@ -12,10 +12,18 @@
 //               backward's dx = spectral_adjoint(gz) + wbᵀ·gz; with
 //               no wb and no bias, the bare spectral layer.
 //
+// With the fused model ends (act gelu with wb and bias), the first block of
+// a model takes the raw input and the last one emits the model's output:
+//   lift  x[b,h] = l2[h,:]·gelu_tanh(l1·x_in[b] + b1) + b2[h], rounded to
+//         the element type, x_in [B,C_in,n_1..n_R];
+//   proj  y_out[b,c] = p2[c,:]·gelu_tanh(p1·y[b] + pb1) + pb2[c] on the
+//         activated block output y (f32), y_out [B,C_out,n_1..n_R].
+//
 // Replaces the TPU kernel repro/kernels/engine.py::fused_fnond_call
-// (_make_fwd_kernel, engine.py:161-427) in those three modes, with shared
-// weights W[o,h] or per-mode weights W[o,h,k_1..k_R] (the classic FNO
-// layout), optional bypass and bias epilogue, no lift/proj. Spatial rank
+// (_make_fwd_kernel, engine.py:161-427) in those modes and its lift/proj
+// ends (has_lift / has_proj), with shared weights W[o,h] or per-mode
+// weights W[o,h,k_1..k_R] (the classic FNO layout), optional bypass and
+// bias epilogue. Spatial rank
 // R ∈ {1,2,3}; element type float or __nv_bfloat16 for x, gy, the weights
 // and the DFT operands; every sum accumulates in f32; the output is written
 // once, at the element type or (out_f32) in f32.
@@ -55,6 +63,35 @@
 //     is a few MiB), + bias, the epilogue, and a single write.
 // Occupancy is low at small batches (B·CL blocks of 132 SMs). Ragged extents
 // are masked here: the TPU's lane padding is not ported.
+//
+// The ends (kEnds). The TPU kernel holds the lift's inner activation of a
+// whole sample in VMEM across its hidden loop; here both MLPs are
+// channel-pointwise, so each needs only the s_1 chunk at hand, and the lifted
+// or projected activations never reach device memory. Every block of the
+// cluster would need every point's inner activation (L·(C_in + 1) MACs and
+// L tanh a point) if it formed its own channels, CL times the work; instead
+// the cluster splits each chunk's points into pieces of CL·ep, block r takes
+// ep of them, and the results are exchanged through distributed shared
+// memory:
+//   * lift, phase 1 — per chunk of rows_f s_1 rows and piece, block r forms
+//     the inner activation of its points [L][ep] and from it the lifted
+//     hidden state of ALL H channels there (a small GEMM with l2, rounded
+//     to the element type as the staged lift emits it), the cluster syncs,
+//     each block gathers its own hs channels at every point of the piece,
+//     and the cluster syncs again before the next piece; then the chain runs
+//     on the gathered chunk;
+//   * lift, phase 3 — the bypass Σ_h wb·x needs all H lifted channels at a
+//     point: per inverse chunk and piece, after the inverse chain, block r
+//     lifts its points again and forms the bypass of ALL O out channels
+//     there (a GEMM with wb), and each block adds its os channels' bypass
+//     into ys, gathered as in phase 1;
+//   * proj, phase 3 — block r writes its activated out channels back into
+//     ys, the cluster syncs, and per piece each block gathers all O
+//     channels of its ep points and runs the projection MLP on them (two
+//     small GEMMs, the hidden units [Lp][ep] in shared memory); the
+//     cluster syncs again before the next chunk overwrites ys.
+// The small GEMMs hold a 4×4 register tile a thread, so each weight or
+// activation load feeds four FMAs.
 #include <cooperative_groups.h>
 
 #include "fno_common.cuh"
@@ -72,9 +109,11 @@ constexpr int kPts = 2;     // points per thread in the bypass epilogue
 
 enum Act { kGelu = 0, kGeluVjp = 1, kLinear = 2 };
 
-// Loop bound of phase i (1..3) below. Built with -DFUSED_BLOCK_ELIDE=<mask>,
-// the phases whose bit (1 << i) is set run no iteration: the output is then
-// wrong and only the time counts (launch/block_phases.py).
+// Loop bound of phase i (1..5) below: 1 forward chain, 2 CGEMM, 3 inverse
+// chain and epilogue, 4 the lift (its pieces in phases 1 and 3), 5 the
+// projection. Built with -DFUSED_BLOCK_ELIDE=<mask>, the phases whose bit
+// (1 << i) is set run no iteration: the output is then wrong and only the
+// time counts (launch/block_phases.py).
 #ifndef FUSED_BLOCK_ELIDE
 #define FUSED_BLOCK_ELIDE 0
 #endif
@@ -97,13 +136,148 @@ struct Args {
   int hs, os;      // hidden / out channels per block of the cluster
   int rows_f, rows_i;  // s_1 rows per forward / inverse chunk
   long long w_so, w_sh;  // W's element strides of o and h
+  // Fused model ends (kEnds only), null where that end is absent. With the
+  // lift, x is the raw input [B, cin, n_1..n_R].
+  const T* l1w;  // [L, cin]
+  const T* l1b;  // [L]
+  const T* l2w;  // [H, L]
+  const T* l2b;  // [H]
+  const T* p1w;  // [Lp, O]
+  const T* p1b;  // [Lp]
+  const T* p2w;  // [cout, Lp]
+  const T* p2b;  // [cout]; y is then [B, cout, n_1..n_R]
+  int cin, L, Lp, cout;
+  int ep;  // points a block takes of each piece of a chunk
 };
+
+// The lift's inner activation gelu_tanh(l1[l,:]·x_in + b1[l]) at the point
+// xp (channel stride S).
+template <typename T>
+__device__ __forceinline__ float lift_inner(const Args<T>& a, int l,
+                                            const T* xp, int S) {
+  float s = ld(a.l1b + l);
+  for (int c = 0; c < a.cin; ++c)
+    s = fmaf(ld(a.l1w + l * a.cin + c), ld(xp + static_cast<size_t>(c) * S),
+             s);
+  return fno::gelu_tanh(s);
+}
+
+enum Epi { kStore, kBias, kBiasRound, kBiasGelu };
+constexpr int kKU = 4;  // steps of k whose loads a small GEMM sends at once
+constexpr int kGU = 4;  // remote loads a thread of a gather sends at once
+
+// out[m·ldo + n] = epi(Σ_{k<K} A[m·lda + k]·B[k·ldb + n]) for m < M, n < N:
+// A in device memory (T, read through the read-only cache), B and out in
+// shared memory. Each thread holds a 4×4 tile, rows m0..m0+3 and columns
+// nb + j·tn, so one load of A or B feeds four FMAs and neighbouring threads
+// read neighbouring columns of B; the loads of kKU steps of k are sent
+// together, as these GEMMs are small and run on few threads, bound by load
+// latency. epi: kStore s; kBias s + bias[m]; kBiasRound s + bias[m]
+// rounded to T; kBiasGelu gelu_tanh(s + bias[m]). Ends synchronised.
+template <typename T, int kEpi>
+__device__ void tile_gemm(const T* A, int lda, const float* B, int ldb,
+                          int M, int N, int K, const T* bias, float* out,
+                          int ldo) {
+  const int tn = (N + 3) / 4, tm = (M + 3) / 4;
+  for (int t = threadIdx.x; t < tm * tn; t += kThreads) {
+    const int nb = t % tn, m0 = t / tn * 4;
+    int m[4], n[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      m[i] = min(m0 + i, M - 1);
+      n[i] = min(nb + i * tn, N - 1);
+    }
+    float acc[4][4] = {};
+    for (int k0 = 0; k0 < K; k0 += kKU) {
+      float av[kKU][4], bv[kKU][4];
+#pragma unroll
+      for (int u = 0; u < kKU; ++u) {
+        const int k = min(k0 + u, K - 1);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          av[u][i] = k0 + u < K ? ld(A + static_cast<size_t>(m[i]) * lda + k)
+                                : 0.f;
+          bv[u][i] = B[k * ldb + n[i]];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kKU; ++u)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[i][j] = fmaf(av[u][i], bv[u][j], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (m0 + i >= M) break;
+      const float bm = kEpi == kStore ? 0.f : ld(bias + m0 + i);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (nb + j * tn >= N) break;
+        float v = acc[i][j] + bm;
+        if (kEpi == kBiasRound) v = fno::round_to<T>(v);
+        if (kEpi == kBiasGelu) v = fno::gelu_tanh(v);
+        out[(m0 + i) * ldo + nb + j * tn] = v;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The lift at np points of a chunk (xp: the raw input of this sample at the
+// first of them, channel stride S): act [L][ep] = gelu_tanh(l1·x + b1), then
+// h [H][ep] = l2·act + b2 rounded to T, the lifted hidden state of all H
+// channels there. Ends synchronised.
+template <typename T>
+__device__ void lift_points(const Args<T>& a, const T* xp, int S, int np,
+                            float* act, float* h) {
+  for (int i = threadIdx.x; i < a.L * np; i += kThreads) {
+    const int l = i / np, q = i % np;
+    act[l * a.ep + q] = lift_inner(a, l, xp + q, S);
+  }
+  __syncthreads();
+  tile_gemm<T, kBiasRound>(a.l2w, a.L, act, a.ep, a.H, np, a.L, a.l2b, h,
+                           a.ep);
+}
+
+// Gathers rows r0..r0+nrow of every block's [rows][ep] piece buffer `src`
+// (at one offset in each block's shared memory) into dst[r·ldd + p] for the
+// piece's np points p (block j holds points j·ep..), or with kAdd adds them
+// there, kGU remote loads in flight a thread. The caller syncs the cluster
+// before and after.
+template <bool kAdd>
+__device__ __forceinline__ void gather_piece(cg::cluster_group cl_g,
+                                             float* src, int r0, int nrow,
+                                             int ep, int np, float* dst,
+                                             int ldd) {
+  const int n = nrow * np;
+  for (int i0 = threadIdx.x; i0 < n; i0 += kThreads * kGU) {
+    float v[kGU];
+#pragma unroll
+    for (int u = 0; u < kGU; ++u) {
+      const int i = min(i0 + u * kThreads, n - 1);
+      const int r = i / np, p = i % np;
+      v[u] = cl_g.map_shared_rank(src, p / ep)[(r0 + r) * ep + p % ep];
+    }
+#pragma unroll
+    for (int u = 0; u < kGU; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i < n) {
+        float& d = dst[i / np * ldd + i % np];
+        d = kAdd ? d + v[u] : v[u];
+      }
+    }
+  }
+}
 
 // kBypass=false (wb null) compiles the bare spectral layer: no wb loads and
 // no bypass loop, while the bypass path keeps its code unchanged.
 // kPerMode=true reads per-mode weights from device memory in phase 2;
 // kPerMode=false stages the shared weights' rows in shared memory.
-template <int R, typename T, bool kBypass, bool kPerMode>
+// kEnds=true (with kBypass only) compiles the fused model ends; which ends
+// run is read from the operands, once per chunk.
+template <int R, typename T, bool kBypass, bool kPerMode, bool kEnds>
 __global__ void __launch_bounds__(kThreads)
 fused_block_kernel(const Args<T> a) {
   extern __shared__ float smem[];
@@ -119,10 +293,13 @@ fused_block_kernel(const Args<T> a) {
   const int P = g.P, Kp = g.Kp, K = g.K, S = g.S;
   const int h0 = rank * hs, nh = max(0, min(hs, H - h0));
   const int o0 = rank * os, no = max(0, min(os, O - o0));
+  const bool lifted = kEnds && a.l1w != nullptr;
+  const bool projected = kEnds && a.p1w != nullptr;
+  const int ep = a.ep;
 
   // Shared memory: spectra A of my hidden slice, CGEMM result C of my out
-  // slice, my rows of the weights (wb only, with per-mode W), then the work
-  // area of phases 1 and 3.
+  // slice, my rows of the weights (wb only, with per-mode W), the bias, then
+  // the work area of phases 1 and 3.
   float* Ar = smem;
   float* Ai = Ar + hs * K;
   float* Cr = Ai + hs * K;
@@ -149,9 +326,33 @@ fused_block_kernel(const Args<T> a) {
 
   // Phase 1: truncated forward DFT chain of my hidden channels (axis s_R
   // first), streamed over chunks of s_1 rows; the s_1 stage accumulates.
-  fno::forward_chain<R, T>(a.x + (static_cast<size_t>(b) * H + h0) * S,
-                           PHASE_BOUND(1, nh), g, a.rows_f, a.f, Ar, Ai, K,
-                           work);
+  const T* xin = a.x + static_cast<size_t>(b) * a.cin * S;  // with the lift
+  if (lifted) {
+    // Per chunk, my hidden channels in hbuf [hs][rf·P], gathered piece by
+    // piece from the blocks that lifted them; then the chain on them.
+    const int rf = a.rows_f;
+    float* hbuf = work;
+    float* act = hbuf + hs * rf * P;  // [L][ep], then h [H][ep]
+    float* hp = act + a.L * ep;
+    for (int c0 = 0; c0 < n1; c0 += rf) {
+      const int nr = min(rf, n1 - c0);
+      for (int p0 = 0; p0 < PHASE_BOUND(4, nr * P); p0 += cl * ep) {
+        const int np = min(cl * ep, nr * P - p0);
+        const int mine = max(0, min(ep, np - rank * ep));
+        lift_points(a, xin + c0 * P + p0 + rank * ep, S, mine, act, hp);
+        cluster.sync();  // every block's points are lifted
+        gather_piece<false>(cluster, hp, h0, nh, ep, np, hbuf + p0, rf * P);
+        cluster.sync();  // no block overwrites hp while another reads it
+      }
+      for (int c = 0; c < PHASE_BOUND(1, nh); ++c)
+        fno::chain_chunk<R, T>(hbuf + c * rf * P, nr, c0, g, rf, a.f,
+                               Ar + c * K, Ai + c * K, act);
+    }
+  } else {
+    fno::forward_chain<R, T>(a.x + (static_cast<size_t>(b) * H + h0) * S,
+                             PHASE_BOUND(1, nh), g, a.rows_f, a.f, Ar, Ai, K,
+                             work);
+  }
   cluster.sync();
 
   // Phase 2: CGEMM over the whole hidden axis, reading every block's spectra
@@ -235,19 +436,36 @@ fused_block_kernel(const Args<T> a) {
       }
     }
     __syncthreads();
+    if (lifted) {
+      // Per piece: lift my points and form the bypass of all O channels
+      // there, wb·h, in act's place; then add my channels' bypass into ys.
+      float* act = t1r;  // [max(L, O)][ep], then h [H][ep]
+      float* hp = act + max(a.L, O) * ep;
+      for (int p0 = 0; p0 < PHASE_BOUND(4, npts); p0 += cl * ep) {
+        const int np = min(cl * ep, npts - p0);
+        const int mine = max(0, min(ep, np - rank * ep));
+        lift_points(a, xin + c0 * P + p0 + rank * ep, S, mine, act, hp);
+        tile_gemm<T, kStore>(a.wb, H, hp, ep, O, mine, H, nullptr, act, ep);
+        cluster.sync();
+        gather_piece<true>(cluster, act, o0, no, ep, np, ys + p0, npts);
+        cluster.sync();
+      }
+    }
     // Bypass: each thread takes kPts points so every wb[o, h] it loads
-    // feeds kPts FMAs; x is read once per (h, point), coalesced.
+    // feeds kPts FMAs; x is read once per (h, point), coalesced. With the
+    // lift it was added into ys above.
     const T* xb = a.x + static_cast<size_t>(b) * H * S + c0 * P;
+    const int nbyp = kBypass && !lifted ? H : 0;
     for (int p0 = tid; p0 < npts; p0 += kThreads * kPts) {
       int pt[kPts];
-      float byp[kPts][kMaxOut];
+      float bx[kPts][kMaxOut];
 #pragma unroll
       for (int u = 0; u < kPts; ++u) {
         pt[u] = min(p0 + u * kThreads, npts - 1);
 #pragma unroll
-        for (int o = 0; o < kMaxOut; ++o) byp[u][o] = 0.f;
+        for (int o = 0; o < kMaxOut; ++o) bx[u][o] = 0.f;
       }
-      for (int h = 0; h < (kBypass ? H : 0); ++h) {
+      for (int h = 0; h < nbyp; ++h) {
         float xv[kPts];
 #pragma unroll
         for (int u = 0; u < kPts; ++u)
@@ -257,7 +475,7 @@ fused_block_kernel(const Args<T> a) {
           if (o < no) {
             const float w = Wb[o * H + h];
 #pragma unroll
-            for (int u = 0; u < kPts; ++u) byp[u][o] = fmaf(w, xv[u], byp[u][o]);
+            for (int u = 0; u < kPts; ++u) bx[u][o] = fmaf(w, xv[u], bx[u][o]);
           }
         }
       }
@@ -270,14 +488,16 @@ fused_block_kernel(const Args<T> a) {
             // The output and gy share one (b, o, point) index.
             const size_t at = (static_cast<size_t>(b) * O + o0 + o) * S +
                               c0 * P + pt[u];
-            const float z = (ys[o * npts + pt[u]] + byp[u][o]) + Bs[o];
+            const float z = (ys[o * npts + pt[u]] + bx[u][o]) + Bs[o];
             float v = z;
             if (a.act == kGelu) {
               v = fno::gelu_tanh(z);
             } else if (a.act == kGeluVjp) {
               v = ld(a.gy + at) * fno::dgelu_tanh(z);
             }
-            if (a.out_f32) {
+            if (projected) {  // the projection reads it from ys
+              ys[o * npts + pt[u]] = v;
+            } else if (a.out_f32) {
               static_cast<float*>(a.y)[at] = v;
             } else {
               fno::st(static_cast<T*>(a.y) + at, v);
@@ -286,14 +506,59 @@ fused_block_kernel(const Args<T> a) {
         }
       }
     }
+    if (projected) {
+      // Per piece, all O activated channels of my points in zs [O][ep],
+      // the hidden units gelu(p1·z + b1) [Lp][ep], then p2·… + b2.
+      cluster.sync();  // every block's activated channels are in its ys
+      float* zs = t1r;
+      float* hid = zs + O * ep;
+      float* yo = hid + a.Lp * ep;  // [cout][ep]
+      for (int p0 = 0; p0 < PHASE_BOUND(5, npts); p0 += cl * ep) {
+        const int np = min(cl * ep, npts - p0);
+        const int mine = max(0, min(ep, np - rank * ep));
+        const int pm = p0 + rank * ep;  // my first point of the piece
+        for (int i0 = tid; i0 < O * mine; i0 += kThreads * kGU) {
+          float v[kGU];
+#pragma unroll
+          for (int u = 0; u < kGU; ++u) {
+            const int i = min(i0 + u * kThreads, O * mine - 1);
+            const int o = i / mine;
+            v[u] = cluster.map_shared_rank(ys, o / os)[(o % os) * npts + pm +
+                                                        i % mine];
+          }
+#pragma unroll
+          for (int u = 0; u < kGU; ++u) {
+            const int i = i0 + u * kThreads;
+            if (i < O * mine) zs[i / mine * ep + i % mine] = v[u];
+          }
+        }
+        __syncthreads();
+        tile_gemm<T, kBiasGelu>(a.p1w, O, zs, ep, a.Lp, mine, O, a.p1b, hid,
+                                ep);
+        tile_gemm<T, kBias>(a.p2w, a.Lp, hid, ep, a.cout, mine, a.Lp, a.p2b,
+                            yo, ep);
+        for (int i = tid; i < a.cout * mine; i += kThreads) {
+          const int c = i / mine, q = i % mine;
+          const size_t at = (static_cast<size_t>(b) * a.cout + c) * S +
+                            c0 * P + pm + q;
+          if (a.out_f32) {
+            static_cast<float*>(a.y)[at] = yo[c * ep + q];
+          } else {
+            fno::st(static_cast<T*>(a.y) + at, yo[c * ep + q]);
+          }
+        }
+        __syncthreads();
+      }
+      cluster.sync();  // no block overwrites ys while another reads it
+    }
     __syncthreads();
   }
 }
 
-template <int R, typename T, bool kBypass, bool kPerMode>
+template <int R, typename T, bool kBypass, bool kPerMode, bool kEnds>
 cudaError_t launch_kernel(const Args<T>& a, int batch, int cl,
                           int smem_bytes, cudaStream_t stream) {
-  auto* kernel = fused_block_kernel<R, T, kBypass, kPerMode>;
+  auto* kernel = fused_block_kernel<R, T, kBypass, kPerMode, kEnds>;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err = fno::configure(kernel, batch, cl, smem_bytes, stream,
@@ -307,10 +572,16 @@ cudaError_t launch_kernel(const Args<T>& a, int batch, int cl,
 template <int R, typename T, bool kPerMode>
 cudaError_t launch_mode(const Args<T>& a, int batch, int cl, int smem_bytes,
                         cudaStream_t stream) {
-  return a.wb ? launch_kernel<R, T, true, kPerMode>(a, batch, cl, smem_bytes,
-                                                    stream)
-              : launch_kernel<R, T, false, kPerMode>(a, batch, cl,
+  if (!a.wb) {
+    return launch_kernel<R, T, false, kPerMode, false>(a, batch, cl,
+                                                       smem_bytes, stream);
+  }
+  if (a.l1w || a.p1w) {
+    return launch_kernel<R, T, true, kPerMode, true>(a, batch, cl,
                                                      smem_bytes, stream);
+  }
+  return launch_kernel<R, T, true, kPerMode, false>(a, batch, cl, smem_bytes,
+                                                    stream);
 }
 
 template <int R, typename T>
@@ -325,11 +596,14 @@ template <typename T>
 int max_clusters_for(int rank, int cl, int smem_bytes, int* n) {
   switch (rank) {
     case 1: return static_cast<int>(fno::max_clusters(
-        fused_block_kernel<1, T, true, false>, cl, smem_bytes, n));
+        fused_block_kernel<1, T, true, false, false>, cl, smem_bytes,
+        n));
     case 2: return static_cast<int>(fno::max_clusters(
-        fused_block_kernel<2, T, true, false>, cl, smem_bytes, n));
+        fused_block_kernel<2, T, true, false, false>, cl, smem_bytes,
+        n));
     case 3: return static_cast<int>(fno::max_clusters(
-        fused_block_kernel<3, T, true, false>, cl, smem_bytes, n));
+        fused_block_kernel<3, T, true, false, false>, cl, smem_bytes,
+        n));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -338,7 +612,8 @@ template <typename T>
 int dispatch(int rank, int act, int out_f32, const void* x, const void* wr,
              const void* wi, const void* wb, const void* bias, const void* gy,
              const void* const* mats, void* y, const int* dims,
-             const int* plan, const int* wl, void* stream) {
+             const int* plan, const int* wl, const void* const* ends,
+             const int* edims, void* stream) {
   Args<T> a = {};
   a.x = static_cast<const T*>(x);
   a.wr = static_cast<const T*>(wr);
@@ -368,12 +643,30 @@ int dispatch(int rank, int act, int out_f32, const void* x, const void* wr,
   a.rows_f = plan[3];
   a.rows_i = plan[4];
   const int smem_bytes = plan[5];
+  a.ep = plan[6];
   const int per_mode = wl[0];
   a.w_so = wl[1];
   a.w_sh = wl[2];
+  if (ends) {
+    const T** e[8] = {&a.l1w, &a.l1b, &a.l2w, &a.l2b,
+                      &a.p1w, &a.p1b, &a.p2w, &a.p2b};
+    for (int i = 0; i < 8; ++i) *e[i] = static_cast<const T*>(ends[i]);
+    a.cin = edims[0];
+    a.L = edims[1];
+    a.Lp = edims[2];
+    a.cout = edims[3];
+  }
   if (a.os > kMaxOut || act < kGelu || act > kLinear ||
       (act == kGeluVjp) != (gy != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (a.l1w || a.p1w) {  // the ends: a block forward, each end whole
+    const bool lift_ok = !a.l1w || (a.l1b && a.l2w && a.l2b && a.cin > 0 &&
+                                    a.L > 0);
+    const bool proj_ok = !a.p1w || (a.p1b && a.p2w && a.p2b && a.Lp > 0 &&
+                                    a.cout > 0);
+    if (!wb || !bias || act != kGelu || !lift_ok || !proj_ok || a.ep < 1)
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (rank) {
@@ -395,9 +688,15 @@ int dispatch(int rank, int act, int out_f32, const void* x, const void* wr,
 // null (no wb: the bare spectral layer, no bypass).
 // mats: 4·rank device pointers (forward re/im per stage, then inverse).
 // dims: {B, H, O, n_1, n_2, n_3, k_1, k_2, k_3}.
-// plan: {cluster, hidden/block, out/block, rows_f, rows_i, smem bytes}.
+// plan: {cluster, hidden/block, out/block, rows_f, rows_i, smem bytes,
+// points a block takes of a piece (the ends only)}.
 // wl: {per_mode, stride of o, stride of h}: wr, wi are [O, H] (per_mode =
 // 0) or [O, H, K] with the modes contiguous, at these element strides.
+// ends: null, or the model ends' 8 device pointers {l1w [L,cin], l1b [L],
+// l2w [H,L], l2b [H], p1w [Lp,O], p1b [Lp], p2w [cout,Lp], p2b [cout]},
+// each end's four null where that end is absent (act gelu, wb and bias
+// required); with the lift x is [B, cin, n…], with the projection y is
+// [B, cout, n…]. edims: {cin, L, Lp, cout}.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int fused_block_forward(int dtype, int rank, int act, int out_f32,
                                    const void* x, const void* wr,
@@ -405,14 +704,16 @@ extern "C" int fused_block_forward(int dtype, int rank, int act, int out_f32,
                                    const void* bias, const void* gy,
                                    const void* const* mats, void* y,
                                    const int* dims, const int* plan,
-                                   const int* wl, void* stream) {
+                                   const int* wl, const void* const* ends,
+                                   const int* edims, void* stream) {
   if (dtype == 0) {
     return dispatch<float>(rank, act, out_f32, x, wr, wi, wb, bias, gy, mats,
-                           y, dims, plan, wl, stream);
+                           y, dims, plan, wl, ends, edims, stream);
   }
   if (dtype == 1) {
     return dispatch<__nv_bfloat16>(rank, act, out_f32, x, wr, wi, wb, bias,
-                                   gy, mats, y, dims, plan, wl, stream);
+                                   gy, mats, y, dims, plan, wl, ends, edims,
+                                   stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -101,7 +101,7 @@ def load_block_library(path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.fused_block_forward.argtypes = [i, i, i, i, vp, vp, vp, vp, vp, vp,
-                                        vp, vp, vp, vp, vp, vp]
+                                        vp, vp, vp, vp, vp, vp, vp, vp]
     lib.fused_block_forward.restype = i
     lib.fused_block_max_clusters.argtypes = [i, i, i, i,
                                              ctypes.POINTER(i)]

@@ -19,7 +19,9 @@ Counterpart of ``repro/kernels/engine.py``:
   With wb=None (no bypass, no bias, act="linear") it is the bare spectral
   layer: its forward (the spectral-only path's, and the rank-1 partial
   variant's), and, with the adjoint bundle, transposed weights and
-  adjoint=True, its backward's dx.
+  adjoint=True, its backward's dx. With ``lift=`` / ``proj=`` (act="gelu")
+  it is a model's first and last block with the end MLPs folded in
+  ("block_ends"): x is then the raw input, and y the model's output.
 
 * ``fused_wgrad`` — ``fused_fnond_wgrad_call`` (``csrc/fused_wgrad.cu``):
   dW = conj(Σ Ĝ·A) (summed over the modes for shared weights, one per mode
@@ -69,13 +71,16 @@ SPECTRAL_KINDS = ("spectral_fwd", "spectral_dx", "spectral_wgrad")
 LINEAR_KINDS = ("block_linear", "dx_adjoint", "wgrad")
 
 
-def launch_kind(wb, act: str, adjoint: bool) -> str:
+def launch_kind(wb, act: str, adjoint: bool, ends: bool = False) -> str:
     """The kind a block-kernel launch is counted as, from what the caller
-    asked, never guessed from the operands: adjoint=True is a backward's
+    asked, never guessed from the operands: ends=True is a block with the
+    model's end MLPs folded in ("block_ends"); adjoint=True is a backward's
     dx ("dx_adjoint" with the bypass, "spectral_dx" without); otherwise
     "block_fwd", "gz_recompute", and for act="linear" the linear block's
     forward ("block_linear") or, without wb, the bare layer's
     ("spectral_fwd")."""
+    if ends:
+        return "block_ends"
     if adjoint:
         return "dx_adjoint" if wb is not None else "spectral_dx"
     if act == "linear":
@@ -134,16 +139,48 @@ def dgelu_tanh(z: torch.Tensor) -> torch.Tensor:
     return 0.5 * (1.0 + t) + 0.5 * z * (1.0 - t * t) * c * (1.0 + 3.0 * a * z2)
 
 
+def _col(v: torch.Tensor, r: int) -> torch.Tensor:
+    """A [D,1] bias broadcast over batch and r spatial axes, in f32."""
+    return v.to(_F32).reshape((1, -1) + (1,) * r)
+
+
+def _lift_plain(x, lift):
+    """h = l2·gelu_tanh(l1·x + b1) + b2 in f32 from the raw input, rounded
+    to x's dtype as it feeds the chain and the bypass."""
+    r = x.ndim - 2
+    l1w, l1b, l2w, l2b = lift
+    a = F.gelu(torch.einsum("lc,bc...->bl...", l1w.to(_F32), x.to(_F32))
+               + _col(l1b, r), approximate="tanh")
+    h = torch.einsum("hl,bl...->bh...", l2w.to(_F32), a) + _col(l2b, r)
+    return h.to(x.dtype)
+
+
+def _proj_plain(z, proj):
+    """y = p2·gelu_tanh(p1·z + b1) + b2 on the activated block output z
+    (f32)."""
+    r = z.ndim - 2
+    p1w, p1b, p2w, p2b = proj
+    a = F.gelu(torch.einsum("lo,bo...->bl...", p1w.to(_F32), z)
+               + _col(p1b, r), approximate="tanh")
+    return torch.einsum("cl,bl...->bc...", p2w.to(_F32), a) + _col(p2b, r)
+
+
 def fused_block_plain(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
                       wb: Optional[torch.Tensor],
                       bias: Optional[torch.Tensor],
                       mats: Sequence[torch.Tensor], *, act: str = "gelu",
                       gy: Optional[torch.Tensor] = None,
-                      out_dtype: Optional[torch.dtype] = None
+                      out_dtype: Optional[torch.dtype] = None,
+                      lift: Optional[Sequence[torch.Tensor]] = None,
+                      proj: Optional[Sequence[torch.Tensor]] = None
                       ) -> torch.Tensor:
     """The block kernel's function in plain PyTorch, accumulating in f32
     and emitting at `out_dtype` (x's dtype by default). Arguments as
-    ``fused_block``."""
+    ``fused_block``; with the ends, the lifted x is rounded to x's dtype
+    and the projection takes the activated output in f32, as the
+    reference's kernel does."""
+    if lift is not None:
+        x = _lift_plain(x, lift)
     r = x.ndim - 2
     m = [t.to(_F32) for t in mats]
     zr, zi = _chain(x, m[:2 * r])
@@ -171,6 +208,8 @@ def fused_block_plain(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
         z = F.gelu(z, approximate="tanh")
     elif act == "gelu_vjp":
         z = gy.to(_F32) * dgelu_tanh(z)
+    if proj is not None:
+        z = _proj_plain(z, proj)
     return z.to(out_dtype or x.dtype)
 
 
@@ -298,7 +337,9 @@ def _grow(plan_fn: Callable, max_cluster: int, *args) -> Dict[str, int]:
 
 def launch_plan(hidden: int, out: int, spatial: Sequence[int],
                 modes: Sequence[int], max_cluster: int = _PORTABLE_CLUSTER,
-                per_mode: bool = False) -> Dict[str, int]:
+                per_mode: bool = False,
+                ends: Optional[Tuple[int, int, int, int]] = None
+                ) -> Dict[str, int]:
     """The block kernel's cluster size, channel slices, chunk rows and
     shared memory, at clusters of up to `max_cluster` blocks or of 16 when
     those cannot hold the shape; raises ValueError for shapes the kernel
@@ -306,12 +347,23 @@ def launch_plan(hidden: int, out: int, spatial: Sequence[int],
     the register-filling count, that fit (fno3d: 3 of 8). Shared weights
     are staged in shared memory (3 rows of [os,H]: wr, wi, wb); per-mode
     weights [O,H,K] are read from device memory as the CGEMM streams over
-    the modes, so only wb is staged."""
-    return _grow(_launch_plan, max_cluster, hidden, out, spatial, modes,
-                 per_mode)
+    the modes, so only wb is staged.
+
+    ends=(C_in, L, Lp, C_out) plans a launch with the model's end MLPs
+    (L=0: no lift, Lp=0: no projection) and adds "ep", the points a block
+    takes of each piece of a chunk (128, or fewer where that does not
+    fit): the lift holds the block's hidden slice of a chunk,
+    [hs][rows_f·P], where the chain reads the input, and a piece's inner
+    activation and lifted state, [L][ep] and [H][ep]; in phase 3, beside
+    ys, the bypass piece [max(L,O)][ep] with [H][ep]; the projection a
+    piece's [O][ep] channels, [Lp][ep] hidden units and [C_out][ep]
+    outputs."""
+    return _grow(functools.partial(_launch_plan, ends=ends), max_cluster,
+                 hidden, out, spatial, modes, per_mode)
 
 
-def _launch_plan(hidden, out, spatial, modes, per_mode, max_cluster):
+def _launch_plan(hidden, out, spatial, modes, per_mode, max_cluster,
+                 ends=None):
     r = len(spatial)
     n = list(spatial) + [1] * (3 - r)
     k = list(modes) + [1] * (3 - r)
@@ -325,11 +377,30 @@ def _launch_plan(hidden, out, spatial, modes, per_mode, max_cluster):
         inv += 2 * os_ * rows_i * n[1] * k[2]
     w_rows = 1 if per_mode else 3
     floats = 2 * hs * kk + 2 * os_ * kk + w_rows * os_ * hidden + _MAX_OUT
-    rows_f, smem = _fit_rows(spatial, modes, lambda rf: 4 * (
-        floats + max(_chain_work(spatial, modes, rf), inv)))
+    if ends is None:
+        rows_f, smem = _fit_rows(spatial, modes, lambda rf: 4 * (
+            floats + max(_chain_work(spatial, modes, rf), inv)))
+        _check_smem(smem, "fused block kernel", hidden, out, spatial, modes)
+        return {"cluster": cl, "hs": hs, "os": os_, "rows_f": rows_f,
+                "rows_i": rows_i, "smem": smem}
+    _, lift, lp, cout = ends
+    ys = os_ * rows_i * p
+    for ep in (128, 64, 32, 16, 8):
+        third = ys + max(inv - ys, (max(lift, out) + hidden) * ep if lift
+                         else 0, (out + lp + cout) * ep if lp else 0)
+
+        def first(rf, ep=ep):
+            chain = _chain_work(spatial, modes, rf)
+            if not lift:
+                return chain
+            return hs * rf * p + max(chain - rf * p, (lift + hidden) * ep)
+        rows_f, smem = _fit_rows(spatial, modes, lambda rf: 4 * (
+            floats + max(first(rf), third)))
+        if smem <= _SMEM_LIMIT:
+            break
     _check_smem(smem, "fused block kernel", hidden, out, spatial, modes)
     return {"cluster": cl, "hs": hs, "os": os_, "rows_f": rows_f,
-            "rows_i": rows_i, "smem": smem}
+            "rows_i": rows_i, "smem": smem, "ep": ep}
 
 
 def wgrad_plan(hidden: int, out: int, spatial: Sequence[int],
@@ -483,7 +554,35 @@ def _check_weights(what, wr, wi, o, h, modes):
     return wr.ndim > 2
 
 
-def _check(x, wr, wi, wb, bias, mats, act, gy, out_dtype):
+def _check_ends(x, h, o, lift, proj):
+    """The end MLPs' engine-layout operands; returns (C_in, L, Lp, C_out),
+    0 for an absent end."""
+    dims = [x.shape[1], 0, 0, 0]
+    if lift is not None:
+        if len(lift) != 4:
+            raise ValueError("lift is (l1w [L,C_in], l1b [L,1], l2w [H,L], "
+                             "l2b [H,1])")
+        dims[1] = lift[0].shape[0]
+        want = ((dims[1], x.shape[1]), (dims[1], 1), (h, dims[1]), (h, 1))
+        for name, t, w in zip(("l1w", "l1b", "l2w", "l2b"), lift, want):
+            if tuple(t.shape) != w:
+                raise ValueError(f"lift {name} must be {w}, got "
+                                 f"{tuple(t.shape)}")
+    if proj is not None:
+        if len(proj) != 4:
+            raise ValueError("proj is (p1w [Lp,O], p1b [Lp,1], p2w [C_out,Lp],"
+                             " p2b [C_out,1])")
+        dims[2], dims[3] = proj[0].shape[0], proj[2].shape[0]
+        want = ((dims[2], o), (dims[2], 1), (dims[3], dims[2]), (dims[3], 1))
+        for name, t, w in zip(("p1w", "p1b", "p2w", "p2b"), proj, want):
+            if tuple(t.shape) != w:
+                raise ValueError(f"proj {name} must be {w}, got "
+                                 f"{tuple(t.shape)}")
+    return tuple(dims)
+
+
+def _check(x, wr, wi, wb, bias, mats, act, gy, out_dtype, lift=None,
+           proj=None):
     """Returns (spatial, modes, per_mode)."""
     _check_rank(x)
     if act not in _ACT_CODES:
@@ -498,13 +597,18 @@ def _check(x, wr, wi, wb, bias, mats, act, gy, out_dtype):
     if wb is None and (act != "linear" or bias is not None):
         raise ValueError("without wb the block kernel is the bare spectral "
                          "layer: act='linear' and no bias")
-    h = x.shape[1]
+    ends = tuple(lift or ()) + tuple(proj or ())
+    if ends and (act != "gelu" or wb is None or bias is None):
+        raise ValueError("the model ends fold into a block forward: "
+                         "act='gelu' with wb and bias")
+    h = lift[2].shape[0] if lift is not None else x.shape[1]
     o = wr.shape[0]
     spatial = tuple(x.shape[2:])
     modes = _check_mats(mats, spatial, inverse=True)
     per_mode = _check_weights("fused block", wr, wi, o, h, modes)
+    _check_ends(x, h, o, lift, proj)
     extra = tuple(t for t in (wb, bias, gy) if t is not None)
-    _check_tensors("fused block", x, (x, *extra, *mats), (wr, wi))
+    _check_tensors("fused block", x, (x, *extra, *ends, *mats), (wr, wi))
     if wb is not None and tuple(wb.shape) != (o, h):
         raise ValueError(f"wb must be [O,H]=({o},{h}), got "
                          f"{tuple(wb.shape)}")
@@ -578,10 +682,17 @@ def _pick(plan_fn: Callable, lib, prefix: str, dtype_code: int, batch: int,
 
 
 def pick_plan(lib, dtype_code: int, batch: int, hidden: int, out: int,
-              spatial, modes, per_mode: bool = False) -> Dict[str, int]:
-    """The block kernel's plan for this batch on this card."""
-    return _pick(launch_plan, lib, "fused_block", dtype_code, batch, hidden,
-                 out, spatial, modes, per_mode)
+              spatial, modes, per_mode: bool = False,
+              ends: Optional[Tuple[int, int, int, int]] = None
+              ) -> Dict[str, int]:
+    """The block kernel's plan for this batch on this card (`ends` as
+    ``launch_plan``'s; the card's cluster occupancy is asked of the kernel
+    without the ends, which at the presets' ends plans is the same: one
+    block an SM)."""
+    plan_fn = (launch_plan if ends is None
+               else functools.partial(launch_plan, ends=ends))
+    return _pick(plan_fn, lib, "fused_block", dtype_code, batch, hidden, out,
+                 spatial, modes, per_mode)
 
 
 def pick_wgrad_plan(lib, dtype_code: int, batch: int, hidden: int,
@@ -607,27 +718,36 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _launch(lib, x, wr, wi, wb, bias, mats, spatial, modes, stream, *,
-            act="gelu", gy=None, out_dtype=None):
+            act="gelu", gy=None, out_dtype=None, lift=None, proj=None):
     """Allocate y and launch the block kernel through the C entry (no
     checks)."""
-    b, h = x.shape[:2]
-    o = wr.shape[0]
+    b = x.shape[0]
+    o, h = wr.shape[:2]
     per_mode = wr.ndim > 2
     code = _DTYPE_CODES[x.dtype]
-    plan = pick_plan(lib, code, b, h, o, spatial, modes, per_mode)
+    edims = (_check_ends(x, h, o, lift, proj)
+             if lift is not None or proj is not None else None)
+    plan = pick_plan(lib, code, b, h, o, spatial, modes, per_mode, edims)
     od = out_dtype or x.dtype
-    y = torch.empty((b, o) + tuple(spatial), dtype=od, device=x.device)
+    oc = edims[3] if proj is not None else o
+    y = torch.empty((b, oc) + tuple(spatial), dtype=od, device=x.device)
     pl = _ints([plan["cluster"], plan["hs"], plan["os"], plan["rows_f"],
-                plan["rows_i"], plan["smem"]])
+                plan["rows_i"], plan["smem"], plan.get("ep", 0)])
     # The weights' element strides of their out and hidden axes (dx takes
     # a transposed view, without a copy); per-mode, the modes are
     # contiguous.
     wl = _ints([int(per_mode), wr.stride(0), wr.stride(1)])
     ptrs = (ctypes.c_void_p * len(mats))(*[m.data_ptr() for m in mats])
+    eptrs = edv = None
+    if edims is not None:
+        ends = tuple(lift or (None,) * 4) + tuple(proj or (None,) * 4)
+        eptrs = (ctypes.c_void_p * 8)(*[_ptr(t) for t in ends])
+        edv = _ints(list(edims))
     err = lib.fused_block_forward(
         code, len(spatial), _ACT_CODES[act], int(od == _F32), x.data_ptr(),
         wr.data_ptr(), wi.data_ptr(), _ptr(wb), _ptr(bias), _ptr(gy),
-        ptrs, y.data_ptr(), _dims(b, h, o, spatial, modes), pl, wl, stream)
+        ptrs, y.data_ptr(), _dims(b, h, o, spatial, modes), pl, wl, eptrs,
+        edv, stream)
     if err != 0:
         msg = lib.fused_block_error_string(err).decode()
         raise RuntimeError(f"fused block kernel launch failed: {msg} "
@@ -719,7 +839,10 @@ def fused_block(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
                 mats: Sequence[torch.Tensor], *, act: str = "gelu",
                 gy: Optional[torch.Tensor] = None,
                 out_dtype: Optional[torch.dtype] = None,
-                adjoint: bool = False) -> torch.Tensor:
+                adjoint: bool = False,
+                lift: Optional[Sequence[torch.Tensor]] = None,
+                proj: Optional[Sequence[torch.Tensor]] = None
+                ) -> torch.Tensor:
     """One FNO block kernel launch in one of its three epilogue modes.
 
     x: [B,H,s_1..s_R] float32 or bfloat16; wr/wi: shared [O,H] or
@@ -735,23 +858,35 @@ def fused_block(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
     default). adjoint=True marks a linear launch as a backward's dx
     (the block's, "dx_adjoint", or without wb the bare layer's,
     "spectral_dx"); the operands make it one, and the kind it is counted
-    as is ``launch_kind``'s. A CPU tensor runs ``fused_block_plain``; a
-    CUDA tensor launches the kernel or raises.
+    as is ``launch_kind``'s.
+
+    The model's ends (act="gelu" with wb and bias; counted "block_ends"):
+    lift=(l1w [L,C_in], l1b [L,1], l2w [H,L], l2b [H,1]) takes x as the
+    raw input [B,C_in,s…] and forms the hidden channels
+    l2·gelu_tanh(l1·x + b1) + b2 inside the launch; proj=(p1w [Lp,O],
+    p1b [Lp,1], p2w [C_out,Lp], p2b [C_out,1]) returns the model's output
+    p2·gelu_tanh(p1·y + b1) + b2 [B,C_out,s…] of the activated block
+    output y. Either or both; all at x's dtype and contiguous.
+
+    A CPU tensor runs ``fused_block_plain``; a CUDA tensor launches the
+    kernel or raises.
     """
     spatial, modes, _ = _check(x, wr, wi, wb, bias, mats, act, gy,
-                               out_dtype)
+                               out_dtype, lift, proj)
     if adjoint and act != "linear":
         raise ValueError("adjoint=True marks a backward's dx, which takes "
                          "act='linear'")
     if not _on_card(x, "fused block"):
         return fused_block_plain(x, wr, wi, wb, bias, mats, act=act, gy=gy,
-                                 out_dtype=out_dtype)
+                                 out_dtype=out_dtype, lift=lift, proj=proj)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         y = _launch(build.load_fused_block(), x, wr, wi, wb, bias, mats,
                     spatial, modes, stream, act=act, gy=gy,
-                    out_dtype=out_dtype)
-    LAUNCHES[(launch_kind(wb, act, adjoint), _dtype_name(x.dtype))] += 1
+                    out_dtype=out_dtype, lift=lift, proj=proj)
+    ends = lift is not None or proj is not None
+    LAUNCHES[(launch_kind(wb, act, adjoint, ends),
+              _dtype_name(x.dtype))] += 1
     return y
 
 

@@ -26,10 +26,13 @@ bypass-free wgrad. The whole FNO block, with shared [O,H] or per-mode
 and three launches backward for both (gz recompute, dx adjoint, fused
 wgrad): partial and full compute the same function, so one adjoint serves
 both. The linear block (``act="linear"``, the TP-sharded block's partial
-pre-activation) has no gz recompute: two launches backward. The
-standalone transforms (``truncated_rdft`` …) and ``cgemm`` run their
-kernels on the fused path. The kernels mask their own ragged edges, so
-nothing here pads.
+pre-activation) has no gz recompute: two launches backward. A model's
+first and last block with its end MLPs folded in (``fno_block_ends_nd``,
+``cfg.fuse_ends``) is one launch forward; its backward is autograd of the
+staged composition, recomputed, as the reference's. The standalone
+transforms (``truncated_rdft`` …) and ``cgemm`` run their kernels on the
+fused path. The kernels mask their own ragged edges, so nothing here
+pads.
 """
 from __future__ import annotations
 
@@ -438,6 +441,33 @@ class _FusedBlock(torch.autograd.Function):
                 None, None)
 
 
+class _AddBias(torch.autograd.Function):
+    """y [B, C, *sp] + bias [C] cast to y's dtype. The reference broadcasts
+    the bias BEFORE that cast, so the cast's backward upcasts the cotangent
+    and the bias grad is summed over batch and space in f32 (a bf16 sum
+    over a coherent cotangent field swamps). This gives that grad without
+    a broadcast copy of the bias in the forward."""
+
+    @staticmethod
+    def forward(ctx, y, b):
+        ctx.b_dtype = b.dtype
+        return y + b.to(y.dtype).reshape((1, -1) + (1,) * (y.ndim - 2))
+
+    @staticmethod
+    def backward(ctx, g):
+        dims = (0,) + tuple(range(2, g.ndim))
+        return g, g.sum(dim=dims, dtype=torch.float32).to(ctx.b_dtype)
+
+
+def pointwise(w: torch.Tensor, b: torch.Tensor,
+              x: torch.Tensor) -> torch.Tensor:
+    """Channel-pointwise dense layer of x [B, C, *sp] with w [C, D] and
+    b [D] (``core.fno._dense``): follows x's dtype, the bias grad summed in
+    f32."""
+    y = torch.einsum("bc...,cd->bd...", x, w.to(x.dtype))
+    return _AddBias.apply(y, b)
+
+
 def fno_block_nd(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
                  wb: torch.Tensor, bias: torch.Tensor,
                  modes: Sequence[int], *, path: str = "fused",
@@ -475,3 +505,122 @@ def fno_block_nd(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
     return _FusedBlock.apply(x, wr, wi, wb, bias, modes,
                              policy or _default_policy(x), variant, act,
                              out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# The model's ends folded into the first and last block (cfg.fuse_ends):
+# the lifting MLP runs inside the first block's launch and the projection
+# MLP inside the last one's, so the lifted and projected activations never
+# reach device memory. Forward is ONE launch; the backward is autograd of
+# the staged composition, recomputed (the reference's ``_ends_vjp_bwd``):
+# the reference has no backward kernel for the ends, and none is added.
+# ---------------------------------------------------------------------------
+def _ends_staged(x, wr, wi, wb, bias, lift, proj, modes, path, pol):
+    """Staged lift → block → projection: the parity oracle of the
+    ends-fused launch and its backward's recompute target. lift and proj
+    are the model's (w, b, w, b) dense params or None."""
+    h = x
+    if lift is not None:
+        l1w, l1b, l2w, l2b = lift
+        h = pointwise(l2w, l2b, F.gelu(pointwise(l1w, l1b, h),
+                                       approximate="tanh"))
+    z = _fno_block_oracle(h, wr, wi, wb, bias, modes, path, pol, "gelu")
+    if proj is not None:
+        p1w, p1b, p2w, p2b = proj
+        z = pointwise(p2w, p2b, F.gelu(pointwise(p1w, p1b, z),
+                                       approximate="tanh"))
+    return z
+
+
+def _engine_end(end, cp):
+    """A model end's (w1 [A,B], b1 [B], w2 [B,C], b2 [C]) in the kernel's
+    layout at the compute dtype: (w1ᵀ [B,A], b1 [B,1], w2ᵀ [C,B],
+    b2 [C,1])."""
+    if end is None:
+        return None
+    w1, b1, w2, b2 = (t.detach().to(cp) for t in end)
+    return (w1.t().contiguous(), b1.reshape(-1, 1).contiguous(),
+            w2.t().contiguous(), b2.reshape(-1, 1).contiguous())
+
+
+class _FusedEnds(torch.autograd.Function):
+    """The block with the model's end MLPs folded in (the reference's
+    ``_fno_block_ends_pallas``): forward is one "block_ends" launch and
+    saves only the primals; backward recomputes the staged composition
+    (``path="staged"``) and differentiates it with autograd, so it
+    launches no kernel and every grad lands at its primal's dtype. The end
+    params come as eight tensors (None where an end is absent)."""
+
+    @staticmethod
+    def forward(ctx, x, wr, wi, wb, bias, modes, pol, *ends):
+        ctx.save_for_backward(x, wr, wi, wb, bias, *(
+            t if t is not None else torch.empty(0) for t in ends))
+        ctx.has = (ends[0] is not None, ends[4] is not None)
+        ctx.modes, ctx.pol = modes, pol
+        cp = torch_dtype(pol.compute_dtype)
+        ops_ = _operands(x, wr, wi, wb, bias, pol)
+        lift = None if ends[0] is None else ends[:4]
+        proj = None if ends[4] is None else ends[4:]
+        return engine.fused_block(*ops_,
+                                  _mats(ops_[0], modes, pol, "forward"),
+                                  lift=_engine_end(lift, cp),
+                                  proj=_engine_end(proj, cp))
+
+    @staticmethod
+    def backward(ctx, gy):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        idx = [i for i in range(len(saved))
+               if need[i if i < 5 else i + 2]]
+        leaves = [t.detach().requires_grad_(i in idx)
+                  for i, t in enumerate(saved)]
+        lift = tuple(leaves[5:9]) if ctx.has[0] else None
+        proj = tuple(leaves[9:13]) if ctx.has[1] else None
+        with torch.enable_grad():
+            y = _ends_staged(*leaves[:5], lift, proj, ctx.modes, "staged",
+                             ctx.pol)
+            got = torch.autograd.grad(
+                y, [leaves[i] for i in idx],
+                gy.to(torch_dtype(ctx.pol.compute_dtype)))
+        grads = [None] * len(saved)
+        for i, g in zip(idx, got):
+            grads[i] = g
+        return (*grads[:5], None, None, *grads[5:])
+
+
+def fno_block_ends_nd(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
+                      wb: torch.Tensor, bias: torch.Tensor,
+                      modes: Sequence[int], *,
+                      lift: Optional[Tuple[torch.Tensor, ...]] = None,
+                      proj: Optional[Tuple[torch.Tensor, ...]] = None,
+                      path: str = "fused", variant: str = "full",
+                      policy: Optional[PrecisionPolicy] = None
+                      ) -> torch.Tensor:
+    """``fno_block_nd`` with the model's end MLPs folded into the launch.
+
+    lift = (l1w [C_in,L], l1b [L], l2w [L,H], l2b [H]), the model's
+    lift1/lift2 params: x is then the RAW input [B,C_in,s…].
+    proj = (p1w [H,Lp], p1b [Lp], p2w [Lp,C_out], p2b [C_out]), its
+    proj1/proj2: the result is the model's output [B,C_out,s…]. Either may
+    be None (the first or last block of a deeper model); both on a
+    1-layer model. path="fused" runs ONE kernel launch forward (variant
+    "full" only; "partial" raises) and differentiates through the staged
+    composition; "ref"/"staged" are that composition.
+    """
+    modes = _modes_key(modes)
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; known: {VARIANTS}")
+    if path in ("ref", "staged"):
+        return _ends_staged(x, wr, wi, wb, bias, lift, proj, modes, path,
+                            policy)
+    if path != "fused":
+        raise ValueError(f"unknown path {path!r}; known: {PATHS}")
+    if variant != "full":
+        raise ValueError("fused ends need the full-fusion variant (the "
+                         "partial variant's blocks stay staged at the ends)")
+    if lift is None and proj is None:
+        raise ValueError("fno_block_ends_nd takes lift, proj or both; "
+                         "without either use fno_block_nd")
+    ends = tuple(lift or (None,) * 4) + tuple(proj or (None,) * 4)
+    return _FusedEnds.apply(x, wr, wi, wb, bias, modes,
+                            policy or _default_policy(x), *ends)

@@ -1,7 +1,7 @@
 """Where the fused kernels' time goes, phase by phase, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.block_phases [--batch 8]
-        [--arch fno2d-large]
+        [--arch fno2d-large] [--fuse-ends]
 
 Builds ``csrc/fused_block.cu`` and ``csrc/fused_wgrad.cu`` as they are and
 with each phase's loop elided (``-DFUSED_BLOCK_ELIDE=<mask>`` /
@@ -26,6 +26,14 @@ fused_wgrad (the weight gradients):
 No variant elides the per-mode wgrad's batch reduction (the last block of
 each cluster rank forming dW of its out slice): it stays in "rest", the
 variant without phases.
+With ``--fuse-ends`` only the block kernel runs, as one launch with both
+model ends (a 1-layer model's; the arch's lift width and channels), and
+two more phases split out:
+  phase 4 — the lift prologue of phase 1 (the hidden slice of each chunk
+            formed from the raw input; phase 3's folded bypass stays in
+            phase 3);
+  phase 5 — the projection: the cluster's exchange of the activated
+            channels and the projection MLP.
 
 The last line is one JSON object with the medians. Needs an NVIDIA GPU.
 """
@@ -44,9 +52,13 @@ from repro_torch.core import spectral
 from repro_torch.kernels import build, engine
 
 PHASES = (1, 2, 3)
-# Variant name -> elision mask (bit i elides phase i).
-VARIANTS = {"whole": 0, **{f"no_phase{i}": 1 << i for i in PHASES},
-            "no_phases": sum(1 << i for i in PHASES)}
+ENDS_PHASES = PHASES + (4, 5)
+
+
+def variants(phases):
+    """Variant name -> elision mask (bit i elides phase i)."""
+    return {"whole": 0, **{f"no_phase{i}": 1 << i for i in phases},
+            "no_phases": sum(1 << i for i in phases)}
 # Kernel -> (source, elision macro, library loader).
 KERNELS = {
     "fused_block": ("fused_block", "FUSED_BLOCK_ELIDE",
@@ -76,6 +88,9 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--fuse-ends", action="store_true",
+                    help="time the block kernel's ends launch (lift and "
+                         "projection) with phases 4 and 5 split out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("block_phases: needs an NVIDIA GPU")
@@ -84,8 +99,10 @@ def main() -> None:
                          text=True, check=True).stdout.strip()
     print(smi)
 
-    jobs = [(k, v, m) for k, (_, macro, _) in KERNELS.items()
-            for v, m in VARIANTS.items()]
+    kernels = ["fused_block"] if args.fuse_ends else list(KERNELS)
+    phases = ENDS_PHASES if args.fuse_ends else PHASES
+    named = variants(phases)
+    jobs = [(k, v, m) for k in kernels for v, m in named.items()]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         paths = list(pool.map(
             lambda j: build.build(KERNELS[j[0]][0],
@@ -105,15 +122,31 @@ def main() -> None:
     ws32 = [(torch.randn(wshape, generator=gen) / h).cuda()
             for _ in range(2)] + [(torch.randn((h, h), generator=gen)
                                    / h).cuda(), torch.zeros((h, 1)).cuda()]
-    report = {"card": smi, "batch": b, "config": args.arch}
-    for kernel in KERNELS:
+    lw = cfg.lifting_dim or 2 * h
+    rng = torch.Generator().manual_seed(1)
+    mk = lambda *s: (torch.randn(s, generator=rng) / s[-1] ** 0.5).cuda()
+    xin32 = torch.randn((b, cfg.in_channels) + tuple(spatial),
+                        generator=gen).cuda()
+    ends32 = (mk(lw, cfg.in_channels), mk(lw, 1), mk(h, lw), mk(h, 1),
+              mk(lw, h), mk(lw, 1), mk(cfg.out_channels, lw),
+              mk(cfg.out_channels, 1))
+    report = {"card": smi, "batch": b, "config": args.arch,
+              "fuse_ends": args.fuse_ends}
+    for kernel in kernels:
         report[kernel] = {}
         for dt in ("float32", "bfloat16"):
             tdt = getattr(torch, dt)
             x, gz = x32.to(tdt), gz32.to(tdt)
             ws = [w.to(tdt) for w in ws32]
             stream = torch.cuda.current_stream().cuda_stream
-            if kernel == "fused_block":
+            if kernel == "fused_block" and args.fuse_ends:
+                mats = spectral.operand_tensors(spatial, modes, dt, "cuda")
+                e = [t.to(tdt) for t in ends32]
+                xin = xin32.to(tdt)
+                run = lambda lib: engine._launch(
+                    lib, xin, *ws, mats, spatial, modes, stream,
+                    lift=e[:4], proj=e[4:])
+            elif kernel == "fused_block":
                 mats = spectral.operand_tensors(spatial, modes, dt, "cuda")
                 run = lambda lib: engine._launch(lib, x, *ws, mats, spatial,
                                                  modes, stream)
@@ -123,20 +156,20 @@ def main() -> None:
                 run = lambda lib: engine._launch_wgrad(lib, x, gz, mats,
                                                        spatial, modes, stream,
                                                        per_mode)
-            times = {name: [] for name in VARIANTS}
+            times = {name: [] for name in named}
             for rnd in range(args.rounds):
-                order = list(VARIANTS) if rnd % 2 == 0 else list(VARIANTS)[::-1]
+                order = list(named) if rnd % 2 == 0 else list(named)[::-1]
                 for name in order:
                     lib = libs[kernel][name]
                     times[name].append(_time(lambda: run(lib), args.iters))
             med = {k: statistics.median(v) for k, v in times.items()}
-            phases = {f"phase{i}_ms": med["whole"] - med[f"no_phase{i}"]
-                      for i in PHASES}
-            report[kernel][dt] = {"median_ms": med, **phases,
+            split = {f"phase{i}_ms": med["whole"] - med[f"no_phase{i}"]
+                     for i in phases}
+            report[kernel][dt] = {"median_ms": med, **split,
                                   "spread_ms": {k: max(v) - min(v)
                                                 for k, v in times.items()}}
             print(f"{kernel} {dt}: whole={med['whole']:.4f} ms " + " ".join(
-                f"{k}={v:.4f}" for k, v in phases.items())
+                f"{k}={v:.4f}" for k, v in split.items())
                 + f" rest={med['no_phases']:.4f}")
     print(json.dumps(report))
 

@@ -4,6 +4,7 @@ model: fno2d-large, fno3d), or, with ``--serve``, of served requests.
 
     PYTHONPATH=src python -m repro_torch.launch.train_profile [--dtype bf16]
         [--serve] [--variant partial] [--arch fno2d-large] [--no-fuse-block]
+        [--fuse-ends]
 
 Runs warm-up steps, then traces ``--steps`` train steps (fused path, batch
 8 of the arch's PDE data from seed 0 — Darcy in 2D, diffusion in 3D —,
@@ -13,8 +14,10 @@ time against the step's wall time (its idle share), and the host time per
 step. With ``--serve`` a step is one request of those 8 samples to
 ``FNOServer``, waited for as a client would. ``--no-fuse-block`` profiles
 the spectral-only path (the kernels fuse each spectral conv; the bypass,
-bias and GELU are PyTorch ops). The last line is one JSON object. Needs
-an NVIDIA GPU.
+bias and GELU are PyTorch ops). ``--fuse-ends`` folds the lifting MLP into
+the first block's launch and the projection MLP into the last one's
+(whole-block fusion, full variant). The last line is one JSON object.
+Needs an NVIDIA GPU.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import FNO_IDS, get_config, with_precision
-from repro_torch.configs.fno import with_fuse_block
+from repro_torch.configs.fno import with_fuse_block, with_fuse_ends
 from repro_torch.core import fno as fno_mod
 from repro_torch.launch.train_fno import batch_fn
 from repro_torch.optim.adamw import AdamW
@@ -53,6 +56,9 @@ def main() -> None:
     ap.add_argument("--no-fuse-block", action="store_true",
                     help="fuse each spectral conv only (the paper's "
                          "design), not the whole block")
+    ap.add_argument("--fuse-ends", action="store_true",
+                    help="fold the end MLPs into the first and last "
+                         "block's launch")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("train_profile: needs an NVIDIA GPU")
@@ -64,6 +70,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     cfg = with_precision(with_fuse_block(get_config(args.arch),
                                          not args.no_fuse_block), args.dtype)
+    cfg = with_fuse_ends(cfg, args.fuse_ends)
     cfg = dataclasses.replace(cfg, path="fused")
     params = fno_mod.init_fno(torch.Generator().manual_seed(0), cfg, "cuda")
     batch = batch_fn(cfg, 8, "cuda")(0)
@@ -105,7 +112,8 @@ def main() -> None:
                  reverse=True)[:args.top]
     what = "serve" if args.serve else "train"
     print(f"{what} arch={args.arch} variant={args.variant} "
-          f"fuse_block={cfg.fuse_block} dtype={args.dtype} "
+          f"fuse_block={cfg.fuse_block} fuse_ends={cfg.fuse_ends} "
+          f"dtype={args.dtype} "
           f"steps={args.steps}: wall "
           f"{wall_ms:.4f} ms per step, device busy {device_ms:.4f} ms per step, idle share "
           f"{1 - device_ms / wall_ms:.4f}")
@@ -119,6 +127,7 @@ def main() -> None:
     print(json.dumps({"card": smi, "what": what, "arch": args.arch,
                       "variant": args.variant,
                       "fuse_block": cfg.fuse_block,
+                      "fuse_ends": cfg.fuse_ends,
                       "dtype": args.dtype,
                       "steps": args.steps,
                       "wall_ms_per_step": wall_ms,

@@ -56,7 +56,7 @@ def test_configs_match_reference(arch, reduced):
     theirs = jget_config(arch, reduced=reduced)
     for f in ("name", "ndim", "hidden", "num_layers", "in_channels",
               "out_channels", "spatial", "modes", "weight_mode",
-              "lifting_dim", "fuse_block"):
+              "lifting_dim", "fuse_block", "fuse_ends"):
         assert getattr(ours, f) == getattr(theirs, f), f
     assert ours.param_count() == theirs.param_count()
     for preset in ("f32", "bf16"):

@@ -15,8 +15,11 @@ fno3d at full width (hidden 32, 64³, modes 16³: clusters of 16, 3 s_1 rows
 per forward-chain chunk) — every launch of its fused designs against the
 plain versions and a training step of each design against the staged one
 — and the linear (TP-partial) block, counted "block_linear", with its
-two backward launches. Every test needs an NVIDIA GPU (marker ``gpu``)
-and skips without one; on the card:
+two backward launches; then the fused model ends (the lift, the
+projection and both in one launch, counted "block_ends") at ranks 1–3
+and at fno2d, fno3d and fno2d-large width, and an ends-fused fno2d
+training step's launches and grads against the staged path. Every test
+needs an NVIDIA GPU (marker ``gpu``) and skips without one; on the card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernel_gpu.py
 """
@@ -707,3 +710,102 @@ def test_linear_block_matches_staged_on_card(cuda, variant):
     for a, b in zip(g, g_ref):
         scale = max(float(b.abs().max()), 1e-30)
         assert float((a - b).abs().max()) <= 5e-2 * scale
+
+
+def _ends_args(device, b, h, spatial, cin, lw, cout, per_mode=False,
+               modes=None, seed=0):
+    """x (hidden), x_in (raw input), the block's operands and the two ends
+    in the engine layout, f32 on the card."""
+    rng = np.random.default_rng(seed)
+    mk = lambda *s, sc=1.0: torch.tensor(sc * rng.normal(size=s),
+                                         dtype=torch.float32, device=device)
+    wshape = (h, h) + (tuple(modes) if per_mode else ())
+    block = [mk(*wshape, sc=1.0 / h), mk(*wshape, sc=1.0 / h),
+             mk(h, h, sc=1.0 / h), mk(h, 1, sc=0.3)]
+    lift = (mk(lw, cin, sc=0.7), mk(lw, 1, sc=0.3), mk(h, lw, sc=lw ** -0.5),
+            mk(h, 1, sc=0.3))
+    proj = (mk(lw, h, sc=h ** -0.5), mk(lw, 1, sc=0.3),
+            mk(cout, lw, sc=lw ** -0.5), mk(cout, 1, sc=0.3))
+    return mk(b, h, *spatial), mk(b, cin, *spatial), block, lift, proj
+
+
+def _ends_launches(x, xin, block, lift, proj, spatial, modes, dtype):
+    """(kernel, f32 plain) outputs of the lift, proj and both launches."""
+    tdt = getattr(torch, dtype)
+    c = lambda t: t.to(tdt)
+    mats = spectral.operand_tensors(spatial, modes, dtype, x.device)
+    m32 = spectral.operand_tensors(spatial, modes, "float32", x.device)
+    out = {}
+    for which, inp, kw in (("lift", xin, {"lift": lift}),
+                           ("proj", x, {"proj": proj}),
+                           ("both", xin, {"lift": lift, "proj": proj})):
+        kc = {k: tuple(map(c, v)) for k, v in kw.items()}
+        y = engine.fused_block(c(inp), *map(c, block), mats, **kc)
+        ref = engine.fused_block_plain(inp, *block, m32, **kw)
+        out[which] = (y, ref)
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rank", [1, 2, 3])
+def test_ends_kernel_matches_plain(cuda, rank, dtype):
+    """The lift, the projection and both at odd extents (3 input channels,
+    12 inner units, 2 output channels): f32 within 2e-4, bf16 within 2e-2
+    of the f32 plain version; one block_ends launch each."""
+    spatial, modes = _CASES[rank]
+    x, xin, block, lift, proj = _ends_args(cuda, 2, 8, spatial, 3, 12, 2,
+                                           seed=50 + rank)
+    engine.LAUNCHES.clear()
+    out = _ends_launches(x, xin, block, lift, proj, spatial, modes, dtype)
+    assert dict(engine.LAUNCHES) == {("block_ends", dtype): 3}
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    for which, (y, ref) in out.items():
+        assert y.shape == ref.shape and bool(torch.isfinite(y).all()), which
+        assert _rel_err(y, ref) <= tol, (which, _rel_err(y, ref))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["fno2d", "fno3d", "fno2d-large"])
+def test_ends_kernel_at_full_width(cuda, arch, dtype):
+    """The ends launches at each preset's full width (lift width and
+    channels the preset's; fno2d-large's per-mode weights), B=2 against
+    the f32 plain version."""
+    cfg = configs.get_config(arch)
+    lw = cfg.lifting_dim or 2 * cfg.hidden
+    per_mode = cfg.weight_mode == "per_mode"
+    x, xin, block, lift, proj = _ends_args(
+        cuda, 2, cfg.hidden, cfg.spatial, cfg.in_channels, lw,
+        cfg.out_channels, per_mode, cfg.modes, seed=60)
+    out = _ends_launches(x, xin, block, lift, proj, cfg.spatial, cfg.modes,
+                         dtype)
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    for which, (y, ref) in out.items():
+        assert bool(torch.isfinite(y).all()), which
+        assert _rel_err(y, ref) <= tol, (which, _rel_err(y, ref))
+
+
+def test_ends_train_step_matches_staged_on_card(cuda):
+    """fno2d at full width with fuse_ends, a Darcy batch of 2: the loss and
+    every leaf's grad against the staged model without the ends; forward
+    2 block_ends and L-2 block_fwd launches, backward the interior
+    blocks' three each (the end blocks' backward is staged PyTorch)."""
+    cfg = configs.with_fuse_ends(configs.with_fuse_block(
+        configs.get_config("fno2d")))
+    params = tfno.init_fno(torch.Generator().manual_seed(0), cfg, cuda)
+    batch = pde.darcy_batch(0, 0, 2, cfg.spatial[0], device=cuda)
+    engine.LAUNCHES.clear()
+    loss, grads = value_and_grad(make_loss_fn(cfg, fno_path="fused"),
+                                 params, batch)
+    torch.cuda.synchronize()
+    inner = cfg.num_layers - 2
+    want = {("block_ends", "float32"): 2}
+    want.update({(k, "float32"): inner for k in engine.KINDS})
+    assert dict(engine.LAUNCHES) == want
+    loss_s, grads_s = value_and_grad(
+        make_loss_fn(dataclasses.replace(cfg, fuse_block=False),
+                     fno_path="staged"), params, batch)
+    assert abs(float(loss) - float(loss_s)) <= 2e-4 * abs(float(loss_s))
+    for a, b in zip(tree.leaves(grads), tree.leaves(grads_s)):
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= 2e-4 * scale
