@@ -41,8 +41,11 @@ fatal:
      fno2d B=8 for each backward launch beside its plain version, the
      staged torch.fft block's autograd backward (a yardstick) and its bound;
   8. kernel vs plain, partial launches — the row kernels (rdft, cdft with
-     the forward and the padded-inverse operand, irdft) and the fused core
-     against their plain versions at phase 2's odd extents (ranks 2–3),
+     the forward and the padded-inverse operand, irdft; at rank 3 rdft and
+     irdft are ``dft.outer_rdft`` / ``outer_irdft`` with the per-axis
+     factors, held against the reference's Kronecker-combined product) and
+     the fused core against their plain versions at phase 2's odd extents
+     (ranks 2–3),
      fno2d full width at B=1 and B=8 and fno3d full width (hidden 32, 64³,
      modes 16³) at B=1, f32 ≤ 2e-4 and bf16 ≤ 2e-2 of the f32 plain
      version; and the block kernel without wb (the bare spectral layer);
@@ -57,7 +60,8 @@ fatal:
   11. times, partial — phase 4's serve window (the same seeded sizes) and
      phase 7's training window on the partial variant; CUDA events at fno2d
      B=8 for each partial launch beside its plain version, its one-call
-     ``torch.fft`` yardstick (none for the core) and its bound, fno3d's
+     ``torch.fft`` yardstick (none for the core) and its bound (rdft and
+     irdft queued behind a device spin, as ``time_ms`` says), fno3d's
      outer launches at B=1, and the whole served block forward, partial
      against full against the staged torch.fft block;
   12. per-mode kernels vs plain — weights [O,H,k_1..k_R]: the block
@@ -79,7 +83,9 @@ fatal:
      falls over 20 steps, 30 timed steps and peak device memory;
   15. times, per-mode — CUDA events at fno2d-large B=8 for each per-mode
      launch beside its plain version and its bound (W counted once at
-     2·O·H·ΠK), the row kernels at hidden 128 and the served block forward
+     2·O·H·ΠK), the row kernels at hidden 128 (checked against the f32
+     plain version, timed queued beside it, ``torch.fft`` and the bound)
+     and the served block forward
      in both variants; and the bare spectral layer (the rank-1 partial
      forward) at fno1d full width B=8, with its launches on one served
      fno1d partial request;
@@ -128,7 +134,7 @@ fatal:
      fused designs (whole-block and spectral-only, full and partial
      variant): phase 3's 12 requests against the staged path with exact
      launch counts, then FNO3D_WINDOW single-step requests per precision
-     for the whole-block and spectral-only full variants;
+     for each of the four designs;
   22. train fno3d — phase 6 and phase 7's window at full width, diffusion
      batch 8, in the four fused designs, f32 and bf16: step-0 parity of
      every leaf, exactly num_layers launches of each kind per step, the
@@ -136,7 +142,8 @@ fatal:
   23. times, fno3d — CUDA events at fno3d B=8 for every launch of the
      four designs (block forward, gz, dx, wgrad; bare forward, dx and
      wgrad; rdft, core and irdft) and the linear block beside their plain
-     versions, the row launches' torch.fft call or, for a fused launch,
+     versions (rdft and irdft queued), the row launches' torch.fft call
+     or, for a fused launch,
      the staged torch.fft block or layer (a yardstick), and their bounds;
   24. fused ends vs plain — the block kernel's ends mode (the lifting MLP
      folded into the first block, the projection MLP into the last; one
@@ -391,7 +398,9 @@ def partial_work(kind, b, h, o, spatial, modes, per_mode=False):
     once (operands too), against FFTs of the transformed axes.
 
     rdft: the b·h·s_1 rows over the outer axes s_2..s_R (one real FFT of
-    all outer points each); irdft: the b·o·s_1 rows back; cdft / icdft:
+    all outer points each), reading the per-axis factor pairs the launch
+    takes (2·Σ n_j·k_j elements: the one-axis operand at rank 2, never the
+    Kronecker operand at rank 3); irdft: the b·o·s_1 rows back; cdft / icdft:
     the s_1 stage as a row launch over b·h·P (b·o·P) rows of s_1 points
     (complex FFTs; P = Πk_2..k_R); core: z and y pairs, W, both s_1
     operands, an s_1 FFT of every (b, channel, p) column each way and the
@@ -399,14 +408,15 @@ def partial_work(kind, b, h, o, spatial, modes, per_mode=False):
     elements."""
     n1, k1 = spatial[0], modes[0]
     n_out, p = math.prod(spatial[1:]), math.prod(modes[1:])
+    factors = 2 * sum(n * k for n, k in zip(spatial[1:], modes[1:]))
     if kind == "rdft":
         rows = b * h * n1
         return (rows * fft_flops(n_out, True),
-                rows * (n_out + 2 * p) + 2 * n_out * p)
+                rows * (n_out + 2 * p) + factors)
     if kind == "irdft":
         rows = b * o * n1
         return (rows * fft_flops(n_out, True),
-                rows * (2 * p + n_out) + 2 * n_out * p)
+                rows * (2 * p + n_out) + factors)
     if kind in ("cdft", "icdft"):
         rows = b * (h if kind == "cdft" else o) * p
         return rows * fft_flops(n1, False), rows * 2 * (n1 + k1) + 2 * n1 * k1
@@ -988,9 +998,10 @@ def partial_cases(torch, spectral, dft, engine, b, h, o, spatial, modes,
                   seed):
     """Each partial-variant launch at a block of this shape, as the path
     issues it: kind -> (kernel, plain version, f32 inputs, operands by
-    dtype). rdft/irdft transform the outer axes (one axis at rank 2, the
-    Kronecker-combined operand at rank 3); cdft/icdft are the s_1 stage as
-    standalone row launches."""
+    dtype). rdft/irdft transform the outer axes (one axis at rank 2; at
+    rank 3 ``dft.outer_rdft`` / ``outer_irdft`` with the per-axis factors,
+    held against the reference's Kronecker-combined product); cdft/icdft
+    are the s_1 stage as standalone row launches."""
     r = len(spatial)
     gen = torch.Generator().manual_seed(seed)
     rnd = lambda *s, sc=1.0: (sc * torch.randn(s, generator=gen)).to(DEVICE)
@@ -998,24 +1009,35 @@ def partial_cases(torch, spectral, dft, engine, b, h, o, spatial, modes,
     osp, omd = tuple(spatial[1:]), tuple(modes[1:])
     n_out, p = math.prod(osp), math.prod(omd)
     spec = tuple(modes[r - 1:0:-1])
-    fwd, inv = ("rdft", "irdft") if r == 2 else ("outer_fwd", "outer_inv")
     row = lambda kind, sp, md: {
         dt: spectral.row_operand_tensors(kind, sp, md, dt, DEVICE)
         for dt in DTYPES}
+    if r == 2:
+        rdft = (dft.rdft, dft.rdft_plain, [rnd(b, h, n1, n_out)],
+                row("rdft", osp, omd))
+        irdft = (dft.irdft, dft.irdft_plain,
+                 [rnd(b, o, n1, p), rnd(b, o, n1, p)], row("irdft", osp, omd))
+    else:
+        pairs = lambda k2, k3: {dt: (row(k2, osp[:1], omd[:1])[dt],
+                                     row(k3, osp[1:], omd[1:])[dt])
+                                for dt in DTYPES}
+        rdft = (dft.outer_rdft, dft.outer_rdft_plain,
+                [rnd(b, h, n1, *osp)], pairs("cdft", "cdft"))
+        irdft = (dft.outer_irdft, dft.outer_irdft_plain,
+                 [rnd(b, o, n1, *spec), rnd(b, o, n1, *spec)],
+                 pairs("icdft", "irdft"))
     core_ops = {dt: spectral.operand_tensors(spatial, modes, dt,
                                              DEVICE)[2 * r - 2:2 * r + 2]
                 for dt in DTYPES}
     return {
-        "rdft": (dft.rdft, dft.rdft_plain, [rnd(b, h, n1, n_out)],
-                 row(fwd, osp, omd)),
+        "rdft": rdft,
         "cdft": (dft.cdft, dft.cdft_plain,
                  [rnd(b * h * p, n1), rnd(b * h * p, n1)],
                  row("cdft", (n1,), (k1,))),
         "icdft": (dft.cdft, dft.cdft_plain,
                   [rnd(b * o * p, k1), rnd(b * o * p, k1)],
                   row("icdft", (n1,), (k1,))),
-        "irdft": (dft.irdft, dft.irdft_plain,
-                  [rnd(b, o, n1, p), rnd(b, o, n1, p)], row(inv, osp, omd)),
+        "irdft": irdft,
         "core": (engine.fused_core, engine.fused_core_plain,
                  [rnd(b, h, n1, *spec), rnd(b, h, n1, *spec),
                   rnd(o, h, sc=1.0 / h), rnd(o, h, sc=1.0 / h)], core_ops),
@@ -1107,13 +1129,13 @@ def library_call(torch, kind, ins, spatial, modes):
     """The one torch.fft call that computes a row launch's function, on its
     f32 inputs (a yardstick; the port never calls it), or None (core).
     rdft / irdft transform the outer axes s_2..s_R (rfftn / irfftn over
-    the flattened rows viewed as those axes; the kernels' spectrum
-    columns run k_R..k_2), cdft / icdft the s_1 axis."""
+    the rows after the leading (b, h, s_1) viewed as those axes; the
+    kernels' spectrum columns run k_R..k_2), cdft / icdft the s_1 axis."""
     n1, k1 = spatial[0], modes[0]
     osp, omd = tuple(spatial[1:]), tuple(modes[1:])
     axes = tuple(range(-len(osp), 0))
     if kind == "rdft":
-        x = ins[0].view(*ins[0].shape[:-1], *osp)
+        x = ins[0].reshape(*ins[0].shape[:3], *osp)
         keep = (Ellipsis,) + tuple(slice(0, k) for k in omd)
         return lambda: torch.fft.rfftn(x, dim=axes)[keep]
     if kind == "core":
@@ -1123,7 +1145,7 @@ def library_call(torch, kind, ins, spatial, modes):
         return lambda: torch.fft.fft(c, dim=-1)[..., :k1]
     if kind == "icdft":
         return lambda: torch.fft.ifft(c, n=n1, dim=-1)
-    c = c.view(*c.shape[:-1], *omd[::-1])  # columns k_R..k_2
+    c = c.reshape(*c.shape[:3], *omd[::-1])  # columns k_R..k_2
     lead = c.dim() - len(omd)
     c = c.permute(*range(lead), *reversed(range(lead, c.dim())))
     return lambda: torch.fft.irfftn(c, s=osp, dim=axes)
@@ -1150,10 +1172,12 @@ def phase_partial_times(torch, engine, spectral, dft, ops, configs, errs,
             a = [x.to(tdt) for x in ins]
             m = mats[dt]
             lib = library_call(torch, kind, ins, spatial, modes)
+            q = kind in ("rdft", "irdft")  # tens of µs: device time only
             t[kind] = {
-                "ms": time_ms(lambda: fn(*a, *m), 20),
-                "plain_ms": time_ms(lambda: plain(*a, *m), 10),
-                "library_ms": time_ms(lib, 20) if lib else None,
+                "ms": time_ms(lambda: fn(*a, *m), 20, queued=q),
+                "plain_ms": time_ms(lambda: plain(*a, *m), 10, queued=q),
+                "library_ms": (time_ms(lib, 20, queued=q) if lib
+                               else None),
                 "bound": bound_ms(kind, b, h, o, spatial, modes, eb, peak)}
             log(f"  {dt} {kind}: kernel_ms={t[kind]['ms']:.4f} plain_ms="
                 f"{t[kind]['plain_ms']:.4f} library_ms="
@@ -1162,7 +1186,8 @@ def phase_partial_times(torch, engine, spectral, dft, ops, configs, errs,
         for kind in ("rdft", "irdft"):  # fno3d's outer launches at B=1
             fn, _, ins, mats = cases3[kind]
             a = [x.to(tdt) for x in ins]
-            t[kind]["ms_fno3d_b1"] = time_ms(lambda: fn(*a, *mats[dt]), 5)
+            t[kind]["ms_fno3d_b1"] = time_ms(lambda: fn(*a, *mats[dt]), 5,
+                                             queued=True)
             log(f"  {dt} {kind} fno3d outer B=1: kernel_ms="
                 f"{t[kind]['ms_fno3d_b1']:.4f}")
         for kind in ("rdft", "cdft", "irdft", "core"):
@@ -1448,8 +1473,35 @@ def phase_large_times(torch, engine, spectral, dft, ops, configs, sfs,
                 "library_note": "no single PyTorch call computes it"})
         for kind in ("rdft", "irdft"):  # the row kernels at hidden 128
             fn, plain, ins, rmats = row_cases[kind]
-            a = [v.to(tdt) for v in ins]
-            extra[f"{kind}_{dt}_ms"] = time_ms(lambda: fn(*a, *rmats[dt]), 10)
+            a, m = [v.to(tdt) for v in ins], rmats[dt]
+            e = errors(as_tuple(fn(*a, *m)),
+                       as_tuple(plain(*ins, *rmats["float32"])))
+            check(f"fno2d-large B=8 {dt} {kind} vs f32 plain", e[1],
+                  F32_TOL if dt == "float32" else BF16_TOL)
+            lib = library_call(torch, kind, ins, spatial, modes)
+            kms = extra[f"{kind}_{dt}_ms"] = time_ms(
+                lambda: fn(*a, *m), 20, queued=True)
+            pms = time_ms(lambda: plain(*a, *m), 10, queued=True)
+            lms = time_ms(lib, 20, queued=True)
+            t_bytes, t_ops = bound_parts(kind, b, h, o, spatial, modes, eb,
+                                         peak)
+            bms, by = bound_ms(kind, b, h, o, spatial, modes, eb, peak)
+            log(f"  {dt} {kind} fno2d-large B=8: kernel_ms={kms:.4f} "
+                f"plain_ms={pms:.4f} library_ms={lms:.4f} bound_us="
+                f"{1e3 * bms:.2f} ({by})")
+            rows.append({
+                "name": f"{kind}_large_{'f32' if dt == 'float32' else 'bf16'}",
+                "route": "cuda", "source": ROWS_SOURCE,
+                "replaces": PARTIAL_REPLACES[kind],
+                "shape": "fno2d-large B=8",
+                "launches": serve_counts["partial"].get((kind, dt), 0),
+                "launches_train": train_counts["partial"][dt].get(
+                    (kind, dt), 0),
+                "max_abs_err": e[0], "scaled_err": e[1],
+                "tol": F32_TOL if dt == "float32" else BF16_TOL,
+                "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
+                "library_ms": lms})
         # The served block forward, partial (3 launches + tail) and full.
         bias1 = bias.reshape(-1)
         with torch.no_grad():
@@ -2058,9 +2110,10 @@ def fno3d_partial_times(torch, engine, spectral, dft, configs, errs,
             a = [x.to(getattr(torch, dt)) for x in ins]
             m = mats[dt]
             lib = library_call(torch, kind, ins, spatial, modes)
-            kms = time_ms(lambda: fn(*a, *m), 10)
-            pms = time_ms(lambda: plain(*a, *m), 3)
-            lms = time_ms(lib, 10) if lib else None
+            q = kind != "core"
+            kms = time_ms(lambda: fn(*a, *m), 10, queued=q)
+            pms = time_ms(lambda: plain(*a, *m), 3, queued=q)
+            lms = time_ms(lib, 10, queued=q) if lib else None
             t_bytes, t_ops = bound_parts(kind, b, h, o, spatial, modes, eb,
                                          peak)
             bms, by = bound_ms(kind, b, h, o, spatial, modes, eb, peak)
@@ -2575,12 +2628,14 @@ def main() -> int:
                                         configs, fno_mod, sfs, engine)
     f3_layers = configs.get_config(FNO3D).num_layers
     f3_stats = {}
-    for design, kind in (("block full", "block_fwd"),
-                         ("spectral full", "spectral_fwd")):
+    for design, kinds in (("block full", ("block_fwd",)),
+                          ("spectral full", ("spectral_fwd",)),
+                          ("block partial", engine.PARTIAL_KINDS),
+                          ("spectral partial", engine.PARTIAL_KINDS)):
         f3_stats[design] = timed(
             f"21 window {design}", phase_serve_window, torch, np,
             f3_servers, engine, f3_layers,
-            names=(f"{design} f32", f"{design} bf16"), kinds=(kind,),
+            names=(f"{design} f32", f"{design} bf16"), kinds=kinds,
             phase="21", requests=FNO3D_WINDOW)
     del f3_servers
     f3_train, f3_train_counts = {}, {}

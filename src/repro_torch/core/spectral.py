@@ -207,10 +207,12 @@ def _operand_tensors(spatial, modes, dtype, device, kind):
 # ---------------------------------------------------------------------------
 # Partial-fusion operands. The outer axes s_2..s_R are separable, so their
 # forward transforms compose into ONE matmul with the Kronecker product of
-# the per-axis DFT matrices (one row-kernel launch for all outer axes).
-# Rows index the flattened (s_2..s_R) in natural order, columns (k_R..k_2):
-# the spectrum layout the fused core expects. Built in float64 and cast to
-# float32, as the reference builds them.
+# the per-axis DFT matrices: the reference's single row launch, and the
+# plain versions of ``kernels/dft.py``'s outer transforms (the CUDA kernel
+# takes the per-axis factors instead). Rows index the flattened (s_2..s_R)
+# in natural order, columns (k_R..k_2): the spectrum layout the fused core
+# expects. Built in float64 and cast to float32, as the reference builds
+# them.
 # ---------------------------------------------------------------------------
 def _kron_ordered(factors):
     """Combine complex per-axis factors F_j[a_j, b_j] (axis order s_2..s_R)

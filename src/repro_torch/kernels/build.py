@@ -143,10 +143,16 @@ def load_dft_rows_library(path: Path) -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.dft_rows_cdft.argtypes = [i, vp, vp, vp, vp, vp, vp, i, i, i, vp]
     lib.dft_rows_cdft.restype = i
-    lib.dft_rows_rdft.argtypes = [i, vp, vp, vp, vp, vp, i, i, i, vp]
+    lib.dft_rows_rdft.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, i, i, i, i,
+                                  i, i, vp]
     lib.dft_rows_rdft.restype = i
-    lib.dft_rows_irdft.argtypes = [i, vp, vp, vp, vp, vp, i, i, i, vp]
+    lib.dft_rows_irdft.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, i, i, i,
+                                   i, i, i, vp]
     lib.dft_rows_irdft.restype = i
+    lib.dft_rows_group.argtypes = [i, i, i, i, i, i, i, i, i]
+    lib.dft_rows_group.restype = i
+    lib.dft_rows_smem.argtypes = [i, i, i, i, i, i, i, i]
+    lib.dft_rows_smem.restype = ctypes.c_longlong
     lib.dft_rows_error_string.argtypes = [i]
     lib.dft_rows_error_string.restype = ctypes.c_char_p
     return lib

@@ -245,35 +245,37 @@ def cgemm(ar: torch.Tensor, ai: torch.Tensor, br: torch.Tensor,
 # Paper-faithful partial fusion
 # ---------------------------------------------------------------------------
 def _outer_fwd_batched(x, spatial, modes, operand_dtype=None):
-    """All outer forward stages (axes s_2..s_R) in ONE row launch with the
-    Kronecker-combined operand: x [B,H,s_1..s_R] real -> the pair
-    [B,H,s_1,K_R..K_2]."""
-    r = len(spatial)
-    lead = tuple(x.shape[:3])
-    mats = _row_mats("outer_fwd", tuple(spatial[1:]), tuple(modes[1:]), x,
-                     operand_dtype)
-    zr, zi = dft.rdft(x.contiguous().reshape(*lead, -1), *mats)
-    shape = lead + tuple(modes[r - 1:0:-1])  # (K_R .. K_2)
-    return zr.reshape(shape), zi.reshape(shape)
+    """Both outer forward stages (axes s_2, s_3) in ONE row launch with the
+    per-axis factors: x [B,H,s_1,s_2,s_3] real -> the pair
+    [B,H,s_1,K_3,K_2]."""
+    _check_outer_rank(spatial)
+    f2 = _row_mats("cdft", spatial[1:2], modes[1:2], x, operand_dtype)
+    f3 = _row_mats("cdft", spatial[2:], modes[2:], x, operand_dtype)
+    return dft.outer_rdft(x.contiguous(), f2, f3)
 
 
 def _outer_inv_batched(tr, ti, spatial, operand_dtype=None):
-    """All outer inverse stages in one row launch: the pair
-    [B,O,s_1,K_R..K_2] -> real [B,O,s_1,s_2..s_R] through the combined
-    padded inverse operand."""
-    ok = tuple(tr.shape[3:][::-1])  # (K_R..K_2) -> (k_2..k_R)
-    lead = tuple(tr.shape[:3])
-    mats = _row_mats("outer_inv", tuple(spatial[1:]), ok, tr, operand_dtype)
-    flat = lambda t: t.contiguous().reshape(*lead, -1)
-    y = dft.irdft(flat(tr), flat(ti), *mats)
-    return y.reshape(lead + tuple(spatial[1:]))
+    """Both outer inverse stages in one row launch: the pair
+    [B,O,s_1,K_3,K_2] -> real [B,O,s_1,s_2,s_3] through the padded complex
+    inverse of s_2 and the hermitian-folded real inverse of s_3."""
+    _check_outer_rank(spatial)
+    k3, k2 = tr.shape[3:]
+    e2 = _row_mats("icdft", spatial[1:2], (k2,), tr, operand_dtype)
+    e3 = _row_mats("irdft", spatial[2:], (k3,), tr, operand_dtype)
+    return dft.outer_irdft(tr.contiguous(), ti.contiguous(), e2, e3)
+
+
+def _check_outer_rank(spatial):
+    if len(spatial) != 3:
+        raise ValueError(f"the outer row kernels take the two outer axes of "
+                         f"a rank-3 field, got spatial {tuple(spatial)}")
 
 
 def _fnond_partial(x, wr, wi, modes, pol: PrecisionPolicy):
     """The spectral layer as the paper's partial fusion, at x's dtype (the
     compute dtype): the outer forward transforms as a standalone row launch
-    (a single rDFT along s_2 at rank 2, one Kronecker-combined launch for
-    s_2..s_R at rank 3), the fused core [cDFT_s1 → CGEMM → icDFT_s1], and
+    (a single rDFT along s_2 at rank 2, both outer axes s_2, s_3 in one
+    launch at rank 3), the fused core [cDFT_s1 → CGEMM → icDFT_s1], and
     the mirrored inverse row launch. Rank 1 has no outer stages: the bare
     spectral layer in one block-kernel launch. Operands are at the policy's
     spectral dtype, detached and contiguous."""

@@ -18,3 +18,4 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
   u += 0x7FFF + ((u >> 16) & 1);
   return {uint16_t(u >> 16)};
 }
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 b) { return b.v; }

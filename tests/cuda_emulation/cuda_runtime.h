@@ -23,7 +23,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 using std::max;
 using std::min;
 
@@ -36,14 +36,42 @@ inline dim3 blockDim, gridDim;
 inline std::vector<std::vector<float>> g_smem;  // one buffer per block
 inline std::vector<pthread_barrier_t> g_block_bar;
 inline pthread_barrier_t g_cluster_bar;
+// Warp shuffles: every lane of a warp posts its value, the warp meets at a
+// barrier, reads its partner's and meets again (all 32 lanes take part).
+inline std::vector<pthread_barrier_t> g_warp_bar;  // [block][warp]
+inline std::vector<float> g_lanes;                 // [block][thread]
 
 inline void __syncthreads() { pthread_barrier_wait(&g_block_bar[blockIdx.x]); }
+inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+  const unsigned warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t w = blockIdx.x * (blockDim.x / 32) + warp;
+  float* lanes = g_lanes.data() + blockIdx.x * blockDim.x + warp * 32;
+  lanes[lane] = v;
+  pthread_barrier_wait(&g_warp_bar[w]);
+  const float r = lanes[lane ^ lane_mask];
+  pthread_barrier_wait(&g_warp_bar[w]);
+  return r;
+}
 inline float __ldg(const float* p) { return *p; }
 inline float __ldcg(const float* p) { return *p; }
 inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
+
+struct alignas(8) float2 {
+  float x, y;
+};
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
+struct alignas(8) uint2 {
+  unsigned x, y;
+};
+inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef struct CUstream_st* cudaStream_t;
@@ -81,6 +109,25 @@ cudaError_t cudaOccupancyMaxActiveClusters(int* n, F*,
   *n = EMULATED_MAX_CLUSTERS;
   return cudaSuccess;
 }
+// ... and EMULATED_SMS multiprocessors of one block each.
+#ifndef EMULATED_SMS
+#define EMULATED_SMS 2
+#endif
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F*, int,
+                                                          size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = EMULATED_SMS;
+  return cudaSuccess;
+}
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t e) {
   return e == cudaSuccess ? "no error" : "invalid value (emulated)";
@@ -109,6 +156,15 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* c, void (*k)(E...),
   pthread_attr_t attr;
   pthread_attr_init(&attr);
   pthread_attr_setstacksize(&attr, 64 * 1024);
+  const unsigned nwarps = blockDim.x % 32 == 0 ? blockDim.x / 32 : 0;
+  g_warp_bar.assign(gridDim.x * nwarps, pthread_barrier_t{});
+  g_lanes.assign(gridDim.x * blockDim.x, 0.f);
+  auto warp_bars = [&](unsigned bx, bool init) {
+    for (unsigned w = bx * nwarps; w < (bx + 1) * nwarps; ++w) {
+      if (init) pthread_barrier_init(&g_warp_bar[w], nullptr, 32);
+      else pthread_barrier_destroy(&g_warp_bar[w]);
+    }
+  };
   if (c->numAttrs == 0) {  // no cluster: every block alone, in grid order
     if (gridDim.z != 1) return cudaErrorInvalidValue;
     g_block_bar.assign(gridDim.x, pthread_barrier_t{});
@@ -117,6 +173,7 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* c, void (*k)(E...),
         g_smem.assign(gridDim.x, std::vector<float>());
         g_smem[bx].assign(c->dynamicSmemBytes / 4, NAN);
         pthread_barrier_init(&g_block_bar[bx], nullptr, blockDim.x);
+        warp_bars(bx, true);
         std::vector<emu::Thread> ts;
         for (unsigned t = 0; t < blockDim.x; ++t)
           ts.push_back({bx, by, t, &body});
@@ -125,6 +182,7 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* c, void (*k)(E...),
           if (pthread_create(&ids[i], &attr, emu::run, &ts[i]) != 0) abort();
         for (auto& id : ids) pthread_join(id, nullptr);
         pthread_barrier_destroy(&g_block_bar[bx]);
+        warp_bars(bx, false);
       }
     }
     pthread_attr_destroy(&attr);
@@ -137,6 +195,7 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* c, void (*k)(E...),
     g_smem.assign(cl, std::vector<float>(c->dynamicSmemBytes / 4, NAN));
     g_block_bar.assign(cl, pthread_barrier_t{});
     for (auto& b : g_block_bar) pthread_barrier_init(&b, nullptr, blockDim.x);
+    for (unsigned bx = 0; bx < cl; ++bx) warp_bars(bx, true);
     pthread_barrier_init(&g_cluster_bar, nullptr, blockDim.x * cl);
     std::vector<emu::Thread> ts;
     for (unsigned bx = 0; bx < cl; ++bx)
@@ -146,6 +205,7 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* c, void (*k)(E...),
       if (pthread_create(&ids[i], &attr, emu::run, &ts[i]) != 0) abort();
     for (auto& id : ids) pthread_join(id, nullptr);
     for (auto& b : g_block_bar) pthread_barrier_destroy(&b);
+    for (unsigned bx = 0; bx < cl; ++bx) warp_bars(bx, false);
     pthread_barrier_destroy(&g_cluster_bar);
   }
   pthread_attr_destroy(&attr);

@@ -64,6 +64,7 @@ def _compile(out: Path, name: str, mutation=None) -> Path:
     lib = out / f"lib{name}_emulated.so"
     proc = subprocess.run(
         [gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-pthread",
+         "-fno-strict-aliasing",
          "-Wno-unknown-pragmas", "-include", "cuda_runtime.h",
          f"-I{EMULATION}", f"-I{build.CSRC}", str(cpp), "-o", str(lib)],
         capture_output=True, text=True, timeout=300)
@@ -214,41 +215,62 @@ def test_emulated_bare_spectral_matches_plain(emulated, rank, dtype):
 
 
 # Row-kernel cases (kind, leading shape, n, k): ragged rows (130 > one
-# 128-row tile), ragged input chunks (n not a multiple of 16), ragged output
-# tiles (k = 45 > 32), and a rank-3 outer operand.
+# 128-row group), ragged widths (n, k off the product's tiles, k = 45 > 32),
+# and the rank-3 outer transforms ((n2, n3), (k2, k3)) through the per-axis
+# factors.
 ROW_CASES = [("rdft", (3, 5), 37, 9), ("rdft", (130,), 20, 11),
              ("cdft", (3,), 100, 45), ("icdft", (3, 5), 37, 9),
              ("irdft", (130,), 20, 11), ("irdft", (2, 3), 100, 45),
              ("outer_fwd", (2, 3), (6, 10), (3, 4)),
              ("outer_inv", (2, 3), (6, 10), (3, 4))]
-_LAUNCH_KIND = {"rdft": "rdft", "cdft": "cdft", "icdft": "cdft",
-                "irdft": "irdft", "outer_fwd": "rdft", "outer_inv": "irdft"}
-_PLAIN = {"rdft": dft.rdft_plain, "cdft": dft.cdft_plain,
-          "irdft": dft.irdft_plain}
 
 
 def _row_inputs(kind, lead, n, k, seed):
-    """f32 inputs and operands of one row case."""
-    sp, md = (n, k) if isinstance(n, tuple) else ((n,), (k,))
-    mats = spectral.row_operand_tensors(kind, sp, md, "float32", "cpu")
-    launch = _LAUNCH_KIND[kind]
+    """f32 inputs of one row case, and its operands at a dtype:
+    dtype -> (operand pair, outer factor pair or None)."""
     rng = np.random.default_rng(seed)
-    mk = lambda: torch.tensor(rng.normal(size=lead + (mats[0].shape[0],)),
-                              dtype=torch.float32)
-    ins = (mk(),) if launch == "rdft" else (mk(), mk())
-    return launch, ins, mats, (sp, md)
+    mk = lambda *s: torch.tensor(rng.normal(size=lead + s),
+                                 dtype=torch.float32)
+    t = lambda kd, a, b, dt: spectral.row_operand_tensors(kd, (a,), (b,), dt,
+                                                          "cpu")
+    if kind == "outer_fwd":
+        (n2, n3), (k2, k3) = n, k
+        return (mk(n2, n3),), lambda dt: (t("cdft", n3, k3, dt),
+                                          t("cdft", n2, k2, dt))
+    if kind == "outer_inv":
+        (n2, n3), (k2, k3) = n, k
+        return (mk(k3, k2), mk(k3, k2)), lambda dt: (t("irdft", n3, k3, dt),
+                                                     t("icdft", n2, k2, dt))
+    width = n if kind in ("rdft", "cdft") else k
+    ins = (mk(width),) if kind == "rdft" else (mk(width), mk(width))
+    return ins, lambda dt: (spectral.row_operand_tensors(kind, (n,), (k,),
+                                                         dt, "cpu"), None)
 
 
-def _run_rows(lib, case, dtype):
-    """(kernel outputs at `dtype`, f32 plain outputs) of one row case."""
+def _run_rows(lib, case, dtype, group=None):
+    """(kernel outputs at `dtype`, f32 plain outputs) of one row case, in
+    slab groups of at most `group` slabs (default: the wrapper's cap)."""
     kind, lead, n, k = case
-    launch, ins, mats, (sp, md) = _row_inputs(kind, lead, n, k, seed=len(lead))
-    ref = _PLAIN[launch](*ins, *mats)
-    ref = ref if isinstance(ref, tuple) else (ref,)
+    ins, mats = _row_inputs(kind, lead, n, k, seed=len(lead))
+    m32, f32 = mats("float32")
     tdt = getattr(torch, dtype)
-    tm = spectral.row_operand_tensors(kind, sp, md, dtype, "cpu")
-    outs = dft._launch(lib, launch, tuple(a.to(tdt) for a in ins), tm, None)
-    return outs, ref
+    args = tuple(a.to(tdt) for a in ins)
+    if kind in ("cdft", "icdft"):
+        ref = dft.cdft_plain(*ins, *m32)
+        return dft._launch(lib, "cdft", args, mats(dtype)[0], None), ref
+    if kind in ("outer_fwd", "outer_inv"):
+        (n2, n3), (k2, k3) = n, k
+        plain = (dft.outer_rdft_plain if kind == "outer_fwd"
+                 else dft.outer_irdft_plain)
+        ref = plain(*ins, f32, m32)
+    else:
+        n2, n3, k2, k3 = 1, n, 1, k
+        ref = (dft.rdft_plain if kind == "rdft" else dft.irdft_plain)(*ins,
+                                                                      *m32)
+    launch = "rdft" if kind in ("rdft", "outer_fwd") else "irdft"
+    outs = dft._launch_rows(lib, launch, args, *mats(dtype),
+                            (n2, n3, k2, k3), None, group=group)
+    return outs, ref if isinstance(ref, tuple) else (ref,)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -260,6 +282,104 @@ def test_emulated_row_kernels_match_plain(emulated_rows, case, dtype):
         assert a.dtype == getattr(torch, dtype) and a.shape == r.shape
         assert bool(torch.isfinite(a).all())
         assert _rel_err(a, r) <= (2e-4 if dtype == "float32" else 2e-2)
+
+
+# The separable rdft / irdft with slab groups capped at `max rows` so that
+# each of the 2 emulated blocks walks several double-buffered groups, the
+# last one ragged: (kind, lead, n, k, max rows, slabs a group).
+SLAB_CASES = [("outer_fwd", (7,), (6, 10), (3, 4), 12, 2),
+              ("outer_inv", (7,), (6, 10), (3, 4), 12, 2),
+              ("outer_fwd", (2, 5), (5, 9), (3, 5), 15, 3),
+              ("outer_inv", (2, 5), (5, 9), (3, 5), 15, 3),
+              ("outer_fwd", (3,), (5, 9), (3, 5), 256, 3),
+              ("outer_inv", (3,), (5, 9), (3, 5), 256, 3),
+              ("rdft", (37,), 24, 6, 8, 8), ("irdft", (37,), 24, 6, 8, 8),
+              # 8 columns a thread in the product (every thread a tile)
+              ("outer_fwd", (20,), (16, 64), (4, 32), 256, 16),
+              ("irdft", (130,), 128, 9, 128, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SLAB_CASES,
+                         ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}-g{c[5]}")
+def test_emulated_slab_groups_match_plain(emulated_rows, case, dtype):
+    """Rank-3 outer stage pairs at odd extents and the rank-2 one-stage
+    path, several slabs a group and groups a block, against the plain
+    versions (the reference's Kronecker-combined product at rank 3)."""
+    kind, lead, n, k, max_rows, group = case
+    outer = kind.startswith("outer")
+    dims = (n[0], n[1], k[0], k[1]) if outer else (1, n, 1, k)
+    inverse = int(kind in ("irdft", "outer_inv"))
+    cap = max(1, max_rows // dims[0])
+    assert emulated_rows.dft_rows_group(
+        inverse, 0 if dtype == "float32" else 1, int(outer), cap,
+        int(np.prod(lead)), *dims) == group
+    outs, ref = _run_rows(emulated_rows, (kind, lead, n, k), dtype,
+                          group=cap)
+    for a, r in zip(outs, ref):
+        assert a.dtype == getattr(torch, dtype) and a.shape == r.shape
+        assert bool(torch.isfinite(a).all())
+        assert _rel_err(a, r) <= (2e-4 if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_emulated_row_plan_matches_the_kernel_layout(emulated_rows, dtype):
+    """kernels/dft.py's one-slab refusal uses the kernel's own layout, at
+    fno3d's and fno2d's extents and odd ones, for any group size; the
+    launch takes the wrapper's cap at fno3d, and refuses a slab over the
+    budget where the wrapper does."""
+    code, esize = (0, 4) if dtype == "float32" else (1, 2)
+    tdt = getattr(torch, dtype)
+    shapes = [(True, (64, 64, 16, 16)), (True, (6, 10, 3, 4)),
+              (True, (5, 9, 3, 5)), (False, (1, 128, 1, 32)),
+              (False, (1, 37, 1, 9)), (False, (1, 100, 1, 45))]
+    for inverse, kind in ((0, "rdft"), (1, "irdft")):
+        for outer, dims in shapes:
+            for g in (1, 2, 3, 4, 7, 64):
+                assert emulated_rows.dft_rows_smem(
+                    inverse, code, int(outer), g, *dims) == dft.smem_bytes(
+                        kind, esize, outer, g, *dims), (kind, dims, g)
+        cap = dft.max_group(kind, tdt, 64, True)
+        assert emulated_rows.dft_rows_group(
+            inverse, code, 1, cap, 16384, 64, 64, 16, 16) == cap
+        big = (256, 256, 64, 64)
+        assert emulated_rows.dft_rows_group(inverse, code, 1, 1, 4,
+                                            *big) == 0
+        with pytest.raises(ValueError, match="shared memory"):
+            dft.check_slab(kind, tdt, big, True)
+    err = emulated_rows.dft_rows_rdft(code, None, None, None, None, None,
+                                      None, None, 4, 256, 256, 64, 64, 1,
+                                      None)
+    assert err != 0
+    assert "invalid" in emulated_rows.dft_rows_error_string(err).decode()
+
+
+# Mutations of the separable kernels that the slab comparisons must catch:
+# (what, (old, new), row case, dtype).
+ROW_MUTATIONS = [
+    ("K2 and K3 swapped in the output index",
+     ("const long long at = ((slab0 + gi) * k3 + a0 + i) * k2 + b0;",
+      "const long long at = ((slab0 + gi) * k2 + b0) * k3 + a0 + i;"),
+     ("outer_fwd", (2, 3), (6, 10), (3, 4)), "float32"),
+    ("the -Ui*Ei sign dropped",
+     ("v = r < L.hb ? ld(a.m3r + m * n3 + s) : -ld(a.m3i + m * n3 + s);",
+      "v = r < L.hb ? ld(a.m3r + m * n3 + s) : ld(a.m3i + m * n3 + s);"),
+     ("outer_inv", (2, 3), (6, 10), (3, 4)), "float32"),
+    ("the tensor-core product's depth offset dropped",
+     ("w::load_matrix_sync(a, A + r0 * lda + k, lda);",
+      "w::load_matrix_sync(a, A + r0 * lda, lda);"),
+     ("rdft", (3, 5), 37, 9), "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("mutation", ROW_MUTATIONS,
+                         ids=lambda m: m[0].replace(" ", "_"))
+def test_emulated_row_mutations_are_caught(tmp_path, mutation):
+    _, edit, case, dtype = mutation
+    lib = build.load_dft_rows_library(_compile(tmp_path, "dft_rows", edit))
+    outs, ref = _run_rows(lib, case, dtype)
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    assert max(_rel_err(a, r) for a, r in zip(outs, ref)) > tol
 
 
 # Core cases (B, H, O, s_1, K_1, K_R..K_2): rank 2 and 3 spectra, odd

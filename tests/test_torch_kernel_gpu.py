@@ -2,7 +2,7 @@
 against their plain PyTorch versions: ranks 1–3, the block forward and the
 three backward launches (gz recompute, dx adjoint, wgrad), the bare
 spectral layer (no bypass), the partial variant's rdft / cdft / irdft and
-core launches, f32 (relative 2e-4) and bf16 (2e-2 against the f32 plain
+core launches (rank 3's outer transforms through the per-axis factors), f32 (relative 2e-4) and bf16 (2e-2 against the f32 plain
 version), the launch counter, the fused model (both variants) against the
 staged path, and one fused training step of each variant against the
 staged one; then the per-mode modes of the block, wgrad and core kernels
@@ -285,6 +285,58 @@ def test_row_kernels_match_plain(cuda, kind, case, dtype):
     for a, b in zip(ys, refs):
         assert a.dtype == tdt and a.is_cuda and a.shape == b.shape
         assert _rel_err(a, b) <= (2e-4 if dtype == "float32" else 2e-2)
+
+
+# The separable outer transforms (rank 3): odd extents, then fno3d's at
+# full width ((s_2, s_3), (k_2, k_3), leading shape).
+_OUTER = [((6, 10), (3, 4), (2, 3, 5)), ((5, 9), (3, 5), (7,)),
+          ((64, 64), (16, 16), (1, 32, 64))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", _OUTER, ids=lambda c: f"{c[0]}x{c[1]}")
+def test_outer_row_kernels_match_plain(cuda, case, dtype):
+    """``dft.outer_rdft`` / ``outer_irdft`` (one launch each, counted
+    "rdft" / "irdft") against their plain versions, the reference's
+    Kronecker-combined product: f32 within 2e-4, bf16 within 2e-2 of the
+    f32 plain version."""
+    (n2, n3), (k2, k3), lead = case
+    rng = np.random.default_rng(n2 + n3)
+    mk = lambda *s: torch.tensor(rng.normal(size=lead + s),
+                                 dtype=torch.float32, device=cuda)
+    f = lambda kind, n, k, d: spectral.row_operand_tensors(kind, (n,), (k,),
+                                                           d, cuda)
+    pairs = lambda a, b, d: (f(a, n2, k2, d), f(b, n3, k3, d))
+    x, zr, zi = mk(n2, n3), mk(k3, k2), mk(k3, k2)
+    ref_f = dft.outer_rdft_plain(x, *pairs("cdft", "cdft", "float32"))
+    ref_i = dft.outer_irdft_plain(zr, zi, *pairs("icdft", "irdft",
+                                                 "float32"))
+    tdt = getattr(torch, dtype)
+    before = (engine.LAUNCHES[("rdft", dtype)],
+              engine.LAUNCHES[("irdft", dtype)])
+    got_f = dft.outer_rdft(x.to(tdt), *pairs("cdft", "cdft", dtype))
+    got_i = dft.outer_irdft(zr.to(tdt), zi.to(tdt),
+                            *pairs("icdft", "irdft", dtype))
+    torch.cuda.synchronize()
+    assert (engine.LAUNCHES[("rdft", dtype)],
+            engine.LAUNCHES[("irdft", dtype)]) == (before[0] + 1,
+                                                   before[1] + 1)
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    for a, b in zip(got_f + (got_i,), ref_f + (ref_i,)):
+        assert a.dtype == tdt and a.is_cuda and a.shape == b.shape
+        assert _rel_err(a, b) <= tol
+
+
+def test_row_kernels_refuse_shapes_outside_their_plan(cuda):
+    """On the card too a slab over the shared-memory budget raises before
+    any launch, with the shape in the message."""
+    f = lambda kind, n, k: spectral.row_operand_tensors(kind, (n,), (k,),
+                                                        "float32", cuda)
+    before = dict(engine.LAUNCHES)
+    with pytest.raises(ValueError, match="256x256 points"):
+        dft.outer_rdft(torch.zeros(1, 256, 256, device=cuda),
+                       f("cdft", 256, 64), f("cdft", 256, 64))
+    assert dict(engine.LAUNCHES) == before
 
 
 def _core_case(device, b, h, o, n1, k1, spec, seed):

@@ -150,6 +150,8 @@ def test_linear_block_launch_structure(monkeypatch, rank, variant):
 
     spy(dft, "rdft", lambda a, kw: "rdft")
     spy(dft, "irdft", lambda a, kw: "irdft")
+    spy(dft, "outer_rdft", lambda a, kw: "rdft")  # rank 3's row launches
+    spy(dft, "outer_irdft", lambda a, kw: "irdft")
     spy(engine, "fused_core", lambda a, kw: "core")
     spy(engine, "fused_block", lambda a, kw: engine.launch_kind(
         a[3], kw.get("act", "gelu"), kw.get("adjoint", False)))

@@ -191,6 +191,85 @@ def test_outer_operands_bit_equal_to_reference(outer):
         fr, ref.to(torch.bfloat16))  # f64 -> f32 -> bf16, as the reference
 
 
+# Rank-3 outer axes ((s_1, s_2, s_3), (k_1, k_2, k_3)): odd and ragged
+# extents and fno3d's reduced size.
+_OUTER_CASES = [((3, 6, 10), (2, 3, 4)), ((2, 5, 9), (2, 3, 5)),
+                ((4, 16, 16), (2, 4, 4))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", _OUTER_CASES, ids=str)
+def test_outer_wrappers_match_reference_outer_transforms(case, dtype):
+    """``dft.outer_rdft`` / ``outer_irdft`` through the port's
+    ``_outer_fwd_batched`` / ``_outer_inv_batched`` (the per-axis factors;
+    the plain version on the CPU) against the reference's, whose Pallas
+    row kernels run in interpret mode: f32 within 2e-4; bf16 within 2e-2
+    of the f32 reference."""
+    spatial, modes = case
+    b, h = 2, 3
+    x = _rows((b, h) + spatial, 31)
+    spec = (b, h, spatial[0], modes[2], modes[1])
+    tr, ti = _rows(spec, 32), _rows(spec, 33)
+    jf = jops._outer_fwd_batched(jnp.asarray(x), spatial, modes, True)
+    ji = jops._outer_inv_batched(jnp.asarray(tr), jnp.asarray(ti), spatial,
+                                 True)
+    tdt = getattr(torch, dtype)
+    t = lambda a: torch.from_numpy(a).to(tdt)
+    ours_f = tops._outer_fwd_batched(t(x), spatial, modes)
+    ours_i = tops._outer_inv_batched(t(tr), t(ti), spatial)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    for a, r in zip(ours_f + (ours_i,), tuple(jf) + (ji,)):
+        assert a.dtype == tdt and tuple(a.shape) == tuple(r.shape)
+        _allclose_rel(_np(a), np.asarray(r, np.float32), tol)
+
+
+@pytest.mark.parametrize("outer", [((6, 10), (3, 4)), ((5, 9), (3, 5)),
+                                   ((64, 64), (16, 16))], ids=str)
+def test_outer_factors_stack_to_the_combined_operands(outer):
+    """The per-axis factors the outer wrappers take, stacked as the
+    reference's Kronecker product (columns k_3..k_2, k_2 minor; rows of the
+    inverse likewise), equal ``outer_fwd_mats`` / ``outer_inv_mats`` to f32
+    rounding."""
+    (n2, n3), (k2, k3) = outer
+    c = lambda kind, n, k: (lambda p: p[0].double() + 1j * p[1].double())(
+        tspec.row_operand_tensors(kind, (n,), (k,), "float32", "cpu"))
+    fwd = torch.einsum("ab,cd->acdb", c("cdft", n2, k2), c("cdft", n3, k3))
+    inv = torch.einsum("ba,dc->dbac", c("icdft", n2, k2), c("irdft", n3, k3))
+    for got, want in ((fwd.reshape(n2 * n3, k3 * k2),
+                       tspec.outer_fwd_mats((n2, n3), (k2, k3))),
+                      (inv.reshape(k3 * k2, n2 * n3),
+                       tspec.outer_inv_mats((n2, n3), (k2, k3)))):
+        for part, ref in ((got.real, want[0]), (got.imag, want[1])):
+            np.testing.assert_allclose(part.numpy(), ref, rtol=0,
+                                       atol=4e-7)
+
+
+def test_row_kernels_refuse_shapes_outside_their_plan():
+    """The shape checks that stand before every launch, shown on CPU
+    tensors: a slab or row over the shared-memory budget, factor pairs
+    that do not match the slab, and more than two outer axes raise with
+    the shape in the message."""
+    f = lambda kind, n, k: tspec.row_operand_tensors(kind, (n,), (k,),
+                                                     "float32", "cpu")
+    with pytest.raises(ValueError, match="256x256 points.*shared memory"):
+        dft.outer_rdft(torch.zeros(1, 256, 256), f("cdft", 256, 64),
+                       f("cdft", 256, 64))
+    with pytest.raises(ValueError, match="256x256 points.*shared memory"):
+        dft.outer_irdft(torch.zeros(1, 64, 64), torch.zeros(1, 64, 64),
+                        f("icdft", 256, 64), f("irdft", 256, 64))
+    with pytest.raises(ValueError, match="rows of 4096 points"):
+        dft.rdft(torch.zeros(2, 4096), *f("rdft", 4096, 64))
+    with pytest.raises(ValueError, match="slabs must be"):
+        dft.outer_rdft(torch.zeros(2, 10, 6), f("cdft", 6, 3),
+                       f("cdft", 10, 4))
+    with pytest.raises(ValueError, match="spatial \\(4, 4, 4, 4\\)"):
+        tops._outer_fwd_batched(torch.zeros(1, 1, 4, 4, 4, 4), (4, 4, 4, 4),
+                                (2, 2, 2, 2))
+    # fno3d: at most 4 slabs of 64x64 a forward group, 2 an inverse one
+    assert dft.max_group("rdft", torch.float32, 64, True) == 4
+    assert dft.max_group("irdft", torch.float32, 64, True) == 2
+
+
 def _block_args(rank, seed, b=2, h=8, o=6):
     spatial, modes = _CASES[rank]
     rng = np.random.default_rng(seed)
@@ -285,6 +364,8 @@ def test_partial_launch_structure(rank, monkeypatch):
     spy(dft, "rdft")
     spy(dft, "cdft")
     spy(dft, "irdft")
+    spy(dft, "outer_rdft", lambda a, kw: "rdft")  # rank 3: counted so too
+    spy(dft, "outer_irdft", lambda a, kw: "irdft")
     spy(engine, "fused_core", lambda a, kw: "core")
     spy(engine, "fused_block", kind)
     spy(engine, "fused_wgrad", lambda a, kw: "wgrad")
