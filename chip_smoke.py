@@ -60,8 +60,9 @@ fatal:
   11. times, partial — phase 4's serve window (the same seeded sizes) and
      phase 7's training window on the partial variant; CUDA events at fno2d
      B=8 for each partial launch beside its plain version, its one-call
-     ``torch.fft`` yardstick (none for the core) and its bound (rdft and
-     irdft queued behind a device spin, as ``time_ms`` says), fno3d's
+     ``torch.fft`` yardstick (none for the core) and its bound (the row
+     launches queued behind a device spin, as ``time_ms`` says; cdft and
+     icdft also host-paced, as timed before), fno3d's
      outer launches at B=1, and the whole served block forward, partial
      against full against the staged torch.fft block;
   12. per-mode kernels vs plain — weights [O,H,k_1..k_R]: the block
@@ -189,7 +190,13 @@ SRC = os.path.join(ROOT, "src")
 F32_TOL = 2e-4   # DESIGN.md §4: f32 port == reference
 BF16_TOL = 2e-2  # DESIGN.md §4: bf16 forward within 2e-2 of the f32 reference
 BF16_GRAD_TOL = 5e-2  # DESIGN.md §4: bf16 grads within 5e-2 of f32
-PEAK_F32_FLOPS = 67e12     # H100 SXM, CUDA cores (published, 700 W)
+PEAK_FFMA_FLOPS = 67e12    # H100 SXM, f32 on the CUDA cores (published, 700 W)
+PEAK_TF32_FLOPS = 495e12   # H100 SXM, dense TF32 tensor cores (published, 700 W)
+# f32-accurate products as three TF32 passes on the tensor cores (3xTF32,
+# csrc/tc_common.cuh): 165 TFLOP/s, 2.5x the CUDA cores.
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
+# The least time of f32 work: the faster of the two routes.
+PEAK_F32_FLOPS = max(PEAK_FFMA_FLOPS, PEAK_3XTF32_FLOPS)
 PEAK_BF16_FLOPS = 989e12   # H100 SXM, dense tensor cores (published, 700 W)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 (published)
 DEVICE = "cuda"
@@ -1172,17 +1179,24 @@ def phase_partial_times(torch, engine, spectral, dft, ops, configs, errs,
             a = [x.to(tdt) for x in ins]
             m = mats[dt]
             lib = library_call(torch, kind, ins, spatial, modes)
-            q = kind in ("rdft", "irdft")  # tens of µs: device time only
+            q = kind != "core"  # tens of µs: device time only
             t[kind] = {
                 "ms": time_ms(lambda: fn(*a, *m), 20, queued=q),
                 "plain_ms": time_ms(lambda: plain(*a, *m), 10, queued=q),
                 "library_ms": (time_ms(lib, 20, queued=q) if lib
                                else None),
                 "bound": bound_ms(kind, b, h, o, spatial, modes, eb, peak)}
+            if kind in ("cdft", "icdft"):  # also as they were timed before
+                t[kind]["ms_host_paced"] = time_ms(lambda: fn(*a, *m), 20)
+                t[kind]["library_ms_host_paced"] = time_ms(lib, 20)
             log(f"  {dt} {kind}: kernel_ms={t[kind]['ms']:.4f} plain_ms="
                 f"{t[kind]['plain_ms']:.4f} library_ms="
                 f"{t[kind]['library_ms']} bound_us="
-                f"{1e3 * t[kind]['bound'][0]:.2f} ({t[kind]['bound'][1]})")
+                f"{1e3 * t[kind]['bound'][0]:.2f} ({t[kind]['bound'][1]})"
+                + (f"; paced by the host: kernel_ms="
+                   f"{t[kind]['ms_host_paced']:.4f} library_ms="
+                   f"{t[kind]['library_ms_host_paced']:.4f}"
+                   if "ms_host_paced" in t[kind] else ""))
         for kind in ("rdft", "irdft"):  # fno3d's outer launches at B=1
             fn, _, ins, mats = cases3[kind]
             a = [x.to(tdt) for x in ins]
@@ -1213,8 +1227,15 @@ def phase_partial_times(torch, engine, spectral, dft, ops, configs, errs,
             elif kind in ("rdft", "irdft"):
                 row["ms_fno3d_b1"] = t[kind]["ms_fno3d_b1"]
             if kind == "cdft":  # the padded inverse operand, same kernel
+                keys = ("ms", "plain_ms", "library_ms", "ms_host_paced",
+                        "library_ms_host_paced")
+                row.update({"ms_host_paced": t["cdft"]["ms_host_paced"],
+                            "library_ms_host_paced":
+                                t["cdft"]["library_ms_host_paced"],
+                            "timing": "queued behind a device spin: device "
+                                      "time only"})
                 row.update({f"{key}_inverse": t["icdft"][key]
-                            for key in ("ms", "plain_ms", "library_ms")})
+                            for key in keys})
                 row["bound_ms_inverse"] = t["icdft"]["bound"][0]
             rows.append(row)
     del cases, cases3

@@ -15,7 +15,8 @@
 // inverse), E3 = irdft_mats(n3, k3) (hermitian folded). The spectrum's
 // columns run (k3, k2) with k2 minor, the layout the fused core takes. At
 // rank 2 a row is a slab with n2 = k2 = 1: one stage, the one-axis operand.
-// cdft replaces _cdft_call (dft.py:75); it has no model path.
+// cdft replaces _cdft_call (dft.py:75), forward-truncated or padded-inverse
+// as its operand says; it has no model path.
 //
 // What bounds them on an H100. fno3d at B=8 is S = 16,384 slabs of 64×64:
 // the rdft moves ≈ 302 MB in f32 (x read, the pair written), 0.090 ms at
@@ -23,7 +24,11 @@
 // at the 67 TFLOP/s f32 CUDA-core rate); the two separable stages do 3.2e9
 // (0.096 ms), so bytes and operations sit side by side. The irdft is the
 // mirror image. At fno2d (65,536 rows of 128 → 32 modes) the rdft moves
-// 50 MB (0.015 ms) for 0.54e9 multiply-adds (0.016 ms in f32).
+// 50 MB (0.015 ms) for 0.54e9 multiply-adds (0.016 ms in f32). The cdft at
+// fno2d B=8 (16,384 rows, 128 → 32) moves 21 MB (6.3 µs) for 67.1e6
+// complex multiply-adds: 8.0 µs on the CUDA cores, so an FFMA kernel is
+// bound by its operations; as three TF32 passes on the tensor cores they
+// take 3.3 µs and the bytes bound it.
 //
 // Design. A persistent block owns groups of whole slabs (rows at rank 2)
 // and walks them with a stride of the grid; the next group's input is
@@ -38,180 +43,45 @@
 //   irdft: stage 1 along k2 (complex), U[(slab,s2), (re k3 | im k3)] =
 //          Σ_k2 Z[k3,k2]·E2[k2,s2]; stage 2 along k3 (the folded real
 //          inverse), y = U·[E3r ; −E3i], written from registers.
-// In f32 the products run on the CUDA cores (FFMA: TF32 would not hold
-// 2e-4), each thread keeping an 8 × 8 (or 8 × 4) tile in registers fed by
-// 16-byte shared-memory loads. In bf16 every product whose operands are
-// bf16 in memory (stage A; the rank-2 inverse) runs on the tensor cores
-// (wmma, bf16 in, f32 accumulate); products of the f32 intermediate stay
-// on the CUDA cores. The launch sizes a slab group to the shared memory,
-// up to the wrapper's cap (kernels/dft.py MAX_GROUP_ROWS); a slab over
+//   cdft:  one real product on the tensor cores, [xr | xi]·[[Fr, Fi],
+//          [−Fi, Fr]] = [yr | yi] (mma.sync: f32 as 3xTF32, bf16 as it
+//          is; tc_common.cuh), the stacked operand copied into shared
+//          memory once per block by cp.async beside the first group (64
+//          KB at 128 × 32 in f32; the −Fi block negated in place).
+// In rdft and irdft the f32 products run on the CUDA cores (FFMA), each
+// thread keeping an 8 × 8 (or 8 × 4) tile in registers fed by 16-byte
+// shared-memory loads. In bf16 every product whose operands are bf16 in
+// memory (stage A; the rank-2 inverse) runs on the tensor cores (mma, bf16
+// in, f32 accumulate); products of the f32 intermediate stay on the CUDA
+// cores. The launch sizes a group to the shared memory, up to the
+// wrapper's cap (kernels/dft.py MAX_GROUP_ROWS); a slab (a cdft row) over
 // the budget is refused, by the wrapper and by the launch. Ragged extents
 // are zero-padded in shared memory.
 // Measured on an H100 (PERF.md §6, rows 4 and 6), the stages and not the
 // bytes set the pace: fno3d B=8 f32 rdft 0.30 ms and irdft 0.28 against
 // the 0.090 bound.
-//
-// cdft is the first kernel of this port, kept as it was: a tiled product
-// on CUDA cores with the operand read from device memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
 #include <algorithm>
 #include <cstdint>
-#include <cstring>
-#include <mutex>
 #include <type_traits>
 
 #include "fno_common.cuh"
+#include "tc_common.cuh"
 
 namespace {
 
 using fno::ld;
 using fno::st;
+using tc::async_commit;
+using tc::async_wait_one;
+using tc::kSmemLimit;
 
 __device__ __forceinline__ float* dyn_smem() {
   extern __shared__ float smem[];
   return smem;
-}
-
-// ---------------------------------------------------------------------------
-// cdft: a plain tiled product with the operand read from device memory.
-// ---------------------------------------------------------------------------
-constexpr int kTX = 8;    // threads along the output columns
-constexpr int kTY = 32;   // threads along the rows
-constexpr int kTN = 4;    // output columns per thread (kTX apart)
-constexpr int kTM = 4;    // rows per thread (kTY apart)
-constexpr int kThreads = kTX * kTY;
-constexpr int kBN = kTX * kTN;  // 32 output columns per block
-constexpr int kBM = kTY * kTM;  // 128 rows per block
-constexpr int kBK = 16;         // input columns per shared-memory chunk
-constexpr int kLdA = kBM + 1;   // padded row of the transposed input tile
-
-template <typename T>
-struct Args {
-  const T* in_r;   // [M, n_in]
-  const T* in_i;   // [M, n_in]
-  const T* m_r;    // [n_in, n_out]
-  const T* m_i;    // [n_in, n_out]
-  T* out_r;        // [M, n_out]
-  T* out_i;        // [M, n_out]
-  int M, n_in, n_out;
-};
-
-// Shared memory of one block: the input tiles [kBK][kLdA] and the operand
-// tiles [kBK][kBN], real and imaginary, in floats.
-constexpr int kSmemFloats = 2 * kBK * kLdA + 2 * kBK * kBN;
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) cdft_kernel(const Args<T> a) {
-  float* as_r = dyn_smem();          // [kBK][kLdA], column c of the tile
-  float* as_i = as_r + kBK * kLdA;   // is row c here
-  float* bs_r = as_i + kBK * kLdA;   // [kBK][kBN]
-  float* bs_i = bs_r + kBK * kBN;
-  const int tid = threadIdx.x;
-  const int tx = tid % kTX, ty = tid / kTX;
-  const long long row0 = static_cast<long long>(blockIdx.x) * kBM;
-  const int col0 = blockIdx.y * kBN;
-  const int M = a.M, n_in = a.n_in, n_out = a.n_out;
-
-  float acc_r[kTM][kTN], acc_i[kTM][kTN];
-#pragma unroll
-  for (int u = 0; u < kTM; ++u) {
-#pragma unroll
-    for (int v = 0; v < kTN; ++v) acc_r[u][v] = acc_i[u][v] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < n_in; k0 += kBK) {
-    // Input tile: kBM rows × kBK columns, a row's columns on neighbouring
-    // threads (coalesced), stored transposed.
-    for (int idx = tid; idx < kBM * kBK; idx += kThreads) {
-      const int r = idx / kBK, c = idx % kBK;
-      const long long gr = row0 + r;
-      const int gc = k0 + c;
-      const bool in = gr < M && gc < n_in;
-      const long long at = gr * n_in + gc;
-      as_r[c * kLdA + r] = in ? ld(a.in_r + at) : 0.f;
-      as_i[c * kLdA + r] = in ? ld(a.in_i + at) : 0.f;
-    }
-    // Operand tile: kBK rows × kBN columns.
-    for (int idx = tid; idx < kBK * kBN; idx += kThreads) {
-      const int c = idx / kBN, n = idx % kBN;
-      const int gk = k0 + c, gn = col0 + n;
-      const bool in = gk < n_in && gn < n_out;
-      const long long at = static_cast<long long>(gk) * n_out + gn;
-      bs_r[idx] = in ? ld(a.m_r + at) : 0.f;
-      bs_i[idx] = in ? ld(a.m_i + at) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float xr[kTM], xi[kTM], mr[kTN], mi[kTN];
-#pragma unroll
-      for (int u = 0; u < kTM; ++u) {
-        xr[u] = as_r[c * kLdA + ty + u * kTY];
-        xi[u] = as_i[c * kLdA + ty + u * kTY];
-      }
-#pragma unroll
-      for (int v = 0; v < kTN; ++v) {
-        mr[v] = bs_r[c * kBN + tx + v * kTX];
-        mi[v] = bs_i[c * kBN + tx + v * kTX];
-      }
-#pragma unroll
-      for (int u = 0; u < kTM; ++u) {
-#pragma unroll
-        for (int v = 0; v < kTN; ++v) {
-          acc_r[u][v] = fmaf(xr[u], mr[v], fmaf(-xi[u], mi[v], acc_r[u][v]));
-          acc_i[u][v] = fmaf(xr[u], mi[v], fmaf(xi[u], mr[v], acc_i[u][v]));
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // Each (u, v) store: neighbouring threads write neighbouring columns.
-#pragma unroll
-  for (int u = 0; u < kTM; ++u) {
-    const long long gr = row0 + ty + u * kTY;
-    if (gr >= M) break;
-#pragma unroll
-    for (int v = 0; v < kTN; ++v) {
-      const int gn = col0 + tx + v * kTX;
-      if (gn < n_out) {
-        st(a.out_r + gr * n_out + gn, acc_r[u][v]);
-        st(a.out_i + gr * n_out + gn, acc_i[u][v]);
-      }
-    }
-  }
-}
-
-template <typename T>
-int launch_cdft(const void* in_r, const void* in_i, const void* m_r,
-                const void* m_i, void* out_r, void* out_i, int M, int n_in,
-                int n_out, void* stream) {
-  if (M < 1 || n_in < 1 || n_out < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Args<T> a;
-  a.in_r = static_cast<const T*>(in_r);
-  a.in_i = static_cast<const T*>(in_i);
-  a.m_r = static_cast<const T*>(m_r);
-  a.m_i = static_cast<const T*>(m_i);
-  a.out_r = static_cast<T*>(out_r);
-  a.out_i = static_cast<T*>(out_i);
-  a.M = M;
-  a.n_in = n_in;
-  a.n_out = n_out;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((M + kBM - 1) / kBM, (n_out + kBN - 1) / kBN, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = kSmemFloats * static_cast<int>(sizeof(float));
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cfg.attrs = nullptr;
-  cfg.numAttrs = 0;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, cdft_kernel<T>, a);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -220,8 +90,7 @@ int launch_cdft(const void* in_r, const void* in_i, const void* m_r,
 constexpr int kRowThreads = 256;
 constexpr int kRM = 8;         // rows per thread of the FFMA product
 constexpr int kSplit = 4;      // lanes that share one tile of stage B
-constexpr int kMmaTile = 16;   // wmma's m = n = k
-constexpr int kSmemLimit = 232448;  // dynamic shared memory of a block
+constexpr int kMmaTile = 16;  // the tensor-core products' tile
 constexpr int kSmemSlack = 128;     // the base rounded up to 128 bytes
 
 __host__ __device__ constexpr int pad_to(int v, int m) {
@@ -248,7 +117,8 @@ struct Layout {
 };
 
 // rdft at slabs of n2 × n3 in groups of g: x buffers [mp][lda] (T), the
-// stacked last-axis factor [F3r | F3i] [kp][ldb] (bf16 for wmma, else f32),
+// stacked last-axis factor [F3r | F3i] [kp][ldb] (bf16 for the tensor
+// cores, else f32),
 // T = C [mp][ldc] f32 (real half, then imaginary at column hc), and at
 // rank 3 F2 [n2][ld2] f32.
 __host__ __device__ inline Layout rdft_layout(int esize, bool outer, int g,
@@ -276,7 +146,7 @@ __host__ __device__ inline Layout rdft_layout(int esize, bool outer, int g,
 
 // irdft: input buffers [in_rows][in_ld] (T; the real half, then the
 // imaginary half at column hc), the stacked hermitian-folded inverse
-// [E3r ; −E3i] [kp][ldb] (rows [0, hb), [hb, 2hb); bf16 for wmma, else
+// [E3r ; −E3i] [kp][ldb] (rows [0, hb), [hb, 2hb); bf16 for mma, else
 // f32), C [mp][ldc] f32 (none where the FFMA product writes y straight
 // from registers: n3 % 4 == 0), and at rank 3 E2 [k2][ld2] f32 and U
 // [mp][ldu] f32.
@@ -310,19 +180,46 @@ __host__ __device__ inline Layout irdft_layout(int esize, bool outer, int g,
   return L;
 }
 
+// cdft at rows of n3 points and k3 outputs, in groups of g: input buffers
+// [mp][lda] (T; xr at column 0, xi at column hb), the stacked operand
+// [[Fr, Fi], [−Fi, Fr]] [kp = 2hb][ldb] (T; the xi rows from row hb, the
+// yi columns from column hc) and C [mp][ldc] f32 (yr, then yi at column
+// hc). hb is n3 padded to the tensor cores' depth, hc k3 padded to 16.
+__host__ __device__ inline Layout cdft_layout(int esize, int g, int n3,
+                                              int k3) {
+  Layout L = {};
+  L.mp = pad_to(g, kMmaTile);
+  L.hb = pad_to(n3, esize == 2 ? 16 : 8);
+  L.kp = 2 * L.hb;
+  L.hc = pad_to(k3, kMmaTile);
+  L.np = 2 * L.hc;
+  L.lda = L.kp + 16 / esize;
+  L.ldb = L.np + 8;
+  L.ldc = L.np + 4;
+  L.in0 = 0;
+  L.in1 = align128(1LL * L.mp * L.lda * esize);
+  L.opb = align128(L.in1 + 1LL * L.mp * L.lda * esize);
+  L.c = align128(L.opb + 1LL * L.kp * L.ldb * esize);
+  L.bytes = align128(L.c + 4LL * L.mp * L.ldc);
+  return L;
+}
+
+enum RowKind { kRdft = 0, kIrdft = 1, kCdft = 2 };
+
 template <typename T>
 struct RowArgs {
-  const T* in_r;   // rdft: x [S, n2, n3]; irdft: the pair [S, k3, k2]
-  const T* in_i;   // irdft only
-  const T* m3r;    // last-axis factor pair: rdft [n3, k3], irdft [k3, n3]
-  const T* m3i;
+  const T* in_r;   // rdft: x [S, n2, n3]; irdft: the pair [S, k3, k2];
+  const T* in_i;   // cdft: the pair [S, n3] (in_i: irdft and cdft)
+  const T* m3r;    // last-axis factor pair: rdft and cdft [n3, k3],
+  const T* m3i;    // irdft [k3, n3]
   const T* m2r;    // outer-axis factor pair (rank 3): rdft [n2, k2],
   const T* m2i;    // irdft [k2, n2]
-  T* out_r;        // rdft: the pair [S, k3, k2]; irdft: y [S, n2, n3]
-  T* out_i;
+  T* out_r;        // rdft: the pair [S, k3, k2]; irdft: y [S, n2, n3];
+  T* out_i;        // cdft: the pair [S, k3]
   int slabs, n2, n3, k2, k3, group;
   int vec_in;      // the input rows are copied in 16-byte pieces
   int vec_out;     // the output rows are written in 4-element pieces
+  int vec_op;      // cdft: the operand rows are copied in 16-byte pieces
   Layout L;
 };
 
@@ -344,32 +241,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-// 16 bytes from device to shared memory, asynchronously (cp.async; a plain
-// copy where the source is compiled for the host).
-__device__ __forceinline__ void copy16_async(void* dst, const void* src) {
-#ifdef __CUDA_ARCH__
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-#else
-  std::memcpy(dst, src, 16);
-#endif
-}
-
-__device__ __forceinline__ void async_commit() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-#endif
-}
-
-// Wait until at most one committed group of this thread's copies is left.
-__device__ __forceinline__ void async_wait_one() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-#endif
-}
-
 // Four outputs from f32 to T at p (16-byte aligned for float, 8 for bf16).
 __device__ __forceinline__ void st4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
@@ -384,26 +255,11 @@ __device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {
       make_uint2(bf16_pair(v.x, v.y), bf16_pair(v.z, v.w));
 }
 
-// Copy `nrows` rows of `len` elements (contiguous at src, rows `len` apart)
-// into dst rows `ld` apart: 16-byte cp.async pieces when `vec`, else one
-// element per thread and step.
+// Copy `nrows` contiguous rows of `len` elements into dst rows `ld` apart.
 template <typename T>
 __device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
                                           int nrows, int len, bool vec) {
-  if (vec) {
-    constexpr int kE = 16 / sizeof(T);
-    const int per_row = len / kE;
-    for (int c = threadIdx.x; c < nrows * per_row; c += kRowThreads) {
-      const int r = c / per_row, j = (c - r * per_row) * kE;
-      copy16_async(dst + r * ld + j,
-                   src + static_cast<long long>(r) * len + j);
-    }
-  } else {
-    for (int i = threadIdx.x; i < nrows * len; i += kRowThreads) {
-      const int r = i / len;
-      dst[r * ld + i - r * len] = src[i];
-    }
-  }
+  tc::load_tile(dst, ld, src, len, nrows, len, vec, kRowThreads);
 }
 
 // C[mp × np] = A[mp × kp]·B[kp × np], f32 in shared memory, on the CUDA
@@ -490,50 +346,70 @@ __device__ __forceinline__ void product_f32(const float* A, int lda,
   }
 }
 
-// The same product with bf16 A and B on the tensor cores (wmma 16×16×16,
-// f32 accumulate): a warp takes a 16-row tile and up to four 16-column
-// tiles of C, so one A fragment feeds four independent accumulators. mp, kp
-// and np are multiples of 16.
-__device__ __forceinline__ void product_mma(const __nv_bfloat16* A, int lda,
-                                            const __nv_bfloat16* B, int ldb,
-                                            float* C, int ldc, int mp,
-                                            int kp, int np) {
-  namespace w = nvcuda::wmma;
-  constexpr int kTiles = 4;  // column tiles a warp holds
-  const int nct = np / kMmaTile, ncg = (nct + kTiles - 1) / kTiles;
-  const int items = (mp / kMmaTile) * ncg;
+// The same product on the tensor cores with T operands in shared memory
+// and f32 C (bf16 as it is, f32 as 3xTF32: tc_common.cuh): a warp takes a
+// 16kM-row by 8kN-column tile of C, so each A fragment feeds kN products
+// and each B fragment kM. mp and np are multiples of 16, kp of the depth.
+template <typename T, int kM, int kN>
+__device__ __forceinline__ void product_tc_tiles(const T* A, int lda,
+                                                 const T* B, int ldb,
+                                                 float* C, int ldc, int mp,
+                                                 int kp, int np) {
+  const int nct = np / (8 * kN);
+  const int items = (mp / (16 * kM)) * nct;
   for (int t = threadIdx.x / 32; t < items; t += kRowThreads / 32) {
-    const int r0 = (t / ncg) * kMmaTile, ct0 = (t % ncg) * kTiles;
-    const int nc = min(kTiles, nct - ct0);
-    w::fragment<w::accumulator, 16, 16, 16, float> acc[kTiles];
-#pragma unroll
-    for (int j = 0; j < kTiles; ++j) w::fill_fragment(acc[j], 0.0f);
-    for (int k = 0; k < kp; k += kMmaTile) {
-      w::fragment<w::matrix_a, 16, 16, 16, __nv_bfloat16, w::row_major> a;
-      w::load_matrix_sync(a, A + r0 * lda + k, lda);
-#pragma unroll
-      for (int j = 0; j < kTiles; ++j) {
-        if (j < nc) {
-          w::fragment<w::matrix_b, 16, 16, 16, __nv_bfloat16, w::row_major>
-              b;
-          w::load_matrix_sync(b, B + k * ldb + (ct0 + j) * kMmaTile, ldb);
-          w::mma_sync(acc[j], a, b, acc[j]);
-        }
-      }
+    const int r0 = (t / nct) * 16 * kM, c0 = (t % nct) * 8 * kN;
+    float acc[kM][kN][4] = {};
+    tc::warp_product<T, kM, kN>(acc, A + r0 * lda, lda, B + c0, ldb, kp);
+    tc::store_acc<kM, kN>(C + r0 * ldc + c0, ldc, acc);
+  }
+}
+
+// The largest warp tile that still gives every warp one.
+template <typename T>
+__device__ __forceinline__ void product_tc(const T* A, int lda, const T* B,
+                                           int ldb, float* C, int ldc,
+                                           int mp, int kp, int np) {
+  constexpr int kWarps = kRowThreads / 32;
+  if (mp % 32 == 0 && np % 32 == 0 && (mp / 32) * (np / 32) >= kWarps) {
+    product_tc_tiles<T, 2, 4>(A, lda, B, ldb, C, ldc, mp, kp, np);
+  } else if (mp % 32 == 0 && (mp / 32) * (np / 16) >= kWarps) {
+    product_tc_tiles<T, 2, 2>(A, lda, B, ldb, C, ldc, mp, kp, np);
+  } else {
+    product_tc_tiles<T, 1, 2>(A, lda, B, ldb, C, ldc, mp, kp, np);
+  }
+}
+
+// The group's rows of C's two halves (columns [0, k) and [hc, hc + k)) to
+// rows row0.. of the pair's planes, rows k apart: 4-element pieces when
+// vec.
+template <typename T>
+__device__ __forceinline__ void store_pair(T* out_r, T* out_i,
+                                           const float* cs, int ldc, int hc,
+                                           long long row0, int cnt, int k,
+                                           bool vec) {
+  if (vec) {
+    const int q = k / 4;
+    for (int t = threadIdx.x; t < 2 * cnt * q; t += kRowThreads) {
+      const int p = t / (cnt * q), r = (t / q) % cnt, c = 4 * (t % q);
+      st4((p ? out_i : out_r) + (row0 + r) * k + c,
+          *reinterpret_cast<const float4*>(cs + r * ldc + p * hc + c));
     }
-#pragma unroll
-    for (int j = 0; j < kTiles; ++j) {
-      if (j < nc) {
-        w::store_matrix_sync(C + r0 * ldc + (ct0 + j) * kMmaTile, acc[j],
-                             ldc, w::mem_row_major);
-      }
+  } else {
+    for (int t = threadIdx.x; t < 2 * cnt * k; t += kRowThreads) {
+      const int p = t / (cnt * k), r = (t / k) % cnt, c = t % k;
+      st((p ? out_i : out_r) + (row0 + r) * k + c, cs[r * ldc + p * hc + c]);
     }
   }
 }
 
+// The dynamic shared memory rounded up to 128 bytes by an offset: a
+// pointer cast to an integer and back would lose the shared state space,
+// and the accesses through it outside the products' explicit loads (the
+// staging of C, the operand's padding and sign) would be generic ones.
 __device__ __forceinline__ char* smem_base() {
-  const uintptr_t p = reinterpret_cast<uintptr_t>(dyn_smem());
-  return reinterpret_cast<char*>((p + 127) & ~static_cast<uintptr_t>(127));
+  char* p = reinterpret_cast<char*>(dyn_smem());
+  return p + ((128 - (reinterpret_cast<uintptr_t>(p) & 127)) & 127);
 }
 
 template <typename T, bool kOuter>
@@ -593,7 +469,7 @@ __global__ void __launch_bounds__(kRowThreads) rdft_kernel(
     const int cnt = min(G, a.slabs - g * G);
     // Stage A along s3: C = x·[F3r | F3i].
     if constexpr (kMma) {
-      product_mma(xs[it & 1], L.lda, bs, L.ldb, cs, L.ldc, L.mp, L.kp, L.np);
+      product_tc(xs[it & 1], L.lda, bs, L.ldb, cs, L.ldc, L.mp, L.kp, L.np);
     } else {
       product_f32<float>(xs[it & 1], L.lda, bs, L.ldb, cs, L.ldc, L.mp, L.kp,
                          L.np);
@@ -668,21 +544,10 @@ __global__ void __launch_bounds__(kRowThreads) rdft_kernel(
           }
         }
       }
-    } else if (a.vec_out) {
-      // Rank 2: the rows of C's two halves are the pair's rows.
-      const int q = k3 / 4;
-      for (int t = tid; t < 2 * cnt * q; t += kRowThreads) {
-        const int p = t / (cnt * q), r = (t / q) % cnt, c = 4 * (t % q);
-        const float4 v = *reinterpret_cast<const float4*>(
-            cs + r * L.ldc + p * L.hc + c);
-        st4((p ? a.out_i : a.out_r) + (slab0 + r) * k3 + c, v);
-      }
     } else {
-      for (int t = tid; t < 2 * cnt * k3; t += kRowThreads) {
-        const int p = t / (cnt * k3), r = (t / k3) % cnt, c = t % k3;
-        st((p ? a.out_i : a.out_r) + (slab0 + r) * k3 + c,
-           cs[r * L.ldc + p * L.hc + c]);
-      }
+      // Rank 2: the rows of C's two halves are the pair's rows.
+      store_pair(a.out_r, a.out_i, cs, L.ldc, L.hc, slab0, cnt, k3,
+                 a.vec_out);
     }
   }
 }
@@ -820,7 +685,7 @@ __global__ void __launch_bounds__(kRowThreads, 2) irdft_kernel(
     T* y = a.out_r + static_cast<long long>(g) * G * (kOuter ? n2 : 1) * n3;
     const bool direct = L.direct;
     if constexpr (kMma) {
-      product_mma(zs, L.in_ld, bs, L.ldb, cs, L.ldc, L.mp, L.kp, L.np);
+      product_tc(zs, L.in_ld, bs, L.ldb, cs, L.ldc, L.mp, L.kp, L.np);
     } else {
       product_f32(kOuter ? us : reinterpret_cast<const float*>(zs),
                   kOuter ? L.ldu : L.in_ld,
@@ -845,22 +710,94 @@ __global__ void __launch_bounds__(kRowThreads, 2) irdft_kernel(
   }
 }
 
+// cdft: (yr | yi) = [xr | xi]·[[Fr, Fi], [−Fi, Fr]] a group of rows at a
+// time, one real product on the tensor cores with the stacked operand
+// resident in shared memory.
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads) cdft_kernel(
+    const RowArgs<T> a) {
+  const Layout& L = a.L;
+  char* base = smem_base();
+  T* xs[2] = {reinterpret_cast<T*>(base + L.in0),
+              reinterpret_cast<T*>(base + L.in1)};
+  T* bs = reinterpret_cast<T*>(base + L.opb);
+  float* cs = reinterpret_cast<float*>(base + L.c);
+  const int tid = threadIdx.x;
+  const int n = a.n3, k = a.k3, G = a.group;
+  const int ngroups = (a.slabs + G - 1) / G;
+  const long long group_len = static_cast<long long>(G) * n;
+  // Both planes of a group: xr at column 0, xi at column hb.
+  auto load_group = [&](T* dst, int grp) {
+    const int nrows = min(G, a.slabs - grp * G);
+    load_rows(dst, L.lda, a.in_r + grp * group_len, nrows, n, a.vec_in);
+    load_rows(dst + L.hb, L.lda, a.in_i + grp * group_len, nrows, n,
+              a.vec_in);
+  };
+  // The stacked operand, copied beside the first group: Fr on the diagonal
+  // blocks, Fi above it (xr·Fi into yi) and below it, negated once landed
+  // (−xi·Fi into yr).
+  T* const neg_fi = bs + L.hb * L.ldb;
+  load_rows(bs, L.ldb, a.m3r, n, k, a.vec_op);
+  load_rows(bs + L.hc, L.ldb, a.m3i, n, k, a.vec_op);
+  load_rows(neg_fi, L.ldb, a.m3i, n, k, a.vec_op);
+  load_rows(neg_fi + L.hc, L.ldb, a.m3r, n, k, a.vec_op);
+  int g = blockIdx.x;
+  load_group(xs[0], g);
+  async_commit();
+  // Meanwhile zero the padding of the operand (rows past n, columns past
+  // k of each block) and of both input planes (columns past n): the
+  // copies never touch it.
+  if (n < L.hb || k < L.hc) {
+    for (int i = tid; i < L.kp * L.np; i += kRowThreads) {
+      const int r = i / L.np, c = i % L.np;
+      if ((r < L.hb ? r : r - L.hb) >= n || (c < L.hc ? c : c - L.hc) >= k) {
+        bs[r * L.ldb + c] = from_f32<T>(0.f);
+      }
+    }
+  }
+  const int padc = L.hb - n;
+  for (int i = tid; i < 2 * L.mp * 2 * padc; i += kRowThreads) {
+    const int r = i / (2 * padc), c = i % (2 * padc);
+    const int col = (c < padc ? 0 : L.hb) + n + c % padc;
+    xs[r / L.mp][(r % L.mp) * L.lda + col] = from_f32<T>(0.f);
+  }
+  tc::async_wait_all();
+  __syncthreads();
+  for (int i = tid; i < n * k; i += kRowThreads) {
+    T* v = neg_fi + (i / k) * L.ldb + i % k;
+    *v = from_f32<T>(-to_f32(*v));
+  }
+  for (int it = 0; g < ngroups; ++it, g += gridDim.x) {
+    const int gn = g + gridDim.x;
+    if (gn < ngroups) load_group(xs[(it + 1) & 1], gn);
+    async_commit();
+    async_wait_one();
+    __syncthreads();
+    product_tc(xs[it & 1], L.lda, bs, L.ldb, cs, L.ldc, L.mp, L.kp, L.np);
+    __syncthreads();
+    store_pair(a.out_r, a.out_i, cs, L.ldc, L.hc,
+               static_cast<long long>(g) * G, min(G, a.slabs - g * G), k,
+               a.vec_out);
+  }
+}
+
 bool aligned16(const void* p) {
   return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-Layout row_layout(bool inverse, int esize, bool outer, int g, int n2,
-                  int n3, int k2, int k3) {
-  return inverse ? irdft_layout(esize, outer, g, n2, n3, k2, k3)
-                 : rdft_layout(esize, outer, g, n2, n3, k2, k3);
+Layout row_layout(int kind, int esize, bool outer, int g, int n2, int n3,
+                  int k2, int k3) {
+  if (kind == kCdft) return cdft_layout(esize, g, n3, k3);
+  return kind == kIrdft ? irdft_layout(esize, outer, g, n2, n3, k2, k3)
+                        : rdft_layout(esize, outer, g, n2, n3, k2, k3);
 }
 
-// The slab group of a launch: the most slabs, up to max_group and the
-// slab count, whose block fits kSmemLimit; 0 when one slab does not fit.
-int pick_group(bool inverse, int esize, bool outer, int max_group, int slabs,
+// The group of a launch: the most slabs (cdft rows), up to max_group and
+// the slab count, whose block fits kSmemLimit; 0 when one does not fit.
+int pick_group(int kind, int esize, bool outer, int max_group, int slabs,
                int n2, int n3, int k2, int k3) {
   for (int g = std::max(1, std::min(max_group, slabs)); g >= 1; --g) {
-    if (row_layout(inverse, esize, outer, g, n2, n3, k2, k3).bytes +
+    if (row_layout(kind, esize, outer, g, n2, n3, k2, k3).bytes +
             kSmemSlack <= kSmemLimit) {
       return g;
     }
@@ -868,53 +805,8 @@ int pick_group(bool inverse, int esize, bool outer, int max_group, int slabs,
   return 0;
 }
 
-// Resident blocks of `kernel` on the current card at `smem` bytes (blocks
-// a multiprocessor × multiprocessors), queried once per (kernel, card,
-// smem) and kept: the launches of a model repeat a handful of shapes. The
-// first query of a (kernel, card) raises its dynamic shared-memory limit
-// to kSmemLimit, so every later launch of it fits.
-cudaError_t resident_blocks(const void* kernel, long long smem, int* blocks) {
-  struct Entry {
-    const void* kernel;
-    int dev;
-    long long smem;
-    int blocks;
-  };
-  static std::mutex mu;
-  static Entry cache[64];
-  static int used = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(mu);
-  bool raised = false;
-  for (int i = 0; i < used; ++i) {
-    if (cache[i].kernel != kernel || cache[i].dev != dev) continue;
-    raised = true;
-    if (cache[i].smem == smem) {
-      *blocks = cache[i].blocks;
-      return cudaSuccess;
-    }
-  }
-  if (!raised) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemLimit);
-    if (err != cudaSuccess) return err;
-  }
-  int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, kRowThreads, static_cast<size_t>(smem));
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  *blocks = std::max(per_sm, 1) * sms;
-  if (used < 64) cache[used++] = {kernel, dev, smem, *blocks};
-  return cudaSuccess;
-}
-
 // One launch over `slabs` slabs in groups of at most max_group slabs.
-template <typename T, bool kInverse, bool kOuter>
+template <typename T, int kKind, bool kOuter>
 int launch_rows(const void* in_r, const void* in_i, const void* m3r,
                 const void* m3i, const void* m2r, const void* m2i,
                 void* out_r, void* out_i, int slabs, int n2, int n3, int k2,
@@ -925,7 +817,7 @@ int launch_rows(const void* in_r, const void* in_i, const void* m3r,
   }
   constexpr int kE = static_cast<int>(sizeof(T));
   const int group =
-      pick_group(kInverse, kE, kOuter, max_group, slabs, n2, n3, k2, k3);
+      pick_group(kKind, kE, kOuter, max_group, slabs, n2, n3, k2, k3);
   if (group == 0) return static_cast<int>(cudaErrorInvalidValue);
   RowArgs<T> a;
   a.in_r = static_cast<const T*>(in_r);
@@ -942,18 +834,21 @@ int launch_rows(const void* in_r, const void* in_i, const void* m3r,
   a.k2 = k2;
   a.k3 = k3;
   a.group = group;
-  a.L = row_layout(kInverse, kE, kOuter, group, n2, n3, k2, k3);
+  a.L = row_layout(kKind, kE, kOuter, group, n2, n3, k2, k3);
   const long long smem = a.L.bytes + kSmemSlack;
-  const int in_len = kInverse ? (kOuter ? k2 : k3) : n3;
+  const int in_len = kKind == kIrdft ? (kOuter ? k2 : k3) : n3;
   a.vec_in = (in_len * kE) % 16 == 0 && aligned16(in_r) && aligned16(in_i);
-  const int out_len = kInverse ? n3 : k3;
+  const int out_len = kKind == kIrdft ? n3 : k3;
   a.vec_out = out_len % 4 == 0 && aligned16(out_r) && aligned16(out_i);
+  a.vec_op = (k3 * kE) % 16 == 0 && aligned16(m3r) && aligned16(m3i);
   if (a.L.direct && !a.vec_out) return static_cast<int>(cudaErrorInvalidValue);
   void (*kernel)(const RowArgs<T>) =
-      kInverse ? irdft_kernel<T, kOuter> : rdft_kernel<T, kOuter>;
+      kKind == kCdft    ? cdft_kernel<T>
+      : kKind == kIrdft ? irdft_kernel<T, kOuter>
+                        : rdft_kernel<T, kOuter>;
   int blocks = 0;
-  cudaError_t err = resident_blocks(reinterpret_cast<const void*>(kernel),
-                                    smem, &blocks);
+  cudaError_t err = tc::resident_blocks(
+      reinterpret_cast<const void*>(kernel), kRowThreads, smem, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int ngroups = (slabs + group - 1) / group;
   cudaLaunchConfig_t cfg = {};
@@ -968,26 +863,26 @@ int launch_rows(const void* in_r, const void* in_i, const void* m3r,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kInverse>
+template <int kKind>
 int dispatch_rows(int dtype, const void* in_r, const void* in_i,
                   const void* m3r, const void* m3i, const void* m2r,
                   const void* m2i, void* out_r, void* out_i, int slabs,
                   int n2, int n3, int k2, int k3, int max_group,
                   void* stream) {
-  const bool outer = m2r != nullptr;
+  const bool outer = kKind != kCdft && m2r != nullptr;
   if (dtype == 0) {
-    return outer ? launch_rows<float, kInverse, true>(
+    return outer ? launch_rows<float, kKind, true>(
                        in_r, in_i, m3r, m3i, m2r, m2i, out_r, out_i, slabs,
                        n2, n3, k2, k3, max_group, stream)
-                 : launch_rows<float, kInverse, false>(
+                 : launch_rows<float, kKind, false>(
                        in_r, in_i, m3r, m3i, m2r, m2i, out_r, out_i, slabs,
                        n2, n3, k2, k3, max_group, stream);
   }
   if (dtype == 1) {
-    return outer ? launch_rows<__nv_bfloat16, kInverse, true>(
+    return outer ? launch_rows<__nv_bfloat16, kKind, true>(
                        in_r, in_i, m3r, m3i, m2r, m2i, out_r, out_i, slabs,
                        n2, n3, k2, k3, max_group, stream)
-                 : launch_rows<__nv_bfloat16, kInverse, false>(
+                 : launch_rows<__nv_bfloat16, kKind, false>(
                        in_r, in_i, m3r, m3i, m2r, m2i, out_r, out_i, slabs,
                        n2, n3, k2, k3, max_group, stream);
   }
@@ -1008,7 +903,7 @@ extern "C" int dft_rows_rdft(int dtype, const void* x, const void* f3r,
                              const void* f2i, void* zr, void* zi, int slabs,
                              int n2, int n3, int k2, int k3, int max_group,
                              void* stream) {
-  return dispatch_rows<false>(dtype, x, nullptr, f3r, f3i, f2r, f2i, zr, zi,
+  return dispatch_rows<kRdft>(dtype, x, nullptr, f3r, f3i, f2r, f2i, zr, zi,
                               slabs, n2, n3, k2, k3, max_group, stream);
 }
 
@@ -1019,41 +914,35 @@ extern "C" int dft_rows_irdft(int dtype, const void* zr, const void* zi,
                               const void* e2r, const void* e2i, void* y,
                               int slabs, int n2, int n3, int k2, int k3,
                               int max_group, void* stream) {
-  return dispatch_rows<true>(dtype, zr, zi, e3r, e3i, e2r, e2i, y, nullptr,
-                             slabs, n2, n3, k2, k3, max_group, stream);
+  return dispatch_rows<kIrdft>(dtype, zr, zi, e3r, e3i, e2r, e2i, y, nullptr,
+                               slabs, n2, n3, k2, k3, max_group, stream);
 }
 
-// The slab group an rdft (inverse = 0) or irdft launch takes (0: one slab
-// over the budget), and the dynamic shared memory of one block of `group`
-// slabs: the wrapper's one-slab refusal (kernels/dft.py smem_bytes)
-// mirrors the latter.
-extern "C" int dft_rows_group(int inverse, int dtype, int outer,
-                              int max_group, int slabs, int n2, int n3,
-                              int k2, int k3) {
-  return pick_group(inverse != 0, dtype == 1 ? 2 : 4, outer != 0, max_group,
-                    slabs, n2, n3, k2, k3);
-}
-
-extern "C" long long dft_rows_smem(int inverse, int dtype, int outer,
-                                   int group, int n2, int n3, int k2,
-                                   int k3) {
-  return row_layout(inverse != 0, dtype == 1 ? 2 : 4, outer != 0, group, n2,
-                    n3, k2, k3).bytes +
-         kSmemSlack;
-}
-
-// (xr, xi) [M,N], (fr, fi) [N,K] -> (yr, yi) [M,K].
+// (xr, xi) [M,N], (fr, fi) [N,K] -> (yr, yi) [M,K]; groups of at most
+// `max_group` rows.
 extern "C" int dft_rows_cdft(int dtype, const void* xr, const void* xi,
                              const void* fr, const void* fi, void* yr,
-                             void* yi, int M, int N, int K, void* stream) {
-  if (dtype == 0) {
-    return launch_cdft<float>(xr, xi, fr, fi, yr, yi, M, N, K, stream);
-  }
-  if (dtype == 1) {
-    return launch_cdft<__nv_bfloat16>(xr, xi, fr, fi, yr, yi, M, N, K,
-                                      stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+                             void* yi, int M, int N, int K, int max_group,
+                             void* stream) {
+  return dispatch_rows<kCdft>(dtype, xr, xi, fr, fi, nullptr, nullptr, yr, yi,
+                              M, 1, N, 1, K, max_group, stream);
+}
+
+// The group a launch of `kind` (0 rdft, 1 irdft, 2 cdft) takes (0: one
+// slab or row over the budget), and the dynamic shared memory of one block
+// of `group` slabs: the wrapper's one-slab refusal (kernels/dft.py
+// smem_bytes) mirrors the latter.
+extern "C" int dft_rows_group(int kind, int dtype, int outer, int max_group,
+                              int slabs, int n2, int n3, int k2, int k3) {
+  return pick_group(kind, dtype == 1 ? 2 : 4, outer != 0, max_group, slabs,
+                    n2, n3, k2, k3);
+}
+
+extern "C" long long dft_rows_smem(int kind, int dtype, int outer, int group,
+                                   int n2, int n3, int k2, int k3) {
+  return row_layout(kind, dtype == 1 ? 2 : 4, outer != 0, group, n2, n3, k2,
+                    k3).bytes +
+         kSmemSlack;
 }
 
 // Human-readable name of a cudaError_t, for the Python wrapper's errors.

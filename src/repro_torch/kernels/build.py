@@ -141,7 +141,7 @@ def load_dft_rows_library(path: Path) -> ctypes.CDLL:
     """Load a row-DFT library and declare its C signatures."""
     lib = ctypes.CDLL(str(path))
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.dft_rows_cdft.argtypes = [i, vp, vp, vp, vp, vp, vp, i, i, i, vp]
+    lib.dft_rows_cdft.argtypes = [i, vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
     lib.dft_rows_cdft.restype = i
     lib.dft_rows_rdft.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, i, i, i, i,
                                   i, i, vp]
@@ -187,6 +187,8 @@ def load_cgemm_library(path: Path) -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.cgemm.argtypes = [i, vp, i, i, i, vp]
     lib.cgemm.restype = i
+    lib.cgemm_plan.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_longlong)]
+    lib.cgemm_plan.restype = None
     lib.cgemm_error_string.argtypes = [i]
     lib.cgemm_error_string.restype = ctypes.c_char_p
     return lib

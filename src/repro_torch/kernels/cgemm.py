@@ -4,12 +4,14 @@ count (counterpart of ``repro/kernels/cgemm.py``, ``csrc/cgemm.cu``).
     C = A·B,  A [M,K], B [K,N] complex as (re, im) planes:
     Cr = ar·br − ai·bi,  Ci = ar·bi + ai·br
 
-Four real products accumulating in f32, the result written at the input's
+Four real products accumulating in f32 (on the card's tensor cores: bf16
+as it is, f32 as three TF32 passes), the result written at the input's
 dtype, as the reference writes ``ar.dtype``. The kernel masks ragged M, K
-and N, so nothing pads (the reference pads to 128 for the TPU). A CPU
-tensor runs the plain version; a CUDA tensor launches the kernel or
-raises, it never falls back. Launches are counted in ``engine.LAUNCHES``
-as ("cgemm", dtype).
+and N, so nothing pads (the reference pads to 128 for the TPU); it keeps
+A resident in shared memory where A fits and walks K in chunks where it
+does not (``plan``). A CPU tensor runs the plain version; a CUDA tensor
+launches the kernel or raises, it never falls back. Launches are counted
+in ``engine.LAUNCHES`` as ("cgemm", dtype).
 """
 from __future__ import annotations
 
@@ -60,6 +62,15 @@ def _launch(lib, ar, ai, br, bi, stream):
         raise RuntimeError(f"cgemm kernel launch failed: {msg} (cudaError "
                            f"{err}, M={m} K={k} N={n})")
     return cr, ci
+
+
+def plan(lib, dtype: torch.dtype, m: int, k: int) -> dict:
+    """The kernel's plan for an (M, K) A at `dtype` (``cgemm_plan``):
+    slices of M, rows a slice, the K chunk, the chunks (1: A resident in
+    shared memory) and a block's shared memory in bytes."""
+    out = (ctypes.c_longlong * 5)()
+    lib.cgemm_plan(engine._DTYPE_CODES[dtype], m, k, out)
+    return dict(zip(("slices", "rows", "k_chunk", "chunks", "smem"), out))
 
 
 def cgemm(ar: torch.Tensor, ai: torch.Tensor, br: torch.Tensor,

@@ -19,11 +19,11 @@ per-axis factors:
 whose plain versions are the reference's single product with the
 Kronecker-combined operand (``spectral.outer_fwd_mats`` /
 ``outer_inv_mats``). rdft and outer_rdft launch one kernel counted
-"rdft", irdft and outer_irdft one counted "irdft": a block walks groups
-of whole slabs (rows at rank 2) with the factors resident in shared
-memory. The launch sizes the group, up to ``MAX_GROUP_ROWS`` rows;
-``check_slab`` refuses a slab over the shared-memory budget, on any
-device.
+"rdft", irdft and outer_irdft one counted "irdft", cdft one counted
+"cdft": a block walks groups of whole slabs (rows at rank 2, and for
+cdft) with the operand resident in shared memory. The launch sizes the
+group, up to ``MAX_GROUP_ROWS`` rows; ``check_slab`` refuses a slab (a
+cdft row) over the shared-memory budget, on any device.
 
 Every product accumulates in f32 and the result is written at the input's
 dtype, as the reference writes ``x2d.dtype``. A CPU tensor runs the plain
@@ -48,15 +48,19 @@ _F32 = torch.float32
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
 # Most rows of one slab group (group × n2), by (kind, outer axes, element
-# bytes): the fastest cap of 64/128/256 on an H100
-# (``launch/row_groups.py``). The launch takes the most slabs up to the
-# cap that fit a block's shared memory. The rdft's f32 product keeps the
-# most rows it can; the irdft (which writes y from registers and runs two
-# blocks a multiprocessor) and the bf16 tensor-core products take fewer.
+# bytes): the fastest cap of those ``launch/row_groups.py`` sweeps on an
+# H100 ("icdft": cdft with the padded-inverse operand). The launch takes
+# the most slabs up to the cap that fit a block's shared memory. The
+# rdft's f32 product keeps the most rows it can; the irdft (which writes y
+# from registers and runs two blocks a multiprocessor) and the rank-2 bf16
+# products take fewer; cdft's f32 operand (64 KB at fno2d) leaves room for
+# 64 rows.
 MAX_GROUP_ROWS = {("rdft", True, 4): 256, ("rdft", True, 2): 256,
                   ("rdft", False, 4): 128, ("rdft", False, 2): 64,
                   ("irdft", True, 4): 128, ("irdft", True, 2): 128,
-                  ("irdft", False, 4): 64, ("irdft", False, 2): 64}
+                  ("irdft", False, 4): 64, ("irdft", False, 2): 64,
+                  ("cdft", False, 4): 64, ("cdft", False, 2): 128,
+                  ("icdft", False, 4): 64, ("icdft", False, 2): 128}
 _SMEM_SLACK = 128  # kSmemSlack: the kernel rounds its base up to 128 bytes
 
 
@@ -118,10 +122,17 @@ def _pad(v: int, m: int) -> int:
 
 def smem_bytes(kind: str, esize: int, outer: bool, group: int, n2: int,
                n3: int, k2: int, k3: int) -> int:
-    """Dynamic shared memory of one rdft / irdft block with `group` slabs
-    of n2 × n3 (k3 × k2 modes; rank 2: n2 = k2 = 1) at `esize` bytes an
-    element, as the kernel lays it out (``dft_rows_smem``)."""
+    """Dynamic shared memory of one rdft / irdft / cdft block with `group`
+    slabs of n2 × n3 (k3 × k2 modes; rank 2 and cdft: n2 = k2 = 1) at
+    `esize` bytes an element, as the kernel lays it out
+    (``dft_rows_smem``)."""
     a = lambda v: _pad(v, 128)
+    if kind == "cdft":  # cdft_layout: [xr | xi] twice, [[Fr, Fi], [−Fi, Fr]], C
+        mp, hb, hc = _pad(group, 16), _pad(n3, 16 if esize == 2 else 8), \
+            _pad(k3, 16)
+        x = mp * (2 * hb + 16 // esize) * esize
+        b = 2 * hb * (2 * hc + 8) * esize
+        return a(a(a(x) + x) + b) + a(4 * mp * (2 * hc + 4)) + _SMEM_SLACK
     if kind == "rdft":
         mma = esize == 2
         mp = _pad(group * n2, 16 if mma else 8)
@@ -154,7 +165,7 @@ def check_slab(kind: str, dtype: torch.dtype, dims: Tuple[int, ...],
                outer: bool) -> None:
     """Raise ValueError when one slab of dims = (n2, n3, k2, k3) (outer=False:
     one row, n2 = k2 = 1) does not fit a block's shared memory at `dtype`:
-    the rdft / irdft launch takes no such shape. Cached: a model's
+    the rdft / irdft / cdft launch takes no such shape. Cached: a model's
     launches repeat a few shapes."""
     n2, n3, k2, k3 = dims
     esize = dtype.itemsize
@@ -168,8 +179,8 @@ def check_slab(kind: str, dtype: torch.dtype, dims: Tuple[int, ...],
 
 
 def max_group(kind: str, dtype: torch.dtype, n2: int, outer: bool) -> int:
-    """The cap on an rdft / irdft launch's slab group: ``MAX_GROUP_ROWS``
-    rows of slabs of n2 rows."""
+    """The cap on an rdft / irdft / cdft / icdft launch's slab group:
+    ``MAX_GROUP_ROWS`` rows of slabs of n2 rows."""
     return max(1, MAX_GROUP_ROWS[(kind, outer, dtype.itemsize)] // n2)
 
 
@@ -218,39 +229,20 @@ def _check_outer(what, ins, f2, f3, tail):
                          f"got {tuple(x.shape)}")
 
 
-def _launch(lib, kind, ins, mats, stream):
-    """Allocate the outputs and launch the cdft kernel through its C entry
-    (no checks); returns the list of outputs."""
-    x = ins[0]
-    rows, n_in = math.prod(x.shape[:-1]), x.shape[-1]
-    n_out = mats[0].shape[1]
-    shape = tuple(x.shape[:-1]) + (n_out,)
-    outs = [torch.empty(shape, dtype=x.dtype, device=x.device)
-            for _ in range(2)]
-    err = lib.dft_rows_cdft(
-        engine._DTYPE_CODES[x.dtype],
-        *[t.data_ptr() for t in (*ins, *mats, *outs)], rows, n_in, n_out,
-        stream)
-    if err != 0:
-        msg = lib.dft_rows_error_string(err).decode()
-        raise RuntimeError(f"{kind} kernel launch failed: {msg} (cudaError "
-                           f"{err}, rows={rows} n_in={n_in} n_out={n_out})")
-    return outs
-
-
 def _launch_rows(lib, kind, ins, f3, f2, dims, stream, group=None):
-    """Allocate the outputs and launch one rdft / irdft kernel through its
-    C entry ``dft_rows_<kind>``: `ins` the input (rdft) or pair (irdft),
-    `f3` the last-axis factor pair, `f2` the outer one or None (rank 2),
-    dims = (n2, n3, k2, k3), slab groups of at most `group` slabs (default
-    ``max_group``). No checks; returns the list of outputs."""
+    """Allocate the outputs and launch one rdft / irdft / cdft kernel
+    through its C entry ``dft_rows_<kind>``: `ins` the input (rdft) or pair
+    (irdft, cdft), `f3` the last-axis operand pair, `f2` the outer one or
+    None (rank 2, cdft), dims = (n2, n3, k2, k3), slab groups of at most
+    `group` slabs (default ``max_group``). No checks; returns the list of
+    outputs."""
     n2, n3, k2, k3 = dims
     x = ins[0]
     lead = tuple(x.shape[:-2]) if f2 is not None else tuple(x.shape[:-1])
     slabs = math.prod(lead)
     if group is None:
         group = max_group(kind, x.dtype, n2, f2 is not None)
-    if kind == "rdft":
+    if kind != "irdft":
         tail = (k3, k2) if f2 is not None else (k3,)
         outs = [torch.empty(lead + tail, dtype=x.dtype, device=x.device)
                 for _ in range(2)]
@@ -264,6 +256,11 @@ def _launch_rows(lib, kind, ins, f3, f2, dims, stream, group=None):
             engine._DTYPE_CODES[x.dtype], ptr(x), ptr(f3[0]), ptr(f3[1]),
             *m2, ptr(outs[0]), ptr(outs[1]), slabs, n2, n3, k2, k3, group,
             stream)
+    elif kind == "cdft":
+        err = lib.dft_rows_cdft(
+            engine._DTYPE_CODES[x.dtype], ptr(ins[0]), ptr(ins[1]),
+            ptr(f3[0]), ptr(f3[1]), ptr(outs[0]), ptr(outs[1]), slabs, n3,
+            k3, group, stream)
     else:
         err = lib.dft_rows_irdft(
             engine._DTYPE_CODES[x.dtype], ptr(ins[0]), ptr(ins[1]),
@@ -309,10 +306,14 @@ def cdft(xr: torch.Tensor, xi: torch.Tensor, fr: torch.Tensor,
     ("icdft", then N is the kept modes and K the length). Returns the pair
     [..., K] at xr's dtype."""
     _check("cdft", (xr, xi), (fr, fi))
+    dims = (1, xr.shape[-1], 1, fr.shape[1])
+    check_slab("cdft", xr.dtype, dims, False)
     if not engine._on_card(xr, "cdft"):
         return cdft_plain(xr, xi, fr, fi)
-    return tuple(_on_card("cdft", xr, lambda lib, s: _launch(
-        lib, "cdft", (xr, xi), (fr, fi), s)))
+    group = max_group("icdft" if dims[3] > dims[1] else "cdft", xr.dtype,
+                      1, False)
+    return tuple(_on_card("cdft", xr, lambda lib, s: _launch_rows(
+        lib, "cdft", (xr, xi), (fr, fi), None, dims, s, group)))
 
 
 def irdft(xr: torch.Tensor, xi: torch.Tensor, er: torch.Tensor,

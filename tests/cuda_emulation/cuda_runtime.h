@@ -19,6 +19,7 @@
 #include <functional>
 #include <vector>
 
+#define CUDA_EMULATION 1  // the kernels' emulated paths (tc_common.cuh)
 #define __global__
 #define __device__
 #define __host__
@@ -40,6 +41,8 @@ inline pthread_barrier_t g_cluster_bar;
 // barrier, reads its partner's and meets again (all 32 lanes take part).
 inline std::vector<pthread_barrier_t> g_warp_bar;  // [block][warp]
 inline std::vector<float> g_lanes;                 // [block][thread]
+// Fragment registers of an emulated mma.sync (mma.h): [block][thread][6].
+inline std::vector<unsigned> g_xchg;
 
 inline void __syncthreads() { pthread_barrier_wait(&g_block_bar[blockIdx.x]); }
 inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
@@ -53,6 +56,16 @@ inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   return r;
 }
 inline float __ldg(const float* p) { return *p; }
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
 inline float __ldcg(const float* p) { return *p; }
 inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
@@ -159,6 +172,7 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* c, void (*k)(E...),
   const unsigned nwarps = blockDim.x % 32 == 0 ? blockDim.x / 32 : 0;
   g_warp_bar.assign(gridDim.x * nwarps, pthread_barrier_t{});
   g_lanes.assign(gridDim.x * blockDim.x, 0.f);
+  g_xchg.assign(gridDim.x * blockDim.x * 6, 0u);
   auto warp_bars = [&](unsigned bx, bool init) {
     for (unsigned w = bx * nwarps; w < (bx + 1) * nwarps; ++w) {
       if (init) pthread_barrier_init(&g_warp_bar[w], nullptr, 32);

@@ -95,23 +95,32 @@ def _chip_smoke():
 
 
 def test_chip_smoke_cgemm_bounds():
-    """(64,64,8192): 0.268 GFLOP (8 per complex multiply-add) takes 4.0 µs
-    at 67 TFLOP/s, its 8.4 MB of planes 2.5 µs at 3.35 TB/s;
-    (128,128,8192): 1.07 GFLOP, 16.0 µs, 16.9 MB. Both are operation-bound
-    in f32; in bf16 the tensor-core rate leaves them byte-bound."""
+    """f32 work is bounded at the faster of its two routes: three TF32
+    passes on the tensor cores (495/3 = 165 TFLOP/s) against the CUDA
+    cores' 67. (64,64,8192): 0.268 GFLOP (8 per complex multiply-add) takes
+    1.6 µs at 165 TFLOP/s (4.0 on the CUDA cores), its 8.4 MB of planes
+    2.5 µs at 3.35 TB/s, so the bytes bound it; (128,128,8192): 1.07
+    GFLOP, 6.5 µs, against 16.9 MB, 5.0 µs: the operations. In bf16 the
+    tensor-core rate leaves both byte-bound."""
     cs = _chip_smoke()
+    assert cs.PEAK_F32_FLOPS == cs.PEAK_3XTF32_FLOPS == 165e12
     t_bytes, t_ops = cs.cgemm_bound_parts(64, 64, 8192, 4,
                                           cs.PEAK_F32_FLOPS)
     assert 8 * 64 * 64 * 8192 == 268_435_456
-    assert round(1e3 * t_ops, 1) == 4.0
+    assert round(1e3 * t_ops, 1) == 1.6
+    _, t_ffma = cs.cgemm_bound_parts(64, 64, 8192, 4, cs.PEAK_FFMA_FLOPS)
+    assert round(1e3 * t_ffma, 1) == 4.0
     nbytes = 4 * 2 * (64 * 64 + 64 * 8192 + 64 * 8192)  # A, B, C planes
     assert nbytes == 8_421_376
     assert t_bytes == pytest.approx(1e3 * nbytes / cs.PEAK_BYTES)
+    assert round(1e3 * t_bytes, 1) == 2.5
     assert cs.cgemm_bound(64, 64, 8192, 4, cs.PEAK_F32_FLOPS) == \
-        (t_ops, "operations")
+        (t_bytes, "bytes")
     t_bytes, t_ops = cs.cgemm_bound_parts(128, 128, 8192, 4,
                                           cs.PEAK_F32_FLOPS)
-    assert round(1e3 * t_ops, 1) == 16.0
+    assert round(1e3 * t_ops, 1) == 6.5
     assert t_bytes == pytest.approx(1e3 * 16_908_288 / cs.PEAK_BYTES)
+    assert cs.cgemm_bound(128, 128, 8192, 4, cs.PEAK_F32_FLOPS) == \
+        (t_ops, "operations")
     assert cs.cgemm_bound(128, 128, 8192, 2, cs.PEAK_BF16_FLOPS)[1] == \
         "bytes"

@@ -44,11 +44,15 @@ CASES = [
     ((12, 20), (4, 6), 5, 16, 16),  # clusters of 8 (it does not)
 ]
 EMULATED_MAX_CLUSTERS = 4  # cuda_emulation/cuda_runtime.h
+KIND_CODES = {"rdft": 0, "irdft": 1, "cdft": 2}  # dft_rows_group / _smem
 
 
-def _compile(out: Path, name: str, mutation=None) -> Path:
+def _compile(out: Path, name: str, mutation=None,
+             header_mutation=None) -> Path:
     """Compile csrc/<name>.cu for the CPU; `mutation` (old, new) replaces
-    one exact piece of the source first."""
+    one exact piece of the source first, `header_mutation` (header, old,
+    new) one of a shared header, whose mutated copy is compiled beside the
+    source."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the kernel source for the CPU")
@@ -56,6 +60,11 @@ def _compile(out: Path, name: str, mutation=None) -> Path:
     if mutation is not None:
         assert src.count(mutation[0]) >= 1, mutation[0]
         src = src.replace(mutation[0], mutation[1], 1)
+    if header_mutation is not None:
+        header, old, new = header_mutation
+        text = (build.CSRC / header).read_text()
+        assert text.count(old) == 1, old
+        (out / header).write_text(text.replace(old, new))
     decl = "extern __shared__ float smem[];"
     assert src.count(decl) == 1
     cpp = out / f"{name}.cpp"
@@ -107,6 +116,14 @@ def _inputs(spatial, b, h, o, seed):
 def _rel_err(y, ref) -> float:
     y, ref = y.float(), ref.float()
     return float((y - ref).abs().max()) / max(float(ref.abs().max()), 1.0)
+
+
+def _caught(outs, refs, tol) -> bool:
+    """A mutation is caught where an output misses its reference by more
+    than `tol` or is not finite (a row never copied reads NaN in the
+    emulation's shared memory; an element never written is whatever
+    torch.empty left)."""
+    return any(not _rel_err(a, r) <= tol for a, r in zip(outs, refs))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -257,7 +274,10 @@ def _run_rows(lib, case, dtype, group=None):
     args = tuple(a.to(tdt) for a in ins)
     if kind in ("cdft", "icdft"):
         ref = dft.cdft_plain(*ins, *m32)
-        return dft._launch(lib, "cdft", args, mats(dtype)[0], None), ref
+        width, n_out = ins[0].shape[-1], m32[0].shape[1]
+        return dft._launch_rows(lib, "cdft", args, mats(dtype)[0], None,
+                                (1, width, 1, n_out), None,
+                                group=group), ref
     if kind in ("outer_fwd", "outer_inv"):
         (n2, n3), (k2, k3) = n, k
         plain = (dft.outer_rdft_plain if kind == "outer_fwd"
@@ -296,23 +316,33 @@ SLAB_CASES = [("outer_fwd", (7,), (6, 10), (3, 4), 12, 2),
               ("rdft", (37,), 24, 6, 8, 8), ("irdft", (37,), 24, 6, 8, 8),
               # 8 columns a thread in the product (every thread a tile)
               ("outer_fwd", (20,), (16, 64), (4, 32), 256, 16),
-              ("irdft", (130,), 128, 9, 128, 128)]
+              ("irdft", (130,), 128, 9, 128, 128),
+              # cdft on the row machinery, ragged rows and columns: one
+              # group, two, and more groups than the grid's 2 blocks
+              ("cdft", (5,), 100, 45, 64, 5),
+              ("icdft", (7,), 37, 9, 4, 4),
+              ("cdft", (37,), 24, 6, 8, 8),
+              ("icdft", (130,), 20, 11, 64, 64),
+              ("cdft", (2, 3), 128, 32, 1, 1)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", SLAB_CASES,
                          ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}-g{c[5]}")
 def test_emulated_slab_groups_match_plain(emulated_rows, case, dtype):
-    """Rank-3 outer stage pairs at odd extents and the rank-2 one-stage
-    path, several slabs a group and groups a block, against the plain
-    versions (the reference's Kronecker-combined product at rank 3)."""
+    """Rank-3 outer stage pairs at odd extents, the rank-2 one-stage path
+    and cdft with both operands, several slabs (rows) a group and groups a
+    block, against the plain versions (the reference's Kronecker-combined
+    product at rank 3)."""
     kind, lead, n, k, max_rows, group = case
     outer = kind.startswith("outer")
-    dims = (n[0], n[1], k[0], k[1]) if outer else (1, n, 1, k)
-    inverse = int(kind in ("irdft", "outer_inv"))
+    dims = ((n[0], n[1], k[0], k[1]) if outer else (1, k, 1, n)
+            if kind == "icdft" else (1, n, 1, k))
+    launch = {"outer_fwd": "rdft", "outer_inv": "irdft",
+              "icdft": "cdft"}.get(kind, kind)
     cap = max(1, max_rows // dims[0])
     assert emulated_rows.dft_rows_group(
-        inverse, 0 if dtype == "float32" else 1, int(outer), cap,
+        KIND_CODES[launch], 0 if dtype == "float32" else 1, int(outer), cap,
         int(np.prod(lead)), *dims) == group
     outs, ref = _run_rows(emulated_rows, (kind, lead, n, k), dtype,
                           group=cap)
@@ -325,28 +355,36 @@ def test_emulated_slab_groups_match_plain(emulated_rows, case, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_emulated_row_plan_matches_the_kernel_layout(emulated_rows, dtype):
     """kernels/dft.py's one-slab refusal uses the kernel's own layout, at
-    fno3d's and fno2d's extents and odd ones, for any group size; the
-    launch takes the wrapper's cap at fno3d, and refuses a slab over the
-    budget where the wrapper does."""
+    fno3d's and fno2d's extents and odd ones, for any group size, for
+    rdft, irdft and cdft (both operands); the launch takes the wrapper's
+    cap at fno3d (cdft: fno2d's s_1 rows), and refuses a slab or row over
+    the budget where the wrapper does."""
     code, esize = (0, 4) if dtype == "float32" else (1, 2)
     tdt = getattr(torch, dtype)
+    rows = [(False, (1, 128, 1, 32)), (False, (1, 37, 1, 9)),
+            (False, (1, 100, 1, 45))]
     shapes = [(True, (64, 64, 16, 16)), (True, (6, 10, 3, 4)),
-              (True, (5, 9, 3, 5)), (False, (1, 128, 1, 32)),
-              (False, (1, 37, 1, 9)), (False, (1, 100, 1, 45))]
-    for inverse, kind in ((0, "rdft"), (1, "irdft")):
-        for outer, dims in shapes:
+              (True, (5, 9, 3, 5))] + rows
+    for kind in ("rdft", "irdft", "cdft"):
+        for outer, dims in (rows + [(False, (1, 32, 1, 128))]
+                            if kind == "cdft" else shapes):
             for g in (1, 2, 3, 4, 7, 64):
                 assert emulated_rows.dft_rows_smem(
-                    inverse, code, int(outer), g, *dims) == dft.smem_bytes(
-                        kind, esize, outer, g, *dims), (kind, dims, g)
-        cap = dft.max_group(kind, tdt, 64, True)
+                    KIND_CODES[kind], code, int(outer), g,
+                    *dims) == dft.smem_bytes(kind, esize, outer, g,
+                                             *dims), (kind, dims, g)
+        # The cap at fno3d's slabs, at fno2d's s_1 rows for cdft; one
+        # slab (row) over the budget refused on both sides.
+        outer = kind != "cdft"
+        cap = dft.max_group(kind, tdt, 64 if outer else 1, outer)
+        dims = (64, 64, 16, 16) if outer else (1, 128, 1, 32)
         assert emulated_rows.dft_rows_group(
-            inverse, code, 1, cap, 16384, 64, 64, 16, 16) == cap
-        big = (256, 256, 64, 64)
-        assert emulated_rows.dft_rows_group(inverse, code, 1, 1, 4,
-                                            *big) == 0
+            KIND_CODES[kind], code, int(outer), cap, 16384, *dims) == cap
+        big = (256, 256, 64, 64) if outer else (1, 512, 1, 128)
+        assert emulated_rows.dft_rows_group(KIND_CODES[kind], code,
+                                            int(outer), 1, 4, *big) == 0
         with pytest.raises(ValueError, match="shared memory"):
-            dft.check_slab(kind, tdt, big, True)
+            dft.check_slab(kind, tdt, big, outer)
     err = emulated_rows.dft_rows_rdft(code, None, None, None, None, None,
                                       None, None, 4, 256, 256, 64, 64, 1,
                                       None)
@@ -355,7 +393,7 @@ def test_emulated_row_plan_matches_the_kernel_layout(emulated_rows, dtype):
 
 
 # Mutations of the separable kernels that the slab comparisons must catch:
-# (what, (old, new), row case, dtype).
+# (what, (old, new) in dft_rows.cu or (header, old, new), row case, dtype).
 ROW_MUTATIONS = [
     ("K2 and K3 swapped in the output index",
      ("const long long at = ((slab0 + gi) * k3 + a0 + i) * k2 + b0;",
@@ -366,8 +404,8 @@ ROW_MUTATIONS = [
       "v = r < L.hb ? ld(a.m3r + m * n3 + s) : ld(a.m3i + m * n3 + s);"),
      ("outer_inv", (2, 3), (6, 10), (3, 4)), "float32"),
     ("the tensor-core product's depth offset dropped",
-     ("w::load_matrix_sync(a, A + r0 * lda + k, lda);",
-      "w::load_matrix_sync(a, A + r0 * lda, lda);"),
+     ("tc_common.cuh", "load_a(a[i].hi, A + 16 * i * lda + k, lda);",
+      "load_a(a[i].hi, A + 16 * i * lda, lda);"),
      ("rdft", (3, 5), 37, 9), "bfloat16"),
 ]
 
@@ -376,10 +414,11 @@ ROW_MUTATIONS = [
                          ids=lambda m: m[0].replace(" ", "_"))
 def test_emulated_row_mutations_are_caught(tmp_path, mutation):
     _, edit, case, dtype = mutation
-    lib = build.load_dft_rows_library(_compile(tmp_path, "dft_rows", edit))
+    lib = build.load_dft_rows_library(
+        _compile(tmp_path, "dft_rows", edit) if len(edit) == 2
+        else _compile(tmp_path, "dft_rows", header_mutation=edit))
     outs, ref = _run_rows(lib, case, dtype)
-    tol = 2e-4 if dtype == "float32" else 2e-2
-    assert max(_rel_err(a, r) for a, r in zip(outs, ref)) > tol
+    assert _caught(outs, ref, 2e-4 if dtype == "float32" else 2e-2)
 
 
 # Core cases (B, H, O, s_1, K_1, K_R..K_2): rank 2 and 3 spectra, odd
@@ -417,14 +456,15 @@ def test_emulated_core_matches_plain(emulated_core, monkeypatch, case,
 
 
 # Mutations of the new sources, each of which the comparisons above must
-# catch: (source, what, (old, new)).
+# catch: (source, what, (old, new)). cdft's: the stacked operand's −Fi
+# block dropped (the −xi·Fi term of yr), and one row fewer copied at each
+# group's ragged edge.
 MUTATIONS = [
     ("dft_rows", "dropped imaginary term",
-     ("acc_r[u][v] = fmaf(xr[u], mr[v], fmaf(-xi[u], mi[v], acc_r[u][v]));",
-      "acc_r[u][v] = fmaf(xr[u], mr[v], acc_r[u][v]);")),
+     ("load_rows(neg_fi, L.ldb, a.m3i, n, k, a.vec_op);", "")),
     ("dft_rows", "off-by-one on the ragged input edge",
-     ("const bool in = gr < M && gc < n_in;",
-      "const bool in = gr < M && gc < n_in - 1;")),
+     ("const int nrows = min(G, a.slabs - grp * G);",
+      "const int nrows = min(G, a.slabs - grp * G - 1);")),
     ("fused_core", "dropped imaginary term",
      ("cr[u] = fmaf(wr, ar, fmaf(-wi, ai, cr[u]));",
       "cr[u] = fmaf(wr, ar, cr[u]);")),
@@ -448,7 +488,30 @@ def test_emulated_mutations_are_caught(tmp_path, monkeypatch, mutation):
         args = _core_inputs(CORE_CASES[1], seed=1)
         ref = engine.fused_core_plain(*args)
         outs = engine._launch_core(lib, *args, None)
-    assert max(_rel_err(a, r) for a, r in zip(outs, ref)) > 2e-4
+    assert _caught(outs, ref, 2e-4)
+
+
+# One TF32 pass: the two small terms of 3xTF32 (tc_common.cuh) dropped.
+ONE_PASS_TF32 = (
+    "tc_common.cuh",
+    "mma_tf32(d, a.lo, b.hi);\n    mma_tf32(d, a.hi, b.lo);\n", "")
+
+
+def test_emulated_one_pass_tf32_is_caught(tmp_path):
+    """f32 runs three TF32 products (3xTF32); keeping only hi·hi, one TF32
+    pass, misses the f32 tolerance (about 4× over it) at a depth of 2·104
+    (cdft 100 → 45), which the unmutated kernel holds."""
+    case = ROW_CASES[2]
+    outs, ref = _run_rows(
+        build.load_dft_rows_library(_compile(tmp_path, "dft_rows")), case,
+        "float32")
+    assert not _caught(outs, ref, 2e-4)
+    mutated = tmp_path / "one_pass"
+    mutated.mkdir()
+    lib = build.load_dft_rows_library(
+        _compile(mutated, "dft_rows", header_mutation=ONE_PASS_TF32))
+    outs, ref = _run_rows(lib, case, "float32")
+    assert _caught(outs, ref, 2e-4)
 
 
 # Per-mode weights [O,H,k_1..k_R]: the odd extents at ranks 1–3 and a
@@ -603,7 +666,7 @@ def test_emulated_per_mode_mutations_are_caught(tmp_path, monkeypatch,
             outs = engine._launch_wgrad(lib, x, gz, m["wgrad"], spatial,
                                         modes, None, per_mode=True)
             refs = engine.fused_wgrad_plain(x, gz, m["wgrad"], per_mode=True)
-    assert max(_rel_err(a, r) for a, r in zip(outs, refs)) > 2e-4
+    assert _caught(outs, refs, 2e-4)
 
 
 def test_emulated_per_mode_waves_of_16_block_clusters(emulated,

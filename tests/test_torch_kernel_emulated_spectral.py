@@ -11,8 +11,9 @@ card, and compared with the kernels' plain PyTorch versions: the complex
 product at ragged and tile-crossing shapes, the wgrad kernel without its
 bypass phase with shared and per-mode weights at ranks 1–3, and the bare
 block kernel with the adjoint bundle and the weights' transposed view.
-Mutated copies (a sign flipped in the product's imaginary cross term, a
-dropped conj in the bypass-free dW) must fail the same comparisons. The
+Mutated copies (a sign flipped in the product's imaginary cross term, one
+TF32 pass in place of three, a dropped conj in the bypass-free dW) must
+fail the same comparisons. The
 card itself is checked by tests/test_torch_kernel_gpu.py and chip_smoke.py.
 """
 import shutil
@@ -29,18 +30,24 @@ from repro_torch.kernels import cgemm as cgemm_k
 
 EMULATION = Path(__file__).resolve().parent / "cuda_emulation"
 
-# (M, K, N): ragged everywhere, one more than a tile in every direction
-# (64×64 outputs, 16 deep), and a tall K against few outputs.
-CGEMM_CASES = [(37, 19, 23), (65, 17, 129), (8, 130, 70)]
+# (M, K, N): ragged everywhere, one more than a tile in every direction,
+# a tall K against few outputs (A resident in shared memory), then K past
+# a block's shared memory (K walked in chunks, the last ragged: 2 in f32;
+# 4 in f32 and 2 in bf16), and M in two slices with K chunked in f32.
+CGEMM_CASES = [(37, 19, 23), (65, 17, 129), (8, 130, 70), (16, 700, 20),
+               (8, 1200, 24), (130, 257, 129)]
 # (spatial, modes, B, H, O): the odd extents at ranks 1–3 and clusters of
 # 16 blocks with one hidden channel each.
 CASES = [((64,), (17,), 2, 8, 6), ((16, 32), (5, 9), 2, 8, 6),
          ((8, 8, 16), (3, 3, 5), 2, 8, 6), ((12, 20), (4, 6), 2, 16, 16)]
 
 
-def _compile(out: Path, name: str, mutation=None) -> Path:
+def _compile(out: Path, name: str, mutation=None,
+             header_mutation=None) -> Path:
     """Compile csrc/<name>.cu for the CPU; `mutation` (old, new) replaces
-    one exact piece of the source first."""
+    one exact piece of the source first, `header_mutation` (header, old,
+    new) one of a shared header, whose mutated copy is compiled beside the
+    source."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the kernel source for the CPU")
@@ -48,6 +55,11 @@ def _compile(out: Path, name: str, mutation=None) -> Path:
     if mutation is not None:
         assert src.count(mutation[0]) == 1, mutation[0]
         src = src.replace(mutation[0], mutation[1])
+    if header_mutation is not None:
+        header, old, new = header_mutation
+        text = (build.CSRC / header).read_text()
+        assert text.count(old) == 1, old
+        (out / header).write_text(text.replace(old, new))
     decl = "extern __shared__ float smem[];"
     assert src.count(decl) == 1
     cpp = out / f"{name}.cpp"
@@ -86,6 +98,12 @@ def _rel_err(y, ref) -> float:
     return float((y - ref).abs().max()) / max(float(ref.abs().max()), 1.0)
 
 
+def _caught(outs, refs, tol) -> bool:
+    """A mutation is caught where an output misses its reference by more
+    than `tol` or is not finite."""
+    return any(not _rel_err(a, r) <= tol for a, r in zip(outs, refs))
+
+
 def _planes(m, k, n, seed):
     rng = np.random.default_rng(seed)
     mk = lambda *s: torch.tensor(rng.normal(size=s), dtype=torch.float32)
@@ -109,6 +127,28 @@ def test_emulated_cgemm_matches_plain(emulated_cgemm, case, dtype):
         assert a.dtype == tdt and tuple(a.shape) == (m, n)
         assert _rel_err(a, r) <= tol
         assert _rel_err(a, r16) <= (2e-4 if dtype == "float32" else 1e-2)
+
+
+def test_emulated_cgemm_plan_switches_at_the_budget(emulated_cgemm):
+    """A stays resident in shared memory (one K chunk) at the FNO's shapes,
+    (128,128) f32 included (both planes of 128 rows, 135 KB: 205 KB of a
+    block's 232 KB with two strips of B and C); K is chunked where A and
+    two strips of B do not fit, f32 (130,257) in two slices of 65 rows."""
+    plan = lambda dt, m, k: cgemm_k.plan(emulated_cgemm, dt, m, k)
+    f32, bf16 = torch.float32, torch.bfloat16
+    for dt in (f32, bf16):
+        for m in (64, 128):
+            p = plan(dt, m, m)
+            assert (p["slices"], p["chunks"]) == (1, 1), (dt, m, p)
+            assert p["smem"] <= engine._SMEM_LIMIT
+    assert plan(f32, 128, 128)["smem"] == 204_928
+    assert plan(f32, 16, 700)["chunks"] == 2
+    assert plan(bf16, 16, 700)["chunks"] == 1
+    assert plan(f32, 8, 1200)["chunks"] == 4
+    assert plan(bf16, 8, 1200)["chunks"] == 2
+    p = plan(f32, 130, 257)
+    assert (p["slices"], p["rows"], p["chunks"]) == (2, 65, 3)
+    assert plan(bf16, 130, 257)["chunks"] == 1
 
 
 def _inputs(spatial, modes, b, h, o, per_mode, seed):
@@ -180,8 +220,7 @@ def test_emulated_bare_adjoint_matches_plain(emulated_block, case,
 # (source, what, (old, new)).
 MUTATIONS = [
     ("cgemm", "sign flipped in the imaginary cross term",
-     ("acc_i[u][v] = fmaf(xr[u], yi[v], fmaf(xi[u], yr[v], acc_i[u][v]));",
-      "acc_i[u][v] = fmaf(xr[u], yi[v], fmaf(-xi[u], yr[v], acc_i[u][v]));")),
+     ("rr[0][j][e] -= ii[0][j][e];", "rr[0][j][e] += ii[0][j][e];")),
     ("fused_wgrad", "dropped conj in the bypass-free dW",
      ("wsb[O * H + (o0 + o) * H + hc] = -si;  // conj",
       "wsb[O * H + (o0 + o) * H + hc] = si;")),
@@ -206,4 +245,23 @@ def test_emulated_mutations_are_caught(tmp_path, mutation):
                                     mats, spatial, modes, None,
                                     with_bypass=False)
         refs = engine.fused_wgrad_plain(x, gz, mats, with_bypass=False)
-    assert max(_rel_err(a, r) for a, r in zip(outs, refs)) > 2e-4
+    assert _caught(outs, refs, 2e-4)
+
+
+def test_emulated_cgemm_one_pass_tf32_is_caught(tmp_path):
+    """f32 runs three TF32 products (3xTF32); one TF32 pass (the two small
+    terms of tc_common.cuh dropped) misses the f32 tolerance at K = 130,
+    where the unmutated kernel holds it."""
+    planes = _planes(*CGEMM_CASES[2], seed=5)
+    refs = cgemm_k.cgemm_plain(*planes)
+    good = cgemm_k._launch(
+        build.load_cgemm_library(_compile(tmp_path, "cgemm")), *planes, None)
+    assert max(_rel_err(a, r) for a, r in zip(good, refs)) <= 2e-4
+    mutated = tmp_path / "one_pass"
+    mutated.mkdir()
+    lib = build.load_cgemm_library(_compile(
+        mutated, "cgemm", header_mutation=(
+            "tc_common.cuh",
+            "mma_tf32(d, a.lo, b.hi);\n    mma_tf32(d, a.hi, b.lo);\n", "")))
+    outs = cgemm_k._launch(lib, *planes, None)
+    assert _caught(outs, refs, 2e-4)

@@ -2,14 +2,16 @@
 against their plain PyTorch versions: ranks 1–3, the block forward and the
 three backward launches (gz recompute, dx adjoint, wgrad), the bare
 spectral layer (no bypass), the partial variant's rdft / cdft / irdft and
-core launches (rank 3's outer transforms through the per-axis factors), f32 (relative 2e-4) and bf16 (2e-2 against the f32 plain
-version), the launch counter, the fused model (both variants) against the
+core launches (rank 3's outer transforms through the per-axis factors;
+cdft across its row groups), f32 (relative 2e-4) and bf16 (2e-2 against
+the f32 plain version), the launch counter, the fused model (both variants) against the
 staged path, and one fused training step of each variant against the
 staged one; then the per-mode modes of the block, wgrad and core kernels
 (weights [O,H,k_1..k_R]) at ranks 1–3 and at fno2d-large's width, and a
 per-mode fused training step; then the spectral-only path's launches (the
 bare layer's dx, the bypass-free wgrad, shared and per-mode, counted
-"spectral_dx" and "spectral_wgrad"), the complex product ``cgemm``, and a
+"spectral_dx" and "spectral_wgrad"), the complex product ``cgemm`` (A
+resident and K chunked), and a
 spectral-only (``fuse_block`` off) training step of each variant; then
 fno3d at full width (hidden 32, 64³, modes 16³: clusters of 16, 3 s_1 rows
 per forward-chain chunk) — every launch of its fused designs against the
@@ -609,6 +611,64 @@ def test_cgemm_kernel_matches_plain(cuda, mkn, dtype):
     assert engine.LAUNCHES[("cgemm", dtype)] == before + 1
     for a, r in zip(out, ref):
         assert a.dtype == tdt and a.is_cuda and a.shape == (m, n)
+        assert _rel_err(a, r) <= (2e-4 if dtype == "float32" else 2e-2)
+
+
+# cdft on the row machinery, the operand resident: (kind, rows, n, k) with
+# the wrapper's cap (64 rows in f32, 128 in bf16) — fno2d's s_1 rows over
+# a group boundary (129 rows: the last group holds one), one row, and rows
+# of odd extents over several groups a block.
+_CDFT_GROUPS = [("cdft", 129, 128, 32), ("icdft", 129, 128, 32),
+                ("cdft", 1, 128, 32), ("icdft", 1, 100, 45),
+                ("cdft", 40_000, 100, 45), ("icdft", 40_000, 37, 9)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", _CDFT_GROUPS, ids=str)
+def test_cdft_groups_match_plain(cuda, case, dtype):
+    """One launch counted "cdft" per call, f32 within 2e-4 of the plain
+    version (3xTF32 on the tensor cores), bf16 within 2e-2 of the f32 one."""
+    kind, rows, n, k = case
+    width = n if kind == "cdft" else k
+    gen = torch.Generator().manual_seed(rows + n)
+    xr, xi = [torch.randn(rows, width, generator=gen).to(cuda)
+              for _ in range(2)]
+    ops = {d: spectral.row_operand_tensors(kind, (n,), (k,), d, cuda)
+           for d in ("float32", dtype)}
+    ref = dft.cdft_plain(xr, xi, *ops["float32"])
+    tdt = getattr(torch, dtype)
+    assert dft.max_group(kind, tdt, 1, False) == (
+        64 if dtype == "float32" else 128)
+    before = engine.LAUNCHES[("cdft", dtype)]
+    got = dft.cdft(xr.to(tdt), xi.to(tdt), *ops[dtype])
+    torch.cuda.synchronize()
+    assert engine.LAUNCHES[("cdft", dtype)] == before + 1
+    for a, b in zip(got, ref):
+        assert a.dtype == tdt and a.shape == b.shape
+        assert _rel_err(a, b) <= (2e-4 if dtype == "float32" else 2e-2)
+
+
+# The complex product on both sides of its switch from A resident in
+# shared memory to K walked in chunks (M = 128: K 144 / 152 in f32, 288 /
+# 296 in bf16), N ragged against the 16-column strips.
+_CGEMM_SWITCH = {"float32": ((128, 144, 4100), (128, 152, 4100)),
+                 "bfloat16": ((128, 288, 4100), (128, 296, 4100))}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("side", [0, 1], ids=["resident", "k_chunked"])
+def test_cgemm_both_sides_of_the_k_chunk_switch(cuda, side, dtype):
+    m, k, n = _CGEMM_SWITCH[dtype][side]
+    tdt = getattr(torch, dtype)
+    assert cgemm_k.plan(build.load_cgemm(), tdt, m, k)["chunks"] == side + 1
+    gen = torch.Generator().manual_seed(k)
+    planes = [torch.randn(s, generator=gen).to(cuda)
+              for s in ((m, k), (m, k), (k, n), (k, n))]
+    ref = cgemm_k.cgemm_plain(*planes)
+    out = cgemm_k.cgemm(*[p.to(tdt) for p in planes])
+    torch.cuda.synchronize()
+    for a, r in zip(out, ref):
+        assert a.dtype == tdt and a.shape == (m, n)
         assert _rel_err(a, r) <= (2e-4 if dtype == "float32" else 2e-2)
 
 

@@ -394,20 +394,24 @@ def _chip_smoke():
 
 def test_chip_smoke_bounds_count_per_mode_weights():
     """fno2d-large block forward, f32, B=8: the least operations (FFTs,
-    CGEMM, bypass: 6.54 GFLOP) take 0.0977 ms at 67 TFLOP/s; x, y and W
+    CGEMM, bypass: 6.54 GFLOP) take 0.0397 ms at the f32 rate of three
+    TF32 passes (165 TFLOP/s; 0.0977 ms on the CUDA cores' 67); x, y and W
     (counted once at 2·O·H·ΠK) take 0.0801 ms at 3.35 TB/s, and wb, bias
-    and the DFT operands add 0.1 % to that. The shared-weight count would
-    leave 134 MB of W out."""
+    and the DFT operands add 0.1 % to that, so the bytes bound it. The
+    shared-weight count would leave 134 MB of W out."""
     cs = _chip_smoke()
     shape = (8, 128, 128, (128, 128), (32, 32), 4, cs.PEAK_F32_FLOPS)
     t_bytes, t_ops = cs.bound_parts("block_fwd", *shape, per_mode=True)
-    assert round(t_ops, 4) == 0.0977
+    assert round(t_ops, 4) == 0.0397
+    _, t_ffma = cs.bound_parts("block_fwd", *shape[:6], cs.PEAK_FFMA_FLOPS,
+                               per_mode=True)
+    assert round(t_ffma, 4) == 0.0977
     act, w = 2 * 8 * 128 * 128 * 128, 2 * 128 * 128 * 1024
     assert round(4e3 * (act + w) / cs.PEAK_BYTES, 4) == 0.0801
     extra = 128 * 128 + 128 + 4 * 2 * 128 * 32  # wb, bias, 4 operands
     assert t_bytes == pytest.approx(4e3 * (act + w + extra) / cs.PEAK_BYTES)
-    assert cs.bound_ms("block_fwd", *shape, per_mode=True) == (t_ops,
-                                                               "operations")
+    assert cs.bound_ms("block_fwd", *shape, per_mode=True) == (t_bytes,
+                                                               "bytes")
     shared_bytes, _ = cs.bound_parts("block_fwd", *shape)
     assert t_bytes - shared_bytes == pytest.approx(
         4e3 * 2 * 128 * 128 * 1023 / cs.PEAK_BYTES)
