@@ -40,6 +40,8 @@ fatal:
      steps after the 20 above, peak device memory; then CUDA events at
      fno2d B=8 for each backward launch beside its plain version, the
      staged torch.fft block's autograd backward (a yardstick) and its bound;
+     for the wgrad also the staged yardstick ``wgrad_staged`` (rfftn of x
+     and gz, truncation, einsum, matmul, sum; queued);
   8. kernel vs plain, partial launches — the row kernels (rdft, cdft with
      the forward and the padded-inverse operand, irdft; at rank 3 rdft and
      irdft are ``dft.outer_rdft`` / ``outer_irdft`` with the per-axis
@@ -84,7 +86,7 @@ fatal:
      falls over 20 steps, 30 timed steps and peak device memory;
   15. times, per-mode — CUDA events at fno2d-large B=8 for each per-mode
      launch beside its plain version and its bound (W counted once at
-     2·O·H·ΠK), the row kernels at hidden 128 (checked against the f32
+     2·O·H·ΠK; the wgrad also beside ``wgrad_staged``), the row kernels at hidden 128 (checked against the f32
      plain version, timed queued beside it, ``torch.fft`` and the bound)
      and the served block forward
      in both variants; and the bare spectral layer (the rank-1 partial
@@ -146,6 +148,8 @@ fatal:
      versions (rdft and irdft queued), the row launches' torch.fft call
      or, for a fused launch,
      the staged torch.fft block or layer (a yardstick), and their bounds;
+     the wgrads also beside ``wgrad_staged`` (with and without the bypass)
+     and the wgrad at B=1 and B=7 (one wave of clusters of 16);
   24. fused ends vs plain — the block kernel's ends mode (the lifting MLP
      folded into the first block, the projection MLP into the last; one
      launch with both for a 1-layer model) against its plain version at
@@ -451,6 +455,38 @@ def time_ms(fn, iters: int, warmup: int = 3, queued: bool = False) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def wgrad_staged(torch, x, gz, modes, per_mode=False, bypass=True):
+    """The weight gradients as staged PyTorch calls on f32 copies of x and
+    gz (a yardstick for row 2; the port never calls it): ``rfftn`` of both
+    over the spatial axes, each axis truncated to its first modes, the
+    ``einsum`` for dW (summed over the modes for shared W, per mode
+    otherwise), and with the bypass one ``tensordot`` (a matmul over batch
+    and points) for dW_b and a sum for dbias."""
+    r = x.dim() - 2
+    axes = tuple(range(2, 2 + r))
+    keep = (Ellipsis,) + tuple(slice(0, k) for k in modes)
+    eq = "bo...,bh...->oh..." if per_mode else "bo...,bh...->oh"
+    x32, g32 = x.float(), gz.float()
+    xs = x32.reshape(x.shape[0], x.shape[1], -1)
+    gs = g32.reshape(gz.shape[0], gz.shape[1], -1)
+
+    def run():
+        a = torch.fft.rfftn(x32, dim=axes)[keep]
+        g = torch.fft.rfftn(g32, dim=axes)[keep]
+        out = [torch.einsum(eq, g, a)]
+        if bypass:
+            out += [torch.tensordot(gs, xs, dims=([0, 2], [0, 2])),
+                    gs.sum(dim=(0, 2))]
+        return out
+    return run
+
+
+def staged_wgrad_ms(torch, x, gz, modes, per_mode=False, bypass=True):
+    """Device ms of ``wgrad_staged``, queued behind a spin on the card."""
+    return time_ms(wgrad_staged(torch, x, gz, modes, per_mode, bypass), 10,
+                   queued=True)
 
 
 def block_inputs(b, h, o, spatial, seed, device):
@@ -958,6 +994,9 @@ def phase_train_times(torch, np, engine, spectral, ops, configs, batch,
         y = ops.fno_block_nd(*leaves, modes, path="ref")
         bwd_ms = time_ms(lambda: torch.autograd.grad(
             y, leaves, gy, retain_graph=True), 10)
+        staged_ms = staged_wgrad_ms(torch, x, gz, modes)
+        log(f"  {dt} wgrad staged (rfftn, einsum, matmul, sum; f32 copies, "
+            f"queued): {staged_ms:.4f} ms")
         for kind in BACKWARD:
             kms = time_ms(lambda: launch[kind](False), 20)
             pms = time_ms(lambda: launch[kind](True), 10)
@@ -977,7 +1016,9 @@ def phase_train_times(torch, np, engine, spectral, ops, configs, batch,
                 "tol": F32_TOL if dt == "float32" else BF16_TOL,
                 "ms": kms, "plain_ms": pms, "bound_ms": bms,
                 "bound_by": by, "library_ms": None,
-                "torch_fft_bwd_ms": bwd_ms})
+                "torch_fft_bwd_ms": bwd_ms,
+                **({"torch_staged_ms": staged_ms} if kind == "wgrad"
+                   else {})})
     log(f"  max_memory_allocated={torch.cuda.max_memory_allocated()} B")
     return stats, rows
 
@@ -1462,6 +1503,9 @@ def phase_large_times(torch, engine, spectral, dft, ops, configs, sfs,
                 *cins, *core_ops[dt])
         sources = {"wgrad": (WGRAD_SOURCE, WGRAD_REPLACES),
                    "core": (CORE_SOURCE, PARTIAL_REPLACES["core"])}
+        staged_ms = staged_wgrad_ms(torch, x, gz, modes, per_mode=True)
+        log(f"  {dt} wgrad per-mode staged (rfftn, einsum, matmul, sum; f32 "
+            f"copies, queued): {staged_ms:.4f} ms")
         for kind, fn in launch.items():
             kms = time_ms(lambda: fn(False), 10)
             pms = time_ms(lambda: fn(True), 5)
@@ -1491,7 +1535,9 @@ def phase_large_times(torch, engine, spectral, dft, ops, configs, sfs,
                 "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
                 "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
                 "library_ms": None,
-                "library_note": "no single PyTorch call computes it"})
+                "library_note": "no single PyTorch call computes it",
+                **({"torch_staged_ms": staged_ms} if kind == "wgrad"
+                   else {})})
         for kind in ("rdft", "irdft"):  # the row kernels at hidden 128
             fn, plain, ins, rmats = row_cases[kind]
             a, m = [v.to(tdt) for v in ins], rmats[dt]
@@ -2209,6 +2255,14 @@ def phase_fno3d_times(torch, engine, spectral, dft, ops, configs, errs,
         waves = {f"ms_b{n}": time_ms(lambda: engine.fused_block(
             x[:n], wr, wi, wb, bias, mats["forward"]), 10) for n in (1, 7)}
         log(f"  {dt} block_fwd fno3d by batch: {waves}")
+        # The wgrad at B=1 and B=7 (one wave), and its staged yardstick
+        # with and without the bypass.
+        wwaves = {f"ms_b{n}": time_ms(lambda: engine.fused_wgrad(
+            x[:n], gz[:n], mats["wgrad"]), 10) for n in (1, 7)}
+        staged = {k: staged_wgrad_ms(torch, x, g, modes, bypass=k == "wgrad")
+                  for k, g in (("wgrad", gz), ("spectral_wgrad", gy))}
+        log(f"  {dt} wgrad fno3d by batch: {wwaves}; staged (f32 copies, "
+            f"queued): {staged}")
         for kind, fn in launch.items():
             kms = time_ms(lambda: fn(False), 10)
             pms = time_ms(lambda: fn(True), 3)
@@ -2250,7 +2304,9 @@ def phase_fno3d_times(torch, engine, spectral, dft, ops, configs, errs,
                 "library_note": "no single PyTorch call computes it",
                 ("torch_fft_layer_ms" if kind in SPECTRAL
                  else "torch_fft_ms"): fft,
-                **(waves if kind == "block_fwd" else {})})
+                **(waves if kind == "block_fwd" else {}),
+                **(wwaves if kind == "wgrad" else {}),
+                **({"torch_staged_ms": staged[kind]} if wgrad else {})})
         del args, gz, launch
     rows += fno3d_partial_times(torch, engine, spectral, dft, configs, errs,
                                 serve_counts, train_counts)

@@ -42,18 +42,14 @@
 
 namespace {
 
+using tc::align128;
+using tc::aligned16;
+using tc::pad_to;
+
 constexpr int kBN = 16;           // columns of a strip
 constexpr int kMaxRows = 128;     // rows of A a block keeps
 constexpr int kMaxThreads = 2 * kMaxRows;  // one warp a 16-row tile
 constexpr int kSmemSlack = 128;   // the base rounded up to 128 bytes
-
-__host__ __device__ constexpr int pad_to(int v, int m) {
-  return (v + m - 1) / m * m;
-}
-
-__host__ __device__ constexpr long long align128(long long v) {
-  return (v + 127) / 128 * 128;
-}
 
 // The blocks' plan: M in `slices` of ms rows (msp padded to 16), K in nk
 // chunks of kc (kcp padded to the tensor cores' depth); shared memory (byte
@@ -252,10 +248,6 @@ __global__ void __launch_bounds__(kMaxThreads) cgemm_kernel(const Args<T> a) {
     }
     __syncthreads();  // buffers s & 1 and C free for the next copies
   }
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <typename T>

@@ -75,9 +75,14 @@ namespace {
 
 using fno::ld;
 using fno::st;
+using tc::align128;
+using tc::aligned16;
 using tc::async_commit;
 using tc::async_wait_one;
+using tc::from_f32;
 using tc::kSmemLimit;
+using tc::pad_to;
+using tc::to_f32;
 
 __device__ __forceinline__ float* dyn_smem() {
   extern __shared__ float smem[];
@@ -92,14 +97,6 @@ constexpr int kRM = 8;         // rows per thread of the FFMA product
 constexpr int kSplit = 4;      // lanes that share one tile of stage B
 constexpr int kMmaTile = 16;  // the tensor-core products' tile
 constexpr int kSmemSlack = 128;     // the base rounded up to 128 bytes
-
-__host__ __device__ constexpr int pad_to(int v, int m) {
-  return (v + m - 1) / m * m;
-}
-
-__host__ __device__ constexpr long long align128(long long v) {
-  return (v + 127) / 128 * 128;
-}
 
 // Shared-memory layout of one block (byte offsets, regions 128-B aligned)
 // and the padded extents of its products.
@@ -222,24 +219,6 @@ struct RowArgs {
   int vec_op;      // cdft: the operand rows are copied in 16-byte pieces
   Layout L;
 };
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // Four outputs from f32 to T at p (16-byte aligned for float, 8 for bf16).
 __device__ __forceinline__ void st4(float* p, float4 v) {
@@ -779,10 +758,6 @@ __global__ void __launch_bounds__(kRowThreads) cdft_kernel(
                static_cast<long long>(g) * G, min(G, a.slabs - g * G), k,
                a.vec_out);
   }
-}
-
-bool aligned16(const void* p) {
-  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 Layout row_layout(int kind, int esize, bool outer, int g, int n2, int n3,

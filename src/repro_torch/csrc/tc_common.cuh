@@ -1,6 +1,8 @@
-// Helpers shared by the row DFT kernels (dft_rows.cu) and the complex
-// product (cgemm.cu): 16-byte cp.async copies into shared memory, products
-// on the tensor cores, and the resident blocks of a persistent launch.
+// Helpers shared by the row DFT kernels (dft_rows.cu), the complex product
+// (cgemm.cu) and the tensor-core DFT chain (chain_tc.cuh, fused_wgrad.cu):
+// padding and alignment, element conversions, 16-byte cp.async copies into
+// shared memory, products on the tensor cores, and the resident blocks of
+// a persistent launch.
 //
 // Tensor-core products (mma.sync, f32 accumulate), one warp's tile of
 // 16-row by 8-column pieces from operands in shared memory. bf16 runs the
@@ -43,6 +45,36 @@ namespace tc {
 
 constexpr int kSmemLimit = 232448;  // dynamic shared memory of a block
 constexpr int kTile = 16;           // rows of one tensor-core product
+
+__host__ __device__ constexpr int pad_to(int v, int m) {
+  return (v + m - 1) / m * m;
+}
+
+__host__ __device__ constexpr long long align128(long long v) {
+  return (v + 127) / 128 * 128;
+}
+
+__host__ __device__ inline bool aligned16(const void* p) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T v);
+template <>
+__device__ __forceinline__ float to_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
 
 // 16 bytes from device to shared memory, asynchronously (cp.async; a plain
 // copy where the source is compiled for the host).
@@ -198,6 +230,20 @@ __device__ __forceinline__ void load_b(unsigned (&b)[2],
   b[0] = e[0] | static_cast<unsigned>(e[1]) << 16;
   b[1] = e[2] | static_cast<unsigned>(e[3]) << 16;
 #endif
+}
+
+// The B fragment of the depth × 8 tile whose transpose is at p (row-major
+// [n][k], rows ld apart: B column g is row g of p): TF32 (t, g), (t + 4,
+// g); bf16 the pairs (2t, 2t + 1) and (2t + 8, 2t + 9) of column g, each
+// one 32-bit load.
+template <typename T>
+__device__ __forceinline__ void load_bt(unsigned (&b)[2], const T* p,
+                                        int ld) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  constexpr int kStep = std::is_same<T, float>::value ? 1 : 2;
+  const T* q = p + g * ld + kStep * t;
+  b[0] = lds32(q);
+  b[1] = lds32(q + 4 * kStep);
 }
 
 // An operand fragment as the products take it: bf16 as loaded (lo

@@ -119,6 +119,8 @@ def load_wgrad_library(path: Path) -> ctypes.CDLL:
     lib.fused_wgrad.restype = i
     lib.fused_wgrad_max_clusters.argtypes = [i, i, i, i, ctypes.POINTER(i)]
     lib.fused_wgrad_max_clusters.restype = i
+    lib.fused_wgrad_smem.argtypes = [i, i, vp, vp]
+    lib.fused_wgrad_smem.restype = ctypes.c_longlong
     lib.fused_wgrad_error_string.argtypes = [i]
     lib.fused_wgrad_error_string.restype = ctypes.c_char_p
     return lib

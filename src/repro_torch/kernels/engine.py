@@ -96,7 +96,16 @@ _THREADS = 512     # kThreads in csrc/fno_common.cuh
 _TP = 4            # kTP: outputs per thread of a non-accumulating stage
 _PTS = 2           # kPts: points per thread of the bypass epilogue
 _MAX_OUT = 8       # kMaxOut: out channels per block of a cluster
-_WGRAD_COLS = 128  # points per chunk of the wgrad kernel's dW_b reduction
+_WGRAD_COLS = 256  # the most points per chunk of the wgrad kernel's dW_b
+_WGRAD_FLAG = 128  # kFlag: bytes before the wgrad kernel's spectra
+# The most s_1 rows per chunk of the wgrad kernel's chains by rank (rank 1:
+# points, a multiple of 16), and the 16 × 8 tiles its warps hold in
+# registers: kMaxAcc a warp of a chain's accumulating stage, kMaxPT of the
+# dW_b product (csrc/chain_tc.cuh, csrc/fused_wgrad.cu).
+_WGRAD_ROWS = {1: 64, 2: 64, 3: 8}
+_WARPS = _THREADS // 32
+_MAX_ACC = 4
+_MAX_PT = 9
 _PORTABLE_CLUSTER = 8  # cluster size every Hopper part schedules
 _MAX_CLUSTER = 16  # Hopper's non-portable cluster size
 _SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block can use
@@ -407,38 +416,118 @@ def wgrad_plan(hidden: int, out: int, spatial: Sequence[int],
                modes: Sequence[int], max_cluster: int = _PORTABLE_CLUSTER,
                per_mode: bool = False) -> Dict[str, int]:
     """The weight-gradient kernel's cluster size, channel slices, chunk
-    sizes, work area (floats) and shared memory, at clusters of up to
-    `max_cluster` blocks or of 16 when those cannot hold the shape; raises
-    ValueError for shapes it cannot hold. With per-mode weights the work
-    area also stages the batch's Ĝ over a chunk of modes in the batch
-    reduction (``wgrad_mode_chunk``)."""
-    return _grow(_wgrad_plan, max_cluster, hidden, out, spatial, modes,
-                 per_mode)
+    sizes and shared memory, at clusters of up to `max_cluster` blocks or of
+    16 when those cannot hold the shape; raises ValueError for shapes it
+    cannot hold. "rows_f" is the s_1 rows of a chain's chunk (rank 1: its
+    points), the most up to ``_WGRAD_ROWS`` that fit beside the spectra;
+    "cols" the points of a dW_b chunk, the most up to ``_WGRAD_COLS`` whose
+    double buffer fits the shared memory the chains take (at least 64 KB);
+    "work" the floats after the flag that the per-mode batch reduction
+    stages Ĝ in (``wgrad_mode_chunk``). Sized for f32 operands: bf16 ones
+    take no more. Planned once per shape (every launch asks)."""
+    return dict(_grow(_wgrad_plan, max_cluster, hidden, out, tuple(spatial),
+                      tuple(modes), per_mode))
 
 
+def _pad(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _chain_bytes(esize, spatial, modes, rows, nch):
+    """(bytes, accumulating tiles) of the wgrad chain's work area:
+    ``chain::layout`` and ``chain::acc_tiles`` of csrc/chain_tc.cuh."""
+    r = len(spatial)
+    n, k = list(spatial), list(modes)
+    dep, xpad = (16, 8) if esize == 2 else (8, 4)
+    ha = _pad(k[-1], 8)
+    ldfa = 2 * ha + 8
+    if r == 1:
+        xrows = _pad(nch, 16)
+        da = _pad(rows, dep)
+        xb = _pad(xrows * (da + xpad) * esize, 128)
+        fb = _pad(da * ldfa * esize, 128)
+        return 2 * xb + 2 * fb, (xrows // 16) * (2 * ha // 8)
+    da = _pad(n[-1], dep)
+    xrows = _pad(rows * n[1] if r == 3 else rows, 16)
+    h1 = _pad(k[0], 8)
+    mz = _pad((k[1] if r == 3 else 1) * ha, 16)
+    parts = [da * ldfa * esize, xrows * (da + xpad) * esize,
+             xrows * (da + xpad) * esize, 4 * _pad(n[0], 4) * (2 * h1 + 8),
+             4 * _pad(rows + 3, 4) * (2 * mz + 8)]
+    ta = (xrows // 16) * (2 * ha // 8)
+    split = (_depth_splits(ta, da // dep) - 1) * ta
+    if r == 3:
+        d2, h2, mb = _pad(n[1], 4), _pad(k[1], 8), _pad(rows * ha, 16)
+        parts += [4 * d2 * (2 * h2 + 8), 4 * d2 * (2 * mb + 8)]
+        tb = (mb // 16) * (2 * h2 // 8)
+        split = max(split, (_depth_splits(tb, d2 // 4) - 1) * tb)
+    parts.append(512 * split)
+    return sum(_pad(p, 128) for p in parts), (mz // 16) * (2 * h1 // 8)
+
+
+def _depth_splits(tiles: int, steps: int) -> int:
+    """Warps that split each of a chain stage's tiles (``depth_splits``)."""
+    return 1 if tiles >= _WARPS else min(_WARPS // tiles, steps)
+
+
+def _wgrad_bytes(esize, hidden, out, spatial, modes, hs, os_, rows, cols,
+                 bypass=True):
+    """(shared-memory bytes, chain tiles, dW_b tiles) of a wgrad launch:
+    ``wgrad_layout`` of csrc/fused_wgrad.cu."""
+    kk = 1
+    for m in modes:
+        kk *= m
+    work = _pad(_WGRAD_FLAG + 4 * 2 * (hs + os_) * (kk + 1), 128)
+    chain, chain_tiles = _chain_bytes(esize, spatial, modes, rows,
+                                      max(hs, os_))
+    nbytes = work + chain
+    om, hn = _pad(out, 16), _pad(hidden + 1, 8)
+    ldp = cols + (8 if esize == 2 else 4)
+    tiles = (om // 16) * (hn // 8)
+    splits = 1 if tiles >= _WARPS else _WARPS // tiles
+    if bypass:
+        g = _pad(om * ldp * esize, 128)
+        x = _pad(hn * ldp * esize, 128)
+        part = _pad(4 * out * (hidden + 1), 128)
+        spl = 4 * splits * tiles * 128 if splits > 1 else 0
+        nbytes = max(nbytes, _WGRAD_FLAG + 2 * g + 2 * x,
+                     _WGRAD_FLAG + part + spl)
+    return nbytes, chain_tiles, tiles
+
+
+@functools.lru_cache(maxsize=64)
 def _wgrad_plan(hidden, out, spatial, modes, per_mode, max_cluster):
     if hidden > _THREADS:
         raise ValueError(f"fused wgrad kernel takes at most {_THREADS} "
                          f"hidden channels, got {hidden}")
     cl, hs, os_ = _cluster_slices(hidden, out, max_cluster)
-    kk = 1
-    for m in modes:
-        kk *= m
+    r = len(spatial)
     pts = 1
     for s in spatial:
         pts *= s
-    cols = min(pts, _WGRAD_COLS)
-    groups = _THREADS // hidden  # mode / point groups per hidden channel
-    rest = max(0 if per_mode else 2 * groups * os_ * hidden,
-               hidden * (cols + 1) + os_ * cols,
-               groups * os_ * hidden + groups * os_)
-    base = 2 * (hs + os_) * (kk + 1) + 4
-    rows_f, smem = _fit_rows(spatial, modes, lambda rf: 4 * (
-        base + max(_chain_work(spatial, modes, rf), rest)))
-    work = max(_chain_work(spatial, modes, rows_f), rest)
+    at = lambda rows, cols, bypass=True: _wgrad_bytes(
+        4, hidden, out, spatial, modes, hs, os_, rows, cols, bypass)
+    step = 16 if r == 1 else 1
+    rows = min(_pad(spatial[0], step), _WGRAD_ROWS[r])
+    while rows > step and at(rows, 16, False)[0] > _SMEM_LIMIT:
+        rows -= step
+    chains = at(rows, 16, False)[0]
+    share = max(16, _pad(-(-pts // cl), 16))  # a block's points, padded
+    cols = 16
+    for c in (_WGRAD_COLS, 128, 64, 32):
+        if c <= share and at(rows, c)[0] <= max(chains, 65536):
+            cols = c
+            break
+    smem, chain_tiles, tiles = at(rows, cols)
     _check_smem(smem, "fused wgrad kernel", hidden, out, spatial, modes)
-    return {"cluster": cl, "hs": hs, "os": os_, "rows_f": rows_f,
-            "cols": cols, "work": work, "smem": smem}
+    if chain_tiles > _WARPS * _MAX_ACC or tiles > _WARPS * _MAX_PT:
+        raise ValueError(
+            f"fused wgrad kernel holds at most {_WARPS * _MAX_ACC} chain and "
+            f"{_WARPS * _MAX_PT} dW_b tiles in registers, got {chain_tiles} "
+            f"and {tiles} for hidden={hidden} out={out} modes="
+            f"{tuple(modes)}; this shape needs a tiled kernel")
+    return {"cluster": cl, "hs": hs, "os": os_, "rows_f": rows,
+            "cols": cols, "work": (smem - _WGRAD_FLAG) // 4, "smem": smem}
 
 
 def wgrad_mode_chunk(plan: Dict[str, int], batch: int, modes) -> int:

@@ -22,10 +22,10 @@ fused_wgrad (the weight gradients):
   phase 1 — the forward chain of x and the adjoint-forward chain of gz;
   phase 2 — the dW reduction over distributed shared memory (per-mode:
             the sample's spectra written to the workspace);
-  phase 3 — the dW_b and dbias reductions over the points.
-No variant elides the per-mode wgrad's batch reduction (the last block of
-each cluster rank forming dW of its out slice): it stays in "rest", the
-variant without phases.
+  phase 3 — the dW_b and dbias product over each block's points (the sum
+            of the cluster's partials stays in "rest");
+  phase 4 — the batch reduction of the last block of each cluster rank
+            (per-mode: forming dW of its out slice from the workspace).
 With ``--fuse-ends`` only the block kernel runs, as one launch with both
 model ends (a 1-layer model's; the arch's lift width and channels), and
 two more phases split out:
@@ -52,6 +52,7 @@ from repro_torch.core import spectral
 from repro_torch.kernels import build, engine
 
 PHASES = (1, 2, 3)
+WGRAD_PHASES = PHASES + (4,)
 ENDS_PHASES = PHASES + (4, 5)
 
 
@@ -100,9 +101,11 @@ def main() -> None:
     print(smi)
 
     kernels = ["fused_block"] if args.fuse_ends else list(KERNELS)
-    phases = ENDS_PHASES if args.fuse_ends else PHASES
-    named = variants(phases)
-    jobs = [(k, v, m) for k in kernels for v, m in named.items()]
+    phases = {k: ENDS_PHASES if args.fuse_ends else
+              WGRAD_PHASES if k == "fused_wgrad" else PHASES
+              for k in kernels}
+    named = {k: variants(phases[k]) for k in kernels}
+    jobs = [(k, v, m) for k in kernels for v, m in named[k].items()]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         paths = list(pool.map(
             lambda j: build.build(KERNELS[j[0]][0],
@@ -156,15 +159,16 @@ def main() -> None:
                 run = lambda lib: engine._launch_wgrad(lib, x, gz, mats,
                                                        spatial, modes, stream,
                                                        per_mode)
-            times = {name: [] for name in named}
+            times = {name: [] for name in named[kernel]}
             for rnd in range(args.rounds):
-                order = list(named) if rnd % 2 == 0 else list(named)[::-1]
+                order = (list(times) if rnd % 2 == 0
+                         else list(times)[::-1])
                 for name in order:
                     lib = libs[kernel][name]
                     times[name].append(_time(lambda: run(lib), args.iters))
             med = {k: statistics.median(v) for k, v in times.items()}
             split = {f"phase{i}_ms": med["whole"] - med[f"no_phase{i}"]
-                     for i in phases}
+                     for i in phases[kernel]}
             report[kernel][dt] = {"median_ms": med, **split,
                                   "spread_ms": {k: max(v) - min(v)
                                                 for k, v in times.items()}}

@@ -67,6 +67,9 @@ inline float __uint_as_float(unsigned u) {
   return f;
 }
 inline float __ldcg(const float* p) { return *p; }
+inline unsigned __umulhi(unsigned a, unsigned b) {
+  return static_cast<unsigned>((static_cast<unsigned long long>(a) * b) >> 32);
+}
 inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);

@@ -186,10 +186,10 @@ def test_wgrad_plan_full_width_and_limits():
     assert plan["cols"] == 128 and plan["smem"] <= 232448
     big = engine.wgrad_plan(64, 64, (128, 128), (32, 32), 16)
     assert big["cluster"] == 16 and big["smem"] < plan["smem"]
-    # fno3d at full width plans (clusters of 16, 3 s_1 rows a chunk); 64³
+    # fno3d at full width plans (clusters of 16, 1 s_1 row a chunk); 64³
     # with modes 32³ does not fit even at one row a chunk.
     f3 = engine.wgrad_plan(32, 32, (64, 64, 64), (16, 16, 16))
-    assert f3["cluster"] == 16 and f3["rows_f"] == 3
+    assert f3["cluster"] == 16 and f3["rows_f"] == 1
     assert f3["smem"] <= 232448
     with pytest.raises(ValueError, match="shared memory"):
         engine.wgrad_plan(32, 32, (64, 64, 64), (32, 32, 32))

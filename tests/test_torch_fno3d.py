@@ -2,10 +2,10 @@
 W) on every fused path of ``repro_torch``.
 
 * Launch plans: at full width the block kernel and the wgrad kernel plan
-  clusters of 16 with fewer s_1 rows per forward-chain chunk than the
-  register-filling 8, within a block's shared memory; the plans of fno1d,
-  fno2d and fno2d-large are the ones they always were, field by field; a
-  shape that does not fit even at one row per chunk is refused.
+  clusters of 16 with fewer s_1 rows per forward-chain chunk than they
+  take at most (8), within a block's shared memory; the plans of fno1d,
+  fno2d and fno2d-large are pinned field by field; a shape that does not
+  fit even at one row per chunk is refused.
 * Reduced fno3d models against the JAX reference (``path="pallas"``, its
   Pallas kernels in interpret mode, as its own tests run them): whole-block
   (``fuse_block`` on) and spectral-only (off), full and partial variant,
@@ -75,69 +75,77 @@ def test_plans_hold_fno3d_full_width(kind, per_mode):
     """Clusters of 8 cannot hold fno3d (its spectra alone are 262,144 B a
     block), so both kernels plan clusters of 16 (2 hidden and 2 out
     channels a block, 131,072 B of spectra) and step the forward chain's
-    chunk down from 8 s_1 rows to 3 (a ragged last chunk of 64 = 21·3 + 1)
-    to fit. The plan is the same for f32 and bf16: shared memory holds
-    f32 either way."""
+    chunk down from 8 s_1 rows to fit: the block kernel's to 3 (a ragged
+    last chunk of 64 = 21·3 + 1), the wgrad kernel's tensor-core chain
+    (two input buffers of 64·68 floats a row, its factors resident) to 1,
+    with 256-point chunks of the dW_b product. The plan is sized for f32:
+    bf16 operands take no more."""
     plan_fn = engine.launch_plan if kind == "block" else engine.wgrad_plan
     plan = plan_fn(*FNO3D, per_mode=per_mode)
     assert plan["cluster"] == 16 and plan["hs"] == plan["os"] == 2
     assert engine._chain_rows(FNO3D[2], FNO3D[3]) == 8
-    assert plan["rows_f"] == 3 and plan["smem"] <= SMEM_LIMIT
+    assert plan["smem"] <= SMEM_LIMIT
     assert plan_fn(*FNO3D, 16, per_mode) == plan
     if kind == "block":
-        assert plan["rows_i"] == 1
+        assert plan["rows_f"] == 3 and plan["rows_i"] == 1
         assert plan["smem"] == (211232 if per_mode else 211744)
+        # One more row per chunk would not fit.
+        four = engine._chain_work(FNO3D[2], FNO3D[3], 4)
+        three = engine._chain_work(FNO3D[2], FNO3D[3], 3)
+        assert plan["smem"] + 4 * (four - three) > SMEM_LIMIT
     else:
-        assert plan["smem"] == 210992
-        assert plan["work"] == engine._chain_work(FNO3D[2], FNO3D[3], 3)
-    # One more row per chunk would not fit.
-    four = engine._chain_work(FNO3D[2], FNO3D[3], 4)
-    three = engine._chain_work(FNO3D[2], FNO3D[3], 3)
-    assert plan["smem"] + 4 * (four - three) > SMEM_LIMIT
+        assert plan["rows_f"] == 1 and plan["cols"] == 256
+        assert plan["smem"] == 221568
+        assert plan["work"] == (221568 - 128) // 4
+        # One more row per chunk would not fit.
+        two = engine._wgrad_bytes(4, *FNO3D[:4], 2, 2, 2, 256)
+        assert two[0] > SMEM_LIMIT
 
 
-# The plans every shape of fno1d, fno2d and fno2d-large had before the
-# forward chain's chunk could step down: (hidden, spatial, modes, per_mode,
+# The plans of fno1d, fno2d and fno2d-large (the block kernel's as they
+# were before the forward chain's chunk could step down; the wgrad
+# kernel's of its tensor-core design): (hidden, spatial, modes, per_mode,
 # max_cluster) -> (block plan, wgrad plan).
 _UNCHANGED = {
     "fno1d-8": ((64, (256,), (64,), False, 8), (
         {"cluster": 8, "hs": 8, "os": 8, "rows_f": 256, "rows_i": 256,
          "smem": 22560},
-        {"cluster": 8, "hs": 8, "os": 8, "rows_f": 256, "cols": 128,
-         "work": 9280, "smem": 45456})),
+        {"cluster": 8, "hs": 8, "os": 8, "rows_f": 64, "cols": 32,
+         "work": 21664, "smem": 86784})),
     "fno1d-16": ((64, (256,), (64,), False, 16), (
         {"cluster": 16, "hs": 4, "os": 4, "rows_f": 256, "rows_i": 256,
          "smem": 11296},
-        {"cluster": 16, "hs": 4, "os": 4, "rows_f": 256, "cols": 128,
-         "work": 8768, "smem": 39248})),
+        {"cluster": 16, "hs": 4, "os": 4, "rows_f": 64, "cols": 16,
+         "work": 20640, "smem": 82688})),
     "fno2d-8": ((64, (128, 128), (32, 32), False, 8), (
         {"cluster": 8, "hs": 8, "os": 8, "rows_f": 64, "rows_i": 8,
          "smem": 186400},
-        {"cluster": 8, "hs": 8, "os": 8, "rows_f": 64, "cols": 128,
-         "work": 12288, "smem": 180368})),
+        {"cluster": 8, "hs": 8, "os": 8, "rows_f": 16, "cols": 128,
+         "work": 57920, "smem": 231808})),
     "fno2d-16": ((64, (128, 128), (32, 32), False, 16), (
         {"cluster": 16, "hs": 4, "os": 4, "rows_f": 64, "rows_i": 8,
          "smem": 117792},
         {"cluster": 16, "hs": 4, "os": 4, "rows_f": 64, "cols": 128,
-         "work": 12288, "smem": 114768})),
+         "work": 56640, "smem": 226688})),
     "fno2d-large": ((128, (128, 128), (32, 32), True, 8), (
         {"cluster": 16, "hs": 8, "os": 8, "rows_f": 64, "rows_i": 8,
          "smem": 184352},
-        {"cluster": 16, "hs": 8, "os": 8, "rows_f": 64, "cols": 128,
-         "work": 17536, "smem": 201360})),
+        {"cluster": 16, "hs": 8, "os": 8, "rows_f": 16, "cols": 64,
+         "work": 57920, "smem": 231808})),
     "fno2d-large-shared": ((128, (128, 128), (32, 32), False, 8), (
         {"cluster": 16, "hs": 8, "os": 8, "rows_f": 64, "rows_i": 8,
          "smem": 192544},
-        {"cluster": 16, "hs": 8, "os": 8, "rows_f": 64, "cols": 128,
-         "work": 17536, "smem": 201360})),
+        {"cluster": 16, "hs": 8, "os": 8, "rows_f": 16, "cols": 64,
+         "work": 57920, "smem": 231808})),
 }
 
 
 @pytest.mark.parametrize("name", list(_UNCHANGED))
 def test_plans_of_the_other_presets_are_unchanged(name):
-    """fno1d, fno2d and fno2d-large fit at the register-filling chunk, so
-    their plans (both cluster sizes the picker weighs) are what they
-    were, field by field: their kernel times cannot move."""
+    """fno1d, fno2d and fno2d-large: the block kernel fits at the
+    register-filling chunk, so its plans (both cluster sizes the picker
+    weighs) are what they were, field by field, and its times cannot move;
+    the wgrad kernel's are pinned as its tensor-core design plans them."""
     (h, spatial, modes, per_mode, cl), (block, wgrad) = _UNCHANGED[name]
     assert engine.launch_plan(h, h, spatial, modes, cl, per_mode) == block
     assert engine.wgrad_plan(h, h, spatial, modes, cl, per_mode) == wgrad

@@ -514,6 +514,120 @@ def test_emulated_one_pass_tf32_is_caught(tmp_path):
     assert _caught(outs, ref, 2e-4)
 
 
+# The wgrad kernel at ranks 1–3 with B=5, more clusters than the emulated
+# card holds at once, and point counts whose dW_b split (chunks of
+# plan["cols"] points, consecutive chunks a block) leaves a ragged last
+# chunk in the last block: (spatial, modes, B, H, O).
+WGRAD_CASES = [((100,), (30,), 5, 3, 5), ((12, 20), (4, 6), 5, 6, 6),
+               ((5, 6, 7), (3, 3, 4), 5, 4, 6)]
+
+
+def _wgrad_run(lib, case, dtype, per_mode=False, bypass=True, seed=0):
+    """(kernel outputs at `dtype`, f32 plain outputs) of one wgrad case."""
+    spatial, modes, b, h, o = case
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.normal(size=(b, h) + spatial), dtype=torch.float32)
+    gz = torch.tensor(rng.normal(size=(b, o) + spatial), dtype=torch.float32)
+    tdt = getattr(torch, dtype)
+    mats = spectral.operand_tensors(spatial, modes, dtype, "cpu", "wgrad")
+    outs = engine._launch_wgrad(lib, x.to(tdt), gz.to(tdt), mats, spatial,
+                                modes, None, per_mode=per_mode,
+                                with_bypass=bypass)
+    m32 = spectral.operand_tensors(spatial, modes, "float32", "cpu", "wgrad")
+    return outs, engine.fused_wgrad_plain(x, gz, m32, per_mode=per_mode,
+                                          with_bypass=bypass)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bypass", [True, False], ids=["bypass", "bare"])
+@pytest.mark.parametrize("per_mode", [False, True],
+                         ids=["shared", "per_mode"])
+@pytest.mark.parametrize("case", WGRAD_CASES,
+                         ids=lambda c: f"rank{len(c[0])}")
+def test_emulated_wgrad_modes_match_plain(emulated_wgrad, case, per_mode,
+                                          bypass, dtype):
+    """Every mode of the wgrad kernel (shared or per-mode W, with or
+    without the bypass) against its plain version: f32 within 2e-4, bf16
+    within 2e-2 of the f32 plain version."""
+    spatial, modes, b, h, o = case
+    plan = engine.wgrad_plan(h, o, spatial, modes, per_mode=per_mode)
+    pts = int(np.prod(spatial))
+    assert b > EMULATED_MAX_CLUSTERS and pts % plan["cols"] != 0
+    assert -(-pts // plan["cols"]) >= plan["cluster"]
+    outs, refs = _wgrad_run(emulated_wgrad, case, dtype, per_mode, bypass,
+                            seed=len(spatial))
+    assert len(outs) == len(refs) == (4 if bypass else 2)
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    for a, r in zip(outs, refs):
+        assert a.dtype == torch.float32 and a.shape == r.shape
+        assert bool(torch.isfinite(a).all())
+        assert _rel_err(a, r) <= tol
+
+
+def test_emulated_wgrad_plan_matches_the_kernel_layout(emulated_wgrad):
+    """kernels/engine.py's shared-memory plan is the kernel's own layout
+    (fused_wgrad_smem), f32 and bf16, with and without the bypass, shared
+    and per-mode W, at the presets' widths and odd ones."""
+    shapes = [(64, 64, (128, 128), (32, 32)), (32, 32, (64, 64, 64),
+                                               (16, 16, 16)),
+              (128, 128, (128, 128), (32, 32)), (64, 64, (256,), (64,))]
+    shapes += [(h, o, s, m) for s, m, _, h, o in WGRAD_CASES + CASES[:3]]
+    for h, o, spatial, modes in shapes:
+        for per_mode in (False, True):
+            plan = engine.wgrad_plan(h, o, spatial, modes, per_mode=per_mode)
+            r = len(spatial)
+            dims = engine._dims(1, h, o, spatial, modes)
+            for bypass in (True, False):
+                pl = engine._ints([plan["cluster"], plan["hs"], plan["os"],
+                                   plan["rows_f"], plan["cols"],
+                                   plan["smem"], int(per_mode), 1,
+                                   int(bypass)])
+                for code, esize in ((0, 4), (1, 2)):
+                    want = engine._wgrad_bytes(
+                        esize, h, o, spatial, modes, plan["hs"], plan["os"],
+                        plan["rows_f"], plan["cols"], bypass)[0]
+                    got = emulated_wgrad.fused_wgrad_smem(code, r, dims, pl)
+                    assert got == want <= plan["smem"], (h, spatial, bypass)
+            assert plan["smem"] == engine._wgrad_bytes(
+                4, h, o, spatial, modes, plan["hs"], plan["os"],
+                plan["rows_f"], plan["cols"])[0]
+
+
+# Mutations of the wgrad kernel that its comparisons must catch: (what,
+# (old, new) in fused_wgrad.cu or (header, old, new), case index, dtype).
+WGRAD_MUTATIONS = [
+    ("one cluster rank's dW_b partial dropped",
+     ("for (int q = 0; q < cl; ++q) s += cluster.map_shared_rank(part, q)",
+      "for (int q = 0; q < cl - 1; ++q) s += cluster.map_shared_rank(part, "
+      "q)"), 1, "float32"),
+    ("an off-by-one at the ragged point edge",
+     ("const int p0 = q * cp, nv = min(cp, S - p0);",
+      "const int p0 = q * cp, nv = min(cp, S - p0 - 1);"), 1, "float32"),
+    ("one TF32 pass in the chain",
+     ("chain_tc.cuh",
+      "#pragma unroll\n    for (int i = 0; i < N; ++i) tc::mma_tf32(s[i], "
+      "a[i].lo, b[i].hi);\n#pragma unroll\n    for (int i = 0; i < N; ++i) "
+      "tc::mma_tf32(s[i], a[i].hi, b[i].lo);\n", ""), 2, "float32"),
+]
+
+
+@pytest.mark.parametrize("mutation", WGRAD_MUTATIONS,
+                         ids=lambda m: m[0].replace(" ", "_"))
+def test_emulated_wgrad_mutations_are_caught(tmp_path, emulated_wgrad,
+                                             mutation):
+    """Each mutation fails the comparison that the unmutated kernel
+    passes."""
+    _, edit, index, dtype = mutation
+    case = WGRAD_CASES[index]
+    outs, refs = _wgrad_run(emulated_wgrad, case, dtype, seed=9)
+    assert not _caught(outs, refs, 2e-4)
+    lib = build.load_wgrad_library(
+        _compile(tmp_path, "fused_wgrad", edit) if len(edit) == 2
+        else _compile(tmp_path, "fused_wgrad", header_mutation=edit))
+    outs, refs = _wgrad_run(lib, case, dtype, seed=9)
+    assert _caught(outs, refs, 2e-4)
+
+
 # Per-mode weights [O,H,k_1..k_R]: the odd extents at ranks 1–3 and a
 # cluster of 16 blocks with one hidden channel each.
 PM_CASES = [CASES[0], CASES[1], CASES[2], CASES[6]]

@@ -8,7 +8,8 @@ not the register-filling 8, and then the last chunk of 64 rows is ragged.
 compiled with g++ against the emulation headers in ``tests/cuda_emulation``
 (one POSIX thread per CUDA thread, real barriers, one shared-memory buffer
 per block; see tests/test_torch_kernel_emulated.py) and every launch that
-runs ``fno::forward_chain`` is held against its plain PyTorch version at a
+runs a forward chain (``fno::forward_chain``; the wgrad's tensor-core
+``chain::forward_chain``) is held against its plain PyTorch version at a
 forced chunk of 2 and of 3 rows at rank 3: the block forward, gz
 recompute, dx through the adjoint bundle, the bare layer's forward and
 dx, and the wgrad with and without its bypass — at odd extents and at
@@ -45,7 +46,8 @@ DROP_C0 = ("const T* f1r = m.r[R - 1] + c0 * g.k1;",
 
 def _compile(out: Path, name: str, header_mutation=None) -> Path:
     """Compile csrc/<name>.cu for the CPU beside a copy of the shared
-    header; `header_mutation` (old, new) replaces one exact piece of the
+    header (found before the sources' own; the other headers come from
+    csrc); `header_mutation` (old, new) replaces one exact piece of the
     header first."""
     gxx = shutil.which("g++")
     if gxx is None:
@@ -65,7 +67,8 @@ def _compile(out: Path, name: str, header_mutation=None) -> Path:
     proc = subprocess.run(
         [gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-pthread",
          "-Wno-unknown-pragmas", "-include", "cuda_runtime.h",
-         f"-I{out}", f"-I{EMULATION}", str(cpp), "-o", str(lib)],
+         f"-I{out}", f"-I{EMULATION}", f"-I{build.CSRC}", str(cpp), "-o",
+         str(lib)],
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     return lib

@@ -222,8 +222,8 @@ MUTATIONS = [
     ("cgemm", "sign flipped in the imaginary cross term",
      ("rr[0][j][e] -= ii[0][j][e];", "rr[0][j][e] += ii[0][j][e];")),
     ("fused_wgrad", "dropped conj in the bypass-free dW",
-     ("wsb[O * H + (o0 + o) * H + hc] = -si;  // conj",
-      "wsb[O * H + (o0 + o) * H + hc] = si;")),
+     ("wsb[O * H + (o0 + o) * H + h] = -acci[o];  // conj",
+      "wsb[O * H + (o0 + o) * H + h] = acci[o];")),
 ]
 
 

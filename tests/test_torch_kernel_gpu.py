@@ -13,8 +13,9 @@ bare layer's dx, the bypass-free wgrad, shared and per-mode, counted
 "spectral_dx" and "spectral_wgrad"), the complex product ``cgemm`` (A
 resident and K chunked), and a
 spectral-only (``fuse_block`` off) training step of each variant; then
-fno3d at full width (hidden 32, 64³, modes 16³: clusters of 16, 3 s_1 rows
-per forward-chain chunk) — every launch of its fused designs against the
+fno3d at full width (hidden 32, 64³, modes 16³: clusters of 16, the block
+kernel's forward chain 3 s_1 rows a chunk, the wgrad kernel's 1) — every
+launch of its fused designs against the
 plain versions and a training step of each design against the staged one
 — and the linear (TP-partial) block, counted "block_linear", with its
 two backward launches; then the fused model ends (the lift, the
@@ -207,6 +208,39 @@ def test_wgrad_is_deterministic(cuda):
     two = engine.fused_wgrad(x, gz, mats)
     for a, b in zip(one, two):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("per_mode", [False, True],
+                         ids=["shared", "per_mode"])
+@pytest.mark.parametrize("spatial", [(64, 64), (63, 65)],
+                         ids=["even", "ragged"])
+@pytest.mark.parametrize("cluster", [8, 16])
+def test_wgrad_point_split_matches_plain(cuda, monkeypatch, cluster, spatial,
+                                         per_mode, dtype):
+    """The dW_b product splits each sample's points over the cluster's
+    blocks in chunks of plan["cols"]: at clusters of 8 and of 16, with the
+    points a whole number of chunks a block (64·64) and with a ragged last
+    chunk (63·65), every output against the plain version."""
+    b, h, modes = 3, 32, (12, 10)
+    plan = engine.wgrad_plan(h, h, spatial, modes, cluster, per_mode)
+    pts = spatial[0] * spatial[1]
+    assert plan["cluster"] == cluster
+    assert (pts % (cluster * plan["cols"]) == 0) == (spatial == (64, 64))
+    monkeypatch.setattr(engine, "pick_wgrad_plan", lambda *a, **k: plan)
+    x, _, _, _, _ = _args(cuda, spatial, b=b, h=h, o=h, seed=cluster)
+    gz = torch.randn((b, h) + spatial,
+                     generator=torch.Generator().manual_seed(cluster)
+                     ).to(cuda)
+    tdt = getattr(torch, dtype)
+    mats = spectral.operand_tensors(spatial, modes, dtype, cuda, "wgrad")
+    m32 = spectral.operand_tensors(spatial, modes, "float32", cuda, "wgrad")
+    ours = engine.fused_wgrad(x.to(tdt), gz.to(tdt), mats, per_mode=per_mode)
+    ref = engine.fused_wgrad_plain(x, gz, m32, per_mode=per_mode)
+    torch.cuda.synchronize()
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    for name, a, r in zip(("dwr", "dwi", "dwb", "dbias"), ours, ref):
+        assert a.shape == r.shape and _rel_err(a, r) <= tol, name
 
 
 def test_fused_train_step_matches_staged_on_card(cuda):
@@ -705,18 +739,20 @@ def test_spectral_only_train_step_matches_staged_on_card(cuda, variant):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernels_at_fno3d_full_width(cuda, dtype):
-    """fno3d at full width, B=2: both kernels plan clusters of 16 and 3 s_1
-    rows per forward-chain chunk (ragged last chunk); the block forward,
+    """fno3d at full width, B=2: both kernels plan clusters of 16, the block
+    kernel 3 s_1 rows per forward-chain chunk (ragged last chunk), the
+    wgrad kernel's tensor-core chain 1; the block forward,
     gz, dx, the bare forward and dx, and both wgrads against the plain
     versions in f32 (bf16: 2e-2 of the f32 chain)."""
     cfg = configs.get_config("fno3d")
     sp, md, h = cfg.spatial, cfg.modes, cfg.hidden
     code = 0 if dtype == "float32" else 1
-    for plan in (engine.pick_plan(build.load_fused_block(), code, 2, h, h,
-                                  sp, md),
-                 engine.pick_wgrad_plan(build.load_fused_wgrad(), code, 2, h,
-                                        h, sp, md)):
-        assert plan["cluster"] == 16 and plan["rows_f"] == 3
+    block = engine.pick_plan(build.load_fused_block(), code, 2, h, h, sp,
+                             md)
+    wgrad = engine.pick_wgrad_plan(build.load_fused_wgrad(), code, 2, h, h,
+                                   sp, md)
+    assert block["cluster"] == wgrad["cluster"] == 16
+    assert block["rows_f"] == 3 and wgrad["rows_f"] == 1
     tol = 2e-4 if dtype == "float32" else 2e-2
     ours, plain = _backward_launches(cuda, sp, md, dtype, b=2, h=h, o=h,
                                      seed=12)
