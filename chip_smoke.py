@@ -120,8 +120,8 @@ fatal:
      (128,128,8192) beside its plain version, ``torch.matmul`` on
      complex64 (f32) and its bound;
   20. fno3d kernels vs plain, and the linear block — the rank-3 preset at
-     full width (hidden 32, 4 layers, 64³, modes 16³: clusters of 16 and
-     3 s_1 rows per forward-chain chunk), B=1 and B=8: the block forward,
+     full width (hidden 32, 4 layers, 64³, modes 16³: clusters of 16, the
+     block kernel's chains 2 s_1 rows a chunk), B=1 and B=8: the block forward,
      gz recompute, dx adjoint, wgrad, the bare forward and dx and the
      bypass-free wgrad against their plain versions (f32 ≤ 2e-4, bf16
      ≤ 2e-2 of the f32 plain chain), with the card's cluster occupancy
@@ -171,7 +171,20 @@ fatal:
   27. times, fused ends — CUDA events at fno2d and fno3d B=8 for the
      lift and the projection launch (and both in one) beside their plain
      versions, the staged end MLP with the torch.fft block (a
-     yardstick) and their bounds with the MLPs' bytes and operations.
+     yardstick) and their bounds with the MLPs' bytes and operations;
+  28. a shape the tensor-core chain cannot hold everywhere — fno2d's
+     model at 256×256 with modes 32×32 (hidden 64; its wgrad's resident
+     factors do not fit, so the wgrad plans the CUDA cores' chain, and the
+     block kernel the tensor cores'): the block forward at its plan and
+     with the CUDA cores' chain forced, and the wgrad, against their plain
+     versions at B=2 (f32 ≤ 2e-4, bf16 ≤ 2e-2 of the f32 plain version),
+     timed beside them and their bounds; the model served (4 requests,
+     exact block_fwd launches, against the staged path, at the block's
+     plan and again with the CUDA cores' chain forced, whose launches the
+     forced row reports) and trained (the
+     step-0 loss and every grad against the staged path, exactly
+     num_layers launches of each whole-block kind, then one AdamW step
+     with a finite loss).
 
 Each phase's seconds are printed. The last two lines are a
 ``{"kernels": [...]}`` JSON object and ``{"ok": true, "device": {...}}``.
@@ -241,6 +254,10 @@ CGEMM_REPLACES = "src/repro/kernels/cgemm.py:45"
 CGEMM_SHAPES = ((32, 16, 24), (128, 128, 128), (37, 19, 23), (256, 8, 64),
                 (130, 257, 129), (64, 64, 8192), (128, 128, 8192))
 CGEMM_FNO = CGEMM_SHAPES[-2:]
+# Phase 28: fno2d's model at a shape whose wgrad the tensor-core chain
+# cannot hold (2D 256², modes 32, hidden 64), at this batch.
+REFUSED = {"spatial": (256, 256), "modes": (32, 32)}
+REFUSED_BATCH = 2
 PARTIAL_REPLACES = {"rdft": "src/repro/kernels/dft.py:44",
                     "cdft": "src/repro/kernels/dft.py:75",
                     "irdft": "src/repro/kernels/dft.py:97",
@@ -2568,6 +2585,165 @@ def phase_ends_times(torch, engine, spectral, ops, configs, errs,
     return rows
 
 
+def phase_refused_shape(torch, engine, spectral, configs, fno_mod, sfs, ts,
+                        optim, tree, build):
+    """Phase 28: the block kernel at its plan and with the CUDA cores'
+    chain forced, and the wgrad at its plan (the CUDA cores' chain), at
+    2D 256² modes 32 hidden 64 against their plain versions; the model
+    served and trained there."""
+    log(f"== phase 28: a formerly refused shape, {REFUSED}")
+    cfg = dataclasses.replace(configs.with_fuse_block(
+        configs.get_config("fno2d")), **REFUSED)
+    b, h = REFUSED_BATCH, cfg.hidden
+    spatial, modes = cfg.spatial, cfg.modes
+    block_plan = engine.pick_plan(build.load_fused_block(), 0, b, h, h,
+                                  spatial, modes)
+    wgrad_plan = engine.pick_wgrad_plan(build.load_fused_wgrad(), 0, b, h,
+                                        h, spatial, modes)
+    log(f"  plans: block {block_plan}; wgrad {wgrad_plan}")
+    if block_plan["chain"] != "tc" or wgrad_plan["chain"] != "fma":
+        raise AssertionError("the block should plan the tensor cores' chain "
+                             "and the wgrad the CUDA cores' here")
+    # The model, served and trained, with the counts from 0.
+    params = fno_mod.init_fno(torch.Generator().manual_seed(0), cfg, DEVICE)
+    fused = dataclasses.replace(cfg, path="fused")
+    staged = dataclasses.replace(cfg, path="staged", fuse_block=False)
+    shape = (cfg.in_channels,) + tuple(spatial)
+    gen = torch.Generator().manual_seed(2801)
+    reqs = [torch.randn((n,) + shape, generator=gen).to(DEVICE)
+            for n in (1, 2, 2, 1)]
+    counts = {}
+    for preset in ("f32", "bf16"):
+        c = configs.with_precision(fused, preset)
+        dt = c.precision.compute_dtype
+        srv = sfs.FNOServer(c, params, device=DEVICE, max_batch=b)
+        ref = sfs.FNOServer(staged, params, device=DEVICE, max_batch=b)
+        srv(reqs[0])  # build and plan outside the count
+        torch.cuda.synchronize()
+        engine.LAUNCHES.clear()
+        outs = [srv(x) for x in reqs]
+        torch.cuda.synchronize()
+        counts[("serve", dt)] = dict(engine.LAUNCHES)
+        want = {("block_fwd", dt): cfg.num_layers * len(reqs)}
+        if counts[("serve", dt)] != want:
+            raise AssertionError(f"launches {counts[('serve', dt)]} != "
+                                 f"{want}")
+        tol = F32_TOL if preset == "f32" else BF16_TOL
+        for x, y in zip(reqs, outs):
+            check(f"serve {preset} n={x.shape[0]} vs staged f32",
+                  rel_err(y, ref(x)), tol)
+        # Served again with the block's CUDA cores' chain forced: the plan
+        # the planner takes where the tensor cores' chain does not fit.
+        with engine.forced_chain("fma"):
+            engine.LAUNCHES.clear()
+            outs = [srv(x) for x in reqs]
+            torch.cuda.synchronize()
+            counts[("serve_fma", dt)] = dict(engine.LAUNCHES)
+        if counts[("serve_fma", dt)] != want:
+            raise AssertionError(f"launches {counts[('serve_fma', dt)]} != "
+                                 f"{want}")
+        for x, y in zip(reqs, outs):
+            check(f"serve {preset} n={x.shape[0]} CUDA cores' chain vs "
+                  f"staged f32", rel_err(y, ref(x)), tol)
+        batch = {"x": torch.randn((b,) + shape, generator=gen).to(DEVICE),
+                 "y": torch.randn((b, cfg.out_channels) + tuple(spatial),
+                                  generator=gen).to(DEVICE)}
+        loss_ref, g_ref = ts.value_and_grad(
+            ts.make_loss_fn(staged, fno_path="staged"), params, batch)
+        torch.cuda.synchronize()
+        engine.LAUNCHES.clear()
+        loss, g = ts.value_and_grad(ts.make_loss_fn(c, fno_path="fused"),
+                                    params, batch)
+        torch.cuda.synchronize()
+        counts[("train", dt)] = dict(engine.LAUNCHES)
+        want = {(k, dt): cfg.num_layers for k in engine.KINDS}
+        if counts[("train", dt)] != want:
+            raise AssertionError(f"launches {counts[('train', dt)]} != "
+                                 f"{want}")
+        gtol = F32_TOL if preset == "f32" else BF16_GRAD_TOL
+        check(f"train {preset} step-0 loss vs staged f32",
+              abs(float(loss) - float(loss_ref)) / abs(float(loss_ref)),
+              gtol)
+        for a, r in zip(tree.leaves(g), tree.leaves(g_ref)):
+            check(f"train {preset} grad", leaf_err(a, r), gtol)
+        opt = optim.AdamW(lr=optim.cosine_warmup(1e-3, 1, 10))
+        step = ts.make_train_step(c, opt, fno_path="fused")
+        _, _, m = step(params, opt.init(params), batch)
+        if not math.isfinite(float(m["loss"])):
+            raise AssertionError(f"{preset}: a training step's loss is not "
+                                 f"finite")
+        log(f"  {preset}: served {len(reqs)} requests, step-0 loss "
+            f"{float(loss):.6f} (staged {float(loss_ref):.6f}), one AdamW "
+            f"step loss {float(m['loss']):.6f}; launches "
+            f"{counts[('serve', dt)]} {counts[('train', dt)]}")
+        del srv, ref
+    # Each kernel against its plain version, and its time.
+    args32 = block_inputs(b, h, h, spatial, 2802, DEVICE)
+    gz32 = torch.randn((b, h) + tuple(spatial),
+                       generator=torch.Generator().manual_seed(2803)
+                       ).to(DEVICE)
+    rows = []
+    for dt, peak, eb in (("float32", PEAK_F32_FLOPS, 4),
+                         ("bfloat16", PEAK_BF16_FLOPS, 2)):
+        tag = "f32" if dt == "float32" else "bf16"
+        tol = F32_TOL if dt == "float32" else BF16_TOL
+        tdt = getattr(torch, dt)
+        args = [a.to(tdt) for a in args32]
+        x, gz = args[0], gz32.to(tdt)
+        m32 = backward_mats(spectral, spatial, modes, "float32")
+        mats = backward_mats(spectral, spatial, modes, dt)
+        ref = engine.fused_block_plain(*args32, m32["forward"])
+        wref = engine.fused_wgrad_plain(args32[0], gz32, m32["wgrad"])
+        cases = {"block_fwd": (None, lambda: engine.fused_block(
+                     *args, mats["forward"]),
+                     lambda: engine.fused_block_plain(*args,
+                                                      mats["forward"])),
+                 "block_fwd_fma": ("fma", lambda: engine.fused_block(
+                     *args, mats["forward"]),
+                     lambda: engine.fused_block_plain(*args,
+                                                      mats["forward"])),
+                 "wgrad": (None, lambda: engine.fused_wgrad(
+                     x, gz, mats["wgrad"]),
+                     lambda: engine.fused_wgrad_plain(x, gz,
+                                                      mats["wgrad"]))}
+        for name, (chain, run, plain) in cases.items():
+            with engine.forced_chain(chain):
+                out = run()
+                torch.cuda.synchronize()
+                outs = out if name == "wgrad" else (out,)
+                e = errors(outs, wref if name == "wgrad" else (ref,))
+                check(f"{name} {tag} kernel vs plain", e[1], tol)
+                kms = time_ms(run, 10)
+            pms = time_ms(plain, 3)
+            kind = "wgrad" if name == "wgrad" else "block_fwd"
+            bms, by = bound_ms(kind, b, h, h, spatial, modes, eb, peak)
+            where = ("train" if name == "wgrad" else
+                     "serve_fma" if chain else "serve")
+            launches = counts[(where, dt)].get((kind, dt), 0)
+            log(f"  {dt} {name} B={b}: kernel_ms={kms:.4f} plain_ms="
+                f"{pms:.4f} bound_us={1e3 * bms:.2f} ({by}); launches "
+                f"{launches} ({where})")
+            rows.append({
+                "name": f"{name}_256x256m32_{tag}", "route": "cuda",
+                "source": WGRAD_SOURCE if name == "wgrad" else BLOCK_SOURCE,
+                "replaces": (WGRAD_REPLACES if name == "wgrad"
+                             else BLOCK_REPLACES),
+                "shape": f"2D 256x256 modes 32 hidden {h} B={b}",
+                "chain": chain or (wgrad_plan if name == "wgrad"
+                                   else block_plan)["chain"],
+                "launches": launches,
+                **({"launches_note": "the block kernel's launches serving "
+                                     "the same requests with the CUDA "
+                                     "cores' chain forced (the planner "
+                                     "takes the tensor cores' here)"}
+                   if chain else {}),
+                "max_abs_err": e[0], "scaled_err": e[1], "tol": tol,
+                "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                "library_ms": None,
+                "library_note": "no single PyTorch call computes it"})
+    return rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2747,6 +2923,8 @@ def main() -> int:
     rows += timed("27", phase_ends_times, torch, engine, spectral, ops,
                   configs, ends_errs, ends_serve_counts, ends_train_counts)
     log(f"phases 24-27 (fused ends): {time.perf_counter() - t_ends:.1f} s")
+    rows += timed("28", phase_refused_shape, torch, engine, spectral,
+                  configs, fno_mod, sfs, ts, optim, tree, build)
     window = lambda st: {dt: {"p50": v["latency_ms"]["p50"],
                               "p99": v["latency_ms"]["p99"],
                               "sample_steps_per_s": v["sample_steps_per_s"]}

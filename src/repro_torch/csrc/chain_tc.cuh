@@ -265,6 +265,42 @@ __device__ __forceinline__ void complex_frags(tc::Frag<float, 4>& a,
   tc::split(b);
 }
 
+// v = one complex stage's 16 × 8 tile (ho 0: its real part, 1: its
+// imaginary part) over the depth steps st = sp, sp + ss, … below `steps`,
+// four complex terms a step: In's rows (the depth) ldi apart from `in`
+// (real part at column m, imaginary at off_i + m), the factor's rows
+// [F_r | F_i] ldf apart from f (halves off_f apart). Two steps are
+// interleaved in separate accumulators, f32's small TF32 terms apart.
+__device__ __forceinline__ void complex_tile(float (&v)[4], const float* in,
+                                             int ldi, int off_i,
+                                             const float* f, int ldf,
+                                             int off_f, int ho, int steps,
+                                             int sp = 0, int ss = 1) {
+  float d[2][4] = {}, sm[2][4] = {};
+  tc::Frag<float, 4> fa[2];
+  tc::Frag<float, 2> fb[2];
+  auto frags = [&](int st, int j) {
+    complex_frags(fa[j], fb[j], in + 4 * st * ldi, ldi, off_i,
+                  f + 4 * st * ldf, ldf, off_f, ho);
+  };
+  int st = sp;
+  for (; st + ss < steps; st += 2 * ss) {
+    frags(st, 0);
+    frags(st + ss, 1);
+    mma_steps<float, 2>(d, sm, fa, fb);
+  }
+  if (st < steps) {
+    frags(st, 0);
+    mma_steps<float, 1>(reinterpret_cast<float (&)[1][4]>(d[0]),
+                        reinterpret_cast<float (&)[1][4]>(sm[0]),
+                        reinterpret_cast<tc::Frag<float, 4> (&)[1]>(fa),
+                        reinterpret_cast<tc::Frag<float, 2> (&)[1]>(fb));
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    v[e] = (sm[0][e] + d[0][e]) + (sm[1][e] + d[1][e]);
+}
+
 // A stage's `tiles` output tiles over the block's warps: with s > 1
 // (depth_splits), s warps split each tile's depth. part(tl, sp, v) forms
 // split sp of tile tl into v; the split-0 warp adds the other splits' parts
@@ -356,7 +392,7 @@ __device__ void chain_rank1(const T* src, int nch, const fno::Geom& g,
     const int p0 = q * np, nv = min(np, n1 - p0);
     T* x = xs[q & 1];
     T* f = fs[q & 1];
-    const bool vx = vec_x && nv % kE == 0;
+    const bool vx = vec_x && nv % kE == 0 && p0 % kE == 0;
     tc::load_tile(x, L.ldx, src + p0, n1, nch, nv, vx, fno::kThreads);
     tc::load_tile(f, L.ldfa, m.r[0] + static_cast<size_t>(p0) * k1, k1, nv,
                   k1, vec_f, fno::kThreads);
@@ -525,31 +561,8 @@ __device__ void chain_outer(const T* src, int nch, const fno::Geom& g,
           [&](int tl, int sp, float (&v)[4]) {
             const int i = nt2.div(tl), jn = tl - i * nt2.d;
             const int ho = nh2.div(jn), n0 = (jn - ho * nh2.d) * 8;
-            float d[2][4] = {}, sm[2][4] = {};
-            tc::Frag<float, 4> fa2[2];
-            tc::Frag<float, 2> fb2[2];
-            auto frags = [&](int st, int j) {
-              complex_frags(fa2[j], fb2[j], tt + 4 * st * L.ldt + 16 * i,
-                            L.ldt, L.mb, f2 + 4 * st * L.ld2 + n0, L.ld2,
-                            L.h2, ho);
-            };
-            int st = sp;
-            for (; st + sb < steps_b; st += 2 * sb) {
-              frags(st, 0);
-              frags(st + sb, 1);
-              mma_steps<float, 2>(d, sm, fa2, fb2);
-            }
-            if (st < steps_b) {
-              frags(st, 0);
-              mma_steps<float, 1>(
-                  reinterpret_cast<float (&)[1][4]>(d[0]),
-                  reinterpret_cast<float (&)[1][4]>(sm[0]),
-                  reinterpret_cast<tc::Frag<float, 4> (&)[1]>(fa2),
-                  reinterpret_cast<tc::Frag<float, 2> (&)[1]>(fb2));
-            }
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              v[e] = (sm[0][e] + d[0][e]) + (sm[1][e] + d[1][e]);
+            complex_tile(v, tt + 16 * i, L.ldt, L.mb, f2 + n0, L.ld2, L.h2,
+                         ho, steps_b, sp, sb);
           },
           [&](int tl, const float (&v)[4]) {
             const int i = nt2.div(tl), jn = tl - i * nt2.d;
@@ -634,6 +647,264 @@ __device__ void forward_chain(const T* src, int nch, const fno::Geom& g,
     chain_rank1<T>(src, nch, g, L, m, out_r, out_i, ldo, base);
   } else {
     chain_outer<R, T>(src, nch, g, L, m, out_r, out_i, ldo, base);
+  }
+}
+
+
+// The padded inverse DFT chain (the block kernel's phase 3) on the tensor
+// cores: per chunk of nr s_1 rows from c0, the real field ys of `os` out
+// channels from their spectra C (phase 2's CGEMM), axis s_1 first:
+//
+//   stage 1, axis s_1 (complex):  T1[o][r][k'] = Σ_k1 C[o][k1][k']·E_1[k1][c0+r]
+//   stage 2, axis s_2 (rank 3):   T2[o][r][s2][k3] = Σ_k2 T1·E_2[k2][s2]
+//   last stage, axis s_R (real):  ys = Re Σ_kR T·E_R
+//
+// (rank 1: stage 1 is the last; rank 2: stage 2). Each stage is one
+// complex_tile product whose input holds the modes it sums as rows (the
+// depth) and its M as columns, real and imaginary halves side by side, and
+// whose factor rows [E_r | E_i] are in f32 in shared memory. Each stage
+// writes its output as the next one's input, the next mode axis as rows;
+// phase 2 writes C so: C[k1][o·Kp + k']. The last stage keeps the real part
+// only (the lane feeding an imaginary input flips E_i's sign, as above), so
+// the irDFT's depth runs [T_r | T_i] against [E_r; −E_i]. Every
+// intermediate is f32, so every product is 3xTF32 (bf16 factors are widened
+// on the way in). E_1's columns of a chunk are copied per chunk (in pieces
+// of dp rows, stage 1 summing over the pieces, where its depth k_1 is more
+// than shared memory holds); E_2 and E_3 are resident, except that a last
+// factor wider than shared memory holds passes in pieces of `wl` columns,
+// copied per chunk. Rows past the
+// modes are zero in shared memory; columns past the extents, and a tile's
+// rows past its stage's M, only feed outputs that are not stored.
+struct InvLayout {
+  int ri;           // s_1 rows a chunk
+  int mc, ldc, dc;  // C: its M (os·Kp; padded to 16 at rank ≥ 2), ld, rows
+  int h1, ld1, dp;  // E_1's chunk: half width (ri to 8), ld, rows a piece
+  int h2, ld2, d2;  // E_2 (rank ≥ 2): half width (n_2, or wl, to 8), ld,
+                    // rows (k_2 to 4)
+  int h3, ld3, d3;  // E_3 (rank 3)
+  int wl;           // columns of the last factor held at once
+  bool pieces;      // the last factor passes in pieces of wl columns
+  int m1, ldt1;     // T1 (rank ≥ 2, d2 rows): half width, ld
+  int m2, ldt2;     // T2 (rank 3, d3 rows)
+  long long cbytes;  // C's bytes (a guard past its last row)
+  long long e1, e2, e3, t1, t2;  // byte offsets from the area's base
+  long long fbytes, bytes;       // the factors' end, the stages' end
+};
+
+// The layout for extents n and modes k (axis order 1..R, unused = 1), os
+// out channels, ri s_1 rows a chunk, wl columns of the last factor at once
+// (rank ≥ 2; n_R padded to 8: resident) and dp rows of E_1 at once (a
+// multiple of 4; k_1 padded to 4: all). Mirrored by kernels/engine.py
+// _inv_bytes.
+__host__ __device__ inline InvLayout inv_layout(int R, const int* n,
+                                                const int* k, int os,
+                                                int ri, int wl, int dp) {
+  using tc::align128;
+  using tc::pad_to;
+  InvLayout L = {};
+  L.ri = ri;
+  // Rank 1: C's rows [C_r | C_i] of os channels each, unpadded; a tile
+  // reads past a row into the next (or the guard), which only feeds M rows
+  // past os.
+  L.mc = R == 1 ? os : pad_to(os * k[1] * k[2], 16);
+  L.ldc = 2 * L.mc + (R == 1 ? 0 : 8);
+  L.dc = pad_to(k[0], 4);
+  L.cbytes = 4LL * (1LL * L.dc * L.ldc + 32);
+  L.h1 = pad_to(ri, 8);
+  L.ld1 = 2 * L.h1 + 8;
+  L.dp = dp < L.dc ? dp : L.dc;
+  long long at = align128(4LL * L.dp * L.ld1);
+  const int last = pad_to(n[R - 1], 8);
+  L.wl = R == 1 ? 0 : (wl < last ? wl : last);
+  L.pieces = R > 1 && L.wl < last;
+  if (R >= 2) {
+    L.h2 = R == 2 ? L.wl : pad_to(n[1], 8);
+    L.ld2 = 2 * L.h2 + 8;
+    L.d2 = pad_to(k[1], 4);
+    L.e2 = at;
+    at = align128(at + 4LL * L.d2 * L.ld2);
+  }
+  if (R == 3) {
+    L.h3 = L.wl;
+    L.ld3 = 2 * L.h3 + 8;
+    L.d3 = pad_to(k[2], 4);
+    L.e3 = at;
+    at = align128(at + 4LL * L.d3 * L.ld3);
+  }
+  L.fbytes = at;
+  if (R >= 2) {
+    L.m1 = pad_to(os * ri * k[2], 16);
+    L.ldt1 = 2 * L.m1 + 8;
+    L.t1 = at;
+    at = align128(at + 4LL * L.d2 * L.ldt1);
+  }
+  if (R == 3) {
+    L.m2 = pad_to(os * ri * n[1], 16);
+    L.ldt2 = 2 * L.m2 + 8;
+    L.t2 = at;
+    at = align128(at + 4LL * L.d3 * L.ldt2);
+  }
+  L.bytes = at;
+  return L;
+}
+
+// Columns j0..j0 + w of the first `rows` rows of a factor pair [rows][n] as
+// f32 rows [F_r | F_i] (halves h apart, rows ld apart), zero past n.
+template <typename T>
+__device__ __forceinline__ void factor_cols(float* dst, int ld, int h,
+                                            const T* fr, const T* fi,
+                                            int rows, int n, int j0, int w) {
+  const Div dw(w);
+  for (int i = threadIdx.x; i < rows * w; i += fno::kThreads) {
+    const int r = dw.div(i), c = i - r * w, j = j0 + c;
+    const bool in = j < n;
+    dst[r * ld + c] = in ? fno::ld(fr + static_cast<size_t>(r) * n + j) : 0.f;
+    dst[r * ld + h + c] =
+        in ? fno::ld(fi + static_cast<size_t>(r) * n + j) : 0.f;
+  }
+}
+
+// Zeroes the area at `base` (L.bytes) and copies the resident inverse
+// factors into it as f32 rows [E_r | E_i] (cp.async for f32: the caller
+// waits, and syncs, before the first chunk). Every thread of the block
+// calls it.
+template <int R, typename T>
+__device__ void inverse_factors(const InvLayout& L, char* base,
+                                const fno::Mats<T>& e, const fno::Geom& g) {
+  zero_words(base, L.bytes / 4);
+  __syncthreads();
+  auto at = [&](long long off) {
+    return reinterpret_cast<float*>(base + off);
+  };
+  if constexpr (R >= 2) {
+    if (R == 3 || !L.pieces)
+      factor_rows(at(L.e2), L.ld2, L.h2, e.r[1], e.i[1], g.k2, g.n2);
+  }
+  if constexpr (R == 3) {
+    if (!L.pieces)
+      factor_rows(at(L.e3), L.ld3, L.h3, e.r[2], e.i[2], g.k3, g.n3);
+  }
+  tc::async_commit();
+}
+
+// One stage of the inverse chain: mt × nt tiles (of 16 M rows by 8
+// columns) in `halves` (1: the real part only), one a warp in turn, each
+// put(row, column, half, value) per element. Ends synchronised.
+template <class Put>
+__device__ __forceinline__ void inverse_stage(int mt, int nt, int halves,
+                                              const float* in, int ldi,
+                                              int off_i, const float* f,
+                                              int ldf, int off_f, int steps,
+                                              Put put) {
+  const int warp = threadIdx.x >> 5;
+  const int lg = (threadIdx.x & 31) >> 2, lt = threadIdx.x & 3;
+  const Div dn(nt), dh(halves);
+  for (int tl = warp; tl < mt * nt * halves; tl += kWarps) {
+    const int rest = dn.div(tl), jn = tl - rest * nt;
+    const int i = dh.div(rest), ho = rest - i * halves;
+    float v[4];
+    complex_tile(v, in + 16 * i, ldi, off_i, f + 8 * jn, ldf, off_f, ho,
+                 steps);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      put(16 * i + lg + 8 * (e >> 1), 8 * jn + 2 * lt + (e & 1), ho, v[e]);
+  }
+  __syncthreads();
+}
+
+// The last stage, the real irDFT along s_R of In (rows the modes k_R,
+// halves off_i apart) against the factor at f (rows ldf apart, halves
+// h apart) into ys[m·n_R + j] for m < mv: in one pass where the factor is
+// resident, else per piece of L.wl columns copied first. Ends synchronised.
+template <typename T>
+__device__ __forceinline__ void inverse_last(const InvLayout& L,
+                                             const float* in, int ldi,
+                                             int off_i, float* f, int ldf,
+                                             int h, int d, const T* er,
+                                             const T* ei, int kR, int nR,
+                                             int mv, float* ys) {
+  for (int j0 = 0; j0 < nR; j0 += L.wl) {
+    if (L.pieces) {
+      factor_cols(f, ldf, h, er, ei, kR, nR, j0, L.wl);
+      __syncthreads();
+    }
+    const int w = L.pieces ? L.wl : h;
+    inverse_stage((mv + 15) / 16, w / 8, 1, in, ldi, off_i, f, ldf, h, d / 4,
+                  [&](int m, int j, int, float v) {
+                    if (m < mv && j0 + j < nR) ys[m * nR + j0 + j] = v;
+                  });
+    if (!L.pieces) break;
+  }
+}
+
+// One chunk: ys[(o·nr + r)·P + p] for o < os, r < nr (rows c0..c0 + nr of
+// s_1) from C (rows L.ldc apart, the imaginary half at L.mc), the inverse
+// factors e and the area at `base`. Every thread of the block calls it; it
+// ends synchronised.
+template <int R, typename T>
+__device__ void inverse_chunk(const float* C, const InvLayout& L, char* base,
+                              const fno::Mats<T>& e, const fno::Geom& g,
+                              int os, int nr, int c0, float* ys) {
+  auto at = [&](long long off) {
+    return reinterpret_cast<float*>(base + off);
+  };
+  const int kp = g.Kp, nt1 = (nr + 7) / 8;
+  const int mv1 = os * kp;  // stage 1's valid M
+  // Stage 1 along s_1: C against this chunk's columns of E_1, dp rows of
+  // E_1 at a time (its rows past k_1 zero), the pieces summed in order.
+  float* e1 = at(L.e1);
+  float* t1 = at(L.t1);
+  const Div dkp(kp), dk3(g.k3);
+  for (int s0 = 0; s0 < L.dc; s0 += L.dp) {
+    const int dn = min(L.dp, L.dc - s0), kn = max(0, min(dn, g.k1 - s0));
+    const size_t e0 = static_cast<size_t>(s0) * g.n1;
+    factor_cols(e1, L.ld1, L.h1, e.r[0] + e0, e.i[0] + e0, kn, g.n1, c0,
+                L.h1);
+    for (int i = threadIdx.x; i < (dn - kn) * L.ld1; i += fno::kThreads)
+      e1[kn * L.ld1 + i] = 0.f;
+    __syncthreads();
+    const float* cs = C + static_cast<size_t>(s0) * L.ldc;
+    const bool first = s0 == 0;
+    if constexpr (R == 1) {
+      inverse_stage((mv1 + 15) / 16, nt1, 1, cs, L.ldc, L.mc, e1, L.ld1,
+                    L.h1, dn / 4, [&](int m, int r, int, float v) {
+                      if (m < mv1 && r < nr) {
+                        float& y = ys[m * nr + r];
+                        y = first ? v : y + v;
+                      }
+                    });
+    } else {
+      inverse_stage(L.mc / 16, nt1, 2, cs, L.ldc, L.mc, e1, L.ld1, L.h1,
+                    dn / 4, [&](int m, int r, int ho, float v) {
+                      if (m >= mv1 || r >= nr) return;
+                      const int o = dkp.div(m), rem = m - o * kp;
+                      const int a2 = dk3.div(rem), a3 = rem - a2 * g.k3;
+                      float& t = t1[a2 * L.ldt1 + ho * L.m1 +
+                                    (o * nr + r) * g.k3 + a3];
+                      t = first ? v : t + v;
+                    });
+    }
+  }
+  if constexpr (R > 1) {
+    if constexpr (R == 2) {
+      // The real irDFT along s_2: ys[(o·nr + r)·n2 + s2].
+      inverse_last(L, t1, L.ldt1, L.m1, at(L.e2), L.ld2, L.h2, L.d2,
+                   e.r[1], e.i[1], g.k2, g.n2, os * nr, ys);
+    } else {
+      // Stage 2 along s_2 (complex) into T2[k3][((o·nr + r)·n2 + s2)].
+      float* t2 = at(L.t2);
+      const int mv = os * nr * g.k3;
+      inverse_stage((mv + 15) / 16, L.h2 / 8, 2, t1, L.ldt1, L.m1,
+                    at(L.e2), L.ld2, L.h2, L.d2 / 4,
+                    [&](int m, int j, int ho, float v) {
+                      if (m >= mv || j >= g.n2) return;
+                      const int q = dk3.div(m), a3 = m - q * g.k3;
+                      t2[a3 * L.ldt2 + ho * L.m2 + q * g.n2 + j] = v;
+                    });
+      // The real irDFT along s_3: ys[((o·nr + r)·n2 + s2)·n3 + s3].
+      inverse_last(L, t2, L.ldt2, L.m2, at(L.e3), L.ld3, L.h3, L.d3,
+                   e.r[2], e.i[2], g.k3, g.n3, os * nr * g.n2, ys);
+    }
   }
 }
 

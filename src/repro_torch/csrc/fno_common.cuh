@@ -2,11 +2,23 @@
 // the fused weight-gradient kernel (fused_wgrad.cu): element loads and
 // stores, the tanh GELU and its derivative, one truncated-DFT stage on
 // shared-memory tensors, one s_1 chunk of the forward DFT chain, and the
-// streamed forward DFT chain of a run of channels. Every sum accumulates in
-// f32.
-#pragma once
+// streamed forward DFT chain of a run of channels on the CUDA cores (the
+// kernels' second chain plan, and the lift's). Every sum accumulates in
+// f32. Guarded by a macro, not #pragma once: a test's mutated copy of this
+// header, found first, then stands in for the sources' own.
+#ifndef REPRO_TORCH_FNO_COMMON_CUH
+#define REPRO_TORCH_FNO_COMMON_CUH
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+// A device function called, not inlined, on the card: its registers are not
+// shared with the live state of the kernel around it. The CPU emulation of
+// the tests inlines as it likes.
+#ifdef __CUDACC__
+#define FNO_NOINLINE __noinline__
+#else
+#define FNO_NOINLINE
+#endif
 
 namespace fno {
 
@@ -80,14 +92,13 @@ struct Mats {
   const T* i[3];
 };
 
-// One DFT stage on shared-memory tensors viewed as [pre][n][post]:
+// One complex DFT stage on shared-memory tensors viewed as [pre][n][post]:
 //   out[p][j][q] (+)= Σ_{i<n} in[p][i][q] · M[i·ldm + j],   j < kout.
-// kInCplx=false marks a real input (in_i unused). kOutCplx=false keeps only
-// the real part Σ in_r·M_r − in_i·M_i (the last inverse stage). Each thread
-// computes kTP outputs p, p+1, … that share every operand load M[i, j]
-// (register blocking: the loop is load-bound, not FMA-bound). Every thread
-// owns distinct outputs, so kAcc needs no synchronisation.
-template <typename T, bool kInCplx, bool kOutCplx, bool kAcc, int kTPn>
+// kInCplx=false marks a real input (in_i unused). Each thread computes kTP
+// outputs p, p+1, … that share every operand load M[i, j] (register
+// blocking: the loop is load-bound, not FMA-bound). Every thread owns
+// distinct outputs, so kAcc needs no synchronisation.
+template <typename T, bool kInCplx, bool kAcc, int kTPn>
 __device__ void stage(const float* in_r, const float* in_i, int pre, int n,
                       int post, const T* m_r, const T* m_i, int ldm, int kout,
                       float* out_r, float* out_i) {
@@ -112,10 +123,10 @@ __device__ void stage(const float* in_r, const float* in_i, int pre, int n,
         if (kInCplx) {
           const float c = in_i[base[u] + i * post];
           sr[u] = fmaf(a, mr, fmaf(-c, mi, sr[u]));
-          if (kOutCplx) si[u] = fmaf(a, mi, fmaf(c, mr, si[u]));
+          si[u] = fmaf(a, mi, fmaf(c, mr, si[u]));
         } else {
           sr[u] = fmaf(a, mr, sr[u]);
-          if (kOutCplx) si[u] = fmaf(a, mi, si[u]);
+          si[u] = fmaf(a, mi, si[u]);
         }
       }
     }
@@ -123,16 +134,12 @@ __device__ void stage(const float* in_r, const float* in_i, int pre, int n,
     for (int u = 0; u < kTPn; ++u) {
       if (p0 + u >= pre) break;
       const int o = ((p0 + u) * kout + j) * post + q;
-      if (kOutCplx) {
-        if (kAcc) {
-          out_r[o] += sr[u];
-          out_i[o] += si[u];
-        } else {
-          out_r[o] = sr[u];
-          out_i[o] = si[u];
-        }
+      if (kAcc) {
+        out_r[o] += sr[u];
+        out_i[o] += si[u];
       } else {
         out_r[o] = sr[u];
+        out_i[o] = si[u];
       }
     }
   }
@@ -152,7 +159,7 @@ __device__ void chain_chunk(const float* xs, int nr, int c0, const Geom& g,
   if constexpr (R == 2) {
     float* z2r = tmp;
     float* z2i = z2r + rf * g.Kp;
-    stage<T, false, true, false, kTP>(xs, nullptr, nr, g.n2, 1, m.r[0],
+    stage<T, false, false, kTP>(xs, nullptr, nr, g.n2, 1, m.r[0],
                                       m.i[0], g.k2, g.k2, z2r, z2i);
     zr = z2r;
     zi = z2i;
@@ -160,12 +167,12 @@ __device__ void chain_chunk(const float* xs, int nr, int c0, const Geom& g,
   } else if constexpr (R == 3) {
     float* z1r = tmp;  // [nr][n2][k3]
     float* z1i = z1r + rf * g.n2 * g.k3;
-    stage<T, false, true, false, kTP>(xs, nullptr, nr * g.n2, g.n3, 1,
+    stage<T, false, false, kTP>(xs, nullptr, nr * g.n2, g.n3, 1,
                                       m.r[0], m.i[0], g.k3, g.k3, z1r, z1i);
     __syncthreads();
     float* z2r = z1i + rf * g.n2 * g.k3;  // [nr][k2][k3]
     float* z2i = z2r + rf * g.Kp;
-    stage<T, true, true, false, kTP>(z1r, z1i, nr, g.n2, g.k3, m.r[1],
+    stage<T, true, false, kTP>(z1r, z1i, nr, g.n2, g.k3, m.r[1],
                                      m.i[1], g.k2, g.k2, z2r, z2i);
     zr = z2r;
     zi = z2i;
@@ -175,26 +182,41 @@ __device__ void chain_chunk(const float* xs, int nr, int c0, const Geom& g,
   const T* f1r = m.r[R - 1] + c0 * g.k1;
   const T* f1i = m.i[R - 1] + c0 * g.k1;
   if constexpr (R == 1) {
-    stage<T, false, true, true, 1>(zr, nullptr, 1, nr, 1, f1r, f1i, g.k1,
+    stage<T, false, true, 1>(zr, nullptr, 1, nr, 1, f1r, f1i, g.k1,
                                    g.k1, out_r, out_i);
   } else {
-    stage<T, true, true, true, 1>(zr, zi, 1, nr, g.Kp, f1r, f1i, g.k1, g.k1,
+    stage<T, true, true, 1>(zr, zi, 1, nr, g.Kp, f1r, f1i, g.k1, g.k1,
                                   out_r, out_i);
   }
   __syncthreads();
 }
 
+// Floats of forward_chain's `work` at rank R, extents n and modes k (axis
+// order 1..R, unused = 1) and `rf` s_1 rows a chunk: rf·P (+ 2·rf·Kp at
+// R ≥ 2, + 2·rf·n2·k3 at R = 3). Mirrored by kernels/engine.py _chain_work.
+__host__ __device__ inline long long chain_work(int R, const int* n,
+                                                const int* k, int rf) {
+  const long long kp = 1LL * k[1] * k[2];
+  long long w = 1LL * rf * n[1] * n[2];
+  if (R >= 2) w += 2LL * rf * kp;
+  if (R == 3) w += 2LL * rf * n[1] * k[2];
+  return w;
+}
+
 // Truncated forward DFT chain of `nch` real channels src[c][s] (channel
 // stride S), axis s_R first, streamed over chunks of `rf` s_1 rows; the s_1
 // stage ACCUMULATES the spectrum of channel c into out_{r,i}[c·ldo + k]
-// (k = k_1·Kp + k', the caller zeroes it). `work` holds
-// rf·P (+ 2·rf·Kp at R ≥ 2, + 2·rf·n2·k3 at R = 3) floats
-// (engine._chain_work); the last chunk may be short. Every thread of the
-// block calls it; it ends synchronised.
+// (k = k_1·Kp + k', the caller zeroes it). `work` holds chain_work floats;
+// the last chunk may be short. Every thread of the block calls it; it ends
+// synchronised. The kernels' second chain plan: a call of its own, its
+// operands by value, so that it adds nothing to the registers of the
+// tensor-core chain beside it in the same kernel.
 template <int R, typename T>
-__device__ void forward_chain(const T* src, int nch, const Geom& g, int rf,
-                              const Mats<T>& m, float* out_r, float* out_i,
-                              int ldo, float* work) {
+__device__ FNO_NOINLINE void forward_chain(const T* src, int nch,
+                                           const Geom g, int rf,
+                                           const Mats<T> m, float* out_r,
+                                           float* out_i, int ldo,
+                                           float* work) {
   for (int c = 0; c < nch; ++c) {
     const T* xh = src + static_cast<size_t>(c) * g.S;
     for (int c0 = 0; c0 < g.n1; c0 += rf) {
@@ -248,3 +270,5 @@ cudaError_t max_clusters(Kernel kernel, int cl, int smem_bytes, int* n) {
 }
 
 }  // namespace fno
+
+#endif  // REPRO_TORCH_FNO_COMMON_CUH

@@ -31,12 +31,12 @@
 // What bounds it on an H100. At fno2d (B=8, H=O=64, 128×128, 32×32 modes)
 // the block needs ~1.9 GFLOP when its transforms are FFTs (2.5·N·log2 N per
 // channel each way) beside the CGEMM and the bypass, against ~67 MB of x and
-// y in f32: in f32 the card's CUDA-core rate bounds it (~29 µs at
-// 67 TFLOP/s); in bf16 its memory (~10 µs). This kernel computes the
-// truncated transforms as dense DFT products, ~4.6 GFLOP, all on CUDA cores
-// fed from shared memory and L1, so in practice load issue and occupancy
-// bound it: each thread keeps kTP outputs in registers so one operand load
-// feeds kTP FMAs. Tensor cores (wgmma) and TMA are later work.
+// y in f32: the bytes bound it (~20 µs at 3.35 TB/s; 3xTF32 on the tensor
+// cores does f32-accurate work at 165 TFLOP/s). This kernel computes the
+// truncated transforms as dense DFT products, ~4.6 GFLOP: both chains run
+// on the tensor cores (mma.sync, chain_tc.cuh; f32 as 3xTF32), so their
+// time goes to barriers, fragment loads and the few tiles of a chunk;
+// wgmma and TMA are later work.
 //
 // Design. The TPU kernel walks a sequential grid over hidden tiles and carries
 // the spectral accumulator of a (batch, out) tile in 16 MiB of VMEM. Hopper
@@ -46,7 +46,11 @@
 //     the portable 8; the wrapper asks the card and picks);
 //   * phase 1 — block r runs the truncated forward DFT chain for its slice of
 //     hidden channels, streaming x over s_1 chunks, and keeps the spectra
-//     A[h, k_1..k_R] (complex, f32) in its own shared memory;
+//     A[h, k_1..k_R] (complex, f32) in its own shared memory. The chain is
+//     chain_tc.cuh's on the tensor cores, or (the plan's "chain", where its
+//     resident factors do not fit, and with the lift) fno_common.cuh's on
+//     the CUDA cores; its work area lies over C and the tail, dead until
+//     phase 2;
 //   * phase 2 — after a cluster barrier, block r forms the CGEMM
 //     C[o,k] = Σ_h W[o,h(,k)]·A[h,k] for its slice of out channels, reading
 //     the other blocks' spectra through distributed shared memory: the
@@ -58,9 +62,16 @@
 //     batch of B reads it B times: 1.07 GB per launch at fno2d-large B=8.
 //     W is read through element strides of its out and hidden axes, so dx
 //     takes the [H,O(,K)] swap as a view, without a copy;
-//   * phase 3 — per s_1 chunk, the padded inverse chain (s_1 first, real irDFT
-//     on s_R last), then the bypass Σ_h wb·x re-read from L2 (one sample's x
-//     is a few MiB), + bias, the epilogue, and a single write.
+//   * phase 3 — per s_1 chunk, the padded inverse chain on the tensor cores
+//     (chain_tc.cuh inverse_chunk: s_1 first, the real irDFT on s_R last,
+//     its factors resident) into ys, which lies over the dead spectra A
+//     where it fits (so a chunk takes as many s_1 rows as shared memory
+//     holds); then the epilogue split by points (split_epilogue): block r
+//     forms all O channels at 1/CL of the chunk's points, the bypass
+//     Σ_h wb·x reading each x element once a cluster (it was read by every
+//     block, 16 × x from L2), the other blocks' ys through distributed
+//     shared memory, + bias, the activation and a single write. With the
+//     ends each block keeps its own channels (the projection gathers them).
 // Occupancy is low at small batches (B·CL blocks of 132 SMs). Ragged extents
 // are masked here: the TPU's lane padding is not ported.
 //
@@ -94,30 +105,105 @@
 // activation load feeds four FMAs.
 #include <cooperative_groups.h>
 
-#include "fno_common.cuh"
+#include "fno_common.cuh"  // first: a test may stand a copy in for it
+#include "chain_tc.cuh"
 
 namespace cg = cooperative_groups;
 using fno::kThreads;
-using fno::kTP;
 using fno::ld;
-using fno::stage;
 
 namespace {
 
 constexpr int kMaxOut = 8;  // out channels per block (registers in phase 2/3)
-constexpr int kPts = 2;     // points per thread in the bypass epilogue
+constexpr int kPts = 2;     // points per thread in the ends' bypass epilogue
+constexpr int kOG = 32;     // out channels a thread forms at once in the
+                            // split epilogue (registers)
 
 enum Act { kGelu = 0, kGeluVjp = 1, kLinear = 2 };
 
-// Loop bound of phase i (1..5) below: 1 forward chain, 2 CGEMM, 3 inverse
+// Loop bound of phase i (1..7) below: 1 forward chain, 2 CGEMM, 3 inverse
 // chain and epilogue, 4 the lift (its pieces in phases 1 and 3), 5 the
-// projection. Built with -DFUSED_BLOCK_ELIDE=<mask>, the phases whose bit
-// (1 << i) is set run no iteration: the output is then wrong and only the
-// time counts (launch/block_phases.py).
+// projection; within phase 3, 6 the inverse chain alone and 7 the bypass's
+// loop over the hidden channels. Built with -DFUSED_BLOCK_ELIDE=<mask>, the
+// phases whose bit (1 << i) is set run no iteration: the output is then
+// wrong and only the time counts (launch/block_phases.py).
 #ifndef FUSED_BLOCK_ELIDE
 #define FUSED_BLOCK_ELIDE 0
 #endif
 #define PHASE_BOUND(i, n) (((FUSED_BLOCK_ELIDE >> (i)) & 1) ? 0 : (n))
+
+// Shared-memory layout (byte offsets, regions 128-B aligned): my rows of
+// the shared weights, and with the ends of wb and the bias, from 0; the
+// spectra A [2][hs][K]; C [dc][ldc] (phase 2's CGEMM result as the inverse
+// chain reads it, C[k1][o·Kp + k']); the tail. Phase 1's work area starts at C (over C and the tail: C is
+// written only after the cluster barrier that ends phase 1); phase 3 keeps
+// C, and its factors and stages in the tail, where the ends' scratch lies
+// over them (a launch with the ends copies the factors again each chunk),
+// and ys [os][ri·P] over A when it fits there (A is dead after the barrier
+// that ends phase 2), else after them.
+struct BLayout {
+  long long a, c, t, ys;  // A, C, the tail, ys
+  long long p1, p3;       // the ends of phases 1 and 3
+  long long bytes;
+  chain::Layout chain;    // phase 1 on the tensor cores
+  chain::InvLayout inv;   // phase 3's factors and stages, from t
+};
+
+// Mirrored by kernels/engine.py _block_layout. wl, dp: columns of the last
+// inverse factor and rows of the first held at once; fma: phase 1 on the
+// CUDA cores (fno::forward_chain); lift (> 0, the lift's width) runs it on
+// the lifted chunk; lp, cout: the projection's width and channels (0:
+// none); ep: points a block takes of a piece of the ends.
+__host__ __device__ inline BLayout block_layout(int R, int esize, int H,
+                                                int O, const int* n,
+                                                const int* k, int hs, int os,
+                                                int rows_f, int rows_i,
+                                                int wl, int dp, bool fma,
+                                                bool per_mode, int lift,
+                                                int lp, int cout, int ep) {
+  using tc::align128;
+  BLayout B = {};
+  const long long K = 1LL * k[0] * k[1] * k[2];
+  const long long P = 1LL * n[1] * n[2];
+  const bool ends = lift > 0 || lp > 0;  // wb's rows and the bias too
+  B.a = align128(4LL * ((per_mode ? 0 : 2) * os * H +
+                        (ends ? os * H + kMaxOut : 0)));
+  B.c = align128(B.a + 8LL * hs * K);
+  B.inv = chain::inv_layout(R, n, k, os, rows_i, wl, dp);
+  B.t = align128(B.c + B.inv.cbytes);
+  long long p1;
+  if (lift > 0) {  // hbuf [hs][rf·P], then the chain's or the piece's
+    const long long chain = fno::chain_work(R, n, k, rows_f) - rows_f * P;
+    const long long piece = 1LL * (lift + H) * ep;
+    p1 = 4 * (hs * rows_f * P + (chain > piece ? chain : piece));
+  } else if (fma) {
+    p1 = 4 * fno::chain_work(R, n, k, rows_f);
+  } else {
+    B.chain = chain::layout(R, esize, n, k, rows_f, hs);
+    p1 = B.chain.bytes;
+  }
+  B.p1 = B.c + p1;
+  // The factors and stages; over the stages the split epilogue's wb
+  // columns [H][kOG], or over them all the ends' scratch.
+  long long tail = B.inv.bytes;
+  const long long lifted = 4LL * ((lift > O ? lift : O) + H) * ep;
+  const long long projected = 4LL * (O + lp + cout) * ep;
+  const long long split = B.inv.fbytes + 4LL * H * kOG;
+  if (lift == 0 && lp == 0 && split > tail) tail = split;
+  if (lift > 0 && lifted > tail) tail = lifted;
+  if (lp > 0 && projected > tail) tail = projected;
+  long long end = align128(B.t + tail);
+  const long long ysb = 4LL * os * rows_i * P;
+  if (ysb <= 8LL * hs * K) {
+    B.ys = B.a;
+  } else {
+    B.ys = end;
+    end = align128(end + ysb);
+  }
+  B.p3 = end;
+  B.bytes = B.p1 > B.p3 ? B.p1 : B.p3;
+  return B;
+}
 
 template <typename T>
 struct Args {
@@ -135,6 +221,8 @@ struct Args {
   int n[3], k[3];  // extents and modes, axis order 1..R (unused = 1)
   int hs, os;      // hidden / out channels per block of the cluster
   int rows_f, rows_i;  // s_1 rows per forward / inverse chunk
+  int fma;         // phase 1 on the CUDA cores (else the tensor cores)
+  BLayout lay;
   long long w_so, w_sh;  // W's element strides of o and h
   // Fused model ends (kEnds only), null where that end is absent. With the
   // lift, x is the raw input [B, cin, n_1..n_R].
@@ -271,6 +359,85 @@ __device__ __forceinline__ void gather_piece(cg::cluster_group cl_g,
   }
 }
 
+// The epilogue of a launch without the ends, split over the cluster by
+// points: once every block has its os channels of the chunk in its ys,
+// block r takes 1/CL of the chunk's npts points (from `base` of the
+// sample's S) and forms all O channels there: the bypass Σ_h wb[o][h]·x[h]
+// (x read by one block of the cluster, coalesced; wb's columns of kOG out
+// channels at a time staged transposed in wg [H][kOG], one float4 load
+// feeding four FMAs), the owning block's ys through distributed shared
+// memory, + bias, the activation and one coalesced write. The cluster
+// syncs before and after: no block overwrites its ys while another reads
+// it. Not inlined, with its operands by value: its kOG accumulators would
+// otherwise share the kernel's 128 registers with the chains' live state
+// and spill.
+template <typename T, bool kBypass>
+__device__ FNO_NOINLINE void split_epilogue(
+    const T* x, const T* wb, const T* bias, const T* gy, void* y, int act,
+    int out_f32, int H, int O, int os, float* ys, float* wg, int base,
+    int npts, int S) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, cl = static_cast<int>(gridDim.x);
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int per = (npts + cl - 1) / cl;
+  const int q0 = min(npts, rank * per), q1 = min(npts, q0 + per);
+  const chain::Div dos(os);
+  cluster.sync();  // every block's channels of the chunk are in its ys
+  for (int og = 0; og < O; og += kOG) {
+    const int ng = min(kOG, O - og);
+    if (kBypass) {
+      for (int i = tid; i < H * kOG; i += kThreads) {
+        const int h = i / kOG, j = i - h * kOG;
+        wg[i] = j < ng ? ld(wb + static_cast<size_t>(og + j) * H + h) : 0.f;
+      }
+      __syncthreads();
+    }
+    for (int p = q0 + tid; p < q1; p += kThreads) {
+      float acc[kOG];
+#pragma unroll
+      for (int j = 0; j < kOG; ++j) acc[j] = 0.f;
+      if (kBypass) {
+        for (int h = 0; h < PHASE_BOUND(7, H); ++h) {
+          const float xv = ld(x + static_cast<size_t>(h) * S + base + p);
+          const float4* w4 = reinterpret_cast<const float4*>(wg + h * kOG);
+#pragma unroll
+          for (int j = 0; j < kOG / 4; ++j) {
+            const float4 w = w4[j];
+            acc[4 * j] = fmaf(w.x, xv, acc[4 * j]);
+            acc[4 * j + 1] = fmaf(w.y, xv, acc[4 * j + 1]);
+            acc[4 * j + 2] = fmaf(w.z, xv, acc[4 * j + 2]);
+            acc[4 * j + 3] = fmaf(w.w, xv, acc[4 * j + 3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kOG; ++j) {
+        if (j >= ng) break;
+        const int o = og + j, q = dos.div(o);
+        // The output and gy share one (o, point) index of the sample.
+        const size_t at = static_cast<size_t>(o) * S + base + p;
+        const float z =
+            (cluster.map_shared_rank(ys, q)[(o - q * os) * npts + p] +
+             acc[j]) +
+            (bias ? ld(bias + o) : 0.f);
+        float v = z;
+        if (act == kGelu) {
+          v = fno::gelu_tanh(z);
+        } else if (act == kGeluVjp) {
+          v = ld(gy + at) * fno::dgelu_tanh(z);
+        }
+        if (out_f32) {
+          static_cast<float*>(y)[at] = v;
+        } else {
+          fno::st(static_cast<T*>(y) + at, v);
+        }
+      }
+    }
+    __syncthreads();  // the next group's columns of wb go over these
+  }
+  cluster.sync();  // every block has read the chunk's ys
+}
+
 // kBypass=false (wb null) compiles the bare spectral layer: no wb loads and
 // no bypass loop, while the bypass path keeps its code unchanged.
 // kPerMode=true reads per-mode weights from device memory in phase 2;
@@ -281,6 +448,7 @@ template <int R, typename T, bool kBypass, bool kPerMode, bool kEnds>
 __global__ void __launch_bounds__(kThreads)
 fused_block_kernel(const Args<T> a) {
   extern __shared__ float smem[];
+  char* base = reinterpret_cast<char*>(smem);
   cg::cluster_group cluster = cg::this_cluster();
   const int cl = static_cast<int>(gridDim.x);  // the cluster spans grid x
   const int rank = static_cast<int>(cluster.block_rank());
@@ -288,8 +456,7 @@ fused_block_kernel(const Args<T> a) {
   const int tid = threadIdx.x;
   const int H = a.H, O = a.O, hs = a.hs, os = a.os;
   const fno::Geom g = fno::make_geom<R>(a.n, a.k);
-  const int n1 = g.n1, n2 = g.n2, n3 = g.n3;
-  const int k1 = g.k1, k2 = g.k2, k3 = g.k3;
+  const int n1 = g.n1, k1 = g.k1;
   const int P = g.P, Kp = g.Kp, K = g.K, S = g.S;
   const int h0 = rank * hs, nh = max(0, min(hs, H - h0));
   const int o0 = rank * os, no = max(0, min(os, O - o0));
@@ -297,30 +464,31 @@ fused_block_kernel(const Args<T> a) {
   const bool projected = kEnds && a.p1w != nullptr;
   const int ep = a.ep;
 
-  // Shared memory: spectra A of my hidden slice, CGEMM result C of my out
-  // slice, my rows of the weights (wb only, with per-mode W), the bias, then
-  // the work area of phases 1 and 3.
-  float* Ar = smem;
-  float* Ai = Ar + hs * K;
-  float* Cr = Ai + hs * K;
-  float* Ci = Cr + os * K;
-  float* Wr = Ci + os * K;
+  // Shared memory (BLayout): my rows of the shared weights (and with the
+  // ends of wb, and the bias), the spectra A of my hidden slice, the CGEMM
+  // result C of my out slice, then the tail.
+  const BLayout& L = a.lay;
+  float* Wr = smem;
   float* Wi = Wr + (kPerMode ? 0 : os * H);
   float* Wb = Wi + (kPerMode ? 0 : os * H);
   float* Bs = Wb + os * H;
-  float* work = Bs + kMaxOut;
+  float* Ar = reinterpret_cast<float*>(base + L.a);
+  float* Ai = Ar + hs * K;
+  float* Cr = reinterpret_cast<float*>(base + L.c);
+  float* Ci = Cr + L.inv.mc;
+  float* work = Cr;  // phase 1's work area, over C and the tail
 
-  for (int i = tid; i < no * H; i += kThreads) {
+  for (int i = tid; i < ((kPerMode && !kEnds) ? 0 : no * H); i += kThreads) {
     const int o = o0 + i / H, h = i % H;
     if (!kPerMode) {
       const size_t at = o * a.w_so + h * a.w_sh;
       Wr[i] = ld(a.wr + at);
       Wi[i] = ld(a.wi + at);
     }
-    Wb[i] = kBypass ? ld(a.wb + o * H + h) : 0.f;
+    if (kEnds) Wb[i] = ld(a.wb + o * H + h);
   }
-  for (int i = tid; i < no; i += kThreads)
-    Bs[i] = a.bias ? ld(a.bias + o0 + i) : 0.f;
+  for (int i = tid; i < (kEnds ? no : 0); i += kThreads)
+    Bs[i] = ld(a.bias + o0 + i);
   for (int i = tid; i < hs * K; i += kThreads) Ar[i] = Ai[i] = 0.f;
   __syncthreads();
 
@@ -348,16 +516,27 @@ fused_block_kernel(const Args<T> a) {
         fno::chain_chunk<R, T>(hbuf + c * rf * P, nr, c0, g, rf, a.f,
                                Ar + c * K, Ai + c * K, act);
     }
-  } else {
+  } else if (a.fma) {
     fno::forward_chain<R, T>(a.x + (static_cast<size_t>(b) * H + h0) * S,
                              PHASE_BOUND(1, nh), g, a.rows_f, a.f, Ar, Ai, K,
                              work);
+  } else {
+    chain::forward_chain<R, T>(a.x + (static_cast<size_t>(b) * H + h0) * S,
+                               PHASE_BOUND(1, nh), g, L.chain, a.f, Ar, Ai,
+                               K, base + L.c);
   }
+  // Phase 3's factors into the tail, zeroed with its stages: their copies
+  // land while the CGEMM runs.
+  chain::inverse_factors<R, T>(L.inv, base + L.t, a.e, g);
   cluster.sync();
 
   // Phase 2: CGEMM over the whole hidden axis, reading every block's spectra
-  // through distributed shared memory. Per-mode: W[o0 + o, h, kk] at
-  // wbase + o·w_so + h·w_sh.
+  // through distributed shared memory, into C[k_1][o·Kp + k'] (the rows of
+  // C past k_1 zero, and its columns of channels past mine: the inverse
+  // chain's depth and M). Per-mode: W[o0 + o, h, kk] at wbase + o·w_so +
+  // h·w_sh.
+  for (int i = tid; i < (L.inv.dc - k1) * L.inv.ldc; i += kThreads)
+    Cr[k1 * L.inv.ldc + i] = 0.f;
   for (int kk = tid; kk < PHASE_BOUND(2, K); kk += kThreads) {
     const size_t wbase = static_cast<size_t>(o0) * a.w_so + kk;
     float cr[kMaxOut], ci[kMaxOut];
@@ -390,11 +569,12 @@ fused_block_kernel(const Args<T> a) {
         }
       }
     }
+    const int c1 = kk / Kp, at = c1 * L.inv.ldc + kk - c1 * Kp;
 #pragma unroll
     for (int o = 0; o < kMaxOut; ++o) {
-      if (o < no) {
-        Cr[o * K + kk] = cr[o];
-        Ci[o * K + kk] = ci[o];
+      if (o < os) {
+        Cr[at + o * Kp] = o < no ? cr[o] : 0.f;
+        Ci[at + o * Kp] = o < no ? ci[o] : 0.f;
       }
     }
   }
@@ -403,43 +583,25 @@ fused_block_kernel(const Args<T> a) {
 
   // Phase 3: per s_1 chunk, the padded inverse chain (s_1 first, real irDFT
   // on s_R last) into ys[o][r·P + p], then bypass + bias + epilogue and one
-  // write.
+  // write. The ends' scratch lies over the inverse chain's factors and
+  // stages: with the ends, each chunk copies the factors again.
   const int ri = a.rows_i;
+  float* ys = reinterpret_cast<float*>(base + L.ys);  // [os][nr·P]
+  float* scratch = reinterpret_cast<float*>(base + L.t);
   for (int c0 = 0; c0 < PHASE_BOUND(3, n1); c0 += ri) {
     const int nr = min(ri, n1 - c0);
     const int npts = nr * P;
-    float* ys = work;  // [no][nr·P]
-    float* t1r = ys + os * ri * P;
-    float* t1i = t1r + os * ri * Kp;
-    const T* e1r = a.e.r[0] + c0;  // columns c0.. of E_1 [k_1][n_1]
-    const T* e1i = a.e.i[0] + c0;
-    if constexpr (R == 1) {
-      stage<T, true, false, false, kTP>(Cr, Ci, no, k1, 1, e1r, e1i, n1, nr, ys,
-                                        nullptr);
-    } else {
-      // T1[o][r][k'] = Σ_{k_1} C[o][k_1][k'] · E_1[k_1][c0 + r]
-      stage<T, true, true, false, kTP>(Cr, Ci, no, k1, Kp, e1r, e1i, n1, nr,
-                                       t1r, t1i);
-      __syncthreads();
-      if constexpr (R == 2) {
-        stage<T, true, false, false, kTP>(t1r, t1i, no * nr, k2, 1, a.e.r[1],
-                                          a.e.i[1], n2, n2, ys, nullptr);
-      } else {
-        float* t2r = t1i + os * ri * Kp;  // [o][r][n2][k3]
-        float* t2i = t2r + os * ri * n2 * k3;
-        stage<T, true, true, false, kTP>(t1r, t1i, no * nr, k2, k3, a.e.r[1],
-                                         a.e.i[1], n2, n2, t2r, t2i);
-        __syncthreads();
-        stage<T, true, false, false, kTP>(t2r, t2i, no * nr * n2, k3, 1,
-                                          a.e.r[2], a.e.i[2], n3, n3, ys,
-                                          nullptr);
-      }
-    }
-    __syncthreads();
+    if (c0 > 0 && (lifted || projected))
+      chain::inverse_factors<R, T>(L.inv, base + L.t, a.e, g);
+    tc::async_wait_all();
+    __syncthreads();  // the inverse factors have landed
+    if (PHASE_BOUND(6, 1))
+      chain::inverse_chunk<R, T>(Cr, L.inv, base + L.t, a.e, g, os, nr, c0,
+                                 ys);
     if (lifted) {
       // Per piece: lift my points and form the bypass of all O channels
       // there, wb·h, in act's place; then add my channels' bypass into ys.
-      float* act = t1r;  // [max(L, O)][ep], then h [H][ep]
+      float* act = scratch;  // [max(L, O)][ep], then h [H][ep]
       float* hp = act + max(a.L, O) * ep;
       for (int p0 = 0; p0 < PHASE_BOUND(4, npts); p0 += cl * ep) {
         const int np = min(cl * ep, npts - p0);
@@ -451,9 +613,21 @@ fused_block_kernel(const Args<T> a) {
         cluster.sync();
       }
     }
-    // Bypass: each thread takes kPts points so every wb[o, h] it loads
-    // feeds kPts FMAs; x is read once per (h, point), coalesced. With the
-    // lift it was added into ys above.
+    if constexpr (!kEnds) {
+      const size_t sb = static_cast<size_t>(b) * S;  // the sample's offsets
+      split_epilogue<T, kBypass>(
+          a.x + sb * H, a.wb, a.bias, a.gy ? a.gy + sb * O : nullptr,
+          a.out_f32 ? static_cast<void*>(static_cast<float*>(a.y) + sb * O)
+                    : static_cast<void*>(static_cast<T*>(a.y) + sb * O),
+          a.act, a.out_f32, H, O, os, ys,
+          reinterpret_cast<float*>(base + L.t + L.inv.fbytes), c0 * P, npts,
+          S);
+      continue;
+    }
+    // With the ends, each block's own channels. Bypass: each thread takes
+    // kPts points so every wb[o, h] it loads feeds kPts FMAs; x is read
+    // once per (h, point), coalesced. With the lift it was added into ys
+    // above.
     const T* xb = a.x + static_cast<size_t>(b) * H * S + c0 * P;
     const int nbyp = kBypass && !lifted ? H : 0;
     for (int p0 = tid; p0 < npts; p0 += kThreads * kPts) {
@@ -465,7 +639,7 @@ fused_block_kernel(const Args<T> a) {
 #pragma unroll
         for (int o = 0; o < kMaxOut; ++o) bx[u][o] = 0.f;
       }
-      for (int h = 0; h < nbyp; ++h) {
+      for (int h = 0; h < PHASE_BOUND(7, nbyp); ++h) {
         float xv[kPts];
 #pragma unroll
         for (int u = 0; u < kPts; ++u)
@@ -510,7 +684,7 @@ fused_block_kernel(const Args<T> a) {
       // Per piece, all O activated channels of my points in zs [O][ep],
       // the hidden units gelu(p1·z + b1) [Lp][ep], then p2·… + b2.
       cluster.sync();  // every block's activated channels are in its ys
-      float* zs = t1r;
+      float* zs = scratch;
       float* hid = zs + O * ep;
       float* yo = hid + a.Lp * ep;  // [cout][ep]
       for (int p0 = 0; p0 < PHASE_BOUND(5, npts); p0 += cl * ep) {
@@ -608,6 +782,21 @@ int max_clusters_for(int rank, int cl, int smem_bytes, int* n) {
   }
 }
 
+// The layout of a launch from its C arguments (dims, plan, wl as the entry
+// below takes them) and the ends' widths (0 where an end is absent).
+BLayout layout_of(int rank, int esize, const int* dims, const int* plan,
+                  const int* wl, int lift, int lp, int cout) {
+  int n[3], k[3];
+  for (int i = 0; i < 3; ++i) {
+    n[i] = i < rank ? dims[3 + i] : 1;
+    k[i] = i < rank ? dims[6 + i] : 1;
+  }
+  return block_layout(rank, esize, dims[1], dims[2], n, k, plan[1], plan[2],
+                      plan[3], plan[4], plan[8], plan[9],
+                      plan[7] != 0 || lift > 0,
+                      wl[0] != 0, lift, lp, cout, plan[6]);
+}
+
 template <typename T>
 int dispatch(int rank, int act, int out_f32, const void* x, const void* wr,
              const void* wi, const void* wb, const void* bias, const void* gy,
@@ -644,6 +833,7 @@ int dispatch(int rank, int act, int out_f32, const void* x, const void* wr,
   a.rows_i = plan[4];
   const int smem_bytes = plan[5];
   a.ep = plan[6];
+  a.fma = plan[7];
   const int per_mode = wl[0];
   a.w_so = wl[1];
   a.w_sh = wl[2];
@@ -657,7 +847,9 @@ int dispatch(int rank, int act, int out_f32, const void* x, const void* wr,
     a.cout = edims[3];
   }
   if (a.os > kMaxOut || act < kGelu || act > kLinear ||
-      (act == kGeluVjp) != (gy != nullptr)) {
+      (act == kGeluVjp) != (gy != nullptr) || a.rows_f < 1 || a.rows_i < 1 ||
+      (rank > 1 && (plan[8] < 8 || plan[8] % 8 != 0)) || plan[9] < 4 ||
+      plan[9] % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (a.l1w || a.p1w) {  // the ends: a block forward, each end whole
@@ -667,6 +859,13 @@ int dispatch(int rank, int act, int out_f32, const void* x, const void* wr,
                                     a.cout > 0);
     if (!wb || !bias || act != kGelu || !lift_ok || !proj_ok || a.ep < 1)
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+  a.lay = layout_of(rank, static_cast<int>(sizeof(T)), dims, plan, wl,
+                  a.l1w ? a.L : 0, a.p1w ? a.Lp : 0, a.p1w ? a.cout : 0);
+  if (a.lay.bytes > smem_bytes ||
+      (!a.fma && !a.l1w &&
+       chain::acc_tiles(rank, a.lay.chain) > chain::kWarps * chain::kMaxAcc)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (rank) {
@@ -689,7 +888,10 @@ int dispatch(int rank, int act, int out_f32, const void* x, const void* wr,
 // mats: 4·rank device pointers (forward re/im per stage, then inverse).
 // dims: {B, H, O, n_1, n_2, n_3, k_1, k_2, k_3}.
 // plan: {cluster, hidden/block, out/block, rows_f, rows_i, smem bytes,
-// points a block takes of a piece (the ends only)}.
+// points a block takes of a piece (the ends only), phase 1's chain (0 the
+// tensor cores, 1 the CUDA cores; a launch with the lift takes 1), columns
+// of the last inverse factor held at once (rank ≥ 2; n_R padded to 8: all
+// of it, resident), rows of the first at once (k_1 padded to 4: all)}.
 // wl: {per_mode, stride of o, stride of h}: wr, wi are [O, H] (per_mode =
 // 0) or [O, H, K] with the modes contiguous, at these element strides.
 // ends: null, or the model ends' 8 device pointers {l1w [L,cin], l1b [L],
@@ -716,6 +918,19 @@ extern "C" int fused_block_forward(int dtype, int rank, int act, int out_f32,
                                    stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The dynamic shared memory a launch with these dims, plan and wl (as
+// above) and edims ({cin, L, Lp, cout}, or null without the ends) needs:
+// the wrapper's plan (kernels/engine.py _block_layout) mirrors it.
+extern "C" long long fused_block_smem(int dtype, int rank, const int* dims,
+                                      const int* plan, const int* wl,
+                                      const int* edims) {
+  const int lift = edims ? edims[1] : 0;
+  const int lp = edims ? edims[2] : 0;
+  return layout_of(rank, dtype == 1 ? 2 : 4, dims, plan, wl, lift, lp,
+                   lp > 0 ? edims[3] : 0)
+      .bytes;
 }
 
 // Writes to *n how many clusters of `cl` blocks (with `smem_bytes` of shared

@@ -32,7 +32,11 @@
 //   * phase 1 — block r runs the forward chain of its x channels into A and
 //     the adjoint-forward chain of its gz channels into Ĝ (chain_tc.cuh: the
 //     DFT stages as products on the tensor cores, the factors resident, the
-//     chunks of s_1 rows double-buffered by cp.async);
+//     chunks of s_1 rows double-buffered by cp.async). Where the resident
+//     factors or the accumulator tiles do not fit, the plan's "chain" is the
+//     CUDA cores' (fno::forward_chain: chunks of s_1 rows, the factors read
+//     through L1), a template parameter, so the tensor cores' instances hold
+//     none of its code;
 //   * phase 2 — after a cluster barrier, block r forms the per-sample dW of
 //     its out slice against EVERY hidden channel on the CUDA cores, reading
 //     the other blocks' A through distributed shared memory (per-mode W: it
@@ -88,6 +92,7 @@ constexpr int kWarps = kThreads / 32;
 // where warps split the depth, their tiles.
 struct WLayout {
   long long work;      // the chain's work area
+  int fma, rows;       // phase 1 on the CUDA cores; its s_1 rows a chunk
   chain::Layout chain;
   int om, hn, ldp;     // phase 3: gz rows (O padded to 16), x rows and the
                        // ones row (H + 1 padded to 8), leading dimension
@@ -100,15 +105,22 @@ __host__ __device__ inline WLayout wgrad_layout(int R, int esize, int H,
                                                 int O, const int* n,
                                                 const int* k, int hs, int os,
                                                 int rows, int cols,
-                                                bool bypass) {
+                                                bool bypass, bool fma) {
   using tc::align128;
   using tc::pad_to;
   WLayout W = {};
   int K = 1;
   for (int i = 0; i < R; ++i) K *= k[i];
   W.work = align128(kFlag + 4LL * 2 * (hs + os) * (K + 1));
-  W.chain = chain::layout(R, esize, n, k, rows, hs > os ? hs : os);
-  long long bytes = W.work + W.chain.bytes;
+  W.fma = fma;
+  W.rows = rows;
+  long long bytes = W.work;
+  if (fma) {
+    bytes += 4 * fno::chain_work(R, n, k, rows);
+  } else {
+    W.chain = chain::layout(R, esize, n, k, rows, hs > os ? hs : os);
+    bytes += W.chain.bytes;
+  }
   W.om = pad_to(O, 16);
   W.hn = pad_to(H + 1, 8);
   W.ldp = cols + (esize == 2 ? 8 : 4);
@@ -272,8 +284,9 @@ __device__ void bypass_partial(const T* xsrc, const T* gsrc, int H, int O,
 
 // kBypass=false compiles phase 3 (dW_b, dbias) away: the bare spectral
 // layer's backward. kPerMode=true forms dW per mode in the batch
-// reduction; kPerMode=false sums the modes in phase 2.
-template <int R, typename T, bool kBypass, bool kPerMode>
+// reduction; kPerMode=false sums the modes in phase 2. kFma=true runs
+// phase 1 on the CUDA cores' chain, kFma=false on the tensor cores'.
+template <int R, typename T, bool kBypass, bool kPerMode, bool kFma>
 __global__ void __launch_bounds__(kThreads)
 fused_wgrad_kernel(const Args<T> a) {
   extern __shared__ float smem[];
@@ -308,12 +321,21 @@ fused_wgrad_kernel(const Args<T> a) {
   float* work = reinterpret_cast<float*>(base + L.work);
 
   // Phase 1: A of my hidden channels, Ĝ of my out channels.
-  chain::forward_chain<R, T>(a.x + (static_cast<size_t>(b) * H + h0) * S,
-                             PHASE_BOUND(1, nh), g, L.chain, a.fx, Ar, Ai,
-                             ldk, base + L.work);
-  chain::forward_chain<R, T>(a.gz + (static_cast<size_t>(b) * O + o0) * S,
-                             PHASE_BOUND(1, no), g, L.chain, a.fg, Gr, Gi,
-                             ldk, base + L.work);
+  const T* xs = a.x + (static_cast<size_t>(b) * H + h0) * S;
+  const T* gs = a.gz + (static_cast<size_t>(b) * O + o0) * S;
+  if constexpr (kFma) {  // the CUDA cores' chain accumulates: zero them
+    for (int i = tid; i < 2 * (hs + os) * ldk; i += kThreads) Ar[i] = 0.f;
+    __syncthreads();
+    fno::forward_chain<R, T>(xs, PHASE_BOUND(1, nh), g, L.rows, a.fx, Ar, Ai,
+                             ldk, work);
+    fno::forward_chain<R, T>(gs, PHASE_BOUND(1, no), g, L.rows, a.fg, Gr, Gi,
+                             ldk, work);
+  } else {
+    chain::forward_chain<R, T>(xs, PHASE_BOUND(1, nh), g, L.chain, a.fx, Ar,
+                               Ai, ldk, base + L.work);
+    chain::forward_chain<R, T>(gs, PHASE_BOUND(1, no), g, L.chain, a.fg, Gr,
+                               Gi, ldk, base + L.work);
+  }
   cluster.sync();
 
   if constexpr (kPerMode) {
@@ -516,10 +538,10 @@ fused_wgrad_kernel(const Args<T> a) {
   }
 }
 
-template <int R, typename T, bool kBypass, bool kPerMode>
+template <int R, typename T, bool kBypass, bool kPerMode, bool kFma>
 cudaError_t launch_kernel(const Args<T>& a, int batch, int cl,
                           int smem_bytes, cudaStream_t stream) {
-  auto* kernel = fused_wgrad_kernel<R, T, kBypass, kPerMode>;
+  auto* kernel = fused_wgrad_kernel<R, T, kBypass, kPerMode, kFma>;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err = fno::configure(kernel, batch, cl, smem_bytes, stream,
@@ -530,13 +552,22 @@ cudaError_t launch_kernel(const Args<T>& a, int batch, int cl,
   return cudaGetLastError();
 }
 
+template <int R, typename T, bool kBypass, bool kPerMode>
+cudaError_t launch_chain(const Args<T>& a, int batch, int cl, int smem_bytes,
+                         cudaStream_t stream) {
+  return a.L.fma ? launch_kernel<R, T, kBypass, kPerMode, true>(
+                       a, batch, cl, smem_bytes, stream)
+                 : launch_kernel<R, T, kBypass, kPerMode, false>(
+                       a, batch, cl, smem_bytes, stream);
+}
+
 template <int R, typename T, bool kBypass>
 cudaError_t launch_modes(const Args<T>& a, int per_mode, int batch, int cl,
                          int smem_bytes, cudaStream_t stream) {
-  return per_mode ? launch_kernel<R, T, kBypass, true>(a, batch, cl,
-                                                       smem_bytes, stream)
-                  : launch_kernel<R, T, kBypass, false>(a, batch, cl,
-                                                        smem_bytes, stream);
+  return per_mode ? launch_chain<R, T, kBypass, true>(a, batch, cl,
+                                                      smem_bytes, stream)
+                  : launch_chain<R, T, kBypass, false>(a, batch, cl,
+                                                       smem_bytes, stream);
 }
 
 template <int R, typename T>
@@ -552,11 +583,11 @@ template <typename T>
 int max_clusters_for(int rank, int cl, int smem_bytes, int* n) {
   switch (rank) {
     case 1: return static_cast<int>(fno::max_clusters(
-        fused_wgrad_kernel<1, T, true, false>, cl, smem_bytes, n));
+        fused_wgrad_kernel<1, T, true, false, false>, cl, smem_bytes, n));
     case 2: return static_cast<int>(fno::max_clusters(
-        fused_wgrad_kernel<2, T, true, false>, cl, smem_bytes, n));
+        fused_wgrad_kernel<2, T, true, false, false>, cl, smem_bytes, n));
     case 3: return static_cast<int>(fno::max_clusters(
-        fused_wgrad_kernel<3, T, true, false>, cl, smem_bytes, n));
+        fused_wgrad_kernel<3, T, true, false, false>, cl, smem_bytes, n));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -570,7 +601,7 @@ WLayout layout_of(int rank, int esize, const int* dims, const int* plan) {
     k[i] = i < rank ? dims[6 + i] : 1;
   }
   return wgrad_layout(rank, esize, dims[1], dims[2], n, k, plan[1], plan[2],
-                      plan[3], plan[4], plan[8] != 0);
+                      plan[3], plan[4], plan[8] != 0, plan[9] != 0);
 }
 
 template <typename T>
@@ -612,8 +643,10 @@ int dispatch(int rank, const void* x, const void* gz,
   const int bypass = plan[8];
   a.L = layout_of(rank, static_cast<int>(sizeof(T)), dims, plan);
   if (a.os > kMaxOut || a.H > kThreads || rows < 1 ||
-      (rank == 1 && rows % 16 != 0) || a.cols < 16 || a.cols % 16 != 0 ||
-      chain::acc_tiles(rank, a.L.chain) > chain::kWarps * chain::kMaxAcc ||
+      (rank == 1 && !a.L.fma && rows % 16 != 0) || a.cols < 16 ||
+      a.cols % 16 != 0 ||
+      (!a.L.fma &&
+       chain::acc_tiles(rank, a.L.chain) > chain::kWarps * chain::kMaxAcc) ||
       (bypass && a.L.tiles > kWarps * kMaxPT) || a.L.bytes > smem_bytes ||
       (per_mode && a.kc < 1) || (bypass && !(a.dwb && a.dbias))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -639,9 +672,10 @@ int dispatch(int rank, const void* x, const void* gz,
 // dbias [O]}, float32; dwb and dbias null without the bypass.
 // dims: {B, H, O, n_1, n_2, n_3, k_1, k_2, k_3}.
 // plan: {cluster, hidden/block, out/block, s_1 rows per chain chunk (rank
-// 1: points, a multiple of 16), points per phase-3 chunk (a multiple of
-// 16), smem bytes, per_mode, modes per chunk of the per-mode batch
-// reduction, bypass}.
+// 1, tensor cores: points, a multiple of 16), points per phase-3 chunk (a
+// multiple of 16), smem bytes, per_mode, modes per chunk of the per-mode
+// batch reduction, bypass, phase 1's chain (0 the tensor cores, 1 the CUDA
+// cores)}.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int fused_wgrad(int dtype, int rank, const void* x, const void* gz,
                            const void* const* mats, void* ws, void* tickets,
@@ -667,7 +701,7 @@ extern "C" long long fused_wgrad_smem(int dtype, int rank, const int* dims,
 
 // Writes to *n how many clusters of `cl` blocks (with `smem_bytes` of shared
 // memory each) the card can run at once, asked of one instance (shared
-// weights, with the bypass) for all: they take the same shared memory;
+// weights, with the bypass, the tensor cores' chain) for all: they take the same shared memory;
 // returns the cudaError_t.
 extern "C" int fused_wgrad_max_clusters(int dtype, int rank, int cl,
                                         int smem_bytes, int* n) {

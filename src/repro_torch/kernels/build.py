@@ -106,6 +106,8 @@ def load_block_library(path: Path) -> ctypes.CDLL:
     lib.fused_block_max_clusters.argtypes = [i, i, i, i,
                                              ctypes.POINTER(i)]
     lib.fused_block_max_clusters.restype = i
+    lib.fused_block_smem.argtypes = [i, i, vp, vp, vp, vp]
+    lib.fused_block_smem.restype = ctypes.c_longlong
     lib.fused_block_error_string.argtypes = [i]
     lib.fused_block_error_string.restype = ctypes.c_char_p
     return lib

@@ -47,9 +47,10 @@ On the card, compare against the plain versions with
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -94,15 +95,20 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _THREADS = 512     # kThreads in csrc/fno_common.cuh
 _TP = 4            # kTP: outputs per thread of a non-accumulating stage
-_PTS = 2           # kPts: points per thread of the bypass epilogue
 _MAX_OUT = 8       # kMaxOut: out channels per block of a cluster
+_OUT_GROUP = 32    # kOG: out channels a thread forms at once in the block
+                   # kernel's split epilogue
 _WGRAD_COLS = 256  # the most points per chunk of the wgrad kernel's dW_b
 _WGRAD_FLAG = 128  # kFlag: bytes before the wgrad kernel's spectra
-# The most s_1 rows per chunk of the wgrad kernel's chains by rank (rank 1:
-# points, a multiple of 16), and the 16 × 8 tiles its warps hold in
-# registers: kMaxAcc a warp of a chain's accumulating stage, kMaxPT of the
-# dW_b product (csrc/chain_tc.cuh, csrc/fused_wgrad.cu).
-_WGRAD_ROWS = {1: 64, 2: 64, 3: 8}
+# The most s_1 rows per chunk of the tensor-core forward chain by rank
+# (rank 1: points, a multiple of 16), and the 16 × 8 tiles the warps hold
+# in registers: kMaxAcc a warp of the chain's accumulating stage, kMaxPT of
+# the wgrad's dW_b product (csrc/chain_tc.cuh, csrc/fused_wgrad.cu).
+_TC_ROWS = {1: 64, 2: 64, 3: 8}
+# Phase 1's chain in a plan ("chain"): on the tensor cores
+# (chain::forward_chain) or on the CUDA cores (fno::forward_chain), and the
+# code the C entries take.
+CHAINS = ("tc", "fma")
 _WARPS = _THREADS // 32
 _MAX_ACC = 4
 _MAX_PT = 9
@@ -290,15 +296,15 @@ def _cluster_slices(hidden: int, out: int, max_cluster: int):
 
 
 def _chain_rows(spatial, modes):
-    """The most s_1 rows per forward-chain chunk: enough outputs for every
-    thread's registers in the chain's stages."""
+    """The most s_1 rows per chunk of the CUDA cores' forward chain: enough
+    outputs for every thread's registers in the chain's stages."""
     k = list(modes) + [1] * (3 - len(modes))
     return min(spatial[0], max(1, _TP * _THREADS // (k[1] * k[2])))
 
 
 def _chain_work(spatial, modes, rows_f):
-    """The forward chain's work area in floats at `rows_f` s_1 rows per
-    chunk (``fno::forward_chain``'s `work`)."""
+    """The CUDA cores' forward chain's work area in floats at `rows_f` s_1
+    rows per chunk (``fno::chain_work``)."""
     r = len(spatial)
     n = list(spatial) + [1] * (3 - r)
     k = list(modes) + [1] * (3 - r)
@@ -309,18 +315,32 @@ def _chain_work(spatial, modes, rows_f):
     return fwd
 
 
-def _fit_rows(spatial, modes, smem_at):
-    """(rows_f, smem): the most s_1 rows per forward-chain chunk, up to
-    ``_chain_rows``, whose plan fits a block's shared memory, and that
-    plan's bytes; `smem_at(rows_f)` gives a plan's bytes. Where even one
-    row does not fit, rows_f=1 and its (too many) bytes: the caller's
-    ``_check_smem`` raises."""
-    rows_f = _chain_rows(spatial, modes)
-    smem = smem_at(rows_f)
-    while smem > _SMEM_LIMIT and rows_f > 1:
-        rows_f -= 1
-        smem = smem_at(rows_f)
-    return rows_f, smem
+def _most(cap: int, fits: Callable[[int], bool], step: int = 1):
+    """The largest multiple of `step` up to `cap` for which `fits` holds,
+    fits being true up to some value and false past it; `step` when none
+    does (the caller's check then raises)."""
+    lo, hi = 1, cap // step
+    if hi < 1 or not fits(step):
+        return step
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if fits(mid * step):
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo * step
+
+
+def _tc_rows(spatial, fits: Callable[[int], bool]) -> int:
+    """The most s_1 rows a chunk (rank 1: points, a multiple of 16) of the
+    tensor-core chain, up to ``_TC_ROWS``, for which `fits` holds, stepping
+    down one at a time (its layout is not monotone in the rows: the warps
+    that split a stage's depth need partial tiles); `step` when none does."""
+    step = 16 if len(spatial) == 1 else 1
+    rows = min(_pad(spatial[0], step), _TC_ROWS[len(spatial)])
+    while rows > step and not fits(rows):
+        rows -= step
+    return rows
 
 
 def _check_smem(smem: int, what: str, hidden, out, spatial, modes) -> None:
@@ -347,86 +367,184 @@ def _grow(plan_fn: Callable, max_cluster: int, *args) -> Dict[str, int]:
 def launch_plan(hidden: int, out: int, spatial: Sequence[int],
                 modes: Sequence[int], max_cluster: int = _PORTABLE_CLUSTER,
                 per_mode: bool = False,
-                ends: Optional[Tuple[int, int, int, int]] = None
-                ) -> Dict[str, int]:
-    """The block kernel's cluster size, channel slices, chunk rows and
-    shared memory, at clusters of up to `max_cluster` blocks or of 16 when
-    those cannot hold the shape; raises ValueError for shapes the kernel
-    cannot hold. The forward chain's chunk takes the most s_1 rows, up to
-    the register-filling count, that fit (fno3d: 3 of 8). Shared weights
-    are staged in shared memory (3 rows of [os,H]: wr, wi, wb); per-mode
-    weights [O,H,K] are read from device memory as the CGEMM streams over
-    the modes, so only wb is staged.
+                ends: Optional[Tuple[int, int, int, int]] = None,
+                chain: Optional[str] = None) -> Dict[str, int]:
+    """The block kernel's cluster size, channel slices, chunk rows, phase
+    1's chain and shared memory, at clusters of up to `max_cluster` blocks
+    or of 16 when those cannot hold the shape; raises ValueError for shapes
+    the kernel cannot hold. Shared weights are staged in shared memory (2
+    rows of [os,H]: wr, wi); per-mode weights [O,H,K] are read from device
+    memory as the CGEMM streams over the modes. wb's rows and the bias are
+    staged only with the ends: without them the split epilogue stages wb's
+    columns of 32 out channels at a time over the inverse chain's stages.
+
+    Phase 1 (the forward chain) works over C and the tail, phase 3 keeps C,
+    its factors and stages in the tail and ys over the spectra A where it
+    fits (``_block_layout``), so the two are planned apart. "chain" is "tc"
+    (the tensor cores: the most s_1 rows up to ``_TC_ROWS`` whose resident
+    factors fit, fno3d 2) where that fits and its accumulator tiles fit the
+    registers, else "fma" (the CUDA cores: the most rows up to the
+    register-filling count, ``_chain_rows``, that fit); `chain` forces one
+    (ValueError where it does not fit). "rows_i", the s_1 rows of an
+    inverse chunk, is the most that fit.
 
     ends=(C_in, L, Lp, C_out) plans a launch with the model's end MLPs
     (L=0: no lift, Lp=0: no projection) and adds "ep", the points a block
     takes of each piece of a chunk (128, or fewer where that does not
     fit): the lift holds the block's hidden slice of a chunk,
-    [hs][rows_f·P], where the chain reads the input, and a piece's inner
-    activation and lifted state, [L][ep] and [H][ep]; in phase 3, beside
-    ys, the bypass piece [max(L,O)][ep] with [H][ep]; the projection a
-    piece's [O][ep] channels, [Lp][ep] hidden units and [C_out][ep]
-    outputs."""
-    return _grow(functools.partial(_launch_plan, ends=ends), max_cluster,
-                 hidden, out, spatial, modes, per_mode)
+    [hs][rows_f·P], where the chain reads the input (its chain is "fma"),
+    and a piece's inner activation and lifted state, [L][ep] and [H][ep];
+    in phase 3, over the inverse chain's stages, the bypass piece
+    [max(L,O)][ep] with [H][ep]; the projection a piece's [O][ep] channels,
+    [Lp][ep] hidden units and [C_out][ep] outputs."""
+    return dict(_grow(_launch_plan, max_cluster, hidden, out,
+                      tuple(spatial), tuple(modes), per_mode,
+                      tuple(ends) if ends is not None else None, chain))
 
 
-def _launch_plan(hidden, out, spatial, modes, per_mode, max_cluster,
-                 ends=None):
+def _inv_bytes(spatial, modes, os_, rows_i, wl, dp):
+    """(C's bytes, the factors' bytes, the stages' bytes) of the inverse
+    chain with `wl` columns of the last factor and `dp` rows of the first at
+    once: ``chain::inv_layout`` of csrc/chain_tc.cuh."""
     r = len(spatial)
     n = list(spatial) + [1] * (3 - r)
     k = list(modes) + [1] * (3 - r)
-    cl, hs, os_ = _cluster_slices(hidden, out, max_cluster)
-    p = n[1] * n[2]          # points per s_1 row
-    kp = k[1] * k[2]         # modes per k_1
-    kk = k[0] * kp
-    rows_i = min(n[0], max(1, _PTS * _THREADS // p))
-    inv = os_ * rows_i * p + (2 * os_ * rows_i * kp if r >= 2 else 0)
+    mc = os_ if r == 1 else _pad(os_ * k[1] * k[2], 16)
+    c = 4 * (_pad(k[0], 4) * (2 * mc + (0 if r == 1 else 8)) + 32)
+    wl = min(wl, _pad(n[r - 1], 8))
+    fac = [(min(dp, _pad(k[0], 4)), _pad(rows_i, 8))]
+    if r >= 2:
+        fac.append((_pad(k[1], 4), wl if r == 2 else _pad(n[1], 8)))
     if r == 3:
-        inv += 2 * os_ * rows_i * n[1] * k[2]
-    w_rows = 1 if per_mode else 3
-    floats = 2 * hs * kk + 2 * os_ * kk + w_rows * os_ * hidden + _MAX_OUT
-    if ends is None:
-        rows_f, smem = _fit_rows(spatial, modes, lambda rf: 4 * (
-            floats + max(_chain_work(spatial, modes, rf), inv)))
-        _check_smem(smem, "fused block kernel", hidden, out, spatial, modes)
-        return {"cluster": cl, "hs": hs, "os": os_, "rows_f": rows_f,
-                "rows_i": rows_i, "smem": smem}
-    _, lift, lp, cout = ends
-    ys = os_ * rows_i * p
-    for ep in (128, 64, 32, 16, 8):
-        third = ys + max(inv - ys, (max(lift, out) + hidden) * ep if lift
-                         else 0, (out + lp + cout) * ep if lp else 0)
+        fac.append((_pad(k[2], 4), wl))
+    fbytes = sum(_pad(4 * d * (2 * h + 8), 128) for d, h in fac)
+    stages = 0
+    if r >= 2:
+        m1 = _pad(os_ * rows_i * k[2], 16)
+        stages += _pad(4 * _pad(k[1], 4) * (2 * m1 + 8), 128)
+    if r == 3:
+        m2 = _pad(os_ * rows_i * n[1], 16)
+        stages += _pad(4 * _pad(k[2], 4) * (2 * m2 + 8), 128)
+    return c, fbytes, stages
 
-        def first(rf, ep=ep):
-            chain = _chain_work(spatial, modes, rf)
-            if not lift:
-                return chain
-            return hs * rf * p + max(chain - rf * p, (lift + hidden) * ep)
-        rows_f, smem = _fit_rows(spatial, modes, lambda rf: 4 * (
-            floats + max(first(rf), third)))
-        if smem <= _SMEM_LIMIT:
+
+def _block_layout(esize, hidden, out, spatial, modes, hs, os_, rows_f,
+                  rows_i, wl, dp, chain, per_mode, lift=0, lp=0, cout=0,
+                  ep=0):
+    """{"p1", "p3", "bytes", "tiles"}: the ends of phases 1 and 3, the
+    shared memory of a block launch and (chain "tc") the chain's
+    accumulator tiles: ``block_layout`` of csrc/fused_block.cu."""
+    r = len(spatial)
+    n = list(spatial) + [1] * (3 - r)
+    kk = 1
+    for m in modes:
+        kk *= m
+    p = n[1] * n[2]
+    ends = (os_ * hidden + _MAX_OUT) if lift or lp else 0  # wb, the bias
+    a = _pad(4 * ((0 if per_mode else 2) * os_ * hidden + ends), 128)
+    c = _pad(a + 8 * hs * kk, 128)
+    cbytes, fbytes, stages = _inv_bytes(spatial, modes, os_, rows_i, wl,
+                                        dp)
+    t = _pad(c + cbytes, 128)
+    tiles = 0
+    if lift:
+        chain_b = _chain_work(spatial, modes, rows_f) - rows_f * p
+        p1 = 4 * (hs * rows_f * p + max(chain_b, (lift + hidden) * ep))
+    elif chain == "fma":
+        p1 = 4 * _chain_work(spatial, modes, rows_f)
+    else:
+        p1, tiles = _chain_bytes(esize, spatial, modes, rows_f, hs)
+    # Over the stages the split epilogue's wb columns [H][kOG] (kOG = 32),
+    # or over the factors and stages the ends' scratch.
+    tail = fbytes + stages
+    if not lift and not lp:
+        tail = max(tail, fbytes + 4 * hidden * _OUT_GROUP)
+    if lift:
+        tail = max(tail, 4 * (max(lift, out) + hidden) * ep)
+    if lp:
+        tail = max(tail, 4 * (out + lp + cout) * ep)
+    end = _pad(t + tail, 128)
+    ys = 4 * os_ * rows_i * p
+    if ys > 8 * hs * kk:
+        end = _pad(end + ys, 128)
+    return {"p1": c + p1, "p3": end, "bytes": max(c + p1, end),
+            "tiles": tiles}
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_plan(hidden, out, spatial, modes, per_mode, ends, chain,
+                 max_cluster):
+    if chain not in (None,) + CHAINS:
+        raise ValueError(f"chain must be one of {CHAINS}, got {chain!r}")
+    cl, hs, os_ = _cluster_slices(hidden, out, max_cluster)
+    _, lift, lp, cout = ends if ends is not None else (0, 0, 0, 0)
+    if lift:
+        if chain == "tc":
+            raise ValueError("the lift feeds the CUDA cores' chain")
+        chain = "fma"
+    # The ends: the most points a block of a piece (the pieces' count
+    # bounds those launches) at one s_1 row a chunk, then the most rows.
+    # The inverse factors are resident where they fit at one s_1 row a
+    # chunk: the first's rows (else dp at a time), then the last's columns
+    # (else pieces of wl); then the most s_1 rows a chunk.
+    low = 8 if len(spatial) > 1 else 0  # the least wl
+    rows1 = _pad(modes[0], 4)
+    for ep in ((128, 64, 32, 16, 8) if ends is not None else (0,)):
+        lay = lambda rf, ri, kind, wl=low, dp=4, ep=ep: _block_layout(
+            4, hidden, out, spatial, modes, hs, os_, rf, ri, wl, dp, kind,
+            per_mode, lift, lp, cout, ep)
+        if lay(1, 1, "fma")["bytes"] <= _SMEM_LIMIT:
             break
-    _check_smem(smem, "fused block kernel", hidden, out, spatial, modes)
-    return {"cluster": cl, "hs": hs, "os": os_, "rows_f": rows_f,
-            "rows_i": rows_i, "smem": smem, "ep": ep}
+    p3 = lambda ri, wl, dp: lay(1, ri, "fma", wl, dp)["p3"] <= _SMEM_LIMIT
+    dp = _most(rows1, lambda v: p3(1, low, v), 4)
+    wl = low and _most(_pad(spatial[-1], 8), lambda v: p3(1, v, dp), 8)
+    rows_i = _most(spatial[0], lambda v: p3(v, wl, dp))
+    for kind in ((chain,) if chain is not None else CHAINS):
+        if kind == "tc":
+            rows_f = _tc_rows(spatial, lambda v: lay(v, 1, "tc")["p1"]
+                              <= _SMEM_LIMIT and lay(v, 1, "tc")["tiles"]
+                              <= _WARPS * _MAX_ACC)
+        else:
+            rows_f = _most(_chain_rows(spatial, modes), lambda v: lay(
+                v, 1, "fma")["p1"] <= _SMEM_LIMIT)
+        got = lay(rows_f, rows_i, kind, wl, dp)
+        if got["bytes"] <= _SMEM_LIMIT and got["tiles"] <= _WARPS * _MAX_ACC:
+            break
+    _check_smem(got["bytes"], "fused block kernel", hidden, out, spatial,
+                modes)
+    if kind == "tc" and got["tiles"] > _WARPS * _MAX_ACC:
+        raise ValueError(
+            f"fused block kernel's tensor-core chain holds at most "
+            f"{_WARPS * _MAX_ACC} tiles in registers, got {got['tiles']} for "
+            f"hidden={hidden} modes={tuple(modes)}")
+    plan = {"cluster": cl, "hs": hs, "os": os_, "rows_f": rows_f,
+            "rows_i": rows_i, "smem": got["bytes"], "chain": kind, "wl": wl,
+            "dp": dp}
+    if ends is not None:
+        plan["ep"] = ep
+    return plan
 
 
 def wgrad_plan(hidden: int, out: int, spatial: Sequence[int],
                modes: Sequence[int], max_cluster: int = _PORTABLE_CLUSTER,
-               per_mode: bool = False) -> Dict[str, int]:
+               per_mode: bool = False,
+               chain: Optional[str] = None) -> Dict[str, int]:
     """The weight-gradient kernel's cluster size, channel slices, chunk
-    sizes and shared memory, at clusters of up to `max_cluster` blocks or of
-    16 when those cannot hold the shape; raises ValueError for shapes it
-    cannot hold. "rows_f" is the s_1 rows of a chain's chunk (rank 1: its
-    points), the most up to ``_WGRAD_ROWS`` that fit beside the spectra;
-    "cols" the points of a dW_b chunk, the most up to ``_WGRAD_COLS`` whose
-    double buffer fits the shared memory the chains take (at least 64 KB);
-    "work" the floats after the flag that the per-mode batch reduction
-    stages Ĝ in (``wgrad_mode_chunk``). Sized for f32 operands: bf16 ones
-    take no more. Planned once per shape (every launch asks)."""
+    sizes, phase 1's chain and shared memory, at clusters of up to
+    `max_cluster` blocks or of 16 when those cannot hold the shape; raises
+    ValueError for shapes it cannot hold. "chain" is "tc" (the tensor
+    cores, its factors resident) where that fits beside the spectra and its
+    accumulator tiles fit the registers, else "fma" (the CUDA cores);
+    `chain` forces one. "rows_f" is the s_1 rows of a chain's chunk (rank
+    1: its points), the most that fit, up to ``_TC_ROWS`` ("tc") or the
+    register-filling count ``_chain_rows`` ("fma"); "cols" the points of a
+    dW_b chunk, the most up to ``_WGRAD_COLS`` whose double buffer fits the
+    shared memory the chains take (at least 64 KB); "work" the floats
+    after the flag that the per-mode batch reduction stages Ĝ in
+    (``wgrad_mode_chunk``). Sized for f32 operands: bf16 ones take no more.
+    Planned once per shape (every launch asks)."""
     return dict(_grow(_wgrad_plan, max_cluster, hidden, out, tuple(spatial),
-                      tuple(modes), per_mode))
+                      tuple(modes), per_mode, chain))
 
 
 def _pad(v: int, m: int) -> int:
@@ -434,7 +552,7 @@ def _pad(v: int, m: int) -> int:
 
 
 def _chain_bytes(esize, spatial, modes, rows, nch):
-    """(bytes, accumulating tiles) of the wgrad chain's work area:
+    """(bytes, accumulating tiles) of the tensor-core chain's work area:
     ``chain::layout`` and ``chain::acc_tiles`` of csrc/chain_tc.cuh."""
     r = len(spatial)
     n, k = list(spatial), list(modes)
@@ -471,16 +589,20 @@ def _depth_splits(tiles: int, steps: int) -> int:
 
 
 def _wgrad_bytes(esize, hidden, out, spatial, modes, hs, os_, rows, cols,
-                 bypass=True):
+                 bypass=True, chain="tc"):
     """(shared-memory bytes, chain tiles, dW_b tiles) of a wgrad launch:
-    ``wgrad_layout`` of csrc/fused_wgrad.cu."""
+    ``wgrad_layout`` of csrc/fused_wgrad.cu (chain "fma": no chain
+    tiles)."""
     kk = 1
     for m in modes:
         kk *= m
     work = _pad(_WGRAD_FLAG + 4 * 2 * (hs + os_) * (kk + 1), 128)
-    chain, chain_tiles = _chain_bytes(esize, spatial, modes, rows,
-                                      max(hs, os_))
-    nbytes = work + chain
+    if chain == "fma":
+        nbytes, chain_tiles = work + 4 * _chain_work(spatial, modes, rows), 0
+    else:
+        tc_bytes, chain_tiles = _chain_bytes(esize, spatial, modes, rows,
+                                             max(hs, os_))
+        nbytes = work + tc_bytes
     om, hn = _pad(out, 16), _pad(hidden + 1, 8)
     ldp = cols + (8 if esize == 2 else 4)
     tiles = (om // 16) * (hn // 8)
@@ -495,30 +617,37 @@ def _wgrad_bytes(esize, hidden, out, spatial, modes, hs, os_, rows, cols,
     return nbytes, chain_tiles, tiles
 
 
-@functools.lru_cache(maxsize=64)
-def _wgrad_plan(hidden, out, spatial, modes, per_mode, max_cluster):
+@functools.lru_cache(maxsize=256)
+def _wgrad_plan(hidden, out, spatial, modes, per_mode, chain, max_cluster):
     if hidden > _THREADS:
         raise ValueError(f"fused wgrad kernel takes at most {_THREADS} "
                          f"hidden channels, got {hidden}")
+    if chain not in (None,) + CHAINS:
+        raise ValueError(f"chain must be one of {CHAINS}, got {chain!r}")
     cl, hs, os_ = _cluster_slices(hidden, out, max_cluster)
-    r = len(spatial)
     pts = 1
     for s in spatial:
         pts *= s
-    at = lambda rows, cols, bypass=True: _wgrad_bytes(
-        4, hidden, out, spatial, modes, hs, os_, rows, cols, bypass)
-    step = 16 if r == 1 else 1
-    rows = min(_pad(spatial[0], step), _WGRAD_ROWS[r])
-    while rows > step and at(rows, 16, False)[0] > _SMEM_LIMIT:
-        rows -= step
-    chains = at(rows, 16, False)[0]
     share = max(16, _pad(-(-pts // cl), 16))  # a block's points, padded
-    cols = 16
-    for c in (_WGRAD_COLS, 128, 64, 32):
-        if c <= share and at(rows, c)[0] <= max(chains, 65536):
-            cols = c
+    for kind in ((chain,) if chain is not None else CHAINS):
+        at = lambda rows, cols, bypass=True, kind=kind: _wgrad_bytes(
+            4, hidden, out, spatial, modes, hs, os_, rows, cols, bypass,
+            kind)
+        if kind == "tc":
+            rows = _tc_rows(spatial, lambda v: at(v, 16, False)[0]
+                            <= _SMEM_LIMIT)
+        else:
+            rows = _most(_chain_rows(spatial, modes),
+                         lambda v: at(v, 16, False)[0] <= _SMEM_LIMIT)
+        chains = at(rows, 16, False)[0]
+        cols = 16
+        for c in (_WGRAD_COLS, 128, 64, 32):
+            if c <= share and at(rows, c)[0] <= max(chains, 65536):
+                cols = c
+                break
+        smem, chain_tiles, tiles = at(rows, cols)
+        if smem <= _SMEM_LIMIT and chain_tiles <= _WARPS * _MAX_ACC:
             break
-    smem, chain_tiles, tiles = at(rows, cols)
     _check_smem(smem, "fused wgrad kernel", hidden, out, spatial, modes)
     if chain_tiles > _WARPS * _MAX_ACC or tiles > _WARPS * _MAX_PT:
         raise ValueError(
@@ -527,7 +656,8 @@ def _wgrad_plan(hidden, out, spatial, modes, per_mode, max_cluster):
             f"and {tiles} for hidden={hidden} out={out} modes="
             f"{tuple(modes)}; this shape needs a tiled kernel")
     return {"cluster": cl, "hs": hs, "os": os_, "rows_f": rows,
-            "cols": cols, "work": (smem - _WGRAD_FLAG) // 4, "smem": smem}
+            "cols": cols, "work": (smem - _WGRAD_FLAG) // 4, "smem": smem,
+            "chain": kind}
 
 
 def wgrad_mode_chunk(plan: Dict[str, int], batch: int, modes) -> int:
@@ -780,16 +910,55 @@ def pick_plan(lib, dtype_code: int, batch: int, hidden: int, out: int,
     block an SM)."""
     plan_fn = (launch_plan if ends is None
                else functools.partial(launch_plan, ends=ends))
-    return _pick(plan_fn, lib, "fused_block", dtype_code, batch, hidden, out,
-                 spatial, modes, per_mode)
+    return _forced(plan_fn, _pick(plan_fn, lib, "fused_block", dtype_code,
+                                  batch, hidden, out, spatial, modes,
+                                  per_mode),
+                   hidden, out, spatial, modes, per_mode)
 
 
 def pick_wgrad_plan(lib, dtype_code: int, batch: int, hidden: int,
                     out: int, spatial, modes,
                     per_mode: bool = False) -> Dict[str, int]:
     """The weight-gradient kernel's plan for this batch on this card."""
-    return _pick(wgrad_plan, lib, "fused_wgrad", dtype_code, batch, hidden,
-                 out, spatial, modes, per_mode)
+    return _forced(wgrad_plan, _pick(wgrad_plan, lib, "fused_wgrad",
+                                     dtype_code, batch, hidden, out, spatial,
+                                     modes, per_mode),
+                   hidden, out, spatial, modes, per_mode)
+
+
+# What ``pick_plan`` and ``pick_wgrad_plan`` force on the plans they pick,
+# for the measurements and tests that run a plan the planner does not pick:
+# "chain" replans phase 1's chain at the picked cluster (ValueError where it
+# does not fit); any other key lowers that field of the plans that have it
+# to at most its value (fewer rows or columns a piece need no more shared
+# memory). Empty: the planner's plans. Set by ``forced_chain``.
+FORCED: Dict[str, Any] = {}
+
+
+def _forced(plan_fn: Callable, plan: Dict[str, int], hidden: int, out: int,
+            spatial, modes, per_mode: bool) -> Dict[str, int]:
+    if not FORCED:
+        return plan
+    if FORCED.get("chain") is not None:
+        plan = plan_fn(hidden, out, spatial, modes, plan["cluster"],
+                       per_mode, chain=FORCED["chain"])
+    return {k: min(v, FORCED[k]) if k in FORCED and k != "chain" else v
+            for k, v in plan.items()}
+
+
+@contextlib.contextmanager
+def forced_chain(chain: Optional[str] = None, **fields: int):
+    """Within the block, ``FORCED`` holds `chain` ("tc" or "fma"; None keeps
+    the planner's) and `fields`: how ``block_phases.py`` and
+    ``chip_smoke.py`` time the plan the planner does not pick."""
+    saved = dict(FORCED)
+    FORCED.clear()
+    FORCED.update(fields, chain=chain)
+    try:
+        yield
+    finally:
+        FORCED.clear()
+        FORCED.update(saved)
 
 
 def _ints(v):
@@ -821,7 +990,8 @@ def _launch(lib, x, wr, wi, wb, bias, mats, spatial, modes, stream, *,
     oc = edims[3] if proj is not None else o
     y = torch.empty((b, oc) + tuple(spatial), dtype=od, device=x.device)
     pl = _ints([plan["cluster"], plan["hs"], plan["os"], plan["rows_f"],
-                plan["rows_i"], plan["smem"], plan.get("ep", 0)])
+                plan["rows_i"], plan["smem"], plan.get("ep", 0),
+                CHAINS.index(plan["chain"]), plan["wl"], plan["dp"]])
     # The weights' element strides of their out and hidden axes (dx takes
     # a transposed view, without a copy); per-mode, the modes are
     # contiguous.
@@ -872,7 +1042,7 @@ def _launch_wgrad(lib, x, gz, mats, spatial, modes, stream,
         outs.append(torch.empty((o, 1), dtype=_F32, device=dev))
     pl = _ints([plan["cluster"], plan["hs"], plan["os"], plan["rows_f"],
                 plan["cols"], plan["smem"], int(per_mode), chunk,
-                int(with_bypass)])
+                int(with_bypass), CHAINS.index(plan["chain"])])
     ptrs = (ctypes.c_void_p * len(mats))(*[m.data_ptr() for m in mats])
     optrs = (ctypes.c_void_p * 4)(*[t.data_ptr() for t in outs])
     err = lib.fused_wgrad(code, len(spatial), x.data_ptr(), gz.data_ptr(),

@@ -1,23 +1,27 @@
 """Where the fused kernels' time goes, phase by phase, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.block_phases [--batch 8]
-        [--arch fno2d-large] [--fuse-ends]
+        [--arch fno2d-large] [--fuse-ends] [--chain tc|fma]
 
 Builds ``csrc/fused_block.cu`` and ``csrc/fused_wgrad.cu`` as they are and
 with each phase's loop elided (``-DFUSED_BLOCK_ELIDE=<mask>`` /
 ``-DFUSED_WGRAD_ELIDE=<mask>``, see ``PHASE_BOUND`` in the sources: the
 output is then wrong and only the time counts), times every variant at
 fno2d full width (or ``--arch``'s: fno2d-large runs the per-mode modes,
-fno3d the rank-3 chain at 3 s_1 rows a chunk)
-with CUDA events, in turns over several rounds, and prints
-each phase's time as the whole kernel's median minus the median of the
-variant without that phase.
+fno3d the rank-3 chains) with CUDA events, in turns over several rounds,
+and prints each phase's time as the whole kernel's median minus the median
+of the variant without that phase. ``--chain`` forces both kernels'
+phase-1 chain (the plans' "chain": "tc" the tensor cores, "fma" the CUDA
+cores) where the planner would pick by fit.
 
 fused_block (the block forward):
   phase 1 — truncated forward DFT chain of each block's hidden slice;
   phase 2 — CGEMM over distributed shared memory (per-mode: W streamed
             from device memory);
-  phase 3 — padded inverse chain, bypass, bias, gelu and the write of y.
+  phase 3 — padded inverse chain, bypass, bias, gelu and the write of y;
+  phase 6 — within phase 3, the inverse chain alone;
+  phase 7 — within phase 3, the bypass's loop over the hidden channels
+            (what is left of phase 3 is bias, gelu and the write of y).
 fused_wgrad (the weight gradients):
   phase 1 — the forward chain of x and the adjoint-forward chain of gz;
   phase 2 — the dW reduction over distributed shared memory (per-mode:
@@ -52,6 +56,7 @@ from repro_torch.core import spectral
 from repro_torch.kernels import build, engine
 
 PHASES = (1, 2, 3)
+BLOCK_PHASES = PHASES + (6, 7)
 WGRAD_PHASES = PHASES + (4,)
 ENDS_PHASES = PHASES + (4, 5)
 
@@ -92,6 +97,8 @@ def main() -> None:
     ap.add_argument("--fuse-ends", action="store_true",
                     help="time the block kernel's ends launch (lift and "
                          "projection) with phases 4 and 5 split out")
+    ap.add_argument("--chain", choices=engine.CHAINS,
+                    help="force both kernels' phase-1 chain")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("block_phases: needs an NVIDIA GPU")
@@ -100,9 +107,16 @@ def main() -> None:
                          text=True, check=True).stdout.strip()
     print(smi)
 
+    with engine.forced_chain(args.chain):
+        _measure(args, smi)
+
+
+def _measure(args: argparse.Namespace, smi: str) -> None:
+    """Times each variant of each kernel in turns at the arguments' config
+    and prints the phases' split and the report."""
     kernels = ["fused_block"] if args.fuse_ends else list(KERNELS)
     phases = {k: ENDS_PHASES if args.fuse_ends else
-              WGRAD_PHASES if k == "fused_wgrad" else PHASES
+              WGRAD_PHASES if k == "fused_wgrad" else BLOCK_PHASES
               for k in kernels}
     named = {k: variants(phases[k]) for k in kernels}
     jobs = [(k, v, m) for k in kernels for v, m in named[k].items()]
@@ -134,7 +148,7 @@ def main() -> None:
               mk(lw, h), mk(lw, 1), mk(cfg.out_channels, lw),
               mk(cfg.out_channels, 1))
     report = {"card": smi, "batch": b, "config": args.arch,
-              "fuse_ends": args.fuse_ends}
+              "fuse_ends": args.fuse_ends, "chain": args.chain}
     for kernel in kernels:
         report[kernel] = {}
         for dt in ("float32", "bfloat16"):

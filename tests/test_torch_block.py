@@ -184,13 +184,14 @@ def test_wgrad_plan_full_width_and_limits():
     plan = engine.wgrad_plan(64, 64, (128, 128), (32, 32))  # fno2d
     assert plan["cluster"] == 8 and plan["hs"] == 8 and plan["os"] == 8
     assert plan["cols"] == 128 and plan["smem"] <= 232448
+    assert plan["chain"] == "tc"
     big = engine.wgrad_plan(64, 64, (128, 128), (32, 32), 16)
     assert big["cluster"] == 16 and big["smem"] < plan["smem"]
     # fno3d at full width plans (clusters of 16, 1 s_1 row a chunk); 64³
     # with modes 32³ does not fit even at one row a chunk.
     f3 = engine.wgrad_plan(32, 32, (64, 64, 64), (16, 16, 16))
     assert f3["cluster"] == 16 and f3["rows_f"] == 1
-    assert f3["smem"] <= 232448
+    assert f3["smem"] <= 232448 and f3["chain"] == "tc"
     with pytest.raises(ValueError, match="shared memory"):
         engine.wgrad_plan(32, 32, (64, 64, 64), (32, 32, 32))
     with pytest.raises(ValueError, match="hidden channels"):
@@ -239,8 +240,8 @@ def test_launch_plan_full_width_and_limits():
     small = engine.launch_plan(8, 6, (16, 32), (5, 9))
     assert small["cluster"] == 4 and small["os"] == 2
     f3 = engine.launch_plan(32, 32, (64, 64, 64), (16, 16, 16))  # fno3d
-    assert f3["cluster"] == 16 and f3["rows_f"] == 3
-    assert f3["smem"] <= 232448
+    assert f3["cluster"] == 16 and f3["rows_f"] == 2 and f3["rows_i"] == 2
+    assert f3["smem"] <= 232448 and f3["chain"] == "tc"
     with pytest.raises(ValueError, match="shared memory"):
         engine.launch_plan(32, 32, (64, 64, 64), (32, 32, 32))
     # 128 out channels: clusters of 16 (8 per block), since 8 blocks cannot
@@ -248,6 +249,118 @@ def test_launch_plan_full_width_and_limits():
     assert engine.launch_plan(128, 128, (32, 32), (8, 8))["cluster"] == 16
     with pytest.raises(ValueError, match="out channels"):
         engine.launch_plan(256, 256, (32, 32), (8, 8))
+
+
+# Every shape of a sweep (hidden 16–128; 1D 256–8192 at modes N/8 and N/4;
+# 2D 64²–512² and 3D 32³–128³ at modes 8 up to N/2 and 64) that the block
+# kernel's launch_plan took at clusters of up to 8 and of 16, with shared
+# and with per-mode weights, before its phases moved to the tensor cores
+# (built at commit e036aba): (hidden, rank, N, modes), N^rank points and
+# modes^rank modes.
+PARENT_PLANNED = [
+    (16, 1, 256, 32), (16, 1, 256, 64), (16, 1, 512, 64), (16, 1, 512, 128),
+    (16, 1, 1024, 128), (16, 1, 1024, 256), (16, 1, 2048, 256),
+    (16, 1, 2048, 512), (16, 1, 4096, 512), (16, 1, 4096, 1024),
+    (16, 1, 8192, 1024), (16, 1, 8192, 2048), (16, 2, 64, 8), (16, 2, 64, 16),
+    (16, 2, 64, 32), (16, 2, 128, 8), (16, 2, 128, 16), (16, 2, 128, 32),
+    (16, 2, 128, 64), (16, 2, 256, 8), (16, 2, 256, 16), (16, 2, 256, 32),
+    (16, 2, 256, 64), (16, 2, 512, 8), (16, 2, 512, 16), (16, 2, 512, 32),
+    (16, 2, 512, 64), (16, 3, 32, 8), (16, 3, 32, 16), (16, 3, 64, 8),
+    (16, 3, 64, 16), (16, 3, 128, 8), (16, 3, 128, 16), (32, 1, 256, 32),
+    (32, 1, 256, 64), (32, 1, 512, 64), (32, 1, 512, 128), (32, 1, 1024, 128),
+    (32, 1, 1024, 256), (32, 1, 2048, 256), (32, 1, 2048, 512),
+    (32, 1, 4096, 512), (32, 1, 4096, 1024), (32, 1, 8192, 1024),
+    (32, 1, 8192, 2048), (32, 2, 64, 8), (32, 2, 64, 16), (32, 2, 64, 32),
+    (32, 2, 128, 8), (32, 2, 128, 16), (32, 2, 128, 32), (32, 2, 128, 64),
+    (32, 2, 256, 8), (32, 2, 256, 16), (32, 2, 256, 32), (32, 2, 256, 64),
+    (32, 2, 512, 8), (32, 2, 512, 16), (32, 2, 512, 32), (32, 2, 512, 64),
+    (32, 3, 32, 8), (32, 3, 32, 16), (32, 3, 64, 8), (32, 3, 64, 16),
+    (32, 3, 128, 8), (64, 1, 256, 32), (64, 1, 256, 64), (64, 1, 512, 64),
+    (64, 1, 512, 128), (64, 1, 1024, 128), (64, 1, 1024, 256),
+    (64, 1, 2048, 256), (64, 1, 2048, 512), (64, 1, 4096, 512),
+    (64, 1, 4096, 1024), (64, 1, 8192, 1024), (64, 1, 8192, 2048),
+    (64, 2, 64, 8), (64, 2, 64, 16), (64, 2, 64, 32), (64, 2, 128, 8),
+    (64, 2, 128, 16), (64, 2, 128, 32), (64, 2, 256, 8), (64, 2, 256, 16),
+    (64, 2, 256, 32), (64, 2, 512, 8), (64, 2, 512, 16), (64, 2, 512, 32),
+    (64, 3, 32, 8), (64, 3, 64, 8), (128, 1, 256, 32), (128, 1, 256, 64),
+    (128, 1, 512, 64), (128, 1, 512, 128), (128, 1, 1024, 128),
+    (128, 1, 1024, 256), (128, 1, 2048, 256), (128, 1, 2048, 512),
+    (128, 1, 4096, 512), (128, 1, 4096, 1024), (128, 1, 8192, 1024),
+    (128, 2, 64, 8), (128, 2, 64, 16), (128, 2, 64, 32), (128, 2, 128, 8),
+    (128, 2, 128, 16), (128, 2, 128, 32), (128, 2, 256, 8), (128, 2, 256, 16),
+    (128, 2, 256, 32), (128, 2, 512, 8), (128, 2, 512, 16), (128, 2, 512, 32),
+    (128, 3, 32, 8),
+]
+
+
+def _sweep(hidden, rank, n, m):
+    return hidden, (n,) * rank, (m,) * rank
+
+
+@pytest.mark.parametrize("shape", PARENT_PLANNED,
+                         ids=lambda s: "h{}-{}d-{}-m{}".format(*s))
+def test_every_shape_planned_before_is_planned_by_both_kernels(shape):
+    """The shape range is kept: every shape the block kernel's planner took
+    before the tensor-core chains, the block and the wgrad kernel plan now,
+    at clusters of up to 8 and of 16, shared and per-mode W, within a
+    block's shared memory; where a chain's resident factors or
+    accumulator tiles do not fit, its plan says "fma" (the CUDA cores)."""
+    hidden, spatial, modes = _sweep(*shape)
+    for per_mode in (False, True):
+        for cl in (8, 16):
+            for plan_fn in (engine.launch_plan, engine.wgrad_plan):
+                plan = plan_fn(hidden, hidden, spatial, modes, cl, per_mode)
+                assert plan["smem"] <= engine._SMEM_LIMIT
+                assert plan["chain"] in engine.CHAINS
+
+
+def test_formerly_refused_shape_takes_the_second_chain():
+    """2D 256² modes 32 at hidden 64 (a wgrad the tensor-core chain refused:
+    its resident factors beside the spectra took 251,776 B): the wgrad
+    plans the CUDA cores' chain, the block kernel the tensor cores' with
+    its work area over C; either kernel takes either chain forced where it
+    fits, and a forced chain that does not fit raises."""
+    args = (64, 64, (256, 256), (32, 32))
+    wgrad = engine.wgrad_plan(*args)
+    assert wgrad["chain"] == "fma" and wgrad["smem"] <= engine._SMEM_LIMIT
+    assert engine.wgrad_plan(*args, 16)["chain"] == "fma"
+    with pytest.raises(ValueError, match="shared memory"):
+        engine.wgrad_plan(*args, chain="tc")
+    block = engine.launch_plan(*args, 16)
+    assert block["chain"] == "tc" and block["smem"] <= engine._SMEM_LIMIT
+    assert engine.launch_plan(*args, 16, chain="fma")["chain"] == "fma"
+    # 1D 2048 modes 512: the tensor-core chain's accumulator tiles (128)
+    # exceed the registers' 64.
+    one = engine.wgrad_plan(16, 16, (2048,), (512,))
+    assert one["chain"] == "fma"
+    assert engine._chain_bytes(4, (2048,), (512,), 64, one["hs"])[1] > 64
+    with pytest.raises(ValueError, match="chain must be"):
+        engine.launch_plan(*args, chain="wgmma")
+
+
+def test_forced_chain_forces_both_pickers_and_restores_them(monkeypatch):
+    """``engine.forced_chain`` (the measurements' way to time the plan the
+    planner does not pick) gives both pickers' plans the forced chain at
+    the cluster they would pick, lowers the forced fields of the plans
+    that have them, raises where that chain does not fit, and leaves
+    ``engine.FORCED`` as it found it."""
+    monkeypatch.setattr(engine, "_max_clusters", lambda *a: 8)
+    args = (None, 0, 8, 64, 64, (128, 128), (32, 32))
+    with engine.forced_chain("fma", rows_f=2, rows_i=3, wl=10 ** 6):
+        block, wgrad = engine.pick_plan(*args), engine.pick_wgrad_plan(*args)
+    with engine.forced_chain("tc"):
+        with pytest.raises(ValueError, match="shared memory"):
+            engine.pick_wgrad_plan(None, 0, 8, 64, 64, (256, 256), (32, 32))
+    assert engine.FORCED == {}
+    free = engine.pick_plan(*args), engine.pick_wgrad_plan(*args)
+    assert block["chain"] == wgrad["chain"] == "fma"
+    assert block["cluster"] == free[0]["cluster"]
+    assert block["rows_f"] == wgrad["rows_f"] == 2 and block["rows_i"] == 3
+    assert block["wl"] == engine.launch_plan(64, 64, (128, 128), (32, 32),
+                                             block["cluster"],
+                                             chain="fma")["wl"]
+    assert "rows_i" not in wgrad
+    assert free[0]["chain"] == free[1]["chain"] == "tc"
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -225,12 +225,37 @@ def test_engine_checks_the_ends_operands():
 # arch -> the ends launch's plan with both ends at the cluster the picker
 # takes for B=8 (fno2d: 16 blocks fit the batch in one wave).
 ENDS_PLANS = {
-    "fno2d": (16, {"cluster": 16, "hs": 4, "os": 4, "rows_f": 31,
-                   "rows_i": 8, "smem": 230432, "ep": 128}),
-    "fno3d": (16, {"cluster": 16, "hs": 2, "os": 2, "rows_f": 1,
-                   "rows_i": 1, "smem": 214304, "ep": 128}),
-    "fno2d-large": (16, {"cluster": 16, "hs": 8, "os": 8, "rows_f": 11,
-                         "rows_i": 8, "smem": 229408, "ep": 32}),
+    "fno2d": (16, {"cluster": 16, "hs": 4, "os": 4, "rows_f": 47,
+                   "rows_i": 31, "smem": 232192, "chain": "fma", "wl": 128,
+                   "dp": 32, "ep": 128}),
+    "fno3d": (16, {"cluster": 16, "hs": 2, "os": 2, "rows_f": 3,
+                   "rows_i": 2, "smem": 213888, "chain": "fma", "wl": 64,
+                   "dp": 16, "ep": 128}),
+    "fno2d-large": (16, {"cluster": 16, "hs": 8, "os": 8, "rows_f": 27,
+                         "rows_i": 16, "smem": 229504, "chain": "fma",
+                         "wl": 128, "dp": 32, "ep": 32}),
+}
+
+# arch -> the lift-only and the projection-only launch's plans at the same
+# cluster. The lift runs the CUDA cores' chain; both take the block's
+# cluster and slices, and the inverse chunk that fits beside the ends'
+# scratch, which shares phase 3's shared memory.
+ENDS_ONLY_PLANS = {
+    "fno2d": (
+        {"cluster": 16, "hs": 4, "os": 4, "rows_f": 47, "rows_i": 31,
+         "smem": 231680, "chain": "fma", "wl": 128, "dp": 32, "ep": 128},
+        {"cluster": 16, "hs": 4, "os": 4, "rows_f": 64, "rows_i": 31,
+         "smem": 232192, "chain": "tc", "wl": 128, "dp": 32, "ep": 128}),
+    "fno3d": (
+        {"cluster": 16, "hs": 2, "os": 2, "rows_f": 3, "rows_i": 2,
+         "smem": 213888, "chain": "fma", "wl": 64, "dp": 16, "ep": 128},
+        {"cluster": 16, "hs": 2, "os": 2, "rows_f": 2, "rows_i": 2,
+         "smem": 205952, "chain": "tc", "wl": 64, "dp": 16, "ep": 128}),
+    "fno2d-large": (
+        {"cluster": 16, "hs": 8, "os": 8, "rows_f": 27, "rows_i": 16,
+         "smem": 229504, "chain": "fma", "wl": 128, "dp": 32, "ep": 32},
+        {"cluster": 16, "hs": 8, "os": 8, "rows_f": 64, "rows_i": 16,
+         "smem": 230656, "chain": "tc", "wl": 128, "dp": 32, "ep": 32}),
 }
 
 
@@ -239,9 +264,10 @@ def test_ends_plans_fit_full_width(arch):
     """At full width the ends launches fit a block's shared memory: the
     lift's hidden slice of a chunk takes fewer s_1 rows where needed, and
     the points a block takes of a piece (ep) halve from 128 until the plan
-    fits (fno2d-large: 32). The lift-only and projection-only launches
-    fit too, with the block's cluster, slices and inverse chunk; without
-    the ends the plan is the block's, with no "ep"."""
+    fits (fno2d-large: 32); the lift runs the CUDA cores' chain ("fma").
+    The lift-only and projection-only launches fit too, with the block's
+    cluster and slices and the exact plans of ENDS_ONLY_PLANS; without the
+    ends the plan is the block's, with no "ep"."""
     cfg = tconfigs.get_config(arch)
     lw = cfg.lifting_dim or 2 * cfg.hidden
     per_mode = cfg.weight_mode == "per_mode"
@@ -251,11 +277,15 @@ def test_ends_plans_fit_full_width(arch):
     assert engine.launch_plan(*args, ends=(cin, lw, lw, cout)) == want
     block = engine.launch_plan(*args)
     assert "ep" not in block and engine.launch_plan(*args, ends=None) == block
-    for ends in ((cin, lw, 0, 0), (cfg.hidden, 0, lw, cout)):
+    for ends, pinned in zip(((cin, lw, 0, 0), (cfg.hidden, 0, lw, cout)),
+                            ENDS_ONLY_PLANS[arch]):
         plan = engine.launch_plan(*args, ends=ends)
+        assert plan == pinned, ends
         assert plan["smem"] <= engine._SMEM_LIMIT and plan["ep"] >= 32
-        for k in ("cluster", "hs", "os", "rows_i"):
+        for k in ("cluster", "hs", "os"):
             assert plan[k] == block[k], k
+        assert plan["rows_i"] <= block["rows_i"]
+        assert plan["chain"] == ("fma" if ends[1] else block["chain"])
 
 
 # ---------------------------------------------------------------------------

@@ -74,12 +74,13 @@ def _np(t: torch.Tensor) -> np.ndarray:
 def test_plans_hold_fno3d_full_width(kind, per_mode):
     """Clusters of 8 cannot hold fno3d (its spectra alone are 262,144 B a
     block), so both kernels plan clusters of 16 (2 hidden and 2 out
-    channels a block, 131,072 B of spectra) and step the forward chain's
-    chunk down from 8 s_1 rows to fit: the block kernel's to 3 (a ragged
-    last chunk of 64 = 21·3 + 1), the wgrad kernel's tensor-core chain
-    (two input buffers of 64·68 floats a row, its factors resident) to 1,
-    with 256-point chunks of the dW_b product. The plan is sized for f32:
-    bf16 operands take no more."""
+    channels a block, 131,072 B of spectra) and step the tensor-core
+    forward chain's chunk down from 8 s_1 rows to fit: the block kernel's
+    to 2 (its work area over C), the wgrad kernel's (two input buffers of
+    64·68 floats a row, its factors resident) to 1, with 256-point chunks
+    of the dW_b product; the block's inverse chain takes 2 s_1 rows a
+    chunk, ys over the spectra. The plan is sized for f32: bf16 operands
+    take no more."""
     plan_fn = engine.launch_plan if kind == "block" else engine.wgrad_plan
     plan = plan_fn(*FNO3D, per_mode=per_mode)
     assert plan["cluster"] == 16 and plan["hs"] == plan["os"] == 2
@@ -87,65 +88,67 @@ def test_plans_hold_fno3d_full_width(kind, per_mode):
     assert plan["smem"] <= SMEM_LIMIT
     assert plan_fn(*FNO3D, 16, per_mode) == plan
     if kind == "block":
-        assert plan["rows_f"] == 3 and plan["rows_i"] == 1
-        assert plan["smem"] == (211232 if per_mode else 211744)
-        # One more row per chunk would not fit.
-        four = engine._chain_work(FNO3D[2], FNO3D[3], 4)
-        three = engine._chain_work(FNO3D[2], FNO3D[3], 3)
-        assert plan["smem"] + 4 * (four - three) > SMEM_LIMIT
+        assert plan["rows_f"] == 2 and plan["rows_i"] == 2
+        assert plan["chain"] == "tc"
+        assert plan["smem"] == (205056 if per_mode else 205568)
+        # One more row per chunk would not fit, neither forward nor inverse.
+        lay = lambda rf, ri: engine._block_layout(
+            4, *FNO3D[:4], 2, 2, rf, ri, plan["wl"], plan["dp"], "tc",
+            per_mode)
+        assert lay(2, 2)["bytes"] == plan["smem"]
+        assert lay(3, 2)["bytes"] > SMEM_LIMIT
+        assert lay(2, 3)["bytes"] > SMEM_LIMIT
     else:
         assert plan["rows_f"] == 1 and plan["cols"] == 256
-        assert plan["smem"] == 221568
+        assert plan["smem"] == 221568 and plan["chain"] == "tc"
         assert plan["work"] == (221568 - 128) // 4
         # One more row per chunk would not fit.
         two = engine._wgrad_bytes(4, *FNO3D[:4], 2, 2, 2, 256)
         assert two[0] > SMEM_LIMIT
 
 
-# The plans of fno1d, fno2d and fno2d-large (the block kernel's as they
-# were before the forward chain's chunk could step down; the wgrad
-# kernel's of its tensor-core design): (hidden, spatial, modes, per_mode,
+# The plans of fno1d, fno2d and fno2d-large (the block kernel's with both
+# chains on the tensor cores: the forward chain's rows up to 64, the
+# inverse chain's as many as shared memory holds; the wgrad kernel's of
+# its tensor-core design, unchanged): (hidden, spatial, modes, per_mode,
 # max_cluster) -> (block plan, wgrad plan).
+_B = lambda cl, s, rf, ri, smem, wl, dp: {
+    "cluster": cl, "hs": s, "os": s, "rows_f": rf, "rows_i": ri,
+    "smem": smem, "chain": "tc", "wl": wl, "dp": dp}
 _UNCHANGED = {
     "fno1d-8": ((64, (256,), (64,), False, 8), (
-        {"cluster": 8, "hs": 8, "os": 8, "rows_f": 256, "rows_i": 256,
-         "smem": 22560},
+        _B(8, 8, 64, 256, 161920, 0, 64),
         {"cluster": 8, "hs": 8, "os": 8, "rows_f": 64, "cols": 32,
-         "work": 21664, "smem": 86784})),
+         "work": 21664, "smem": 86784, "chain": "tc"})),
     "fno1d-16": ((64, (256,), (64,), False, 16), (
-        {"cluster": 16, "hs": 4, "os": 4, "rows_f": 256, "rows_i": 256,
-         "smem": 11296},
+        _B(16, 4, 64, 256, 151680, 0, 64),
         {"cluster": 16, "hs": 4, "os": 4, "rows_f": 64, "cols": 16,
-         "work": 20640, "smem": 82688})),
+         "work": 20640, "smem": 82688, "chain": "tc"})),
     "fno2d-8": ((64, (128, 128), (32, 32), False, 8), (
-        {"cluster": 8, "hs": 8, "os": 8, "rows_f": 64, "rows_i": 8,
-         "smem": 186400},
+        _B(8, 8, 64, 16, 230528, 128, 32),
         {"cluster": 8, "hs": 8, "os": 8, "rows_f": 16, "cols": 128,
-         "work": 57920, "smem": 231808})),
+         "work": 57920, "smem": 231808, "chain": "tc"})),
     "fno2d-16": ((64, (128, 128), (32, 32), False, 16), (
-        {"cluster": 16, "hs": 4, "os": 4, "rows_f": 64, "rows_i": 8,
-         "smem": 117792},
+        _B(16, 4, 64, 37, 231552, 128, 32),
         {"cluster": 16, "hs": 4, "os": 4, "rows_f": 64, "cols": 128,
-         "work": 56640, "smem": 226688})),
+         "work": 56640, "smem": 226688, "chain": "tc"})),
     "fno2d-large": ((128, (128, 128), (32, 32), True, 8), (
-        {"cluster": 16, "hs": 8, "os": 8, "rows_f": 64, "rows_i": 8,
-         "smem": 184352},
+        _B(16, 8, 64, 16, 226432, 128, 32),
         {"cluster": 16, "hs": 8, "os": 8, "rows_f": 16, "cols": 64,
-         "work": 57920, "smem": 231808})),
+         "work": 57920, "smem": 231808, "chain": "tc"})),
     "fno2d-large-shared": ((128, (128, 128), (32, 32), False, 8), (
-        {"cluster": 16, "hs": 8, "os": 8, "rows_f": 64, "rows_i": 8,
-         "smem": 192544},
+        _B(16, 8, 57, 16, 232320, 128, 32),
         {"cluster": 16, "hs": 8, "os": 8, "rows_f": 16, "cols": 64,
-         "work": 57920, "smem": 231808})),
+         "work": 57920, "smem": 231808, "chain": "tc"})),
 }
 
 
 @pytest.mark.parametrize("name", list(_UNCHANGED))
 def test_plans_of_the_other_presets_are_unchanged(name):
-    """fno1d, fno2d and fno2d-large: the block kernel fits at the
-    register-filling chunk, so its plans (both cluster sizes the picker
-    weighs) are what they were, field by field, and its times cannot move;
-    the wgrad kernel's are pinned as its tensor-core design plans them."""
+    """fno1d, fno2d and fno2d-large: the block kernel's plans (both
+    cluster sizes the picker weighs) are pinned field by field as its
+    tensor-core chains plan them, the wgrad kernel's as its tensor-core
+    design plans them (unchanged but for the "chain" it records)."""
     (h, spatial, modes, per_mode, cl), (block, wgrad) = _UNCHANGED[name]
     assert engine.launch_plan(h, h, spatial, modes, cl, per_mode) == block
     assert engine.wgrad_plan(h, h, spatial, modes, cl, per_mode) == wgrad

@@ -567,10 +567,13 @@ def test_emulated_wgrad_modes_match_plain(emulated_wgrad, case, per_mode,
 def test_emulated_wgrad_plan_matches_the_kernel_layout(emulated_wgrad):
     """kernels/engine.py's shared-memory plan is the kernel's own layout
     (fused_wgrad_smem), f32 and bf16, with and without the bypass, shared
-    and per-mode W, at the presets' widths and odd ones."""
+    and per-mode W, at the presets' widths, odd ones and two whose chain is
+    the CUDA cores' (2D 256² modes 32 at hidden 64: the resident factors do
+    not fit; 1D 2048 modes 512: the accumulator tiles do not)."""
     shapes = [(64, 64, (128, 128), (32, 32)), (32, 32, (64, 64, 64),
                                                (16, 16, 16)),
-              (128, 128, (128, 128), (32, 32)), (64, 64, (256,), (64,))]
+              (128, 128, (128, 128), (32, 32)), (64, 64, (256,), (64,)),
+              (64, 64, (256, 256), (32, 32)), (16, 16, (2048,), (512,))]
     shapes += [(h, o, s, m) for s, m, _, h, o in WGRAD_CASES + CASES[:3]]
     for h, o, spatial, modes in shapes:
         for per_mode in (False, True):
@@ -581,16 +584,18 @@ def test_emulated_wgrad_plan_matches_the_kernel_layout(emulated_wgrad):
                 pl = engine._ints([plan["cluster"], plan["hs"], plan["os"],
                                    plan["rows_f"], plan["cols"],
                                    plan["smem"], int(per_mode), 1,
-                                   int(bypass)])
+                                   int(bypass),
+                                   engine.CHAINS.index(plan["chain"])])
                 for code, esize in ((0, 4), (1, 2)):
                     want = engine._wgrad_bytes(
                         esize, h, o, spatial, modes, plan["hs"], plan["os"],
-                        plan["rows_f"], plan["cols"], bypass)[0]
+                        plan["rows_f"], plan["cols"], bypass,
+                        plan["chain"])[0]
                     got = emulated_wgrad.fused_wgrad_smem(code, r, dims, pl)
                     assert got == want <= plan["smem"], (h, spatial, bypass)
             assert plan["smem"] == engine._wgrad_bytes(
                 4, h, o, spatial, modes, plan["hs"], plan["os"],
-                plan["rows_f"], plan["cols"])[0]
+                plan["rows_f"], plan["cols"], chain=plan["chain"])[0]
 
 
 # Mutations of the wgrad kernel that its comparisons must catch: (what,

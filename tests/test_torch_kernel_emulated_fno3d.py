@@ -2,20 +2,22 @@
 kernel's linear (TP-partial) epilogue, run on the CPU.
 
 fno3d at full width (hidden 32, 64³, modes 16³) fits a block's shared
-memory only with 3 s_1 rows per forward-chain chunk (``engine._fit_rows``),
-not the register-filling 8, and then the last chunk of 64 rows is ragged.
+memory only with a few s_1 rows per forward-chain chunk (the block
+kernel's tensor-core chain 2, the wgrad's 1, the CUDA cores' chain 3 of the
+register-filling 8), and then the last chunk of 64 rows may be ragged.
 ``src/repro_torch/csrc/fused_block.cu`` and ``fused_wgrad.cu`` are
 compiled with g++ against the emulation headers in ``tests/cuda_emulation``
 (one POSIX thread per CUDA thread, real barriers, one shared-memory buffer
 per block; see tests/test_torch_kernel_emulated.py) and every launch that
-runs a forward chain (``fno::forward_chain``; the wgrad's tensor-core
-``chain::forward_chain``) is held against its plain PyTorch version at a
+runs a forward chain (the tensor-core ``chain::forward_chain`` that both
+kernels plan here) is held against its plain PyTorch version at a
 forced chunk of 2 and of 3 rows at rank 3: the block forward, gz
 recompute, dx through the adjoint bundle, the bare layer's forward and
 dx, and the wgrad with and without its bypass — at odd extents and at
 fno3d's channel slicing (clusters of 16, two hidden and two out channels
 a block). A copy of ``fno_common.cuh`` that drops the chunk's offset into
-the s_1 operand must fail the same comparison. Then the linear epilogue
+the s_1 operand must fail the same comparison, with the CUDA cores' chain
+forced through the plan. Then the linear epilogue
 with wb, a bias and an f32 output under bf16 inputs (the TP-partial block)
 against its plain version at ranks 1–3. The card itself is checked by
 tests/test_torch_kernel_gpu.py and chip_smoke.py.
@@ -86,19 +88,6 @@ def emulated_wgrad(tmp_path_factory):
     return build.load_wgrad_library(_compile(out, "fused_wgrad"))
 
 
-def _force_rows(monkeypatch, rows_f):
-    """Every block and wgrad plan at `rows_f` s_1 rows per forward-chain
-    chunk (fewer rows than planned need less of the work area)."""
-    for name in ("pick_plan", "pick_wgrad_plan"):
-        pick = getattr(engine, name)
-
-        def forced(*a, _pick=pick, **kw):
-            plan = _pick(*a, **kw)
-            assert plan["rows_f"] >= rows_f
-            return dict(plan, rows_f=rows_f)
-        monkeypatch.setattr(engine, name, forced)
-
-
 def _inputs(spatial, b, h, o, seed):
     rng = np.random.default_rng(seed)
     mk = lambda *s, sc=1.0: torch.tensor(sc * rng.normal(size=s),
@@ -158,7 +147,11 @@ def test_emulated_chunked_forward_chain_matches_plain(
     2e-4, bf16 within 2e-2 of the f32 chain (gz from the kernel feeds both
     sides' dx and wgrad)."""
     spatial, modes, b, h, o = case
-    _force_rows(monkeypatch, rows_f)
+    monkeypatch.setattr(engine, "FORCED", {"rows_f": rows_f})
+    for plan in (engine.pick_plan(emulated, 0, b, h, o, spatial, modes),
+                 engine.pick_wgrad_plan(emulated_wgrad, 0, b, h, o, spatial,
+                                        modes)):
+        assert plan["rows_f"] == rows_f
     args, gy = _inputs(spatial, b, h, o, seed=rows_f + h)
     outs = _launches(emulated, emulated_wgrad, args, gy, spatial, modes,
                      dtype)
@@ -194,7 +187,7 @@ def test_emulated_dropped_chunk_offset_is_caught(tmp_path, monkeypatch):
     the s_1 operand (the chunk offset dropped) fails the comparison once
     the chain runs in chunks."""
     spatial, modes, b, h, o = CASES[0]
-    _force_rows(monkeypatch, 3)
+    monkeypatch.setattr(engine, "FORCED", {"chain": "fma", "rows_f": 3})
     lib = build.load_block_library(_compile(tmp_path, "fused_block",
                                             DROP_C0))
     args, _ = _inputs(spatial, b, h, o, seed=7)

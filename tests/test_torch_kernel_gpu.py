@@ -14,15 +14,19 @@ bare layer's dx, the bypass-free wgrad, shared and per-mode, counted
 resident and K chunked), and a
 spectral-only (``fuse_block`` off) training step of each variant; then
 fno3d at full width (hidden 32, 64³, modes 16³: clusters of 16, the block
-kernel's forward chain 3 s_1 rows a chunk, the wgrad kernel's 1) — every
+kernel's chains 2 s_1 rows a chunk, the wgrad kernel's 1) — every
 launch of its fused designs against the
 plain versions and a training step of each design against the staged one
 — and the linear (TP-partial) block, counted "block_linear", with its
 two backward launches; then the fused model ends (the lift, the
 projection and both in one launch, counted "block_ends") at ranks 1–3
 and at fno2d, fno3d and fno2d-large width, and an ends-fused fno2d
-training step's launches and grads against the staged path. Every test
-needs an NVIDIA GPU (marker ``gpu``) and skips without one; on the card:
+training step's launches and grads against the staged path; then the
+block kernel's chains with the forward chain forced to either plan and the
+inverse chain in ragged chunks and pieces, and both kernels at a shape the
+wgrad's tensor-core chain cannot hold (2D 256², modes 32, hidden 64).
+Every test needs an NVIDIA GPU (marker ``gpu``) and skips without one; on
+the card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernel_gpu.py
 """
@@ -740,8 +744,8 @@ def test_spectral_only_train_step_matches_staged_on_card(cuda, variant):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernels_at_fno3d_full_width(cuda, dtype):
     """fno3d at full width, B=2: both kernels plan clusters of 16, the block
-    kernel 3 s_1 rows per forward-chain chunk (ragged last chunk), the
-    wgrad kernel's tensor-core chain 1; the block forward,
+    kernel's tensor-core chains 2 s_1 rows a chunk, the wgrad kernel's
+    tensor-core chain 1; the block forward,
     gz, dx, the bare forward and dx, and both wgrads against the plain
     versions in f32 (bf16: 2e-2 of the f32 chain)."""
     cfg = configs.get_config("fno3d")
@@ -752,7 +756,8 @@ def test_kernels_at_fno3d_full_width(cuda, dtype):
     wgrad = engine.pick_wgrad_plan(build.load_fused_wgrad(), code, 2, h, h,
                                    sp, md)
     assert block["cluster"] == wgrad["cluster"] == 16
-    assert block["rows_f"] == 3 and wgrad["rows_f"] == 1
+    assert block["rows_f"] == 2 and wgrad["rows_f"] == 1
+    assert block["chain"] == wgrad["chain"] == "tc"
     tol = 2e-4 if dtype == "float32" else 2e-2
     ours, plain = _backward_launches(cuda, sp, md, dtype, b=2, h=h, o=h,
                                      seed=12)
@@ -957,3 +962,65 @@ def test_ends_train_step_matches_staged_on_card(cuda):
     for a, b in zip(tree.leaves(grads), tree.leaves(grads_s)):
         scale = max(float(b.abs().max()), 1e-30)
         assert float((a - b).abs().max()) <= 2e-4 * scale
+
+
+@pytest.mark.parametrize("chain", engine.CHAINS)
+@pytest.mark.parametrize("rank", [1, 2, 3])
+def test_block_chains_in_pieces_match_plain(cuda, monkeypatch, rank, chain):
+    """The block forward, gz recompute and dx with the forward chain forced
+    to the tensor cores' or the CUDA cores' plan, the inverse chain in
+    ragged chunks (3 s_1 rows; rank 1: 24 points), E_1 in pieces of 4 rows
+    and the last factor in pieces of 8 columns, and the wgrad with the same
+    chain, against the plain versions in f32 (2e-4)."""
+    spatial, modes = {1: ((64,), (17,)), 2: ((16, 32), (5, 9)),
+                      3: ((8, 8, 16), (6, 3, 5))}[rank]
+    monkeypatch.setattr(engine, "FORCED", {
+        "chain": chain, "rows_i": 24 if rank == 1 else 3, "dp": 4, "wl": 8})
+    ours, plain = _backward_launches(cuda, spatial, modes, "float32",
+                                     seed=40 + rank)
+    args = _args(cuda, spatial, seed=50 + rank)
+    mats = spectral.operand_tensors(spatial, modes, "float32", cuda)
+    y = engine.fused_block(*args, mats)
+    torch.cuda.synchronize()
+    assert _rel_err(y, engine.fused_block_plain(*args, mats)) <= 2e-4
+    for name, a, b in zip(("gz", "dx", "dwr", "dwi", "dwb", "dbias"), ours,
+                          plain):
+        assert _rel_err(a, b) <= 2e-4, (name, _rel_err(a, b))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernels_at_a_formerly_refused_shape(cuda, monkeypatch, dtype):
+    """2D 256², modes 32, hidden 64, B=2: the wgrad's tensor-core chain
+    does not fit beside its spectra, so the wgrad plans the CUDA cores'
+    chain; the block plans the tensor cores' (its work area over C). The
+    block forward at its plan and with the CUDA cores' chain forced, and
+    the wgrad, against the plain versions (f32 2e-4; bf16 2e-2 of the f32
+    plain version)."""
+    spatial, modes, h, b = (256, 256), (32, 32), 64, 2
+    code = 0 if dtype == "float32" else 1
+    block = engine.pick_plan(build.load_fused_block(), code, b, h, h,
+                             spatial, modes)
+    wplan = engine.pick_wgrad_plan(build.load_fused_wgrad(), code, b, h, h,
+                                   spatial, modes)
+    assert block["chain"] == "tc" and wplan["chain"] == "fma"
+    tdt = getattr(torch, dtype)
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    args = _args(cuda, spatial, b=b, h=h, o=h, seed=60)
+    gz = torch.randn((b, h) + spatial,
+                     generator=torch.Generator().manual_seed(61)).to(cuda)
+    m32 = {k: spectral.operand_tensors(spatial, modes, "float32", cuda, k)
+           for k in ("forward", "wgrad")}
+    mats = {k: spectral.operand_tensors(spatial, modes, dtype, cuda, k)
+            for k in ("forward", "wgrad")}
+    ref = engine.fused_block_plain(*args, m32["forward"])
+    t = [a.to(tdt) for a in args]
+    ys = [engine.fused_block(*t, mats["forward"])]
+    monkeypatch.setattr(engine, "FORCED", {"chain": "fma"})
+    ys.append(engine.fused_block(*t, mats["forward"]))
+    dw = engine.fused_wgrad(t[0], gz.to(tdt), mats["wgrad"])
+    torch.cuda.synchronize()
+    for y in ys:
+        assert bool(torch.isfinite(y).all()) and _rel_err(y, ref) <= tol
+    wref = engine.fused_wgrad_plain(args[0], gz, m32["wgrad"])
+    for name, a, r in zip(("dwr", "dwi", "dwb", "dbias"), dw, wref):
+        assert a.shape == r.shape and _rel_err(a, r) <= tol, name
