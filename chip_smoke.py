@@ -50,7 +50,9 @@ fatal:
      (ranks 2–3),
      fno2d full width at B=1 and B=8 and fno3d full width (hidden 32, 64³,
      modes 16³) at B=1, f32 ≤ 2e-4 and bf16 ≤ 2e-2 of the f32 plain
-     version; and the block kernel without wb (the bare spectral layer);
+     version; the core at B=9 (per-mode W: two sample groups; shared W)
+     at the odd extents; and the block kernel without wb (the bare
+     spectral layer);
   9. serve partial — ``FNOServer(variant="partial")`` for fno2d at full
      width with phase 3's 12 requests: finite, equal to the staged path and
      to the full variant within the tolerances, exactly num_layers ×
@@ -62,9 +64,10 @@ fatal:
   11. times, partial — phase 4's serve window (the same seeded sizes) and
      phase 7's training window on the partial variant; CUDA events at fno2d
      B=8 for each partial launch beside its plain version, its one-call
-     ``torch.fft`` yardstick (none for the core) and its bound (the row
-     launches queued behind a device spin, as ``time_ms`` says; cdft and
-     icdft also host-paced, as timed before), fno3d's
+     ``torch.fft`` yardstick (none for the core) and its bound (every
+     launch queued behind a device spin, as ``time_ms`` says; cdft, icdft
+     and the core also host-paced, as timed before; the core's log line
+     has the weight bytes its plan reads a launch), fno3d's
      outer launches at B=1, and the whole served block forward, partial
      against full against the staged torch.fft block;
   12. per-mode kernels vs plain — weights [O,H,k_1..k_R]: the block
@@ -86,7 +89,11 @@ fatal:
      falls over 20 steps, 30 timed steps and peak device memory;
   15. times, per-mode — CUDA events at fno2d-large B=8 for each per-mode
      launch beside its plain version and its bound (W counted once at
-     2·O·H·ΠK; the wgrad also beside ``wgrad_staged``), the row kernels at hidden 128 (checked against the f32
+     2·O·H·ΠK; the wgrad also beside ``wgrad_staged``; the core queued,
+     its log line with the weight bytes its plan reads a launch, its
+     clusters, how many the card runs at once and the waves), the row
+     kernels at hidden 128 (checked
+     against the f32
      plain version, timed queued beside it, ``torch.fft`` and the bound)
      and the served block forward
      in both variants; and the bare spectral layer (the rank-1 partial
@@ -451,6 +458,18 @@ def partial_work(kind, b, h, o, spatial, modes, per_mode=False):
     w = 2 * o * h * (k1 * p if per_mode else 1)
     return (b * p * ((h + o) * fft_flops(n1, False) + 8 * o * h * k1),
             2 * b * p * n1 * (h + o) + w + 4 * n1 * k1)
+
+
+def core_w_bytes(engine, torch, dtype, b, h, o, spatial, modes,
+                 per_mode=False) -> int:
+    """The W bytes one core launch reads at this block as its plan counts
+    them (per-mode W once a group of up to 8 samples): a planned figure,
+    printed on the log lines only."""
+    from repro_torch.kernels import build
+    p = math.prod(modes[1:])
+    return engine.core_plan(build.load_fused_core(), getattr(torch, dtype),
+                            b, h, o, spatial[0], modes[0], p, per_mode,
+                            modes[1] if len(modes) > 1 else 1)["w_bytes"]
 
 
 def time_ms(fn, iters: int, warmup: int = 3, queued: bool = False) -> float:
@@ -1134,6 +1153,27 @@ def phase_partial_vs_plain(torch, engine, spectral, dft, configs):
         check_partial(torch, partial_cases(torch, spectral, dft, engine, b,
                                            h, o, spatial, modes, 500 + seed),
                       name, errs)
+    # The core at B=9, per-mode and shared W at the odd extents: the
+    # per-mode plan's two sample groups (8 + 1), the shared plan's nine
+    # one-sample tiles.
+    odd = [c for c in check_shapes(configs) if c[0] in ("odd_r2", "odd_r3")]
+    for seed, (name, _, h, o, spatial, modes) in enumerate(odd):
+        ins, ops = per_mode_core_case(torch, spectral, 9, h, o, spatial,
+                                      modes, 530 + seed)
+        first = (slice(None), slice(None)) + (0,) * len(modes)
+        shared = ins[:2] + [w[first].contiguous() for w in ins[2:4]]
+        for layout, args in (("per-mode", ins), ("shared", shared)):
+            ref = engine.fused_core_plain(*args, *ops["float32"])
+            y = engine.fused_core(*args, *ops["float32"])
+            y16 = engine.fused_core(*[a.to(torch.bfloat16) for a in args],
+                                    *ops["bfloat16"])
+            torch.cuda.synchronize()
+            key = f"{name}_B9_{layout}"
+            errs[(key, "core", "float32")] = e = errors(y, ref)
+            check(f"{name} B=9 {layout} f32 core vs plain", e[1], F32_TOL)
+            errs[(key, "core", "bfloat16")] = e = errors(y16, ref)
+            check(f"{name} B=9 {layout} bf16 core vs f32 plain", e[1],
+                  BF16_TOL)
     # The block kernel without wb and bias: the bare spectral layer that
     # the rank-1 partial variant runs.
     name, b, h, o, spatial, modes = check_shapes(configs)[0]
@@ -1237,16 +1277,22 @@ def phase_partial_times(torch, engine, spectral, dft, ops, configs, errs,
             a = [x.to(tdt) for x in ins]
             m = mats[dt]
             lib = library_call(torch, kind, ins, spatial, modes)
-            q = kind != "core"  # tens of µs: device time only
+            # Tens of µs: device time only (queued behind a spin).
             t[kind] = {
-                "ms": time_ms(lambda: fn(*a, *m), 20, queued=q),
-                "plain_ms": time_ms(lambda: plain(*a, *m), 10, queued=q),
-                "library_ms": (time_ms(lib, 20, queued=q) if lib
+                "ms": time_ms(lambda: fn(*a, *m), 20, queued=True),
+                "plain_ms": time_ms(lambda: plain(*a, *m), 10, queued=True),
+                "library_ms": (time_ms(lib, 20, queued=True) if lib
                                else None),
                 "bound": bound_ms(kind, b, h, o, spatial, modes, eb, peak)}
             if kind in ("cdft", "icdft"):  # also as they were timed before
                 t[kind]["ms_host_paced"] = time_ms(lambda: fn(*a, *m), 20)
                 t[kind]["library_ms_host_paced"] = time_ms(lib, 20)
+            if kind == "core":  # as the first core was timed
+                t[kind]["ms_host_paced"] = time_ms(lambda: fn(*a, *m), 20)
+                wb = core_w_bytes(engine, torch, dt, b, h, o, spatial, modes)
+                log(f"  {dt} core: host-paced kernel_ms="
+                    f"{t[kind]['ms_host_paced']:.4f}; planned W bytes a "
+                    f"launch {wb}")
             log(f"  {dt} {kind}: kernel_ms={t[kind]['ms']:.4f} plain_ms="
                 f"{t[kind]['plain_ms']:.4f} library_ms="
                 f"{t[kind]['library_ms']} bound_us="
@@ -1254,7 +1300,7 @@ def phase_partial_times(torch, engine, spectral, dft, ops, configs, errs,
                 + (f"; paced by the host: kernel_ms="
                    f"{t[kind]['ms_host_paced']:.4f} library_ms="
                    f"{t[kind]['library_ms_host_paced']:.4f}"
-                   if "ms_host_paced" in t[kind] else ""))
+                   if kind in ("cdft", "icdft") else ""))
         for kind in ("rdft", "irdft"):  # fno3d's outer launches at B=1
             fn, _, ins, mats = cases3[kind]
             a = [x.to(tdt) for x in ins]
@@ -1282,6 +1328,9 @@ def phase_partial_times(torch, engine, spectral, dft, ops, configs, errs,
             if kind == "core":
                 row["library_note"] = ("no single PyTorch call computes "
                                        "cDFT_s1 -> CGEMM -> icDFT_s1")
+                row.update({"ms_host_paced": t["core"]["ms_host_paced"],
+                            "timing": "queued behind a device spin: device "
+                                      "time only"})
             elif kind in ("rdft", "irdft"):
                 row["ms_fno3d_b1"] = t[kind]["ms_fno3d_b1"]
             if kind == "cdft":  # the padded inverse operand, same kernel
@@ -1526,6 +1575,22 @@ def phase_large_times(torch, engine, spectral, dft, ops, configs, sfs,
         for kind, fn in launch.items():
             kms = time_ms(lambda: fn(False), 10)
             pms = time_ms(lambda: fn(True), 5)
+            core = {}
+            if kind == "core":  # device time (queued); the plan logged
+                from repro_torch.kernels import build
+                shape = (b, h, o, spatial[0], modes[0], modes[1], True,
+                         modes[1])
+                plan = engine.core_plan(build.load_fused_core(), tdt, *shape)
+                at_once = engine.core_max_clusters(build.load_fused_core(),
+                                                   tdt, *shape)
+                tiles = plan["groups"] * plan["ptiles"]
+                core = {"ms_host_paced": kms}
+                kms = time_ms(lambda: fn(False), 10, queued=True)
+                log(f"  {dt} core per-mode: host-paced kernel_ms="
+                    f"{core['ms_host_paced']:.4f}; planned: W bytes a "
+                    f"launch {plan['w_bytes']}, {tiles} clusters of "
+                    f"{plan['cluster']}, the card runs {at_once} at once: "
+                    f"{-(-tiles // at_once)} waves")
             t_bytes, t_ops = bound_parts(kind, b, h, o, spatial, modes, eb,
                                          peak, per_mode=True)
             bms, by = bound_ms(kind, b, h, o, spatial, modes, eb, peak,
@@ -1553,6 +1618,7 @@ def phase_large_times(torch, engine, spectral, dft, ops, configs, sfs,
                 "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
                 "library_ms": None,
                 "library_note": "no single PyTorch call computes it",
+                **core,
                 **({"torch_staged_ms": staged_ms} if kind == "wgrad"
                    else {})})
         for kind in ("rdft", "irdft"):  # the row kernels at hidden 128
@@ -2194,10 +2260,17 @@ def fno3d_partial_times(torch, engine, spectral, dft, configs, errs,
             a = [x.to(getattr(torch, dt)) for x in ins]
             m = mats[dt]
             lib = library_call(torch, kind, ins, spatial, modes)
-            q = kind != "core"
-            kms = time_ms(lambda: fn(*a, *m), 10, queued=q)
-            pms = time_ms(lambda: plain(*a, *m), 3, queued=q)
-            lms = time_ms(lib, 10, queued=q) if lib else None
+            # Device time only (queued), the core too.
+            kms = time_ms(lambda: fn(*a, *m), 10, queued=True)
+            pms = time_ms(lambda: plain(*a, *m), 3, queued=True)
+            lms = time_ms(lib, 10, queued=True) if lib else None
+            core = {}
+            if kind == "core":  # as the first core was timed
+                core = {"ms_host_paced": time_ms(lambda: fn(*a, *m), 10)}
+                wb = core_w_bytes(engine, torch, dt, b, h, o, spatial, modes)
+                log(f"  {dt} core fno3d B=8: host-paced kernel_ms="
+                    f"{core['ms_host_paced']:.4f}; planned W bytes a launch "
+                    f"{wb}")
             t_bytes, t_ops = bound_parts(kind, b, h, o, spatial, modes, eb,
                                          peak)
             bms, by = bound_ms(kind, b, h, o, spatial, modes, eb, peak)
@@ -2223,7 +2296,7 @@ def fno3d_partial_times(torch, engine, spectral, dft, configs, errs,
                 "tol": F32_TOL if dt == "float32" else BF16_TOL,
                 "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
                 "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
-                "library_ms": lms,
+                "library_ms": lms, **core,
                 **({"library_note": "no single PyTorch call computes "
                                     "cDFT_s1 -> CGEMM -> icDFT_s1"}
                    if kind == "core" else {})})

@@ -301,6 +301,197 @@ __device__ __forceinline__ void complex_tile(float (&v)[4], const float* in,
     v[e] = (sm[0][e] + d[0][e]) + (sm[1][e] + d[1][e]);
 }
 
+// The f32 bits of an operand element in shared memory (bf16 widened,
+// exact in TF32).
+__device__ __forceinline__ unsigned bits(const float* p) {
+  return tc::lds32(p);
+}
+__device__ __forceinline__ unsigned bits(const __nv_bfloat16* p) {
+  return tc::lds16(p) << 16;
+}
+
+// A complex stage's 16 × 8 tile, Σ_s In(m, s) ⋆ F(s, n), runs four complex
+// terms a depth step of m16n8k8: depth index t is In's real part of row s0
+// + t, t + 4 its imaginary part, against F_r and −F_i (the real half of
+// the tile, ho 0) or F_i and F_r (the imaginary half, ho 1), so the factor
+// needs no stacked [[F_r, F_i], [−F_i, F_r]] copy. Operands are f32 or
+// bf16 in shared memory, read as f32 bits, at any strides, with masked
+// rows and columns and either low TF32 part (the partial-fusion core's
+// stages). The chains' f32 stages keep complex_frags / complex_tile above:
+// built from these loaders, the block and wgrad kernels compiled to other
+// code (on an H100 the per-mode wgrad spilled 68 B and ran 3.8 % slower,
+// the bf16 projection end 15 %).
+//
+// In's fragments along the depth: In(m, s) at p[m·sm + s·ss], its
+// imaginary part offi further. The lanes' addresses are formed once; lanes
+// of rows m ≥ mv read row 0 (every load is unconditional, so the loads of
+// a step issue together) and zero it.
+template <typename T>
+struct AFrag {
+  const T* q;
+  const T* q8;
+  int step, offi;
+  bool v0, v8;
+  __device__ __forceinline__ AFrag(const T* p, int sm, int ss, int offi_,
+                                   int mv) {
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+    v0 = g < mv;
+    v8 = g + 8 < mv;
+    q = p + t * ss + (v0 ? g * sm : 0);
+    q8 = p + t * ss + (v8 ? (g + 8) * sm : 0);
+    step = 4 * ss;
+    offi = offi_;
+  }
+  __device__ __forceinline__ void load(unsigned (&a)[4], int st) const {
+    const T* x = q + st * step;
+    const T* x8 = q8 + st * step;
+    const unsigned r0 = bits(x), r1 = bits(x8);
+    const unsigned r2 = bits(x + offi), r3 = bits(x8 + offi);
+    a[0] = v0 ? r0 : 0u;
+    a[1] = v8 ? r1 : 0u;
+    a[2] = v0 ? r2 : 0u;
+    a[3] = v8 ? r3 : 0u;
+  }
+};
+
+// The factor's fragments along the depth: F(s, n) at p[s·ss + n·sn], its
+// imaginary part offi further; columns n ≥ nv read column 0 and zero it.
+template <typename T>
+struct BFrag {
+  const T* q;
+  int step, offi;
+  bool v;
+  __device__ __forceinline__ BFrag(const T* p, int ss, int sn, int offi_,
+                                   int nv) {
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+    v = g < nv;
+    q = p + t * ss + (v ? g * sn : 0);
+    step = 4 * ss;
+    offi = offi_;
+  }
+  // Both halves: br forms the real part, bi the imaginary part.
+  __device__ __forceinline__ void load(unsigned (&br)[2], unsigned (&bi)[2],
+                                       int st) const {
+    const T* x = q + st * step;
+    const unsigned re0 = bits(x), im0 = bits(x + offi);
+    const unsigned re = v ? re0 : 0u, im = v ? im0 : 0u;
+    br[0] = re;
+    br[1] = im ^ 0x80000000u;  // −F_i
+    bi[0] = im;
+    bi[1] = re;
+  }
+  __device__ __forceinline__ void load(unsigned (&b)[2], int st,
+                                       int ho) const {
+    unsigned br[2], bi[2];
+    load(br, bi, st);
+    b[0] = ho ? bi[0] : br[0];
+    b[1] = ho ? bi[1] : br[1];
+  }
+};
+
+// d += a·b for one step's raw fragments (f32 bits) on the tensor cores:
+// the big TF32 pass into d, the small ones (an operand's low part, where it
+// has one: kLoA, kLoB) into s, each operand split as the step issues.
+template <bool kLoA, bool kLoB>
+__device__ __forceinline__ void mma_bits(float (&d)[4], float (&s)[4],
+                                         const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  unsigned ah[4], al[4], bh[2], bl[2];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (kLoA) {
+      tc::split_tf32(a[e], ah[e], al[e]);
+    } else {
+      ah[e] = a[e];
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (kLoB) {
+      tc::split_tf32(b[e], bh[e], bl[e]);
+    } else {
+      bh[e] = b[e];
+    }
+  }
+  if (kLoA) tc::mma_tf32(s, al, bh);
+  if (kLoB) tc::mma_tf32(s, ah, bl);
+  tc::mma_tf32(d, ah, bh);
+}
+
+// v = one half (ho) of a complex stage's 16 × 8 tile over the depth steps
+// st = sp, sp + ss, … below `steps`, kIn steps in flight in separate
+// accumulators (a warp with one tile needs several chains to keep its
+// tensor core busy), In's and F's low TF32 parts where kLoA, kLoB.
+template <bool kLoA, bool kLoB, int kIn, typename TA, typename TB>
+__device__ __forceinline__ void complex_tile(float (&v)[4],
+                                             const AFrag<TA>& A,
+                                             const BFrag<TB>& B, int ho,
+                                             int steps, int sp = 0,
+                                             int ss = 1) {
+  float d[kIn][4] = {}, sm[kIn][4] = {};
+  int st = sp;
+  for (; st + (kIn - 1) * ss < steps; st += kIn * ss) {
+    unsigned a[kIn][4], b[kIn][2];
+#pragma unroll
+    for (int i = 0; i < kIn; ++i) {
+      A.load(a[i], st + i * ss);
+      B.load(b[i], st + i * ss, ho);
+    }
+#pragma unroll
+    for (int i = 0; i < kIn; ++i)
+      mma_bits<kLoA, kLoB>(d[i], sm[i], a[i], b[i]);
+  }
+  for (; st < steps; st += ss) {
+    unsigned a[4], b[2];
+    A.load(a, st);
+    B.load(b, st, ho);
+    mma_bits<kLoA, kLoB>(d[0], sm[0], a, b);
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    v[e] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kIn; ++i) v[e] += sm[i][e] + d[i][e];
+  }
+}
+
+// Both halves (vr, vi) of a complex stage's tile over `steps` depth steps
+// from one In fragment a step, two steps in flight.
+template <bool kLoA, bool kLoB, typename TA, typename TB>
+__device__ __forceinline__ void complex_tile_both(float (&vr)[4],
+                                                  float (&vi)[4],
+                                                  const AFrag<TA>& A,
+                                                  const BFrag<TB>& B,
+                                                  int steps) {
+  float dr[2][4] = {}, sr[2][4] = {}, di[2][4] = {}, si[2][4] = {};
+  int st = 0;
+  for (; st + 2 <= steps; st += 2) {
+    unsigned a[2][4], br[2][2], bi[2][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      A.load(a[i], st + i);
+      B.load(br[i], bi[i], st + i);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mma_bits<kLoA, kLoB>(dr[i], sr[i], a[i], br[i]);
+      mma_bits<kLoA, kLoB>(di[i], si[i], a[i], bi[i]);
+    }
+  }
+  if (st < steps) {
+    unsigned a[4], br[2], bi[2];
+    A.load(a, st);
+    B.load(br, bi, st);
+    mma_bits<kLoA, kLoB>(dr[0], sr[0], a, br);
+    mma_bits<kLoA, kLoB>(di[0], si[0], a, bi);
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    vr[e] = (sr[0][e] + dr[0][e]) + (sr[1][e] + dr[1][e]);
+    vi[e] = (si[0][e] + di[0][e]) + (si[1][e] + di[1][e]);
+  }
+}
+
 // A stage's `tiles` output tiles over the block's warps: with s > 1
 // (depth_splits), s warps split each tile's depth. part(tl, sp, v) forms
 // split sp of tile tl into v; the split-0 warp adds the other splits' parts
@@ -488,7 +679,7 @@ __device__ void chain_outer(const T* src, int nch, const fno::Geom& g,
     for (int i = tid; i < rows * dpiece.d; i += fno::kThreads) {
       const int r = dpiece.div(i), j = i - r * dpiece.d;
       if (vec_x) {
-        tc::copy16_async(x + r * L.ldx + j * kE, from + r * nR + j * kE);
+        tc::copy_async(x + r * L.ldx + j * kE, from + r * nR + j * kE);
       } else {
         x[r * L.ldx + j] = from[r * nR + j];
       }

@@ -231,12 +231,12 @@ __device__ FNO_NOINLINE void forward_chain(const T* src, int nch,
   }
 }
 
-// Kernel attributes and launch configuration for a grid of clusters of `cl`
-// blocks, one cluster per sample; `attr` must outlive `cfg`.
+// Kernel attributes and launch configuration for `grid` of clusters of
+// `cl` blocks (along x) of `threads` threads; `attr` must outlive `cfg`.
 template <class Kernel>
-cudaError_t configure(Kernel kernel, int batch, int cl, int smem_bytes,
-                      cudaStream_t stream, cudaLaunchConfig_t* cfg,
-                      cudaLaunchAttribute* attr) {
+cudaError_t configure(Kernel kernel, dim3 grid, int threads, int cl,
+                      int smem_bytes, cudaStream_t stream,
+                      cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
@@ -246,8 +246,8 @@ cudaError_t configure(Kernel kernel, int batch, int cl, int smem_bytes,
     if (err != cudaSuccess) return err;
   }
   *cfg = {};
-  cfg->gridDim = dim3(cl, batch, 1);
-  cfg->blockDim = dim3(kThreads, 1, 1);
+  cfg->gridDim = grid;
+  cfg->blockDim = dim3(threads, 1, 1);
   cfg->dynamicSmemBytes = smem_bytes;
   cfg->stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -259,12 +259,24 @@ cudaError_t configure(Kernel kernel, int batch, int cl, int smem_bytes,
   return cudaSuccess;
 }
 
-// How many clusters of `cl` blocks of `kernel` the card holds at once.
+// One cluster per sample, kThreads a block.
 template <class Kernel>
-cudaError_t max_clusters(Kernel kernel, int cl, int smem_bytes, int* n) {
+cudaError_t configure(Kernel kernel, int batch, int cl, int smem_bytes,
+                      cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                      cudaLaunchAttribute* attr) {
+  return configure(kernel, dim3(cl, batch, 1), kThreads, cl, smem_bytes,
+                   stream, cfg, attr);
+}
+
+// How many clusters of `cl` blocks of `kernel` (`threads` a block) the card
+// holds at once.
+template <class Kernel>
+cudaError_t max_clusters(Kernel kernel, int cl, int smem_bytes, int* n,
+                         int threads = kThreads) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = configure(kernel, 1, cl, smem_bytes, nullptr, &cfg, &attr);
+  cudaError_t err = configure(kernel, dim3(cl, 1, 1), threads, cl,
+                              smem_bytes, nullptr, &cfg, &attr);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveClusters(n, kernel, &cfg);
 }

@@ -209,7 +209,7 @@ __device__ void bypass_partial(const T* xsrc, const T* gsrc, int H, int O,
         const int r = pieces.div(i), j = (i - r * pieces.d) * kE;
         const T* from;
         T* to = row(r, from);
-        tc::copy16_async(to + j, from + j);
+        tc::copy_async(to + j, from + j);
       }
     } else {
       for (int i = tid; i < (O + H) * cp; i += kThreads) {

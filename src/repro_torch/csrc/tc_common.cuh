@@ -1,8 +1,8 @@
 // Helpers shared by the row DFT kernels (dft_rows.cu), the complex product
-// (cgemm.cu) and the tensor-core DFT chain (chain_tc.cuh, fused_wgrad.cu):
-// padding and alignment, element conversions, 16-byte cp.async copies into
-// shared memory, products on the tensor cores, and the resident blocks of
-// a persistent launch.
+// (cgemm.cu), the tensor-core DFT chain (chain_tc.cuh, fused_wgrad.cu) and
+// the partial-fusion core (fused_core.cu): padding and alignment, element
+// conversions, cp.async copies into shared memory, products on the tensor
+// cores, and the resident blocks of a persistent launch.
 //
 // Tensor-core products (mma.sync, f32 accumulate), one warp's tile of
 // 16-row by 8-column pieces from operands in shared memory. bf16 runs the
@@ -76,16 +76,24 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-// 16 bytes from device to shared memory, asynchronously (cp.async; a plain
-// copy where the source is compiled for the host).
-__device__ __forceinline__ void copy16_async(void* dst, const void* src) {
+// N bytes (4, 8 or 16) from device to shared memory, asynchronously
+// (cp.async; a plain copy where the source is compiled for the host).
+template <int N = 16>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  static_assert(N == 4 || N == 8 || N == 16, "cp.async moves 4, 8 or 16 B");
 #ifdef __CUDA_ARCH__
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
+  if constexpr (N == 16) {  // around L1
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(src), "n"(N)
+                 : "memory");
+  }
 #else
-  std::memcpy(dst, src, 16);
+  std::memcpy(dst, src, N);
 #endif
 }
 
@@ -122,7 +130,7 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
     const int per_row = len / kE;
     for (int c = threadIdx.x; c < rows * per_row; c += nthreads) {
       const int r = c / per_row, j = (c - r * per_row) * kE;
-      copy16_async(dst + r * ld + j, src + r * src_ld + j);
+      copy_async(dst + r * ld + j, src + r * src_ld + j);
     }
   } else {
     for (int i = threadIdx.x; i < rows * len; i += nthreads) {
@@ -149,6 +157,21 @@ __device__ __forceinline__ unsigned lds32(const void* p) {
 #else
   unsigned v;
   std::memcpy(&v, p, 4);
+  return v;
+#endif
+}
+
+// 16 bits at p, which points into shared memory, in the low half.
+__device__ __forceinline__ unsigned lds16(const void* p) {
+#ifdef __CUDA_ARCH__
+  unsigned short v;
+  asm volatile("ld.shared.u16 %0, [%1];\n"
+               : "=h"(v)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
+  return v;
+#else
+  unsigned short v;
+  std::memcpy(&v, p, 2);
   return v;
 #endif
 }

@@ -166,8 +166,12 @@ def load_core_library(path: Path) -> ctypes.CDLL:
     """Load a partial-fusion core library and declare its C signatures."""
     lib = ctypes.CDLL(str(path))
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_core.argtypes = [i, vp, vp, vp, vp, i, i, vp]
+    lib.fused_core.argtypes = [i, vp, vp, vp, vp, vp, vp]
     lib.fused_core.restype = i
+    lib.fused_core_plan.argtypes = [i, vp, vp, vp]
+    lib.fused_core_plan.restype = i
+    lib.fused_core_max_clusters.argtypes = [i, vp, vp, ctypes.POINTER(i)]
+    lib.fused_core_max_clusters.restype = i
     lib.fused_core_error_string.argtypes = [i]
     lib.fused_core_error_string.restype = ctypes.c_char_p
     return lib

@@ -116,7 +116,6 @@ _PORTABLE_CLUSTER = 8  # cluster size every Hopper part schedules
 _MAX_CLUSTER = 16  # Hopper's non-portable cluster size
 _SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block can use
 BATCH_BLOCK = 1    # samples per cluster: the serving quantum
-_CORE_CHUNK = 4096  # z floats per plane of a core kernel's forward chunk
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -674,22 +673,62 @@ def wgrad_mode_chunk(plan: Dict[str, int], batch: int, modes) -> int:
     return chunk
 
 
-def core_plan(hidden: int, out: int, n1: int, k1: int,
-              per_mode: bool = False) -> Dict[str, int]:
-    """The core kernel's s_1 rows per forward chunk and shared memory
-    (shared weights, the spectrum A, then z's chunk or C; per-mode weights
-    are read from device memory, not staged); raises ValueError for shapes
-    a block cannot hold."""
-    rows = min(n1, max(1, _CORE_CHUNK // hidden))
-    w = 0 if per_mode else 2 * out * hidden
-    floats = w + 2 * hidden * k1 + max(2 * hidden * rows, 2 * out * k1)
-    smem = 4 * floats
-    if smem > _SMEM_LIMIT:
+# The core kernel's plan fields, in fused_core_plan's order, and the ones
+# its launch takes (which ``FORCED["core"]`` may pin; 0 or absent: the
+# planner's choice).
+CORE_PLAN_FIELDS = ("cluster", "hs", "os", "nb", "np", "kc", "ri", "wj",
+                    "groups", "ptiles", "smem", "w_bytes")
+CORE_LAUNCH = ("cluster", "np", "nb", "kc", "ri", "wj")
+
+
+@functools.lru_cache(maxsize=256)
+def _core_plan(lib, code: int, dims: Tuple[int, ...], force: Tuple[int, ...]):
+    """(fits, plan, dims and the launch's plan as the C entries take them)
+    from the library, once per shape: a model's launches repeat a
+    handful."""
+    out = (ctypes.c_longlong * len(CORE_PLAN_FIELDS))()
+    ok = lib.fused_core_plan(code, _ints(list(dims)), _ints(list(force)),
+                             out)
+    plan = dict(zip(CORE_PLAN_FIELDS, out))
+    return (bool(ok), plan, _ints(list(dims)),
+            _ints([plan[k] for k in CORE_LAUNCH]))
+
+
+def _core_launch(lib, dtype: torch.dtype, b: int, h: int, o: int, n1: int,
+                 k1: int, p: int, per_mode: bool, k2: int):
+    """(plan, dims, launch plan) of ``core_plan``; the last two as the C
+    entries take them."""
+    force = FORCED.get("core") or {}
+    unknown = set(force) - set(CORE_LAUNCH)
+    if unknown:
+        raise ValueError(f"FORCED['core'] pins only {CORE_LAUNCH}, got "
+                         f"{sorted(unknown)}")
+    ok, plan, dims, pl = _core_plan(
+        lib, _DTYPE_CODES[dtype], (b, h, o, n1, k1, p, int(per_mode), k2 or p),
+        tuple(force.get(k, 0) for k in CORE_LAUNCH))
+    if not ok:
         raise ValueError(
-            f"fused core kernel needs {smem} B of shared memory for "
-            f"hidden={hidden} out={out} s_1={n1} k_1={k1} (limit "
-            f"{_SMEM_LIMIT}); this shape needs a tiled kernel")
-    return {"rows": rows, "smem": smem}
+            f"fused core kernel has no plan within {_SMEM_LIMIT} B of shared "
+            f"memory and the grid's limits for B={b} hidden={h} out={o} "
+            f"s_1={n1} k_1={k1} P={p} (last tried {plan}); this shape needs "
+            f"a tiled kernel")
+    return plan, dims, pl
+
+
+def core_plan(lib, dtype: torch.dtype, b: int, h: int, o: int, n1: int,
+              k1: int, p: int, per_mode: bool = False,
+              k2: int = 0) -> Dict[str, int]:
+    """The core kernel's launch plan, as the library computes it
+    (``fused_core_plan``, the one source of its shared-memory layout): the
+    cluster and its hidden / out slices, the samples and spectrum columns
+    of a tile, the modes k_1 of a CGEMM chunk, the s_1 rows of a forward
+    chunk, the points of an inverse chunk, the tiles (sample groups ×
+    column tiles), a block's shared memory and the weight bytes a launch
+    reads. b samples; p = Π K_R..K_2 and k2 = K_2 (per-mode W's column
+    order; p by default). ``FORCED["core"]`` pins fields of
+    ``CORE_LAUNCH``. Raises ValueError where no plan fits a block and the
+    grid."""
+    return _core_launch(lib, dtype, b, h, o, n1, k1, p, per_mode, k2)[0]
 
 
 def _check_mats(mats, spatial, inverse: bool):
@@ -929,9 +968,10 @@ def pick_wgrad_plan(lib, dtype_code: int, batch: int, hidden: int,
 # What ``pick_plan`` and ``pick_wgrad_plan`` force on the plans they pick,
 # for the measurements and tests that run a plan the planner does not pick:
 # "chain" replans phase 1's chain at the picked cluster (ValueError where it
-# does not fit); any other key lowers that field of the plans that have it
-# to at most its value (fewer rows or columns a piece need no more shared
-# memory). Empty: the planner's plans. Set by ``forced_chain``.
+# does not fit); "core" (a dict of ``CORE_LAUNCH`` fields) pins those fields
+# of ``core_plan``'s plans; any other key lowers that field of the plans
+# that have it to at most its value (fewer rows or columns a piece need no
+# more shared memory). Empty: the planner's plans. Set by ``forced_chain``.
 FORCED: Dict[str, Any] = {}
 
 
@@ -949,8 +989,9 @@ def _forced(plan_fn: Callable, plan: Dict[str, int], hidden: int, out: int,
 @contextlib.contextmanager
 def forced_chain(chain: Optional[str] = None, **fields: int):
     """Within the block, ``FORCED`` holds `chain` ("tc" or "fma"; None keeps
-    the planner's) and `fields`: how ``block_phases.py`` and
-    ``chip_smoke.py`` time the plan the planner does not pick."""
+    the planner's) and `fields` (``core={...}`` the core's): how
+    ``block_phases.py``, ``chip_smoke.py`` and the tests run the plan the
+    planner does not pick."""
     saved = dict(FORCED)
     FORCED.clear()
     FORCED.update(fields, chain=chain)
@@ -1055,28 +1096,42 @@ def _launch_wgrad(lib, x, gz, mats, spatial, modes, stream,
     return tuple(outs)
 
 
+def core_max_clusters(lib, dtype: torch.dtype, b: int, h: int, o: int,
+                      n1: int, k1: int, p: int, per_mode: bool = False,
+                      k2: int = 0) -> int:
+    """How many clusters of the core's launch at this shape (its plan as
+    ``core_plan``'s) the card runs at once (``fused_core_max_clusters``)."""
+    _, dims, pl = _core_launch(lib, dtype, b, h, o, n1, k1, p, per_mode, k2)
+    n = ctypes.c_int(0)
+    err = lib.fused_core_max_clusters(_DTYPE_CODES[dtype], dims, pl,
+                                      ctypes.byref(n))
+    if err != 0:
+        msg = lib.fused_core_error_string(err).decode()
+        raise RuntimeError(f"fused core occupancy query failed: {msg}")
+    return n.value
+
+
 def _launch_core(lib, zr, zi, wr, wi, fr, fi, gr, gi, stream):
     """Allocate the y pair and launch the core kernel through the C entry
-    (no checks)."""
+    at ``core_plan``'s plan (no checks)."""
     b, h, n1 = zr.shape[:3]
     spec = tuple(zr.shape[3:])
     o, k1 = wr.shape[0], fr.shape[1]
     per_mode = wr.ndim > 2
-    plan = core_plan(h, o, n1, k1, per_mode)
-    shape = (b,) + spec + (o, n1)
-    yr = torch.empty(shape, dtype=zr.dtype, device=zr.device)
-    yi = torch.empty(shape, dtype=zr.dtype, device=zr.device)
-    ptrs = (ctypes.c_void_p * 8)(*[t.data_ptr() for t in
-                                   (zr, zi, wr, wi, fr, fi, gr, gi)])
     p = 1
     for k in spec:
         p *= k
     # Per-mode weights [O,H,K_1,K_2..K_R]: K_2 decodes p = (k_R..k_2).
     k2 = spec[-1] if spec else 1
+    plan, dims, pl = _core_launch(lib, zr.dtype, b, h, o, n1, k1, p,
+                                  per_mode, k2)
+    shape = (b,) + spec + (o, n1)
+    yr = torch.empty(shape, dtype=zr.dtype, device=zr.device)
+    yi = torch.empty(shape, dtype=zr.dtype, device=zr.device)
+    ptrs = (ctypes.c_void_p * 8)(*[t.data_ptr() for t in
+                                   (zr, zi, wr, wi, fr, fi, gr, gi)])
     err = lib.fused_core(_DTYPE_CODES[zr.dtype], ptrs, yr.data_ptr(),
-                         yi.data_ptr(),
-                         _ints([b, h, o, n1, k1, p, int(per_mode), k2]),
-                         plan["rows"], plan["smem"], stream)
+                         yi.data_ptr(), dims, pl, stream)
     if err != 0:
         msg = lib.fused_core_error_string(err).decode()
         raise RuntimeError(f"fused core kernel launch failed: {msg} "

@@ -151,13 +151,13 @@ inline const char* cudaGetErrorString(cudaError_t e) {
 
 namespace emu {
 struct Thread {
-  unsigned bx, by, tx;
+  unsigned bx, by, tx, bz;
   const std::function<void()>* body;
 };
 inline void* run(void* p) {
   Thread* t = static_cast<Thread*>(p);
   threadIdx = dim3(t->tx);
-  blockIdx = dim3(t->bx, t->by);
+  blockIdx = dim3(t->bx, t->by, t->bz);
   (*t->body)();
   return nullptr;
 }
@@ -183,23 +183,25 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* c, void (*k)(E...),
     }
   };
   if (c->numAttrs == 0) {  // no cluster: every block alone, in grid order
-    if (gridDim.z != 1) return cudaErrorInvalidValue;
     g_block_bar.assign(gridDim.x, pthread_barrier_t{});
-    for (unsigned by = 0; by < gridDim.y; ++by) {
-      for (unsigned bx = 0; bx < gridDim.x; ++bx) {
-        g_smem.assign(gridDim.x, std::vector<float>());
-        g_smem[bx].assign(c->dynamicSmemBytes / 4, NAN);
-        pthread_barrier_init(&g_block_bar[bx], nullptr, blockDim.x);
-        warp_bars(bx, true);
-        std::vector<emu::Thread> ts;
-        for (unsigned t = 0; t < blockDim.x; ++t)
-          ts.push_back({bx, by, t, &body});
-        std::vector<pthread_t> ids(ts.size());
-        for (size_t i = 0; i < ts.size(); ++i)
-          if (pthread_create(&ids[i], &attr, emu::run, &ts[i]) != 0) abort();
-        for (auto& id : ids) pthread_join(id, nullptr);
-        pthread_barrier_destroy(&g_block_bar[bx]);
-        warp_bars(bx, false);
+    for (unsigned bz = 0; bz < gridDim.z; ++bz) {
+      for (unsigned by = 0; by < gridDim.y; ++by) {
+        for (unsigned bx = 0; bx < gridDim.x; ++bx) {
+          g_smem.assign(gridDim.x, std::vector<float>());
+          g_smem[bx].assign(c->dynamicSmemBytes / 4, NAN);
+          pthread_barrier_init(&g_block_bar[bx], nullptr, blockDim.x);
+          warp_bars(bx, true);
+          std::vector<emu::Thread> ts;
+          for (unsigned t = 0; t < blockDim.x; ++t)
+            ts.push_back({bx, by, t, bz, &body});
+          std::vector<pthread_t> ids(ts.size());
+          for (size_t i = 0; i < ts.size(); ++i)
+            if (pthread_create(&ids[i], &attr, emu::run, &ts[i]) != 0)
+              abort();
+          for (auto& id : ids) pthread_join(id, nullptr);
+          pthread_barrier_destroy(&g_block_bar[bx]);
+          warp_bars(bx, false);
+        }
       }
     }
     pthread_attr_destroy(&attr);
@@ -207,23 +209,26 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* c, void (*k)(E...),
   }
   const unsigned cl = c->attrs[0].val.clusterDim.x;
   if (c->numAttrs != 1 || cl != gridDim.x) return cudaErrorInvalidValue;
-  for (unsigned by = 0; by < gridDim.y; ++by) {
-    // Shared memory starts as NaN so a read before a write shows up.
-    g_smem.assign(cl, std::vector<float>(c->dynamicSmemBytes / 4, NAN));
-    g_block_bar.assign(cl, pthread_barrier_t{});
-    for (auto& b : g_block_bar) pthread_barrier_init(&b, nullptr, blockDim.x);
-    for (unsigned bx = 0; bx < cl; ++bx) warp_bars(bx, true);
-    pthread_barrier_init(&g_cluster_bar, nullptr, blockDim.x * cl);
-    std::vector<emu::Thread> ts;
-    for (unsigned bx = 0; bx < cl; ++bx)
-      for (unsigned t = 0; t < blockDim.x; ++t) ts.push_back({bx, by, t, &body});
-    std::vector<pthread_t> ids(ts.size());
-    for (size_t i = 0; i < ts.size(); ++i)
-      if (pthread_create(&ids[i], &attr, emu::run, &ts[i]) != 0) abort();
-    for (auto& id : ids) pthread_join(id, nullptr);
-    for (auto& b : g_block_bar) pthread_barrier_destroy(&b);
-    for (unsigned bx = 0; bx < cl; ++bx) warp_bars(bx, false);
-    pthread_barrier_destroy(&g_cluster_bar);
+  for (unsigned bz = 0; bz < gridDim.z; ++bz) {
+    for (unsigned by = 0; by < gridDim.y; ++by) {
+      // Shared memory starts as NaN so a read before a write shows up.
+      g_smem.assign(cl, std::vector<float>(c->dynamicSmemBytes / 4, NAN));
+      g_block_bar.assign(cl, pthread_barrier_t{});
+      for (auto& b : g_block_bar) pthread_barrier_init(&b, nullptr, blockDim.x);
+      for (unsigned bx = 0; bx < cl; ++bx) warp_bars(bx, true);
+      pthread_barrier_init(&g_cluster_bar, nullptr, blockDim.x * cl);
+      std::vector<emu::Thread> ts;
+      for (unsigned bx = 0; bx < cl; ++bx)
+        for (unsigned t = 0; t < blockDim.x; ++t)
+          ts.push_back({bx, by, t, bz, &body});
+      std::vector<pthread_t> ids(ts.size());
+      for (size_t i = 0; i < ts.size(); ++i)
+        if (pthread_create(&ids[i], &attr, emu::run, &ts[i]) != 0) abort();
+      for (auto& id : ids) pthread_join(id, nullptr);
+      for (auto& b : g_block_bar) pthread_barrier_destroy(&b);
+      for (unsigned bx = 0; bx < cl; ++bx) warp_bars(bx, false);
+      pthread_barrier_destroy(&g_cluster_bar);
+    }
   }
   pthread_attr_destroy(&attr);
   return cudaSuccess;

@@ -10,13 +10,17 @@ time), loaded through the same ``ctypes`` signatures and launch plans as
 on the card, and compared with the kernels' plain PyTorch versions: the
 block forward, the bare spectral layer, the backward's three launches (gz
 recompute, dx adjoint, wgrad), the row DFTs and the partial-fusion core,
-with shared and with per-mode weights.
+with shared and with per-mode weights (the core also at B = 1, 3 and 9,
+ragged slices and tiles, and in many small chunks), and the core's plan
+(``fused_core_plan``, read through the library) over every shape the
+first core took.
 This checks the kernels' indexing, chunking, masking, cluster exchange and
 the wgrad kernel's batch reduction at every rank without a GPU; mutated
 copies of the new sources (a dropped imaginary term, an off-by-one on a
-ragged edge, a wrong mode index, a dropped conj) must fail the same
-comparison. The card itself is checked by
-tests/test_torch_kernel_gpu.py and chip_smoke.py.
+ragged edge, a wrong mode index, a dropped conj; in the core also one TF32
+pass in the CGEMM, the second sample group dropped, remote A read from
+the wrong rank) must fail the same comparison. The card itself is checked
+by tests/test_torch_kernel_gpu.py and chip_smoke.py.
 """
 import shutil
 import subprocess
@@ -422,9 +426,21 @@ def test_emulated_row_mutations_are_caught(tmp_path, mutation):
 
 
 # Core cases (B, H, O, s_1, K_1, K_R..K_2): rank 2 and 3 spectra, odd
-# extents, channel counts off the kTP grouping, and no outer axis.
+# extents, channel counts off the cluster's slices, and no outer axis.
 CORE_CASES = [(2, 8, 6, 16, 5, (9,)), (1, 5, 7, 33, 4, (3, 5)),
               (2, 3, 2, 10, 10, ())]
+# Forced plan fields (engine.CORE_LAUNCH): "chunked" runs every phase in
+# several ragged chunks (4 s_1 rows of z and F, one mode k_1 of the CGEMM,
+# 8 points of G) across a cluster of 2.
+CORE_CHUNKS = {"one": {}, "chunked": {"cluster": 2, "ri": 4, "kc": 1,
+                                      "wj": 8}}
+
+
+def _launch_core(lib, args, force):
+    """The core through `lib` at its plan with the fields `force` pinned
+    (engine.FORCED["core"])."""
+    with engine.forced_chain(core=force):
+        return engine._launch_core(lib, *args, None)
 
 
 def _core_inputs(case, seed):
@@ -439,26 +455,190 @@ def _core_inputs(case, seed):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("chunk", [4096, 16], ids=["one", "chunked"])
+@pytest.mark.parametrize("chunk", list(CORE_CHUNKS.values()),
+                         ids=list(CORE_CHUNKS))
 @pytest.mark.parametrize("case", CORE_CASES, ids=str)
-def test_emulated_core_matches_plain(emulated_core, monkeypatch, case,
-                                     chunk, dtype):
-    """The partial-fusion core against its plain version; chunk=16 forces
-    several (ragged) s_1 chunks in the forward stage."""
-    monkeypatch.setattr(engine, "_CORE_CHUNK", chunk)
+def test_emulated_core_matches_plain(emulated_core, case, chunk, dtype):
+    """The partial-fusion core against its plain version, at its plan and
+    with every phase in several ragged chunks."""
     args = _core_inputs(case, seed=case[3])
     ref = engine.fused_core_plain(*args)
     tdt = getattr(torch, dtype)
-    y = engine._launch_core(emulated_core, *[a.to(tdt) for a in args], None)
+    y = _launch_core(emulated_core, [a.to(tdt) for a in args], chunk)
     for a, r in zip(y, ref):
         assert a.dtype == tdt and a.shape == r.shape
         assert _rel_err(a, r) <= (2e-4 if dtype == "float32" else 2e-2)
 
 
+# (B, H, O, s_1, K_1, K_R..K_2, per-mode, forced plan): one sample; ragged
+# hidden and out slices (5 and 7 over 2 ranks) and a ragged column tile
+# (P = 5 in tiles of 4); rank 3 with K_2 != K_3 and per-mode W at B=3; B=9,
+# a second sample group of one, per-mode and shared; and F and G streamed
+# in many small pieces (4 rows, 8 points) with one mode a CGEMM chunk.
+CORE_EDGES = [
+    (1, 5, 7, 10, 4, (5,), False, {"cluster": 2, "np": 4}),
+    (3, 6, 5, 12, 5, (3, 4), True, {"cluster": 2, "ri": 4}),
+    (9, 4, 4, 8, 3, (6,), True, {"cluster": 2}),
+    (9, 4, 6, 8, 3, (2, 3), False, {}),
+    (2, 4, 4, 40, 12, (3,), False, {"ri": 4, "wj": 8, "kc": 1}),
+]
+
+
+def _edge_inputs(case, seed):
+    b, h, o, n1, k1, spec, per_mode, _ = case
+    args = _core_inputs((b, h, o, n1, k1, spec), seed)
+    if per_mode:  # [O,H,K_1,K_2..K_R]: the modes reversed against z's
+        rng = np.random.default_rng(seed + 1)
+        w = lambda: torch.tensor(rng.normal(size=(o, h, k1) + spec[::-1])
+                                 / h, dtype=torch.float32)
+        args[2:4] = [w(), w()]
+    return args
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CORE_EDGES,
+                         ids=lambda c: "B{}-h{}-o{}-s{}-k{}-{}-{}".format(
+                             c[0], c[1], c[2], c[3], c[4],
+                             "x".join(map(str, c[5])),
+                             "pm" if c[6] else "shared"))
+def test_emulated_core_batches_and_edges(emulated_core, case, dtype):
+    """The core at B = 1, 3 and 9 (a second sample group), ragged slices
+    and tiles, rank 3 with K_2 != K_3, per-mode and shared W, and the
+    factors streamed in small pieces, against its plain version."""
+    args = _edge_inputs(case, seed=case[3] + case[0])
+    ref = engine.fused_core_plain(*args)
+    tdt = getattr(torch, dtype)
+    y = _launch_core(emulated_core, [a.to(tdt) for a in args], case[7])
+    for a, r in zip(y, ref):
+        assert a.dtype == tdt and a.shape == r.shape
+        assert _rel_err(a, r) <= (2e-4 if dtype == "float32" else 2e-2)
+
+
+# The (hidden, rank, N, modes, per-mode) pairs the slice-1 core's planner
+# took (engine.core_plan at 87c7a88, which depended on hidden, out, s_1
+# and K_1 alone) over hidden 16–128, 2D 64²–512² and 3D 32³–128³, modes 8
+# up to min(N/2, 64): 188 of 192 (it refused shared W at hidden 128,
+# modes 64).
+PARENT_CORE_PLANNED = [
+    (16, 2, 64, 8, 0), (16, 2, 64, 8, 1), (16, 2, 64, 16, 0),
+    (16, 2, 64, 16, 1), (16, 2, 64, 32, 0), (16, 2, 64, 32, 1),
+    (16, 2, 128, 8, 0), (16, 2, 128, 8, 1), (16, 2, 128, 16, 0),
+    (16, 2, 128, 16, 1), (16, 2, 128, 32, 0), (16, 2, 128, 32, 1),
+    (16, 2, 128, 64, 0), (16, 2, 128, 64, 1), (16, 2, 256, 8, 0),
+    (16, 2, 256, 8, 1), (16, 2, 256, 16, 0), (16, 2, 256, 16, 1),
+    (16, 2, 256, 32, 0), (16, 2, 256, 32, 1), (16, 2, 256, 64, 0),
+    (16, 2, 256, 64, 1), (16, 2, 512, 8, 0), (16, 2, 512, 8, 1),
+    (16, 2, 512, 16, 0), (16, 2, 512, 16, 1), (16, 2, 512, 32, 0),
+    (16, 2, 512, 32, 1), (16, 2, 512, 64, 0), (16, 2, 512, 64, 1),
+    (16, 3, 32, 8, 0), (16, 3, 32, 8, 1), (16, 3, 32, 16, 0),
+    (16, 3, 32, 16, 1), (16, 3, 64, 8, 0), (16, 3, 64, 8, 1),
+    (16, 3, 64, 16, 0), (16, 3, 64, 16, 1), (16, 3, 64, 32, 0),
+    (16, 3, 64, 32, 1), (16, 3, 128, 8, 0), (16, 3, 128, 8, 1),
+    (16, 3, 128, 16, 0), (16, 3, 128, 16, 1), (16, 3, 128, 32, 0),
+    (16, 3, 128, 32, 1), (16, 3, 128, 64, 0), (16, 3, 128, 64, 1),
+    (32, 2, 64, 8, 0), (32, 2, 64, 8, 1), (32, 2, 64, 16, 0),
+    (32, 2, 64, 16, 1), (32, 2, 64, 32, 0), (32, 2, 64, 32, 1),
+    (32, 2, 128, 8, 0), (32, 2, 128, 8, 1), (32, 2, 128, 16, 0),
+    (32, 2, 128, 16, 1), (32, 2, 128, 32, 0), (32, 2, 128, 32, 1),
+    (32, 2, 128, 64, 0), (32, 2, 128, 64, 1), (32, 2, 256, 8, 0),
+    (32, 2, 256, 8, 1), (32, 2, 256, 16, 0), (32, 2, 256, 16, 1),
+    (32, 2, 256, 32, 0), (32, 2, 256, 32, 1), (32, 2, 256, 64, 0),
+    (32, 2, 256, 64, 1), (32, 2, 512, 8, 0), (32, 2, 512, 8, 1),
+    (32, 2, 512, 16, 0), (32, 2, 512, 16, 1), (32, 2, 512, 32, 0),
+    (32, 2, 512, 32, 1), (32, 2, 512, 64, 0), (32, 2, 512, 64, 1),
+    (32, 3, 32, 8, 0), (32, 3, 32, 8, 1), (32, 3, 32, 16, 0),
+    (32, 3, 32, 16, 1), (32, 3, 64, 8, 0), (32, 3, 64, 8, 1),
+    (32, 3, 64, 16, 0), (32, 3, 64, 16, 1), (32, 3, 64, 32, 0),
+    (32, 3, 64, 32, 1), (32, 3, 128, 8, 0), (32, 3, 128, 8, 1),
+    (32, 3, 128, 16, 0), (32, 3, 128, 16, 1), (32, 3, 128, 32, 0),
+    (32, 3, 128, 32, 1), (32, 3, 128, 64, 0), (32, 3, 128, 64, 1),
+    (64, 2, 64, 8, 0), (64, 2, 64, 8, 1), (64, 2, 64, 16, 0),
+    (64, 2, 64, 16, 1), (64, 2, 64, 32, 0), (64, 2, 64, 32, 1),
+    (64, 2, 128, 8, 0), (64, 2, 128, 8, 1), (64, 2, 128, 16, 0),
+    (64, 2, 128, 16, 1), (64, 2, 128, 32, 0), (64, 2, 128, 32, 1),
+    (64, 2, 128, 64, 0), (64, 2, 128, 64, 1), (64, 2, 256, 8, 0),
+    (64, 2, 256, 8, 1), (64, 2, 256, 16, 0), (64, 2, 256, 16, 1),
+    (64, 2, 256, 32, 0), (64, 2, 256, 32, 1), (64, 2, 256, 64, 0),
+    (64, 2, 256, 64, 1), (64, 2, 512, 8, 0), (64, 2, 512, 8, 1),
+    (64, 2, 512, 16, 0), (64, 2, 512, 16, 1), (64, 2, 512, 32, 0),
+    (64, 2, 512, 32, 1), (64, 2, 512, 64, 0), (64, 2, 512, 64, 1),
+    (64, 3, 32, 8, 0), (64, 3, 32, 8, 1), (64, 3, 32, 16, 0),
+    (64, 3, 32, 16, 1), (64, 3, 64, 8, 0), (64, 3, 64, 8, 1),
+    (64, 3, 64, 16, 0), (64, 3, 64, 16, 1), (64, 3, 64, 32, 0),
+    (64, 3, 64, 32, 1), (64, 3, 128, 8, 0), (64, 3, 128, 8, 1),
+    (64, 3, 128, 16, 0), (64, 3, 128, 16, 1), (64, 3, 128, 32, 0),
+    (64, 3, 128, 32, 1), (64, 3, 128, 64, 0), (64, 3, 128, 64, 1),
+    (128, 2, 64, 8, 0), (128, 2, 64, 8, 1), (128, 2, 64, 16, 0),
+    (128, 2, 64, 16, 1), (128, 2, 64, 32, 0), (128, 2, 64, 32, 1),
+    (128, 2, 128, 8, 0), (128, 2, 128, 8, 1), (128, 2, 128, 16, 0),
+    (128, 2, 128, 16, 1), (128, 2, 128, 32, 0), (128, 2, 128, 32, 1),
+    (128, 2, 128, 64, 1), (128, 2, 256, 8, 0), (128, 2, 256, 8, 1),
+    (128, 2, 256, 16, 0), (128, 2, 256, 16, 1), (128, 2, 256, 32, 0),
+    (128, 2, 256, 32, 1), (128, 2, 256, 64, 1), (128, 2, 512, 8, 0),
+    (128, 2, 512, 8, 1), (128, 2, 512, 16, 0), (128, 2, 512, 16, 1),
+    (128, 2, 512, 32, 0), (128, 2, 512, 32, 1), (128, 2, 512, 64, 1),
+    (128, 3, 32, 8, 0), (128, 3, 32, 8, 1), (128, 3, 32, 16, 0),
+    (128, 3, 32, 16, 1), (128, 3, 64, 8, 0), (128, 3, 64, 8, 1),
+    (128, 3, 64, 16, 0), (128, 3, 64, 16, 1), (128, 3, 64, 32, 0),
+    (128, 3, 64, 32, 1), (128, 3, 128, 8, 0), (128, 3, 128, 8, 1),
+    (128, 3, 128, 16, 0), (128, 3, 128, 16, 1), (128, 3, 128, 32, 0),
+    (128, 3, 128, 32, 1), (128, 3, 128, 64, 1),
+]
+
+
+@pytest.mark.parametrize("shape", PARENT_CORE_PLANNED,
+                         ids=lambda s: "h{}-{}d-{}-m{}-{}".format(
+                             *s[:4], "pm" if s[4] else "shared"))
+def test_every_shape_the_first_core_planned_is_planned(emulated_core, shape):
+    """The shape range is kept: the library's plan (fused_core_plan) takes
+    every pair the first core took, at B = 1, 8, 9 and 128, f32 and bf16,
+    within a block's shared memory and the grid's limits (the launch's
+    grid is (cluster, column tiles, sample groups)); a per-mode plan
+    groups min(B, 8) samples, so it reads W once a group."""
+    hidden, rank, n, m, per_mode = shape
+    p = m ** (rank - 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in (1, 8, 9, 128):
+            plan = engine.core_plan(emulated_core, dtype, b, hidden, hidden,
+                                    n, m, p, bool(per_mode), m)
+            assert plan["smem"] <= engine._SMEM_LIMIT
+            assert plan["cluster"] * plan["hs"] >= hidden
+            assert plan["ptiles"] <= GRID_YZ and plan["groups"] <= GRID_YZ
+            if per_mode:
+                assert plan["nb"] == min(b, 8)
+                assert plan["w_bytes"] == (plan["groups"] * 2 * hidden
+                                           * hidden * m * p * dtype.itemsize)
+
+
+# Largest grid extent along y and z: the core's grid is (cluster, column
+# tiles, sample groups).
+GRID_YZ = 65535
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_core_plan_holds_the_grid_limits(emulated_core, dtype):
+    """The plan the library gives is one the card launches: at 3D 128³
+    modes 64 with shared W (P = 4096 columns) B = 64 and 128 take 65,536
+    tiles and more, which a grid of one tile axis could not hold, and a
+    plan past the grid's limits (65,536 sample groups) is refused, not
+    launched."""
+    h, n, m = 16, 128, 64
+    p = m * m
+    for b in (64, 128):
+        plan = engine.core_plan(emulated_core, dtype, b, h, h, n, m, p,
+                                False, m)
+        assert plan["ptiles"] <= GRID_YZ and plan["groups"] <= GRID_YZ
+    assert plan["groups"] * plan["ptiles"] > GRID_YZ
+    for b, per_mode in ((GRID_YZ + 1, False), (8 * GRID_YZ + 1, True)):
+        with pytest.raises(ValueError, match="grid"):
+            engine.core_plan(emulated_core, dtype, b, h, h, n, m, p,
+                             per_mode, m)
+
+
 # Mutations of the new sources, each of which the comparisons above must
-# catch: (source, what, (old, new)). cdft's: the stacked operand's −Fi
-# block dropped (the −xi·Fi term of yr), and one row fewer copied at each
-# group's ragged edge.
+# catch: (source, what, (old, new)), or (header, old, new) for a header the
+# source includes. cdft's: the stacked operand's −Fi block dropped (the
+# −xi·Fi term of yr), and one row fewer copied at each group's ragged edge.
 MUTATIONS = [
     ("dft_rows", "dropped imaginary term",
      ("load_rows(neg_fi, L.ldb, a.m3i, n, k, a.vec_op);", "")),
@@ -466,11 +646,16 @@ MUTATIONS = [
      ("const int nrows = min(G, a.slabs - grp * G);",
       "const int nrows = min(G, a.slabs - grp * G - 1);")),
     ("fused_core", "dropped imaginary term",
-     ("cr[u] = fmaf(wr, ar, fmaf(-wi, ai, cr[u]));",
-      "cr[u] = fmaf(wr, ar, cr[u]);")),
+     ("chain_tc.cuh", "br[1] = im ^ 0x80000000u;  // −F_i", "br[1] = 0u;")),
     ("fused_core", "off-by-one on the ragged chunk edge",
-     ("const int nr = min(a.rows, n1 - c0);",
-      "const int nr = min(a.rows, n1 - c0 - 1);")),
+     ("const int c0 = q * L.ri, nv = min(L.ri, n1 - c0);",
+      "const int c0 = q * L.ri, nv = min(L.ri, n1 - c0 - 1);")),
+    ("fused_core", "one-pass TF32 CGEMM",
+     ("constexpr bool kWLo = std::is_same<T, float>::value, kALo = true;",
+      "constexpr bool kWLo = false, kALo = false;")),
+    ("fused_core", "remote A read from the wrong rank",
+     ("cluster.map_shared_rank(A, q)",
+      "cluster.map_shared_rank(A, (q + 1) % cl)")),
 ]
 
 
@@ -478,16 +663,16 @@ MUTATIONS = [
                          ids=lambda m: f"{m[0]}-{m[1].replace(' ', '_')}")
 def test_emulated_mutations_are_caught(tmp_path, monkeypatch, mutation):
     name, _, edit = mutation
-    lib = _compile(tmp_path, name, edit)
+    lib = (_compile(tmp_path, name, edit) if len(edit) == 2
+           else _compile(tmp_path, name, header_mutation=edit))
     if name == "dft_rows":
         lib = build.load_dft_rows_library(lib)
         outs, ref = _run_rows(lib, ("cdft", (3,), 100, 45), "float32")
-    else:
-        monkeypatch.setattr(engine, "_CORE_CHUNK", 16)
+    else:  # several ragged chunks across a cluster of 2
         lib = build.load_core_library(lib)
         args = _core_inputs(CORE_CASES[1], seed=1)
         ref = engine.fused_core_plain(*args)
-        outs = engine._launch_core(lib, *args, None)
+        outs = _launch_core(lib, args, CORE_CHUNKS["chunked"])
     assert _caught(outs, ref, 2e-4)
 
 
@@ -729,15 +914,15 @@ def _per_mode_core_inputs(case, seed):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", CORE_CASES, ids=str)
-def test_emulated_per_mode_core_matches_plain(emulated_core, monkeypatch,
-                                              case, dtype):
+def test_emulated_per_mode_core_matches_plain(emulated_core, case, dtype):
     """The core with per-mode weights [O,H,K_1,K_2..K_R] (their mode order
-    reversed against the spectrum's K_R..K_2), several s_1 chunks."""
-    monkeypatch.setattr(engine, "_CORE_CHUNK", 16)
+    reversed against the spectrum's K_R..K_2), every phase in several
+    chunks."""
     args = _per_mode_core_inputs(case, seed=case[3] + 1)
     ref = engine.fused_core_plain(*args)
     tdt = getattr(torch, dtype)
-    y = engine._launch_core(emulated_core, *[a.to(tdt) for a in args], None)
+    y = _launch_core(emulated_core, [a.to(tdt) for a in args],
+                     CORE_CHUNKS["chunked"])
     for a, r in zip(y, ref):
         assert a.dtype == tdt and a.shape == r.shape
         assert _rel_err(a, r) <= (2e-4 if dtype == "float32" else 2e-2)
@@ -751,8 +936,10 @@ PER_MODE_MUTATIONS = [
     ("fused_wgrad", "dropped conj",
      ("a.dwi[at] = -acci[u][o];  // conj", "a.dwi[at] = acci[u][o];")),
     ("fused_core", "wrong mode index",
-     ("const int pm = (p % a.K2) * (P / a.K2) + p / a.K2;",
-      "const int pm = p;")),
+     ("? src[(pp % a.K2) * (P / a.K2) + pp / a.K2]", "? src[pp]")),
+    ("fused_core", "second sample group dropped",
+     ("t.nbv = min(L.nb, a.B - t.b0);",
+      "t.nbv = grp > 0 ? 0 : min(L.nb, a.B - t.b0);")),
 ]
 
 
@@ -760,13 +947,15 @@ PER_MODE_MUTATIONS = [
                          ids=lambda m: f"{m[0]}-{m[1].replace(' ', '_')}")
 def test_emulated_per_mode_mutations_are_caught(tmp_path, monkeypatch,
                                                 mutation):
-    name, _, edit = mutation
+    name, what, edit = mutation
     lib = _compile(tmp_path, name, edit)
-    if name == "fused_core":  # rank 3: K_2 != K_3, so p and pm differ
-        lib = build.load_core_library(lib)
-        args = _per_mode_core_inputs(CORE_CASES[1], seed=2)
-        outs, refs = engine._launch_core(lib, *args, None), \
-            engine.fused_core_plain(*args)
+    if name == "fused_core":  # rank 3: K_2 != K_3, so p and pm differ;
+        lib = build.load_core_library(lib)  # B=9: two sample groups
+        case = CORE_CASES[1] if what == "wrong mode index" \
+            else CORE_EDGES[2][:6]
+        args = _per_mode_core_inputs(case, seed=2)
+        outs = _launch_core(lib, args, {"cluster": 2})
+        refs = engine.fused_core_plain(*args)
     else:
         spatial, modes, b, h, o = CASES[1]
         args = _per_mode_inputs(spatial, modes, b, h, o, seed=90)

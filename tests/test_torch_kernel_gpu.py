@@ -6,7 +6,9 @@ core launches (rank 3's outer transforms through the per-axis factors;
 cdft across its row groups), f32 (relative 2e-4) and bf16 (2e-2 against
 the f32 plain version), the launch counter, the fused model (both variants) against the
 staged path, and one fused training step of each variant against the
-staged one; then the per-mode modes of the block, wgrad and core kernels
+staged one; the core at full width (fno2d-large's per-mode W at B=8 and
+B=9, and 2D 512² modes 64, whose factors stream in pieces); then the
+per-mode modes of the block, wgrad and core kernels
 (weights [O,H,k_1..k_R]) at ranks 1–3 and at fno2d-large's width, and a
 per-mode fused training step; then the spectral-only path's launches (the
 bare layer's dx, the bypass-free wgrad, shared and per-mode, counted
@@ -406,6 +408,46 @@ def test_core_kernel_matches_plain(cuda, case, dtype):
     for a, r in zip(y, ref):
         assert a.dtype == tdt and a.shape == r.shape
         assert _rel_err(a, r) <= (2e-4 if dtype == "float32" else 2e-2)
+
+
+# (B, H, O, s_1, K_1, K_R..K_2, per-mode): fno2d-large's per-mode core at
+# B=8 (one sample group: W read once) and B=9 (a second group of one);
+# 2D 512² modes 64 at hidden 64, whose factors (256 KB each in f32) stream
+# through shared memory in pieces; and B=128 over P = 64² columns (3D
+# modes 64), 131,072 tiles in f32 and 65,536 in bf16, more than one grid
+# axis holds.
+CORE_FULL = [(8, 128, 128, 128, 32, (32,), True),
+             (9, 128, 128, 128, 32, (32,), True),
+             (2, 64, 64, 512, 64, (64,), False),
+             (128, 4, 4, 16, 8, (64, 64), False)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CORE_FULL,
+                         ids=["fno2d-large-B8", "fno2d-large-B9",
+                              "512sq-m64-B2", "m64sq-B128-tiles"])
+def test_core_kernel_at_full_width(cuda, case, dtype):
+    b, h, o, n1, k1, spec, per_mode = case
+    args = _core_case(cuda, b, h, o, n1, k1, spec, seed=n1 + b)
+    if per_mode:
+        gen = torch.Generator().manual_seed(b)
+        args[2:4] = [(torch.randn((o, h, k1) + spec[::-1], generator=gen)
+                      / h).to(cuda) for _ in range(2)]
+    ref = engine.fused_core_plain(*args)
+    tdt = getattr(torch, dtype)
+    before = engine.LAUNCHES[("core", dtype)]
+    y = engine.fused_core(*[a.to(tdt) for a in args])
+    torch.cuda.synchronize()
+    assert engine.LAUNCHES[("core", dtype)] == before + 1
+    for a, r in zip(y, ref):
+        assert a.dtype == tdt and a.shape == r.shape
+        assert _rel_err(a, r) <= (2e-4 if dtype == "float32" else 2e-2)
+    p = int(np.prod(spec))
+    plan = engine.core_plan(build.load_fused_core(), tdt, b, h, o, n1, k1, p,
+                            per_mode, spec[-1])
+    if per_mode:  # W read once a group of up to 8 samples
+        assert plan["w_bytes"] == (-(-b // 8)) * 2 * o * h * k1 * p \
+            * tdt.itemsize
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -27,6 +27,8 @@ chip_smoke.py) and under emulation (tests/test_torch_kernel_emulated.py).
 import dataclasses
 import importlib.util
 import os
+import shutil
+import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -51,7 +53,7 @@ from repro_torch.configs.base import PrecisionPolicy
 from repro_torch.convert import params_from_jax
 from repro_torch.core import fno as tfno
 from repro_torch.core import spectral as tspec
-from repro_torch.kernels import engine
+from repro_torch.kernels import build, engine
 from repro_torch.kernels import ops as tops
 from repro_torch.optim import AdamW
 from repro_torch.optim.schedule import constant
@@ -350,20 +352,54 @@ def test_fno2d_large_config_matches_reference():
     assert leaves == 134_350_977
 
 
+@pytest.fixture(scope="module")
+def core_lib(tmp_path_factory):
+    """The core kernel's library compiled with g++ against the CUDA
+    emulation headers: its launch plan is the library's
+    (``fused_core_plan``), read through ctypes as on the card."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the core's plan for the CPU")
+    out = tmp_path_factory.mktemp("core_plan")
+    src = (build.CSRC / "fused_core.cu").read_text()
+    cpp = out / "fused_core.cpp"
+    cpp.write_text(src.replace("extern __shared__ float smem[];",
+                               "float* smem = g_smem[blockIdx.x].data();"))
+    lib = out / "libfused_core_emulated.so"
+    emu = os.path.join(ROOT, "tests", "cuda_emulation")
+    proc = subprocess.run(
+        [gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-pthread",
+         "-fno-strict-aliasing", "-Wno-unknown-pragmas", "-include",
+         "cuda_runtime.h", f"-I{emu}", f"-I{build.CSRC}", str(cpp), "-o",
+         str(lib)], capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    return build.load_core_library(lib)
+
+
 @pytest.mark.parametrize("per_mode", [False, True])
-def test_plans_hold_fno2d_large(per_mode):
+def test_plans_hold_fno2d_large(core_lib, per_mode):
     """Hidden 128 needs clusters of 16 (8 out channels per block): every
     launch plans there within the card's shared memory, shared or
-    per-mode weights."""
+    per-mode weights; the core's per-mode plan takes the batch of 8 as one
+    sample group, so a launch reads W's 134,217,728 B (f32) once."""
     args = (128, 128, (128, 128), (32, 32))
     block = engine.launch_plan(*args, per_mode=per_mode)
     wgrad = engine.wgrad_plan(*args, per_mode=per_mode)
-    core = engine.core_plan(128, 128, 128, 32, per_mode)
+    core = engine.core_plan(core_lib, torch.float32, 8, 128, 128, 128, 32,
+                            32, per_mode)
     for plan in (block, wgrad):
         assert plan["cluster"] == 16 and plan["hs"] == plan["os"] == 8
     assert block["smem"] == (226432 if per_mode else 232320)
     assert wgrad["smem"] == 231808
-    assert core["smem"] == (65536 if per_mode else 196608)
+    # The core: per-mode one group of 8 samples over clusters of 16, 2
+    # columns a tile (16 tiles); shared W one sample and 2 columns a tile
+    # over clusters of 2 (128 tiles): 256 blocks either way.
+    assert (core["cluster"], core["nb"], core["np"]) == \
+        ((16, 8, 2) if per_mode else (2, 1, 2))
+    assert core["cluster"] * core["groups"] * core["ptiles"] == 256
+    assert core["smem"] == (191744 if per_mode else 179200)
+    if per_mode:
+        assert core["w_bytes"] == 134_217_728
     for plan in (block, wgrad, core):
         assert plan["smem"] <= SMEM_LIMIT
     if per_mode:  # the batch reduction stages B=8's Ĝ over 452 modes
