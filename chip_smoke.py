@@ -192,6 +192,42 @@ fatal:
      step-0 loss and every grad against the staged path, exactly
      num_layers launches of each whole-block kind, then one AdamW step
      with a finite loss).
+  29. graphed serving — ``FNOServer`` serves the fused path through one
+     CUDA graph per (bucket, K) (every phase above that serves through it
+     does so too, its graphs captured before the launches are counted):
+     fno2d f32 and bf16, fno3d, fno2d-large, the partial variant and the
+     fused ends at one bucket each, rollouts at K = 1, 4, 8 — one replay
+     each, exactly the forward's launches × K, the output equal to the
+     eager ``step_with`` bit for bit; fno2d also at half its resolution
+     through the same server (graphs of its own, bit for bit at both); two
+     requests of one bucket back to back leave the first answer
+     unchanged; then fno2d
+     f32 at K=1 and K=8 graphed against the eager step, in turns (graphed,
+     eager, eager, graphed): per-request p50 and p99 and sample-steps/s
+     beside the card's name and power limit;
+  30. resilient serving — ``ResilientServer`` for fno2d at full width, 2
+     replicas, every canned chaos plan: ``STAT_KEYS`` and pool states
+     equal to the same plan's run on the CPU, every answer (degraded ones
+     from the staged path) within 2e-4 of the staged path, the launches
+     exactly num_layers a request that reaches the graphs and a canary
+     (the quiet plan: no degradation, num_layers a request); then the
+     chaos gate (``launch/chaos_smoke.py``) at full width: the standard
+     plan, an exact shed, a corrupt-checkpoint reload that rolls back bit
+     for bit, a valid reload whose params the graphs serve (against the
+     staged path with those params);
+  31. continuous batching — ``ContinuousBatchingServer`` over the graphed
+     fno2d server: a seeded schedule of 2-step rollouts at 1.2× the
+     capacity calibrated from measured graphed steps (``QUEUE_STATS``
+     conserved, no request served late, outputs finite, p50 / p99 on the
+     virtual clock), then ``launch/serve_replay_smoke.py``'s fixed model
+     at full width: its exact counts, a deterministic replay, and
+     num_layers × K launches a K-step rollout (K = 1, 4);
+  32. the Trainer — fno2d at full width, Darcy batch 8, 30 steps, a
+     checkpoint every 10; a NaN batch at one step, a failed save at one
+     checkpoint and an injected failure that ``run_with_restarts``
+     recovers from: one NaN skip, one save retry, one restart, and after
+     the restore the loss of every step within 2e-4 of a run with the
+     same NaN step and no failure.
 
 Each phase's seconds are printed. The last two lines are a
 ``{"kernels": [...]}`` JSON object and ``{"ok": true, "device": {...}}``.
@@ -265,6 +301,12 @@ CGEMM_FNO = CGEMM_SHAPES[-2:]
 # cannot hold (2D 256², modes 32, hidden 64), at this batch.
 REFUSED = {"spatial": (256, 256), "modes": (32, 32)}
 REFUSED_BATCH = 2
+# Phases 29–32: requests per turn of the graphed / eager comparison at K=1
+# (a quarter at K=8), requests of the continuous-batching replay, and the
+# Trainer's steps.
+GRAPH_REQUESTS = 200
+QUEUE_REQUESTS = 64
+TRAINER_STEPS = 30
 PARTIAL_REPLACES = {"rdft": "src/repro/kernels/dft.py:44",
                     "cdft": "src/repro/kernels/dft.py:75",
                     "irdft": "src/repro/kernels/dft.py:97",
@@ -640,10 +682,8 @@ def phase_serve(torch, np, configs, fno_mod, sfs, engine):
                for name, c in (("fused", cfg_fused), ("staged", cfg_staged),
                                ("bf16", cfg_bf16))}
     shape = (cfg.in_channels,) + tuple(cfg.spatial)
-    for srv in servers.values():  # warm every bucket outside the count
-        for b in srv.buckets:
-            srv(torch.zeros((b,) + shape, device=DEVICE))
-        srv(torch.zeros((1,) + shape, device=DEVICE), rollout_steps=4)
+    for srv in servers.values():  # build and capture outside the count
+        srv.warm((1, 4))
     torch.cuda.synchronize()
 
     plan = [(x, k, "bf16" if bf16 else "fused")
@@ -1202,11 +1242,8 @@ def phase_serve_partial(torch, np, sfs, engine, servers):
                                       device=DEVICE, variant="partial",
                                       max_batch=8)
     shape = (cfg.in_channels,) + tuple(cfg.spatial)
-    for name in ("partial", "partial_bf16"):  # warm outside the count
-        srv = servers[name]
-        for b in srv.buckets:
-            srv(torch.zeros((b,) + shape, device=DEVICE))
-        srv(torch.zeros((1,) + shape, device=DEVICE), rollout_steps=4)
+    for name in ("partial", "partial_bf16"):  # capture outside the count
+        servers[name].warm((1, 4))
     plan = [(x, k, "partial_bf16" if bf16 else "partial")
             for x, k, bf16 in serve_requests(torch, np, shape)]
     expect = expected_launches(plan, engine.PARTIAL_KINDS, cfg.num_layers,
@@ -1503,10 +1540,8 @@ def phase_serve_large(torch, np, configs, fno_mod, sfs, engine):
         servers[name] = sfs.FNOServer(c, params, device=DEVICE,
                                       variant=variant, max_batch=8)
     shape = (cfg.in_channels,) + tuple(cfg.spatial)
-    for srv in servers.values():  # warm every bucket outside the count
-        for b in srv.buckets:
-            srv(torch.zeros((b,) + shape, device=DEVICE))
-        srv(torch.zeros((1,) + shape, device=DEVICE), rollout_steps=4)
+    for srv in servers.values():  # build and capture outside the count
+        srv.warm((1, 4))
     counts = {}
     for variant, names, kinds in (
             ("full", ("fused", "bf16"), ("block_fwd",)),
@@ -1864,12 +1899,9 @@ def phase_serve_spectral(torch, np, configs, sfs, engine, servers):
             servers[name] = sfs.FNOServer(c, params, device=DEVICE,
                                           variant=variant, max_batch=8)
     shape = (cfg.in_channels,) + tuple(cfg.spatial)
-    for pair in names.values():  # warm every bucket outside the count
+    for pair in names.values():  # build and capture outside the count
         for name in pair:
-            srv = servers[name]
-            for b in srv.buckets:
-                srv(torch.zeros((b,) + shape, device=DEVICE))
-            srv(torch.zeros((1,) + shape, device=DEVICE), rollout_steps=4)
+            servers[name].warm((1, 4))
     counts = {}
     for variant, kinds in (("full", ("spectral_fwd",)),
                            ("partial", engine.PARTIAL_KINDS)):
@@ -2212,9 +2244,7 @@ def phase_serve_fno3d(torch, np, configs, fno_mod, sfs, engine):
         for name, cc in zip(names, (c, configs.with_precision(c, "bf16"))):
             srv = servers[name] = sfs.FNOServer(cc, params, device=DEVICE,
                                                 variant=variant, max_batch=8)
-            for b in srv.buckets:  # warm every bucket outside the count
-                srv(torch.zeros((b,) + shape, device=DEVICE))
-            srv(torch.zeros((1,) + shape, device=DEVICE), rollout_steps=4)
+            srv.warm((1, 4))  # build and capture outside the count
         kinds = ((engine.KINDS[0] if fuse else engine.SPECTRAL_KINDS[0],)
                  if variant == "full" else engine.PARTIAL_KINDS)
         plan = [(x, k, names[1] if bf16 else names[0])
@@ -2543,9 +2573,7 @@ def phase_serve_ends(torch, np, configs, fno_mod, sfs, engine):
         for name, cc in zip(names, (c, configs.with_precision(c, "bf16"))):
             srv = servers[name] = sfs.FNOServer(cc, params, device=DEVICE,
                                                 max_batch=8)
-            for b in srv.buckets:  # warm every bucket outside the count
-                srv(torch.zeros((b,) + shape, device=DEVICE))
-            srv(torch.zeros((1,) + shape, device=DEVICE), rollout_steps=4)
+            srv.warm((1, 4))  # build and capture outside the count
         plan = [(x, k, names[1] if bf16 else names[0])
                 for x, k, bf16 in reqs]
         top = servers[names[0]].buckets[-1]
@@ -2691,7 +2719,7 @@ def phase_refused_shape(torch, engine, spectral, configs, fno_mod, sfs, ts,
         dt = c.precision.compute_dtype
         srv = sfs.FNOServer(c, params, device=DEVICE, max_batch=b)
         ref = sfs.FNOServer(staged, params, device=DEVICE, max_batch=b)
-        srv(reqs[0])  # build and plan outside the count
+        srv.warm()  # build, plan and capture outside the count
         torch.cuda.synchronize()
         engine.LAUNCHES.clear()
         outs = [srv(x) for x in reqs]
@@ -2706,10 +2734,14 @@ def phase_refused_shape(torch, engine, spectral, configs, fno_mod, sfs, ts,
             check(f"serve {preset} n={x.shape[0]} vs staged f32",
                   rel_err(y, ref(x)), tol)
         # Served again with the block's CUDA cores' chain forced: the plan
-        # the planner takes where the tensor cores' chain does not fit.
+        # the planner takes where the tensor cores' chain does not fit
+        # (a server of its own, whose graphs capture the forced plan).
         with engine.forced_chain("fma"):
+            fma = sfs.FNOServer(c, params, device=DEVICE, max_batch=b)
+            fma.warm()
+            torch.cuda.synchronize()
             engine.LAUNCHES.clear()
-            outs = [srv(x) for x in reqs]
+            outs = [fma(x) for x in reqs]
             torch.cuda.synchronize()
             counts[("serve_fma", dt)] = dict(engine.LAUNCHES)
         if counts[("serve_fma", dt)] != want:
@@ -2749,7 +2781,7 @@ def phase_refused_shape(torch, engine, spectral, configs, fno_mod, sfs, ts,
             f"{float(loss):.6f} (staged {float(loss_ref):.6f}), one AdamW "
             f"step loss {float(m['loss']):.6f}; launches "
             f"{counts[('serve', dt)]} {counts[('train', dt)]}")
-        del srv, ref
+        del srv, ref, fma
     # Each kernel against its plain version, and its time.
     args32 = block_inputs(b, h, h, spatial, 2802, DEVICE)
     gz32 = torch.randn((b, h) + tuple(spatial),
@@ -2817,6 +2849,367 @@ def phase_refused_shape(torch, engine, spectral, configs, fno_mod, sfs, ts,
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The runtime around the kernels: graphed serving, the resilient and
+# continuous-batching tiers, the Trainer
+# ---------------------------------------------------------------------------
+def graph_cases(configs):
+    """Phase 29's servers: (name, config, variant, bucket)."""
+    f2 = dataclasses.replace(configs.with_fuse_block(
+        configs.get_config("fno2d")), path="fused")
+    fused = lambda arch: dataclasses.replace(configs.with_fuse_block(
+        configs.get_config(arch)), path="fused")
+    return [("fno2d f32", f2, "full", 8),
+            ("fno2d bf16", configs.with_precision(f2, "bf16"), "full", 8),
+            ("fno3d f32", fused(FNO3D), "full", 4),
+            (f"{LARGE} f32", fused(LARGE), "full", 4),
+            ("fno2d partial f32", f2, "partial", 4),
+            ("fno2d ends f32", configs.with_fuse_ends(f2), "full", 4)]
+
+
+def per_step_launches(cfg, variant, engine):
+    """Launches one forward of `cfg` runs, by kind."""
+    layers, dt = cfg.num_layers, cfg.precision.compute_dtype
+    if variant == "partial":
+        return {(k, dt): layers for k in engine.PARTIAL_KINDS}
+    if cfg.fuse_ends:
+        return {("block_ends", dt): 2, ("block_fwd", dt): layers - 2}
+    return {("block_fwd", dt): layers}
+
+
+def phase_graphs(torch, np, configs, fno_mod, sfs, engine, card):
+    """Phase 29: the served forward and the K-step rollout as CUDA graphs,
+    against the eager path of the same server."""
+    log("== phase 29: graphed serving — CUDA graphs against the eager path")
+    out = {"checks": {}, "times": {}}
+    for name, cfg, variant, bucket in graph_cases(configs):
+        params = fno_mod.init_fno(torch.Generator().manual_seed(29), cfg,
+                                  DEVICE)
+        srv = sfs.FNOServer(cfg, params, device=DEVICE, variant=variant,
+                            max_batch=8)
+        if not srv.graphed:
+            raise AssertionError(f"{name}: the fused server on the card is "
+                                 f"not graphed")
+        gen = torch.Generator().manual_seed(2900)
+        shape = (cfg.in_channels,) + tuple(cfg.spatial)
+        n = bucket - 1 if bucket > 1 else 1  # padded rows in the bucket
+        x1, x2 = (torch.randn((n,) + shape, generator=gen).to(DEVICE)
+                  for _ in range(2))
+        per = per_step_launches(cfg, variant, engine)
+        res = {}
+        for k in (1, 4, 8):
+            srv(x1, rollout_steps=k)  # build and capture outside the count
+            torch.cuda.synchronize()
+            engine.LAUNCHES.clear()
+            y = srv(x1, rollout_steps=k)
+            torch.cuda.synchronize()
+            got = dict(engine.LAUNCHES)
+            want = {key: v * k for key, v in per.items()}
+            if got != want:
+                raise AssertionError(f"{name} K={k}: one replay ran {got}, "
+                                     f"want {want}")
+            ref = srv.step_with(srv.params, x1, k)
+            torch.cuda.synchronize()
+            bitwise = bool(torch.equal(y, ref))
+            err = rel_err(y, ref)
+            res[k] = {"launches": sum(got.values()), "bitwise": bitwise,
+                      "scaled_err": err}
+            log(f"  {name} bucket {bucket} n={n} K={k}: one replay, "
+                f"launches {got}; graphed == eager bitwise: {bitwise} "
+                f"(scaled err {err:.3e})")
+            if not bitwise:
+                raise AssertionError(f"{name} K={k}: the graphed output "
+                                     f"differs from the eager path "
+                                     f"(scaled err {err:.3e})")
+        # Aliasing: the graph's output buffer is overwritten by the next
+        # replay of the bucket; the server hands out copies.
+        y1 = srv(x1)
+        keep = y1.clone()
+        y2 = srv(x2)
+        torch.cuda.synchronize()
+        if not torch.equal(y1, keep) or torch.equal(y1, y2):
+            raise AssertionError(f"{name}: a later request of the bucket "
+                                 f"changed an earlier answer")
+        log(f"  {name}: two requests of bucket {bucket} back to back, the "
+            f"first answer unchanged: ok")
+        if name == "fno2d f32":
+            # Another resolution through the same server: graphs of its
+            # own, equal to the eager path; the first resolution's stay.
+            half = tuple(s // 2 for s in cfg.spatial)
+            xh = torch.randn((n, cfg.in_channels) + half,
+                             generator=gen).to(DEVICE)
+            count = len(srv._graphs)
+            yh = srv(xh)
+            same = (torch.equal(yh, srv.step_with(srv.params, xh, 1))
+                    and torch.equal(srv(x1), srv.step_with(srv.params, x1, 1))
+                    and len(srv._graphs) == count + 1)
+            log(f"  {name}: a request at {half} beside {tuple(cfg.spatial)}"
+                f": its own graph, graphed == eager bitwise at both: {same}")
+            if not same:
+                raise AssertionError(f"{name}: serving at {half} broke the "
+                                     f"graphs' agreement with the eager path")
+        out["checks"][name] = res
+        del srv
+    # Graphed against the eager step_with, in turns, at fno2d K=1 and K=8.
+    cfg = graph_cases(configs)[0][1]
+    params = fno_mod.init_fno(torch.Generator().manual_seed(29), cfg, DEVICE)
+    srv = sfs.FNOServer(cfg, params, device=DEVICE, max_batch=8)
+    shape = (cfg.in_channels,) + tuple(cfg.spatial)
+    pool = torch.randn((64,) + shape, generator=torch.Generator(
+        device=DEVICE).manual_seed(2901), device=DEVICE)
+    for k, requests in ((1, GRAPH_REQUESTS), (8, GRAPH_REQUESTS // 4)):
+        srv.warm((k,))
+        rng = np.random.default_rng(2902)
+        sizes = rng.integers(1, 9, size=requests)
+        offs = rng.integers(0, 64 - 8, size=requests)
+        modes = {"graphed": lambda x: srv(x, rollout_steps=k),
+                 "eager": lambda x: srv.step_with(srv.params, x, k)}
+        lat = {m: [] for m in modes}
+        wall = {m: 0.0 for m in modes}
+        for m in ("eager", "graphed"):  # warm both outside the turns
+            modes[m](pool[:8])
+        for turn in ("graphed", "eager", "eager", "graphed"):
+            torch.cuda.synchronize()
+            t_all = time.perf_counter()
+            for n, off in zip(sizes, offs):
+                t0 = time.perf_counter()
+                modes[turn](pool[off:off + n])
+                torch.cuda.synchronize()
+                lat[turn].append(1e3 * (time.perf_counter() - t0))
+            wall[turn] += time.perf_counter() - t_all
+        row = {}
+        for m in modes:
+            a = np.asarray(lat[m])
+            row[m] = {"p50_ms": float(np.percentile(a, 50)),
+                      "p99_ms": float(np.percentile(a, 99)),
+                      "sample_steps_per_s": float(2 * k * sizes.sum())
+                      / wall[m], "requests": 2 * requests}
+        out["times"][f"K={k}"] = row
+        log(f"  fno2d f32 K={k}, {requests} requests of seeded sizes 1-8 "
+            f"per turn, turns graphed, eager, eager, graphed ({card}): "
+            f"graphed p50 {row['graphed']['p50_ms']:.4f} ms p99 "
+            f"{row['graphed']['p99_ms']:.4f} ms "
+            f"{row['graphed']['sample_steps_per_s']:.2f} sample-steps/s; "
+            f"eager p50 {row['eager']['p50_ms']:.4f} ms p99 "
+            f"{row['eager']['p99_ms']:.4f} ms "
+            f"{row['eager']['sample_steps_per_s']:.2f} sample-steps/s")
+    return out
+
+
+def phase_resilient(torch, configs, fno_mod, engine):
+    """Phase 30: the resilient runtime on the card, fno2d at full width, 2
+    replicas, every canned plan (the stats held against the same plan on
+    the CPU), then the chaos gate (the standard plan, shedding, a corrupt
+    reload that rolls back, a valid reload the graphs serve)."""
+    from repro_torch.distributed import faults as flt
+    from repro_torch.launch import chaos_smoke
+    from repro_torch.train import serve_runtime as srt
+
+    log("== phase 30: resilient serving, fno2d full width, 2 replicas")
+    cfg = dataclasses.replace(configs.with_fuse_block(
+        configs.get_config("fno2d")), path="fused")
+    small = dataclasses.replace(configs.with_fuse_block(
+        configs.get_config("fno2d", reduced=True)), path="fused")
+    staged = dataclasses.replace(cfg, path="staged", fuse_block=False)
+    params = fno_mod.init_fno(torch.Generator().manual_seed(30), cfg,
+                              DEVICE)
+    gen = torch.Generator().manual_seed(3000)
+    x = torch.randn((4, cfg.in_channels) + tuple(cfg.spatial), generator=gen)
+    with torch.no_grad():
+        want = fno_mod.apply_fno(params, staged, x.to(DEVICE)).cpu()
+    offered = 5
+    out = {}
+    for name in sorted(flt.canned_chaos_plans()):
+        plan = flt.canned_chaos_plans()[name]
+        rs = srt.ResilientServer(cfg, params, device=DEVICE, replicas=2,
+                                 max_batch=8, backoff_base_s=1e-3,
+                                 fault_plan=plan)
+        rs.primary.warm()  # build and capture outside the count
+        torch.cuda.synchronize()
+        engine.LAUNCHES.clear()
+        for _ in range(offered):
+            rs.submit(x)
+        ys = rs.drain()
+        torch.cuda.synchronize()
+        launches = dict(engine.LAUNCHES)
+        cpu = srt.ResilientServer(
+            small, fno_mod.init_fno(torch.Generator().manual_seed(30),
+                                    small),
+            device="cpu", replicas=2, max_batch=8, backoff_base_s=1e-3,
+            fault_plan=flt.canned_chaos_plans()[name])
+        xs = torch.randn((4, small.in_channels) + tuple(small.spatial),
+                         generator=torch.Generator().manual_seed(3001))
+        for _ in range(offered):
+            cpu.submit(xs)
+        cpu.drain()
+        if tuple(rs.stats) != srt.ResilientServer.STAT_KEYS or \
+                rs.stats != cpu.stats or \
+                rs.pool.states() != cpu.pool.states():
+            raise AssertionError(f"plan {name}: stats {rs.stats} pool "
+                                 f"{rs.pool.states()} != the CPU run's "
+                                 f"{cpu.stats} {cpu.pool.states()}")
+        if rs.stats["degraded"] != plan.count(kinds=("kernel", "nan")):
+            raise AssertionError(f"plan {name}: degraded "
+                                 f"{rs.stats['degraded']} != planned")
+        errs = [rel_err(y, want) for y in ys]
+        for e in errs:
+            check(f"plan {name} answer vs staged f32", e, F32_TOL)
+        # Every request reaches the graphs but those an injected kernel
+        # fault stops first; every reinstated replica ran one eager canary.
+        dt = cfg.precision.compute_dtype
+        on_graphs = offered - plan.count(kinds=("kernel",))
+        want_launches = {("block_fwd", dt): cfg.num_layers * (
+            on_graphs + rs.stats["reinstated"])}
+        if launches != want_launches or (
+                name == "quiet" and rs.stats["degraded"] != 0):
+            raise AssertionError(f"plan {name}: launches {launches} != "
+                                 f"{want_launches}, or degraded "
+                                 f"{rs.stats['degraded']}")
+        out[name] = {"stats": dict(rs.stats), "launches": launches,
+                     "max_scaled_err": max(errs)}
+        log(f"  plan {name}: stats {rs.stats} pool {rs.pool.states()} "
+            f"(== the CPU run's); launches {launches} ({on_graphs} "
+            f"requests on the graphs, {rs.stats['reinstated']} canaries); "
+            f"worst answer vs staged {max(errs):.3e}")
+        del rs
+    gate = chaos_smoke.run(cfg, DEVICE, max_batch=8)
+    log(f"  chaos gate (launch/chaos_smoke.py) at full width: stats "
+        f"{gate['stats']} pool {gate['pool']}; answers vs staged "
+        f"{gate['max_scaled_err']:.3e}; after the valid reload the graphs "
+        f"serve the new params: {gate['swap_scaled_err']:.3e} vs staged")
+    out["gate"] = gate
+    return out
+
+
+def phase_queue(torch, np, configs, fno_mod, sfs):
+    """Phase 31: the continuous-batching tier over the graphed server,
+    fno2d at full width: a seeded schedule at 1.2x the calibrated capacity
+    (the reference's ``benchmarks/bench_e2e.run_replay`` recipe), then the
+    exact counts of ``launch/serve_replay_smoke.py``'s fixed model."""
+    from repro_torch.launch import serve_fno as cli
+    from repro_torch.launch import serve_replay_smoke as smoke
+    from repro_torch.train import serve_queue as sq
+
+    log("== phase 31: continuous batching, fno2d full width")
+    cfg = dataclasses.replace(configs.with_fuse_block(
+        configs.get_config("fno2d")), path="fused")
+    params = fno_mod.init_fno(torch.Generator().manual_seed(31), cfg, DEVICE)
+    max_batch, steps, requests = 8, 2, QUEUE_REQUESTS
+    server = sfs.FNOServer(cfg, params, device=DEVICE, max_batch=max_batch)
+    base = cli.calibrate(server, steps)
+    top = server.buckets[-1]
+    rate_hz = 1.2 * (top / base[top]) / ((1 + max_batch) / 2)
+    deadline_s = 20 * base[top]
+    cbs = sq.ContinuousBatchingServer(
+        server, queue_limit=2 * max_batch, coalesce_s=1.0 / rate_hz,
+        clock=sq.VirtualClock(), service_model=lambda b, k: base[b])
+    sched = sq.poisson_schedule(7, requests, rate_hz=rate_hz,
+                                max_n=max_batch, rollout_steps=steps,
+                                deadline_s=deadline_s)
+    rng = np.random.default_rng(7)
+    xs = [torch.from_numpy(rng.normal(size=(a.n, cfg.in_channels)
+                                      + tuple(cfg.spatial)).astype(
+                                          np.float32)) for a in sched]
+    rep = cbs.replay(sched, lambda a, i: xs[i])
+    s, lat, qd = rep["stats"], rep["latency"], rep["queue_depth"]
+    if set(s) != set(sq.QUEUE_STATS) or \
+            s["offered"] != s["accepted"] + s["shed"] or \
+            s["accepted"] != (s["completed"] + s["deadline_exceeded"]
+                              + s["failed"]) or s["offered"] != requests:
+        raise AssertionError(f"QUEUE_STATS not conserved: {s}")
+    for r in cbs.requests.values():
+        if r.status == "done":
+            if r.t_complete > r.deadline_t + 1e-12:
+                raise AssertionError(f"request {r.idx} served late")
+            if not bool(torch.isfinite(r.y).all()):
+                raise AssertionError(f"request {r.idx}: non-finite output")
+    log(f"  service model ms by bucket (graphed, K={steps}, measured): "
+        f"{ {b: round(1e3 * t, 4) for b, t in base.items()} }; rate "
+        f"{rate_hz:.1f} req/s (1.2x capacity), deadline "
+        f"{1e3 * deadline_s:.3f} ms")
+    log(f"  stats {s}; latency p50 {1e3 * lat['p50']:.4f} ms p99 "
+        f"{1e3 * lat['p99']:.4f} ms over {lat['count']} completed "
+        f"(virtual clock); queue depth p50 {qd['p50']:.1f} p99 "
+        f"{qd['p99']:.1f} max {qd['max']:.0f}; no request served late")
+    # The gate's fixed synthetic model: exact, machine-independent counts.
+    gate_srv = sfs.FNOServer(cfg, params, device=DEVICE,
+                             max_batch=smoke.MAX_N, quantum=smoke.QUANTUM)
+    gcbs, grep = smoke.replay_once(gate_srv)
+    smoke.check_replay(gcbs, grep)
+    if smoke.replay_once(gate_srv)[1] != grep:
+        raise AssertionError("the gate's replay is not deterministic")
+    k_launches = smoke.rollout_launches(gate_srv)
+    log(f"  serve_replay_smoke's fixed model at full width: stats "
+        f"{grep['stats']} == its exact counts; deterministic; rollout "
+        f"block_fwd launches by K {k_launches}")
+    return {"stats": s, "latency": lat, "queue_depth": qd,
+            "service_model_s": base, "rate_hz": rate_hz,
+            "deadline_s": deadline_s, "gate": grep["stats"]}
+
+
+def phase_trainer(torch, configs, fno_mod, batch_fn, ts, optim):
+    """Phase 32: the Trainer, fno2d at full width, Darcy batch 8, 30
+    steps, a checkpoint every 10; the plan poisons one step with NaN,
+    fails one save and kills the run once. The losses after the restore
+    equal those of a run with the same NaN step and no failure."""
+    import tempfile
+
+    from repro_torch.distributed import faults as flt
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    log("== phase 32: the Trainer, fno2d full width, batch 8, 30 steps")
+    cfg = dataclasses.replace(configs.with_fuse_block(
+        configs.get_config("fno2d")), path="fused")
+    params = fno_mod.init_fno(torch.Generator().manual_seed(32), cfg, DEVICE)
+    data = batch_fn(cfg, 8, DEVICE)
+    nan_at, io_at, fail_at = 3, 10, 15
+
+    def trainer(d, faults, fail=None):
+        opt = optim.AdamW(lr=optim.cosine_warmup(1e-3, 4, TRAINER_STEPS))
+        tc = TrainerConfig(total_steps=TRAINER_STEPS, ckpt_dir=d,
+                           ckpt_every=10, log_every=1, ckpt_backoff_s=0.01)
+        return Trainer(tc, ts.make_train_step(cfg, opt, fno_path="fused"),
+                       data, params, opt.init(params), fail_at=fail,
+                       fault_plan=flt.FaultPlan(faults))
+
+    nan = flt.Fault("nan", at=nan_at, scope="train")
+    with tempfile.TemporaryDirectory() as d1, \
+            tempfile.TemporaryDirectory() as d2:
+        t = time.perf_counter()
+        a = trainer(d1, [nan, flt.Fault("ckpt_io", at=io_at,
+                                        scope="train")],
+                    {fail_at: RuntimeError("injected node failure")})
+        out = a.run_with_restarts()
+        wall = time.perf_counter() - t
+        b = trainer(d2, [nan])
+        ref = b.run()
+    if (a.restarts, out["nan_skipped"], out["ckpt_save_retries"],
+            out["final_step"]) != (1, 1, 1, TRAINER_STEPS):
+        raise AssertionError(f"restarts {a.restarts}, nan_skipped "
+                             f"{out['nan_skipped']}, save retries "
+                             f"{out['ckpt_save_retries']}, final step "
+                             f"{out['final_step']}")
+    losses = {m["step"]: m["loss"] for m in ref["metrics"]}
+    after = [m for m in out["metrics"]][-(TRAINER_STEPS - io_at):]
+    if [m["step"] for m in after] != list(range(io_at, TRAINER_STEPS)):
+        raise AssertionError(f"the restarted run logged steps "
+                             f"{[m['step'] for m in after]}")
+    worst = max(abs(m["loss"] - losses[m["step"]])
+                / max(abs(losses[m["step"]]), 1e-30) for m in after)
+    check("losses after the restore vs the uninterrupted run", worst,
+          F32_TOL)
+    log(f"  restarts {a.restarts}, nan_skipped {out['nan_skipped']}, save "
+        f"retries {out['ckpt_save_retries']}; restored at step {io_at} "
+        f"(the failure at {fail_at}); loss {after[0]['loss']:.6f} -> "
+        f"{after[-1]['loss']:.6f}, worst relative difference from the "
+        f"uninterrupted run {worst:.3e}; {wall:.2f} s for the faulty run")
+    if not after[-1]["loss"] < losses[0]:
+        raise AssertionError("the loss did not fall over the run")
+    return {"restarts": a.restarts, "nan_skipped": out["nan_skipped"],
+            "ckpt_save_retries": out["ckpt_save_retries"],
+            "worst_rel_loss_diff": worst}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2850,7 +3243,7 @@ def main() -> int:
         log(f"  phase {label}: {seconds[label]:.1f} s")
         return out
 
-    timed("1", phase_environment, torch, build)
+    card = timed("1", phase_environment, torch, build)
     errs = timed("2", phase_kernel_vs_plain, torch, engine, spectral,
                  configs)
     counts, servers = timed("3", phase_serve, torch, np, configs, fno_mod,
@@ -2998,6 +3391,14 @@ def main() -> int:
     log(f"phases 24-27 (fused ends): {time.perf_counter() - t_ends:.1f} s")
     rows += timed("28", phase_refused_shape, torch, engine, spectral,
                   configs, fno_mod, sfs, ts, optim, tree, build)
+    # The runtime around the kernels.
+    graphs = timed("29", phase_graphs, torch, np, configs, fno_mod, sfs,
+                   engine, card)
+    resilient = timed("30", phase_resilient, torch, configs, fno_mod,
+                      engine)
+    queue = timed("31", phase_queue, torch, np, configs, fno_mod, sfs)
+    trainer = timed("32", phase_trainer, torch, configs, fno_mod, batch_fn,
+                    ts, optim)
     window = lambda st: {dt: {"p50": v["latency_ms"]["p50"],
                               "p99": v["latency_ms"]["p99"],
                               "sample_steps_per_s": v["sample_steps_per_s"]}
@@ -3041,6 +3442,12 @@ def main() -> int:
                for arch in ENDS_SERVED}
     log(f"train step ms median, fused ends vs whole-block: "
         f"{json.dumps(ends_vs)}")
+    log(f"graphed vs eager serving, fno2d f32 ({card}): "
+        f"{json.dumps(graphs['times'])}")
+    log(f"resilient serving: "
+        f"{json.dumps({k: v['stats'] for k, v in resilient.items()})}")
+    log(f"continuous batching: {json.dumps(queue)}")
+    log(f"trainer: {json.dumps(trainer)}")
     log(f"phase seconds: {json.dumps(seconds)}")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -9,7 +9,9 @@
 
 Trains on synthetic PDE data made in the run from seed 0 (Burgers 1D,
 Darcy 2D, diffusion 3D), with AdamW and the reference's warmup-cosine
-schedule, in a plain step loop (no checkpointing). On the fused path every
+schedule, through ``train/trainer.Trainer`` (prefetched batches,
+checkpoints every 50 steps and at the end into a temporary directory, a
+non-finite step raises ``NaNBudgetExceeded``). On the fused path every
 FNO block trains through the hand-written kernels: one launch forward
 (``--variant full``; ``partial`` runs the paper's partial fusion, three
 launches and the staged tail) and three backward. With
@@ -23,8 +25,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import math
-import time
+import tempfile
 
 import torch
 
@@ -35,6 +36,7 @@ from repro_torch.data import pde
 from repro_torch.optim.adamw import AdamW
 from repro_torch.optim.schedule import cosine_warmup
 from repro_torch.train.train_step import make_train_step
+from repro_torch.train.trainer import Trainer, TrainerConfig
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -103,19 +105,16 @@ def run(args) -> dict:
           f"fuse_block={cfg.fuse_block} dtype={args.dtype} "
           f"batch={args.batch} "
           f"steps={args.steps} device={name}")
-    history = []
-    for i in range(args.steps):
-        batch = data(i)
-        t0 = time.perf_counter()
-        params, state, m = step(params, state, batch)
-        loss, gnorm = float(m["loss"]), float(m["grad_norm"])  # synchronises
-        dt = time.perf_counter() - t0
-        if not (math.isfinite(loss) and math.isfinite(gnorm)):
-            raise RuntimeError(f"non-finite loss or grad norm at step {i}")
-        history.append({"step": int(m["step"]), "loss": loss,
-                        "grad_norm": gnorm, "ms": 1e3 * dt})
-        print(f"  step {i + 1:5d} loss {loss:.6f} gnorm {gnorm:.6f} "
-              f"{1e3 * dt:.1f} ms on {name}")
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        tcfg = TrainerConfig(total_steps=args.steps, ckpt_dir=ckpt_dir,
+                             ckpt_every=50, log_every=1, nan_skip_budget=0)
+        out = Trainer(tcfg, step, data, params, state).run()
+    history = [{"step": m["step"] + 1, "loss": m["loss"],
+                "grad_norm": m["grad_norm"], "ms": 1e3 * m["dt"]}
+               for m in out["metrics"]]
+    for h in history:
+        print(f"  step {h['step']:5d} loss {h['loss']:.6f} gnorm "
+              f"{h['grad_norm']:.6f} {h['ms']:.1f} ms on {name}")
     return {"arch": cfg.name, "path": args.path, "variant": args.variant,
             "fuse_block": cfg.fuse_block, "dtype": args.dtype,
             "device": name, "history": history}

@@ -3,21 +3,25 @@ of FNO training steps at full width (fno2d unless ``--arch`` names another
 model: fno2d-large, fno3d), or, with ``--serve``, of served requests.
 
     PYTHONPATH=src python -m repro_torch.launch.train_profile [--dtype bf16]
-        [--serve] [--variant partial] [--arch fno2d-large] [--no-fuse-block]
-        [--fuse-ends]
+        [--serve] [--batch 8] [--variant partial] [--arch fno2d-large]
+        [--no-fuse-block] [--fuse-ends]
 
-Runs warm-up steps, then traces ``--steps`` train steps (fused path, batch
-8 of the arch's PDE data from seed 0 — Darcy in 2D, diffusion in 3D —,
-AdamW) with CPU and CUDA activities, and
+Runs warm-up steps, then traces ``--steps`` train steps (fused path, a
+batch of ``--batch`` samples of the arch's PDE data from seed 0 — Darcy in
+2D, diffusion in 3D —, AdamW) with CPU and CUDA activities, and
 prints the device time per step by kernel (top entries), the device's busy
 time against the step's wall time (its idle share), and the host time per
-step. With ``--serve`` a step is one request of those 8 samples to
-``FNOServer``, waited for as a client would. ``--no-fuse-block`` profiles
+step. With ``--serve`` a step is one request of those samples to
+``FNOServer``, waited for as a client would, traced twice: through the
+server's CUDA graphs, then through its eager ``step_with`` (the
+yardstick).
+``--no-fuse-block`` profiles
 the spectral-only path (the kernels fuse each spectral conv; the bypass,
 bias and GELU are PyTorch ops). ``--fuse-ends`` folds the lifting MLP into
 the first block's launch and the projection MLP into the last one's
-(whole-block fusion, full variant). The last line is one JSON object.
-Needs an NVIDIA GPU.
+(whole-block fusion, full variant). The last line is one JSON object
+(with ``--serve``, ``"graphed"`` and ``"eager"`` each hold a trace's
+numbers). Needs an NVIDIA GPU.
 """
 from __future__ import annotations
 
@@ -47,6 +51,8 @@ def main() -> None:
                     help="the FNO at full width")
     ap.add_argument("--dtype", default="f32", choices=["f32", "bf16"])
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--batch", type=int, default=8,
+                    help="samples of a training batch or a served request")
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--serve", action="store_true",
                     help="trace served requests instead of train steps")
@@ -73,7 +79,7 @@ def main() -> None:
     cfg = with_fuse_ends(cfg, args.fuse_ends)
     cfg = dataclasses.replace(cfg, path="fused")
     params = fno_mod.init_fno(torch.Generator().manual_seed(0), cfg, "cuda")
-    batch = batch_fn(cfg, 8, "cuda")(0)
+    batch = batch_fn(cfg, args.batch, "cuda")(0)
     opt = AdamW(lr=constant(1e-4))
     step = make_train_step(cfg, opt, fno_path="fused",
                            fno_variant=args.variant)
@@ -81,21 +87,55 @@ def main() -> None:
     server = FNOServer(cfg, params, device="cuda", variant=args.variant,
                        max_batch=8)
 
-    def run():
-        if args.serve:
-            server(batch["x"])
-            torch.cuda.synchronize()
-        else:
-            carry[0], carry[1], _ = step(*carry, batch)
+    def train():
+        carry[0], carry[1], _ = step(*carry, batch)
 
+    def serve():
+        server(batch["x"])
+        torch.cuda.synchronize()
+
+    def serve_eager():
+        server.step_with(server.params, batch["x"])
+        torch.cuda.synchronize()
+
+    what = "serve" if args.serve else "train"
+    runs = ({"graphed": serve, "eager": serve_eager} if args.serve
+            else {"train": train})
+    out = {"card": smi, "what": what, "arch": args.arch,
+           "variant": args.variant, "fuse_block": cfg.fuse_block,
+           "fuse_ends": cfg.fuse_ends, "dtype": args.dtype,
+           "batch": args.batch, "steps": args.steps}
+    for mode, run in runs.items():
+        wall_ms, device_ms, rows = trace(run, args.steps, args.top)
+        print(f"{what} ({mode}) arch={args.arch} variant={args.variant} "
+              f"fuse_block={cfg.fuse_block} fuse_ends={cfg.fuse_ends} "
+              f"dtype={args.dtype} batch={args.batch} "
+              f"steps={args.steps}: wall {wall_ms:.4f} ms per step, device "
+              f"busy {device_ms:.4f} ms per step, idle share "
+              f"{1 - device_ms / wall_ms:.4f}")
+        for r in rows:
+            print(f"  {r['ms_per_step']:9.4f} ms  {r['calls_per_step']:7.1f}"
+                  f" calls  {r['name']}")
+        numbers = {"wall_ms_per_step": wall_ms,
+                   "device_ms_per_step": device_ms,
+                   "idle_share": 1 - device_ms / wall_ms, "top": rows}
+        if args.serve:
+            out[mode] = numbers
+        else:
+            out.update(numbers)
+    print(json.dumps(out))
+
+
+def trace(run, steps: int, top: int):
+    """(wall ms, device-busy ms, the `top` kernels by device time) per
+    step of `run`, traced over `steps` steps after 5 warm ones."""
     for _ in range(5):
         run()
     torch.cuda.synchronize()
-
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.steps):
+        for _ in range(steps):
             run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -105,34 +145,14 @@ def main() -> None:
               if e.device_type == DeviceType.CUDA]
     if not events:
         raise SystemExit("train_profile: the trace holds no device events")
-    per_step = lambda us: us / 1e3 / args.steps  # µs total -> ms per step
+    per_step = lambda us: us / 1e3 / steps  # µs total -> ms per step
     device_ms = per_step(sum(e.self_device_time_total for e in events))
-    wall_ms = 1e3 * wall / args.steps
-    top = sorted(events, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:args.top]
-    what = "serve" if args.serve else "train"
-    print(f"{what} arch={args.arch} variant={args.variant} "
-          f"fuse_block={cfg.fuse_block} fuse_ends={cfg.fuse_ends} "
-          f"dtype={args.dtype} "
-          f"steps={args.steps}: wall "
-          f"{wall_ms:.4f} ms per step, device busy {device_ms:.4f} ms per step, idle share "
-          f"{1 - device_ms / wall_ms:.4f}")
-    rows = []
-    for e in top:
-        ms = per_step(e.self_device_time_total)
-        rows.append({"name": e.key[:80], "ms_per_step": ms,
-                     "calls_per_step": e.count / args.steps})
-        print(f"  {ms:9.4f} ms  {e.count / args.steps:7.1f} calls  "
-              f"{e.key[:80]}")
-    print(json.dumps({"card": smi, "what": what, "arch": args.arch,
-                      "variant": args.variant,
-                      "fuse_block": cfg.fuse_block,
-                      "fuse_ends": cfg.fuse_ends,
-                      "dtype": args.dtype,
-                      "steps": args.steps,
-                      "wall_ms_per_step": wall_ms,
-                      "device_ms_per_step": device_ms,
-                      "idle_share": 1 - device_ms / wall_ms, "top": rows}))
+    rows = [{"name": e.key[:80],
+             "ms_per_step": per_step(e.self_device_time_total),
+             "calls_per_step": e.count / steps}
+            for e in sorted(events, key=lambda e: e.self_device_time_total,
+                            reverse=True)[:top]]
+    return 1e3 * wall / steps, device_ms, rows
 
 
 if __name__ == "__main__":

@@ -5,19 +5,28 @@ request bucketing, and the server (counterpart of
 Each request batch is padded to a BUCKET size (a geometric ladder of the
 fused kernel's batch block), so the kernel only ever sees a few batch
 shapes. A rollout of K steps feeds step t's prediction back as step t+1's
-state in a loop on the device: the carry never leaves device memory and
-each step issues ``num_layers`` block-kernel launches.
+state on the device: the carry never leaves device memory and each step
+issues ``num_layers`` block-kernel launches.
+
+On the card the fused path is served through CUDA graphs, the torch
+counterpart of the reference's jitted step and its one ``lax.scan``
+rollout: ``FNOServer`` captures one graph per (bucket, K, input dtype,
+request shape) at first use, so a served forward (K=1) or a whole K-step rollout is one
+replay, with no Python dispatch between its launches.
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tree
 from repro_torch.configs.base import FNOConfig, torch_dtype
 from repro_torch.core import fno as fno_mod
-from repro_torch.kernels.engine import BATCH_BLOCK
+from repro_torch.kernels import engine
 
 
 def make_fno_serve_step(cfg: FNOConfig, *, path: Optional[str] = None,
@@ -82,6 +91,24 @@ def pad_to_bucket(x: torch.Tensor, bucket: int) -> Tuple[torch.Tensor, int]:
     return F.pad(x, [0, 0] * (x.ndim - 1) + [0, bucket - n]), n
 
 
+def serve_quantum(quantum: Optional[int] = None) -> int:
+    """The serving bucket quantum, validated against the fused kernel's
+    batch block (``engine.BATCH_BLOCK``), as the reference validates it
+    against the tuned plan (``tuning.serve_quantum``): None takes the batch
+    block itself; an explicit quantum must be a positive multiple of it, or
+    the bucket ladder would misalign with the kernel's grid."""
+    bb = engine.BATCH_BLOCK
+    if quantum is None:
+        return bb
+    if (isinstance(quantum, bool) or not isinstance(quantum, int)
+            or quantum < 1 or quantum % bb != 0):
+        raise ValueError(
+            f"serve quantum {quantum!r} is not a positive multiple of the "
+            f"fused kernel's batch block {bb} (engine.BATCH_BLOCK); use a "
+            f"multiple of {bb} or pass quantum=None")
+    return quantum
+
+
 def _device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -91,33 +118,156 @@ def _device(device) -> torch.device:
     return dev
 
 
+@dataclasses.dataclass
+class _Graph:
+    """One captured bucket: the graph, its static input and output, and the
+    kernel launches one replay runs, by ``engine.LAUNCHES`` key."""
+
+    graph: "torch.cuda.CUDAGraph"
+    x: torch.Tensor
+    y: torch.Tensor
+    launches: collections.Counter
+
+
 class FNOServer:
     """Request-batched FNO inference on one device.
 
-    Pads every request batch to a bucket (``bucket_sizes`` over the fused
-    kernel's batch block), runs the forward (or a K-step rollout) on
+    Pads every request batch to a bucket (``bucket_sizes`` over
+    ``serve_quantum(quantum)``), runs the forward (or a K-step rollout) on
     ``device`` — the GPU unless the caller asks for the CPU — and keeps
     request/sample/padding counts in ``stats``. ``variant="partial"``
     serves the paper's partial fusion on the fused path.
+
+    **CUDA graphs.** On a CUDA device the fused path (``path`` or
+    ``cfg.path`` "fused") is served through one CUDA graph per (bucket, K,
+    input dtype, sample shape), captured at first use, so a request at
+    another resolution gets graphs of its own: K=1 is the served forward, K>1 the
+    whole K-step rollout as one replay. Before the capture the bucket runs
+    once eagerly on a side stream, which builds the kernels, plans their
+    launches and copies the DFT operands to the device (none of which a
+    capture can do). Each bucket keeps a static input buffer: the request
+    is copied in and the padding rows are zeroed. A replay overwrites the
+    graph's output, so the rows are cloned out before they are returned.
+    All graphs of a server share one memory pool. ``engine.LAUNCHES``
+    counts in Python and a replay passes through no wrapper, so each graph
+    records the launches its capture added, takes them back out (a capture
+    runs nothing), and adds them again at every replay: the counts are the
+    launches the card ran, the eager warm-up's included. The staged and ref
+    oracles, and any path on the CPU, run eagerly: the staged transforms
+    copy their operands from the host on every call, which a capture cannot
+    hold. There is no switch that turns the graphs off on the card;
+    ``step_fn`` and ``step_with`` are the eager forward.
+
+    A graphed server owns its params (a device copy); see ``params``.
     """
 
     def __init__(self, cfg: FNOConfig, params, *, device="cuda",
                  path: Optional[str] = None, variant: str = "full",
-                 max_batch: int = 64):
+                 max_batch: int = 64, quantum: Optional[int] = None):
         self.device = _device(device)
         self.cfg = cfg
-        self.params = _to_device(params, self.device)
-        self.buckets = bucket_sizes(max_batch, quantum=BATCH_BLOCK)
+        self.path = path or cfg.path
+        self.buckets = bucket_sizes(max_batch, quantum=serve_quantum(quantum))
         self.step_fn = make_fno_serve_step(cfg, path=path, variant=variant)
         self.rollout_step_fn = make_fno_rollout_step(cfg, path=path,
                                                      variant=variant)
+        self.graphed = self.device.type == "cuda" and self.path == "fused"
+        self._graphs: Dict[Tuple[int, int, torch.dtype, Tuple[int, ...]],
+                           _Graph] = {}
+        self._pool = torch.cuda.graph_pool_handle() if self.graphed else None
+        self._params = _to_device(params, self.device, copy=self.graphed)
         self.stats = {"requests": 0, "samples": 0, "padded": 0}
 
-    def _bucketed(self, xp: torch.Tensor, rollout_steps: int):
+    @property
+    def params(self):
+        """The served params (the server's own tensors on its device).
+
+        Assigning new params copies their values into the captured tensors
+        in place when the tree's paths, shapes and dtypes match the served
+        ones, so the captured graphs go on serving, now with the new
+        values; otherwise the graphs are dropped and captured again at next
+        use. Either way the next request serves the new params. A graphed
+        server copies the caller's tensors and never aliases them."""
+        return self._params
+
+    @params.setter
+    def params(self, new) -> None:
+        new = _to_device(new, self.device)
+        if self._graphs and _same_layout(self._params, new):
+            with torch.no_grad():
+                for dst, src in zip(tree.leaves(self._params),
+                                    tree.leaves(new)):
+                    dst.copy_(src)
+            return
+        self._graphs.clear()
+        self._params = _to_device(new, self.device, copy=self.graphed)
+
+    def _eager(self, params, xp: torch.Tensor, rollout_steps: int):
         if rollout_steps == 1:
-            return self.step_fn(self.params, {"x": xp})
-        return self.rollout_step_fn(self.params, {"x": xp},
-                                    steps=rollout_steps)
+            return self.step_fn(params, {"x": xp})
+        return self.rollout_step_fn(params, {"x": xp}, steps=rollout_steps)
+
+    def _capture(self, bucket: int, rollout_steps: int, dtype: torch.dtype,
+                 sample: Tuple[int, ...]) -> _Graph:
+        x = torch.zeros((bucket,) + sample, dtype=dtype, device=self.device)
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):  # warm-up: builds, plans, operands
+            self._eager(self._params, x, rollout_steps)
+        main.wait_stream(side)
+        before = collections.Counter(engine.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool,
+                              capture_error_mode="thread_local"):
+            y = self._eager(self._params, x, rollout_steps)
+        launches = collections.Counter(engine.LAUNCHES) - before
+        engine.LAUNCHES -= launches  # the capture ran nothing
+        return _Graph(graph, x, y, launches)
+
+    def _replay(self, chunk: torch.Tensor, bucket: int,
+                rollout_steps: int) -> torch.Tensor:
+        key = (bucket, rollout_steps, chunk.dtype, tuple(chunk.shape[1:]))
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._graphs[key] = self._capture(*key)
+        m = chunk.shape[0]
+        g.x[:m].copy_(chunk)
+        g.x[m:].zero_()
+        g.graph.replay()
+        engine.LAUNCHES.update(g.launches)
+        return g.y[:m].clone()  # the next replay overwrites g.y
+
+    def _bucketed(self, chunk: torch.Tensor, bucket: int,
+                  rollout_steps: int) -> torch.Tensor:
+        if self.graphed:
+            return self._replay(chunk, bucket, rollout_steps)
+        xp, m = pad_to_bucket(chunk, bucket)
+        return self._eager(self._params, xp, rollout_steps)[:m]
+
+    @torch.no_grad()
+    def step_with(self, params, x: torch.Tensor,
+                  rollout_steps: int = 1) -> torch.Tensor:
+        """One bucketed step (or K-step rollout) with EXPLICIT params
+        (instead of ``self.params``), padded as the server pads it and run
+        eagerly, never through a graph: the canary hook, through which the
+        resilient runtime (``train/serve_runtime.py``) probes candidate
+        reload params before it swaps them in, and the eager yardstick of
+        the graphs (``step_with(server.params, x, k)``)."""
+        b = pick_bucket(x.shape[0], self.buckets)
+        xp, m = pad_to_bucket(x.to(self.device), b)
+        return self._eager(_to_device(params, self.device), xp,
+                           rollout_steps)[:m]
+
+    def warm(self, rollout_steps: Sequence[int] = (1,)) -> None:
+        """Serve a float32 zero batch of every bucket at each rollout
+        depth: the kernels build and, on the card, every graph is captured
+        ahead of traffic."""
+        shape = (self.cfg.in_channels,) + tuple(self.cfg.spatial)
+        for k in rollout_steps:
+            for b in self.buckets:
+                self(torch.zeros((b,) + shape, device=self.device),
+                     rollout_steps=k)
 
     @torch.no_grad()
     def __call__(self, x: torch.Tensor, rollout_steps: int = 1):
@@ -140,17 +290,22 @@ class FNOServer:
         for s in range(0, n, top):
             chunk = x[s:s + top]
             b = pick_bucket(chunk.shape[0], self.buckets)
-            xp, m = pad_to_bucket(chunk, b)
-            ys.append(self._bucketed(xp, rollout_steps)[:m])
-            self.stats["padded"] += b - m
+            ys.append(self._bucketed(chunk, b, rollout_steps))
+            self.stats["padded"] += b - chunk.shape[0]
         self.stats["requests"] += 1
         self.stats["samples"] += n
         return torch.cat(ys, 0) if len(ys) > 1 else ys[0]
 
 
-def _to_device(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_device(v, device) for v in tree)
-    return tree.to(device)
+def _same_layout(a, b) -> bool:
+    """Same key paths, shapes and dtypes, leaf for leaf."""
+    la, lb = tree.leaves(a), tree.leaves(b)
+    return (tree.paths(a) == tree.paths(b)
+            and all(x.shape == y.shape and x.dtype == y.dtype
+                    for x, y in zip(la, lb)))
+
+
+def _to_device(params, device, copy: bool = False):
+    """`params` on `device`; ``copy`` makes fresh tensors even where a leaf
+    is already there."""
+    return tree.map(lambda t: t.to(device, copy=copy), params)
