@@ -228,12 +228,31 @@ fatal:
      recovers from: one NaN skip, one save retry, one restart, and after
      the restore the loss of every step within 2e-4 of a run with the
      same NaN step and no failure.
+  33. the DP×TP mesh — the block's TP shard shapes ([O, H/tp] at the
+     rank's rows: fno2d at tp 2 (B=8 and the training step's B=4) and tp
+     4, fno3d at tp 2, fno2d-large per-mode at tp 2) for the linear block,
+     dx adjoint and wgrad against their plain versions (f32 ≤ 2e-4, bf16
+     ≤ 2e-2 of the f32 plain version), the linear block timed host-paced
+     and queued beside its plain version, its bound and the one-rank
+     linear block at fno2d B=8; then ranks spawned on this host's card(s)
+     (``launch.mesh.spawn``, ``launch.mesh_cases``; gloo, the collectives
+     staged through the host; the kernels built here first): fno2d f32
+     and bf16 on (1,2), (2,2) and (1,4), the partial variant, fno3d and
+     fno2d-large on (1,2), against the one-rank graphed server (phase 3's
+     tolerances), each rank's launches exactly num_layers block_linear a
+     forward (rdft, core, irdft with the partial variant); one fno2d
+     training step on (2,2) (Darcy batch 8): the step-0 loss, grad norm
+     and every gathered grad against the one-rank fused step, 3 launches a
+     block a rank (block_linear, dx_adjoint, wgrad). Logs the card count
+     and the backend; nccl with two ranks on one card must refuse, and
+     with two cards or more (1,2) also runs over nccl.
 
 Each phase's seconds are printed. The last two lines are a
 ``{"kernels": [...]}`` JSON object and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import dataclasses
 import gc
@@ -307,6 +326,20 @@ REFUSED_BATCH = 2
 GRAPH_REQUESTS = 200
 QUEUE_REQUESTS = 64
 TRAINER_STEPS = 30
+# Phase 33: the DP×TP mesh's ranks on this host, their collectives'
+# backend where they share a card, the global batch, and each spawn's
+# limit in seconds; which phase-33 runs each shard shape's launches come
+# from, by (mesh, case names).
+MESH_BACKEND = "gloo"
+MESH_BATCH = 8
+MESH_SPAWN_S = 300.0
+SHARD_RUNS = {"fno2d_tp2": ((1, 2), ("fno2d f32", "fno2d bf16")),
+              "fno2d_tp2_B4": ((2, 2), ("fno2d f32", "fno2d bf16",
+                                        "train grads", "train step")),
+              "fno2d_tp4": ((1, 4), ("fno2d f32", "fno2d bf16")),
+              "fno3d_tp2": ((1, 2), ("fno3d f32",)),
+              "fno2d-large_tp2": ((1, 2), ("fno2d-large f32",)),
+              "fno2d_one_rank": (None, ())}
 PARTIAL_REPLACES = {"rdft": "src/repro/kernels/dft.py:44",
                     "cdft": "src/repro/kernels/dft.py:75",
                     "irdft": "src/repro/kernels/dft.py:97",
@@ -3210,6 +3243,253 @@ def phase_trainer(torch, configs, fno_mod, batch_fn, ts, optim):
             "worst_rel_loss_diff": worst}
 
 
+# ---------------------------------------------------------------------------
+# Phase 33: the DP×TP mesh (ranks of this host; the card(s) it has)
+# ---------------------------------------------------------------------------
+def shard_shapes(configs):
+    """The block's TP shards on phase 33's path, (name, B, H/tp, O,
+    spatial, modes, per_mode): each rank's batch rows and hidden slice."""
+    f2, f3, lg = (configs.get_config(a) for a in ("fno2d", FNO3D, LARGE))
+    return [("fno2d_tp2", 8, f2.hidden // 2, f2.hidden, f2.spatial,
+             f2.modes, False),
+            ("fno2d_tp2_B4", 4, f2.hidden // 2, f2.hidden, f2.spatial,
+             f2.modes, False),
+            ("fno2d_tp4", 8, f2.hidden // 4, f2.hidden, f2.spatial,
+             f2.modes, False),
+            ("fno3d_tp2", 8, f3.hidden // 2, f3.hidden, f3.spatial,
+             f3.modes, False),
+            ("fno2d-large_tp2", 8, lg.hidden // 2, lg.hidden, lg.spatial,
+             lg.modes, True)]
+
+
+def phase_shards_vs_plain(torch, engine, spectral, configs):
+    """Each TP shard shape's launches (the linear block, dx adjoint, wgrad)
+    against their plain versions, f32 on the same inputs and bf16 against
+    the f32 plain version; the linear block timed alone (host-paced) and
+    queued beside its plain version and bound, and the one-rank linear
+    block at fno2d B=8 beside them."""
+    log("== phase 33: the DP×TP mesh — the block's TP shard shapes vs plain")
+    f32 = torch.float32
+    rows, errs = [], {}
+    f2 = configs.get_config("fno2d")
+    shapes = shard_shapes(configs) + [
+        ("fno2d_one_rank", 8, f2.hidden, f2.hidden, f2.spatial, f2.modes,
+         False)]
+    for seed, (name, b, h, o, spatial, modes, per_mode) in enumerate(
+            shapes, 3300):
+        args32 = (per_mode_inputs(b, h, o, spatial, modes, seed, DEVICE)
+                  if per_mode else list(block_inputs(b, h, o, spatial, seed,
+                                                     DEVICE)))
+        gen = torch.Generator().manual_seed(seed)
+        gz32 = torch.randn((b, o) + tuple(spatial), generator=gen).to(DEVICE)
+        for dt, peak, eb in (("float32", PEAK_F32_FLOPS, 4),
+                             ("bfloat16", PEAK_BF16_FLOPS, 2)):
+            tdt = getattr(torch, dt)
+            args = [a.to(tdt) for a in args32]
+            gz = gz32.to(tdt)
+            mats = backward_mats(spectral, spatial, modes, dt)
+            m32 = backward_mats(spectral, spatial, modes, "float32")
+            fns = block_launches(engine, args, None, gz, mats)
+            fns32 = block_launches(engine, args32, None, gz32, m32)
+            launch = {
+                "block_linear": lambda plain, a=args, m=mats: linear_block(
+                    engine, a, m["forward"], f32, plain),
+                "dx_adjoint": fns["dx_adjoint"], "wgrad": fns["wgrad"]}
+            plain32 = {
+                "block_linear": as_tuple(linear_block(
+                    engine, args32, m32["forward"], f32, True)),
+                "dx_adjoint": as_tuple(fns32["dx_adjoint"](True)),
+                "wgrad": as_tuple(fns32["wgrad"](True))}
+            for kind, fn in launch.items():
+                y = as_tuple(fn(False))
+                torch.cuda.synchronize()
+                errs[(name, kind, dt)] = e = errors(y, plain32[kind])
+                check(f"{name} {dt} {kind} vs f32 plain", e[1],
+                      F32_TOL if dt == "float32" else BF16_TOL)
+            run = launch["block_linear"]
+            kms = time_ms(lambda: run(False), 20)
+            qms = time_ms(lambda: run(False), 20, queued=True)
+            pms = time_ms(lambda: run(True), 10)
+            dx_ms = time_ms(lambda: launch["dx_adjoint"](False), 20,
+                            queued=True)
+            wg_ms = time_ms(lambda: launch["wgrad"](False), 20, queued=True)
+            bms, by = bound_ms("block_linear", b, h, o, spatial, modes, eb,
+                               peak, per_mode)
+            e = errs[(name, "block_linear", dt)]
+            tag = "f32" if dt == "float32" else "bf16"
+            log(f"  {name} [O={o}, H/tp={h}] B={b} {dt}: block_linear "
+                f"kernel_ms={kms:.4f} queued_ms={qms:.4f} plain_ms="
+                f"{pms:.4f} bound_us={1e3 * bms:.2f} ({by}); dx_adjoint "
+                f"queued_ms={dx_ms:.4f}; wgrad queued_ms={wg_ms:.4f}")
+            rows.append({
+                "name": f"block_linear_{name}_{tag}", "route": "cuda",
+                "shard": name, "dtype": dt,
+                "source": BLOCK_SOURCE, "replaces": BLOCK_REPLACES,
+                "shape": f"B={b} H={h} O={o} spatial={tuple(spatial)} "
+                         f"modes={tuple(modes)} per_mode={per_mode}",
+                "launches": 0, "max_abs_err": e[0], "scaled_err": e[1],
+                "tol": F32_TOL if dt == "float32" else BF16_TOL,
+                "ms": kms, "queued_ms": qms, "plain_ms": pms,
+                "bound_ms": bms, "bound_by": by, "library_ms": None,
+                "library_note": "no single PyTorch call computes it",
+                "dx_adjoint_queued_ms": dx_ms, "wgrad_queued_ms": wg_ms})
+        del args32, gz32
+    return rows
+
+
+def mesh_jobs(np, configs, batch_fn):
+    """Phase 33's spawns: (mesh, cases by name), every case's params from
+    seed 0 on every rank, the global batch of 8 from numpy seed 33 (the
+    training batch Darcy's first)."""
+    def cfg(arch, preset="f32"):
+        return dataclasses.replace(configs.with_precision(
+            configs.with_fuse_block(configs.get_config(arch)), preset),
+            path="fused")
+    rng = np.random.default_rng(33)
+    xs = {a: rng.normal(size=(MESH_BATCH, c.in_channels) + c.spatial
+                        ).astype(np.float32)
+          for a, c in ((a, configs.get_config(a))
+                       for a in ("fno2d", FNO3D, LARGE))}
+    batch = {k: v.cpu().numpy() for k, v in
+             batch_fn(cfg("fno2d"), MESH_BATCH, "cpu")(0).items()}
+    fwd = lambda arch, preset="f32", **kw: {
+        "kind": "forward", "cfg": cfg(arch, preset), "seed": 0,
+        "x": xs[arch], **kw}
+    both = {"fno2d f32": fwd("fno2d"), "fno2d bf16": fwd("fno2d", "bf16")}
+    return [
+        ((1, 2), {**both, "fno2d f32 partial": fwd("fno2d",
+                                                   variant="partial"),
+                  "fno3d f32": fwd(FNO3D), f"{LARGE} f32": fwd(LARGE)}),
+        ((2, 2), {**both,
+                  "train grads": {"kind": "grads", "cfg": cfg("fno2d"),
+                                  "seed": 0, "batch": batch},
+                  "train step": {"kind": "train", "cfg": cfg("fno2d"),
+                                 "seed": 0, "batch": batch}}),
+        ((1, 4), both),
+    ], xs, batch
+
+
+def phase_mesh(torch, np, configs, fno_mod, sfs, ts, optim, tree, engine,
+               batch_fn):
+    """Ranks of this host on its card(s), gloo (the collectives staged
+    through the host): fno2d f32 and bf16 on (1,2), (2,2) and (1,4); the
+    partial variant, fno3d and fno2d-large (per-mode W) on (1,2); one fno2d
+    training step on (2,2). Each against the one-rank graphed server or
+    fused step; each rank's launches exact; over nccl on (1,2) where the
+    host has two cards."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import mesh_cases as mc
+    log("== phase 33: the DP×TP mesh — sharded forward and training step")
+    cards = torch.cuda.device_count()
+    log(f"  torch.cuda.device_count()={cards}; backend {MESH_BACKEND} for "
+        f"the ranks on {cards} card(s): collectives staged through the "
+        f"host")
+    try:
+        mesh_mod.check_backend("nccl", torch.device(DEVICE, 0), 2)
+        nccl_on_one = "accepted"
+    except ValueError as e:
+        nccl_on_one = f"refused: {e}"
+    log(f"  nccl with 2 ranks on this host: {nccl_on_one}")
+    if cards < 2 and nccl_on_one == "accepted":
+        raise AssertionError("nccl must refuse two ranks on one card")
+    jobs, xs, batch = mesh_jobs(np, configs, batch_fn)
+    if cards >= 2:
+        jobs.append(((1, 2), {"nccl fno2d f32": dict(
+            jobs[0][1]["fno2d f32"])}))
+    layers = configs.get_config("fno2d").num_layers
+    refs, servers = {}, {}
+
+    def single(case):
+        c, variant = case["cfg"], case.get("variant", "full")
+        key = (c.name, id(case["x"]), c.precision.compute_dtype, variant)
+        if key not in refs:
+            params = fno_mod.init_fno(torch.Generator().manual_seed(0), c)
+            srv = sfs.FNOServer(c, params, device=DEVICE, variant=variant,
+                                max_batch=MESH_BATCH)
+            refs[key] = srv(torch.from_numpy(case["x"]).to(DEVICE))
+            torch.cuda.synchronize()
+            servers[key] = srv.graphed
+            del srv, params
+        return refs[key]
+
+    launches = {}
+    for mesh, cases in jobs:
+        backend = "nccl" if "nccl fno2d f32" in cases else MESH_BACKEND
+        t = time.perf_counter()
+        job = {"mesh": mesh, "backend": backend, "device": DEVICE,
+               "cases": list(cases.values())}
+        ranks = mesh_mod.spawn(mc.run_rank, mesh[0] * mesh[1], job,
+                               timeout_s=MESH_SPAWN_S)
+        log(f"  mesh dp{mesh[0]}xtp{mesh[1]} over {backend}: "
+            f"{len(cases)} cases on {mesh[0] * mesh[1]} ranks in "
+            f"{time.perf_counter() - t:.1f} s (spawn, build load and "
+            f"cases, eager: not a deployment's speed)")
+        for i, (name, case) in enumerate(cases.items()):
+            res = [r[i] for r in ranks]
+            c = case["cfg"]
+            dt = c.precision.compute_dtype
+            tp_on = mesh[1] > 1 and c.hidden % mesh[1] == 0
+            if case["kind"] == "forward":
+                if case.get("variant") == "partial":
+                    want = {f"{k}/{dt}": layers for k in engine.PARTIAL_KINDS}
+                else:
+                    want = {f"{'block_linear' if tp_on else 'block_fwd'}/"
+                            f"{dt}": c.num_layers}
+                ref = single(case)
+                tol = F32_TOL if dt == "float32" else BF16_TOL
+                for rank, r in enumerate(res):
+                    check(f"dp{mesh[0]}xtp{mesh[1]} {name} rank {rank} vs "
+                          f"the one-rank graphed server",
+                          rel_err(torch.from_numpy(r["y"]), ref.cpu()), tol)
+            else:
+                want = {f"{k}/{dt}": layers for k in engine.LINEAR_KINDS}
+            for rank, r in enumerate(res):
+                calls = {f"{k}/{dt}": n for k, n in r["calls"].items()}
+                if r["launches"] != want or calls != want:
+                    raise AssertionError(
+                        f"dp{mesh[0]}xtp{mesh[1]} {name} rank {rank}: "
+                        f"launches {r['launches']} calls {r['calls']} != "
+                        f"{want}")
+            log(f"  dp{mesh[0]}xtp{mesh[1]} {name}: launches a rank "
+                f"{res[0]['launches']}; collectives a rank "
+                f"{res[0]['collectives']}")
+            launches[(mesh, name)] = collections.Counter()
+            for r in res:
+                launches[(mesh, name)].update(r["launches"])
+            if case["kind"] == "grads":
+                c32 = case["cfg"]
+                params = fno_mod.init_fno(torch.Generator().manual_seed(0),
+                                          c32, DEVICE)
+                b = {k: torch.from_numpy(v).to(DEVICE)
+                     for k, v in batch.items()}
+                loss, g = ts.value_and_grad(
+                    ts.make_loss_fn(c32, fno_path="fused"), params, b)
+                gn = float(optim.global_norm(g))
+                refs["train"] = (float(loss), gn)
+                for rank, r in enumerate(res):
+                    check(f"{name} rank {rank} loss vs the one-rank fused "
+                          f"step", abs(r["loss"] - float(loss))
+                          / abs(float(loss)), F32_TOL)
+                    for p, a, ref in zip(tree.paths(g),
+                                         tree.leaves(r["grads"]),
+                                         tree.leaves(g)):
+                        check(f"{name} rank {rank} grad "
+                              f"{'.'.join(str(k) for k in p)}",
+                              leaf_err(torch.from_numpy(a), ref.cpu()),
+                              F32_TOL)
+                del params, g
+            if case["kind"] == "train":
+                loss, gn = refs["train"]
+                for rank, r in enumerate(res):
+                    check(f"{name} rank {rank} step-0 loss vs one rank",
+                          abs(r["loss"] - loss) / abs(loss), F32_TOL)
+                    check(f"{name} rank {rank} step-0 grad norm vs one "
+                          f"rank", abs(r["grad_norm"] - gn) / gn, F32_TOL)
+        del ranks
+    log(f"  one-rank references graphed: {sorted(set(servers.values()))}")
+    return launches, cards
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3399,6 +3679,22 @@ def main() -> int:
     queue = timed("31", phase_queue, torch, np, configs, fno_mod, sfs)
     trainer = timed("32", phase_trainer, torch, configs, fno_mod, batch_fn,
                     ts, optim)
+    # The DP×TP mesh.
+    shard_rows = timed("33 shards", phase_shards_vs_plain, torch, engine,
+                       spectral, configs)
+    mesh_launches, cards = timed("33 mesh", phase_mesh, torch, np, configs,
+                                 fno_mod, sfs, ts, optim, tree, engine,
+                                 batch_fn)
+    for row in shard_rows:  # the launches at each shard shape, every rank
+        mesh, names = SHARD_RUNS[row.pop("shard")]
+        dt = row.pop("dtype")
+        row["launches"] = sum(mesh_launches[(mesh, n)].get(
+            f"block_linear/{dt}", 0) for n in names)
+        row["launches_note"] = (
+            f"block_linear launches of every rank of dp{mesh[0]}xtp"
+            f"{mesh[1]} in phase 33" if mesh else
+            "the one-rank linear block, timed beside the shards")
+    rows += shard_rows
     window = lambda st: {dt: {"p50": v["latency_ms"]["p50"],
                               "p99": v["latency_ms"]["p99"],
                               "sample_steps_per_s": v["sample_steps_per_s"]}
@@ -3448,6 +3744,10 @@ def main() -> int:
         f"{json.dumps({k: v['stats'] for k, v in resilient.items()})}")
     log(f"continuous batching: {json.dumps(queue)}")
     log(f"trainer: {json.dumps(trainer)}")
+    log(f"mesh: {cards} card(s), backend {MESH_BACKEND}; launches by "
+        f"(mesh, case), every rank: " + json.dumps(
+            {f"dp{m[0]}xtp{m[1]} {n}": dict(v)
+             for (m, n), v in mesh_launches.items()}))
     log(f"phase seconds: {json.dumps(seconds)}")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -10,6 +10,13 @@ reference writes for the same tree — the port's param and AdamW-state
 layouts are the reference's leaf for leaf — so either package restores a
 checkpoint the other wrote. numpy has no bfloat16: a bfloat16 leaf is
 stored widened to float32 (exact) and restored at the target's dtype.
+
+On a DP×TP mesh every rank calls ``save`` with its shards and their specs:
+the shards are gathered (``sharding.gather_params``), rank 0 writes the
+same full arrays, and a blocking save returns on every rank once they are
+on disk. Every rank restores the full arrays;
+``distributed.fault_tolerance.elastic_restore`` shards them onto a mesh,
+any mesh.
 """
 from __future__ import annotations
 
@@ -22,8 +29,10 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree
+from repro_torch.distributed import sharding as shd
 
 
 def _host(leaf) -> np.ndarray:
@@ -63,14 +72,28 @@ class Checkpointer:
                               ignore_errors=True)
 
     # -- save ---------------------------------------------------------------
-    def save(self, step: int, state: Any, blocking: bool = True) -> None:
+    def save(self, step: int, state: Any, blocking: bool = True, *,
+             mesh=None, specs=None) -> None:
         """Write `state` (a tree of tensors or arrays) as step `step`. The
         device-to-host copy happens here, synchronously; with
         ``blocking=False`` the write runs on a thread and its error
-        surfaces at the next ``wait``."""
+        surfaces at the next ``wait``. On a multi-rank `mesh` every rank
+        calls it with its shards of `state` and `specs` (a spec tree of
+        `state`, ``sharding.param_specs``'s): rank 0 writes the gathered
+        full arrays, and a blocking save ends at a barrier after the
+        write."""
+        on_mesh = mesh is not None and mesh.size > 1
+        if on_mesh:
+            state = shd.gather_params(state, specs, mesh)
+            if mesh.rank != 0:
+                if blocking:
+                    dist.barrier()
+                return
         flat = _flatten(state)
         if blocking:
             self._write(step, flat)
+            if on_mesh:
+                dist.barrier()
         else:
             self.wait()
             self._thread = threading.Thread(

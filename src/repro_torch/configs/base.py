@@ -1,8 +1,8 @@
 """Precision policy and FNO configuration (counterpart of the FNO part of
 ``repro/configs/base.py``).
 
-Only the fields that single-device FNO training and serving need are kept;
-tensor-parallel layout fields and tuned block plans are not ported yet.
+The reference's tuned block plans are not ported: the CUDA kernels plan
+their own launches (``kernels/engine.py``).
 """
 from __future__ import annotations
 
@@ -84,6 +84,16 @@ class FNOConfig:
     # the lifted and projected activations never reach device memory.
     # Fused path with fuse_block only; ignored otherwise.
     fuse_ends: bool = False
+    # The TP inter-layer collective layout (``kernels.ops.
+    # fno_block_nd_sharded``): "scatter" completes each interior layer's
+    # sharded hidden contraction with a reduce-scatter that emits the next
+    # layer's hidden shard (half the wire bytes of "psum"); "psum"
+    # all-reduces every layer to a replicated pre-activation. The last
+    # layer always all-reduces. Ignored when TP is off.
+    tp_layout: str = "scatter"  # scatter | psum
+    # The scattered layout's reduce-scatter as a ring of tp-1 point-to-point
+    # hops instead of one collective (same sum, same shard).
+    tp_overlap: bool = False
 
     @property
     def precision(self) -> PrecisionPolicy:
@@ -114,3 +124,6 @@ class FNOConfig:
                                  f"{s // 2} (Nyquist excl.)")
         if self.path not in ("ref", "staged", "fused"):
             raise ValueError(f"{self.name}: unknown path {self.path!r}")
+        if self.tp_layout not in ("scatter", "psum"):
+            raise ValueError(f"{self.name}: tp_layout must be 'scatter' or "
+                             f"'psum', got {self.tp_layout!r}")

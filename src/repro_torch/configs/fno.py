@@ -22,6 +22,16 @@ def with_fuse_block(cfg: FNOConfig, on: bool = True) -> FNOConfig:
     return dataclasses.replace(cfg, fuse_block=on)
 
 
+def with_tp_layout(cfg: FNOConfig, layout: str,
+                   overlap: bool = False) -> FNOConfig:
+    """Pick the TP inter-layer collective layout: "scatter" (the default:
+    each interior layer's reduce-scatter emits the next layer's hidden
+    shard) or "psum" (an all-reduce every layer). overlap=True runs the
+    interior reduce-scatter as a ring of tp-1 point-to-point hops
+    (scattered layout only)."""
+    return dataclasses.replace(cfg, tp_layout=layout, tp_overlap=overlap)
+
+
 def with_fuse_ends(cfg: FNOConfig, on: bool = True) -> FNOConfig:
     """Fold the lifting MLP into the first fused block launch and the
     projection MLP into the last one (fused path with fuse_block; ignored

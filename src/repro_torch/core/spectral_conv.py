@@ -11,7 +11,18 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.configs.base import PrecisionPolicy
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
+
+
+def require_fused(path: str) -> None:
+    """Refuse an oracle path inside a multi-rank sharding context: only the
+    fused path has a sharded dispatch."""
+    if path != "fused":
+        raise ValueError(
+            f"path {path!r} does not run under a multi-rank sharding "
+            f"context: only the fused path is sharded (run the staged and "
+            f"ref oracles on one rank)")
 
 
 def init_spectral_nd(gen: torch.Generator, in_ch: int, out_ch: int,
@@ -48,7 +59,9 @@ def apply_fno_block_nd(spec_params: Dict[str, torch.Tensor],
                        modes: Sequence[int], *, path: str = "fused",
                        variant: str = "full",
                        policy: Optional[PrecisionPolicy] = None,
-                       ends: Optional[Tuple] = None) -> torch.Tensor:
+                       ends: Optional[Tuple] = None,
+                       tp_layout: str = "psum",
+                       tp_overlap: bool = False) -> torch.Tensor:
     """One whole FNO block — gelu(spectral(x) + 1×1 bypass + bias) — as a
     single kernel launch on the fused path (variant="full"), or the paper's
     partial fusion (variant="partial": row DFT, fused core, row iDFT, then
@@ -60,8 +73,23 @@ def apply_fno_block_nd(spec_params: Dict[str, torch.Tensor],
 
     ends: an optional (lift, proj) pair of the model's end-MLP params
     ((w, b, w, b) tuples or None) folded into this block's launch
-    (``ops.fno_block_ends_nd``)."""
+    (``ops.fno_block_ends_nd``).
+
+    Inside a multi-rank ``sharding_context`` the block runs through
+    ``ops.fno_block_nd_sharded``: DP over the context's batch axes, TP over
+    its model axis with the partials completed per `tp_layout` ("scatter":
+    a reduce-scatter into the next layer's hidden shard, as a ring with
+    `tp_overlap`; "psum": an all-reduce). Only the fused path runs there:
+    the "staged" and "ref" oracles raise. The single-rank path ignores
+    tp_layout and tp_overlap."""
     wb = byp_params["w"].transpose(0, 1)
+    ctx = shd.active_context()
+    if ctx is not None:
+        require_fused(path)
+        return ops.fno_block_nd_sharded(
+            x, spec_params["wr"], spec_params["wi"], wb, byp_params["b"],
+            tuple(modes), ctx=ctx, variant=variant, policy=policy,
+            tp_layout=tp_layout, tp_overlap=tp_overlap, ends=ends)
     if ends is not None and any(e is not None for e in ends):
         return ops.fno_block_ends_nd(
             x, spec_params["wr"], spec_params["wi"], wb, byp_params["b"],

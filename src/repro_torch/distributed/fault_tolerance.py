@@ -1,17 +1,22 @@
-"""Fault-tolerance runtime of one host: heartbeat watchdog and straggler
-monitor (counterpart of ``repro/distributed/fault_tolerance.py``).
+"""Fault-tolerance runtime: heartbeat watchdog, straggler monitor and
+elastic restore (counterpart of ``repro/distributed/fault_tolerance.py``).
 
 On a multi-host deployment these hooks attach to the coordination service
-(missing heartbeat -> evict host -> restore on the survivors); here they
-run single-host and the trainer wires them together. The reference's
-``elastic_restore`` (a checkpoint restored onto another mesh) waits for
-the port's DP×TP mesh.
+(missing heartbeat -> evict host -> restore on the survivors); the watchdog
+and the monitor run on one host and the trainer wires them together.
+``elastic_restore`` restores a checkpoint onto another DP×TP mesh than the
+one that wrote it.
 """
 from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, List, Optional
+from typing import Any, Callable, List, Optional
+
+import torch
+
+from repro_torch import tree
+from repro_torch.distributed import sharding as shd
 
 
 class Watchdog:
@@ -86,3 +91,16 @@ class StragglerMonitor:
             self.ema = dt if self.ema is None else (
                 self.decay * self.ema + (1 - self.decay) * dt)
         return is_straggler
+
+
+def elastic_restore(checkpointer, step: int, target: Any, new_mesh,
+                    spec_fn: Callable[[Any], Any]) -> Any:
+    """Restore step `step` onto `new_mesh` (an elastic re-scale): the full
+    arrays, as every rank reads them, then this rank's shards by
+    ``spec_fn(target)`` (a spec tree for the new mesh). `target` holds the
+    full-shape leaves (``core.fno.abstract_params`` serves: only their
+    dtypes are read). A checkpoint holds full arrays and key paths, so
+    moving to another mesh is a restore, not a migration."""
+    host = tree.map(lambda t: torch.empty(0, dtype=t.dtype), target)
+    full = checkpointer.restore(step, host)
+    return shd.shard_params(full, spec_fn(target), new_mesh)

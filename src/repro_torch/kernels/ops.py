@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import PrecisionPolicy, torch_dtype
 from repro_torch.core import spectral
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import cgemm as cgemm_k
 from repro_torch.kernels import dft, engine
 from repro_torch.kernels import ref as ref_k
@@ -626,3 +627,75 @@ def fno_block_ends_nd(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
     ends = tuple(lift or (None,) * 4) + tuple(proj or (None,) * 4)
     return _FusedEnds.apply(x, wr, wi, wb, bias, modes,
                             policy or _default_policy(x), *ends)
+
+
+# ---------------------------------------------------------------------------
+# The block on a DP×TP mesh (the reference's shard_map dispatch).
+#
+# DP: each rank holds its rows of the batch and runs the local block (with
+# the model's ends where asked). TP: each rank holds its slice of the hidden
+# axis — the k-loop contraction — of x, W and W_b, and runs the linear
+# block (``act="linear"``, a zero bias, emitted at the accumulator dtype) to
+# a partial pre-activation, completed over the model axis by
+#
+#   tp_layout="scatter": a reduce-scatter that leaves rank i chunk i of the
+#     out channels, the next layer's hidden shard ((tp-1)/tp of the tensor
+#     on the wire per rank); with tp_overlap the same sum as a ring of tp-1
+#     point-to-point hops. Falls back to "psum" where tp does not divide O.
+#   tp_layout="psum": an all-reduce (2(tp-1)/tp), replicated output. The
+#     model's last layer always takes it: the projection reads all of
+#     hidden.
+#
+# Bias (this rank's slice under "scatter") and GELU apply after the sum, in
+# f32, and the one cast to the compute dtype is the return.
+# ---------------------------------------------------------------------------
+def fno_block_nd_sharded(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
+                         wb: torch.Tensor, bias: torch.Tensor,
+                         modes: Sequence[int], *, ctx, variant: str = "full",
+                         policy: Optional[PrecisionPolicy] = None,
+                         act: str = "gelu", tp_layout: str = "psum",
+                         tp_overlap: bool = False,
+                         ends: Optional[Tuple] = None) -> torch.Tensor:
+    """``fno_block_nd`` on the mesh of `ctx` (a multi-rank
+    ``distributed.sharding.ShardingContext``); x holds this rank's rows.
+
+    Without TP: the local ``fno_block_nd`` (``fno_block_ends_nd`` with
+    `ends`, pure DP only). With TP: wr/wi/wb are this rank's hidden slices
+    [O, H/tp(, k…)]; x is the full hidden [B, H, …] (its slice is taken
+    here, the gradient all-gathered) or already this rank's slice
+    [B, H/tp, …]; the result is [B, O/tp, …] under the scattered layout,
+    else [B, O, …]. Differentiable: each rank's backward runs the block's
+    dx and wgrad launches on its slice, and the collectives transpose
+    (``sharding``)."""
+    if tp_layout not in ("psum", "scatter"):
+        raise ValueError(f"tp_layout must be 'psum' or 'scatter', got "
+                         f"{tp_layout!r}")
+    pol = policy or _default_policy(x)
+    if ctx.model_axis is None:
+        if ends is not None and any(e is not None for e in ends):
+            return fno_block_ends_nd(x, wr, wi, wb, bias, modes,
+                                     lift=ends[0], proj=ends[1],
+                                     variant=variant, policy=pol)
+        return fno_block_nd(x, wr, wi, wb, bias, modes, variant=variant,
+                            policy=pol, act=act)
+    if ends is not None and any(e is not None for e in ends):
+        raise ValueError("the model's ends fold into the block only without "
+                         "TP; under TP they run as sharded MLPs")
+    mesh, m, tp = ctx.mesh, ctx.model_axis, ctx.tp
+    if x.shape[1] != wr.shape[1]:
+        x = shd.split(x, mesh, m, 1)
+    o = wr.shape[0]
+    acc = torch_dtype(pol.accum_dtype)
+    z = fno_block_nd(x, wr, wi, wb, torch.zeros_like(bias), modes,
+                     variant=variant, policy=pol, act="linear",
+                     out_dtype=acc)
+    if tp_layout == "scatter" and o % tp == 0:
+        z = (shd.ring_scatter_sum if tp_overlap else shd.scatter_sum)(
+            z, mesh, m, 1)
+        bias = shd.split(bias, mesh, m, 0)
+    else:
+        z = shd.psum(z, mesh, m)
+    z = z + bias.to(acc).reshape((1, -1) + (1,) * (z.ndim - 2))
+    if act == "gelu":
+        z = F.gelu(z, approximate="tanh")
+    return z.to(torch_dtype(pol.compute_dtype))

@@ -1,10 +1,19 @@
-"""Batched FNO serving CLI (counterpart of ``repro/launch/serve_fno.py``,
-without its DP×TP mesh).
+"""Batched FNO serving CLI (counterpart of ``repro/launch/serve_fno.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve_fno --arch fno2d \
         --requests 8 --max-batch 8
     PYTHONPATH=src python -m repro_torch.launch.serve_fno --replay
     PYTHONPATH=src python -m repro_torch.launch.serve_fno --chaos
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.serve_fno --dp 2 --tp 2 --backend gloo
+
+On a DP×TP mesh (run under ``torch.distributed.run``, one process a rank;
+``--dp``/``--tp`` default to the reference's auto grid, ``_pick_tp``, and
+their product must be the world size) every rank serves every request:
+its DP rows, TP over the hidden axis, the outputs all-gathered; rank 0
+prints the collective plan. ``--backend`` is explicit: ``nccl`` needs a
+card a rank, ``gloo`` stages the collectives through the host where the
+ranks share a card. ``--replay`` and ``--chaos`` run on one rank only.
 
 Serves request batches of seeded random sizes through ``FNOServer`` on the
 GPU (``--device cpu`` runs the plain versions), asserts every output is
@@ -35,6 +44,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import os
 import tempfile
 import time
 
@@ -44,7 +54,9 @@ import torch
 from repro_torch.configs import FNO_IDS, get_config, with_precision
 from repro_torch.configs.fno import with_fuse_block
 from repro_torch.core import fno as fno_mod
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import engine
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.train import serve_fno_step as sfs
 
 
@@ -87,7 +99,45 @@ def build_parser() -> argparse.ArgumentParser:
                     help="replica-pool size for --chaos and --replay")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain versions)")
+    ap.add_argument("--dp", type=int, default=0,
+                    help="data-parallel ranks (0 = world size // tp)")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="tensor-parallel ranks over hidden (0 = auto: the "
+                         "largest divisor of both the world size and "
+                         "hidden that keeps dp >= tp)")
+    ap.add_argument("--backend", choices=["nccl", "gloo"], default=None,
+                    help="the mesh's collective backend (required on a "
+                         "mesh of more than one rank)")
     return ap
+
+
+def _pick_tp(n_dev: int, hidden: int) -> int:
+    best = 1
+    for tp in range(2, n_dev + 1):
+        if n_dev % tp == 0 and hidden % tp == 0 and n_dev // tp >= tp:
+            best = tp
+    return best
+
+
+def _mesh_shape(args, cfg) -> tuple:
+    """(dp, tp) of the run: the reference's auto grid over the world size
+    (``WORLD_SIZE``, 1 outside ``torch.distributed.run``) unless given;
+    refuses a mesh other than the world and what runs on one rank only."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    tp = args.tp or _pick_tp(world, cfg.hidden)
+    dp = args.dp or max(world // tp, 1)
+    if dp * tp != world:
+        raise SystemExit(
+            f"serve_fno: requested mesh dp{dp}xtp{tp} needs {dp * tp} "
+            f"ranks but the world has {world} — pass --dp/--tp whose "
+            f"product is the world size (torch.distributed.run "
+            f"--nproc-per-node), or omit them for the auto grid")
+    if dp * tp > 1 and (args.replay or args.chaos):
+        raise SystemExit("serve_fno: --replay and --chaos run on one rank; "
+                         "the mesh's tiers are not ported yet")
+    if dp * tp > 1 and args.backend is None:
+        raise SystemExit("serve_fno: a mesh needs --backend nccl or gloo")
+    return dp, tp
 
 
 def _sync(device: torch.device) -> None:
@@ -107,6 +157,7 @@ def run(args) -> dict:
     cfg = with_fuse_block(cfg, args.path == "fused"
                           and not args.no_fuse_block)
     cfg = dataclasses.replace(cfg, path=args.path)
+    dp, tp = _mesh_shape(args, cfg)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     params = fno_mod.init_fno(torch.Generator().manual_seed(0), cfg)
@@ -114,16 +165,41 @@ def run(args) -> dict:
         return _run_chaos(args, cfg, params)
     if args.replay:
         return _run_replay(args, cfg, params)
-    server = sfs.FNOServer(cfg, params, device=args.device,
-                           variant=args.variant, max_batch=args.max_batch)
+    if dp * tp == 1:
+        return _serve(args, cfg, sfs.FNOServer(
+            cfg, params, device=args.device, variant=args.variant,
+            max_batch=args.max_batch))
+    mesh = mesh_mod.make_mesh((dp, tp), ("data", "model"),
+                              backend=args.backend, device=args.device)
+    try:
+        ctx = shd.make_context(cfg, mesh, kind="serve")
+        local = shd.shard_params(params, shd.context_specs(cfg, ctx, params),
+                                 mesh)
+        return _serve(args, cfg, sfs.FNOServer(
+            cfg, local, variant=args.variant, max_batch=args.max_batch,
+            ctx=ctx))
+    finally:
+        mesh_mod.close()
+
+
+def _serve(args, cfg, server) -> dict:
+    """Warm, hold the fusion contract, serve the seeded requests (every
+    rank of a mesh the same ones) and report; rank 0 prints."""
     dev = server.device
+    say = print if server.ctx is None or server.ctx.mesh.rank == 0 \
+        else (lambda *a, **k: None)
     shape = (cfg.in_channels,) + tuple(cfg.spatial)
 
     # Warm every bucket (kernel build, graph capture) outside the timed
     # loop, then hold the fusion contract on one request per bucket.
     server.warm((args.rollout_steps,))
     _sync(dev)
-    contract = fusion_contract(server, args.variant, args.rollout_steps)
+    ctx = server.ctx
+    contract = fusion_contract(
+        server, args.variant, args.rollout_steps,
+        kind=("block_linear" if ctx is not None and ctx.model_axis
+              else "block_fwd"),
+        held=server.graphed or (ctx is not None and dev.type == "cuda"))
 
     rng = np.random.default_rng(0)
     sizes = rng.integers(1, args.max_batch + 1, size=args.requests)
@@ -140,6 +216,7 @@ def run(args) -> dict:
             raise RuntimeError("non-finite serve output")
 
     samples = int(sizes.sum())
+    plan = server.collective_plan()
     out = {
         "arch": args.arch, "path": args.path, "variant": args.variant,
         "fuse_block": cfg.fuse_block, "dtype": args.dtype,
@@ -148,28 +225,42 @@ def run(args) -> dict:
         "samples": samples, "padded": server.stats["padded"],
         "seconds": dt, "samples_per_s": samples / max(dt, 1e-9),
         "graphed": server.graphed, "launches": contract,
+        "collective_plan": plan,
     }
-    print(f"serve_fno arch={args.arch} path={args.path} "
-          f"variant={args.variant} fuse_block={cfg.fuse_block} "
-          f"dtype={args.dtype} "
-          f"device={out['device']} buckets={list(server.buckets)}")
-    print(f"  served {args.requests} requests / {samples} samples "
-          f"(rollout K={args.rollout_steps}) in {dt * 1e3:.3f} ms "
-          f"({out['samples_per_s']:.1f} samples/s on {out['device']}, "
-          f"{server.stats['padded']} padded), all outputs finite")
-    print(f"  launches a layer and step by bucket (K={args.rollout_steps}): "
-          f"{contract}")
+    mesh = f"dp{plan['dp']}xtp{plan['tp']}"
+    say(f"serve_fno arch={args.arch} mesh={mesh} path={args.path} "
+        f"variant={args.variant} fuse_block={cfg.fuse_block} "
+        f"dtype={args.dtype} "
+        f"device={out['device']} buckets={list(server.buckets)}")
+    say(f"  collective plan: interior={plan['interior_collective']} "
+        f"final={plan['final_collective']} layout={plan['tp_layout']} "
+        f"overlap={plan['tp_overlap']} backend={plan['backend']} "
+        f"graphed={plan['graphed']} "
+        f"wire={plan['wire_bytes_per_fwd'] / 2**10:.1f}KiB/fwd")
+    where = f"on {out['device']}" if server.ctx is None else (
+        f"on {mesh} ranks, {out['device']}, eager" + (
+            ": collectives staged through the host, not a deployment's "
+            "speed" if server.ctx.mesh.host_staged else ""))
+    say(f"  served {args.requests} requests / {samples} samples "
+        f"(rollout K={args.rollout_steps}) in {dt * 1e3:.3f} ms "
+        f"({out['samples_per_s']:.1f} samples/s {where}, "
+        f"{server.stats['padded']} padded), all outputs finite")
+    say(f"  launches a layer and step by bucket (K={args.rollout_steps}): "
+        f"{contract}")
     return out
 
 
-def fusion_contract(server, variant: str, rollout_steps: int) -> dict:
+def fusion_contract(server, variant: str, rollout_steps: int,
+                    kind: str = "block_fwd", held=None) -> dict:
     """Kernel launches a layer and step of one served request of each
     bucket, read from ``engine.LAUNCHES`` across the request (graph replays
     included): ``{bucket: {kind: n}}``. With whole-block fusion and the
     full variant each must be exactly one ``block_fwd`` (a request runs
     ``num_layers × K``, the reference's one fused kernel a layer); raises
     otherwise. The partial and spectral-only designs' launches are
-    reported as they are."""
+    reported as they are. A mesh's rank passes `kind` "block_linear" under
+    TP, and `held` (default: the server is graphed) where its eager path
+    runs on the card."""
     cfg = server.cfg
     shape = (cfg.in_channels,) + tuple(cfg.spatial)
     steps = cfg.num_layers * rollout_steps
@@ -184,13 +275,13 @@ def fusion_contract(server, variant: str, rollout_steps: int) -> dict:
             raise RuntimeError(f"non-finite output at bucket {b}")
         out[b] = {k[0]: n / steps for k, n in sorted(got.items())}
     # The plain versions on the CPU launch (and count) nothing.
-    if (server.graphed and cfg.fuse_block and not cfg.fuse_ends
-            and variant == "full"):
+    held = server.graphed if held is None else held
+    if held and cfg.fuse_block and not cfg.fuse_ends and variant == "full":
         for b, got in out.items():
-            if got != {"block_fwd": 1}:
+            if got != {kind: 1}:
                 raise AssertionError(
                     f"fusion contract: bucket {b} K={rollout_steps} ran "
-                    f"{got} a layer and step, want one block_fwd")
+                    f"{got} a layer and step, want one {kind}")
     return out
 
 

@@ -17,14 +17,27 @@ import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import torch_dtype
+from repro_torch.distributed import sharding as shd
 
 _F32 = torch.float32
 
 
-def global_norm(grads) -> torch.Tensor:
-    """√(Σ g²) over every leaf, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(_F32)))
-                          for g in tree.leaves(grads)))
+def global_norm(grads, ctx=None, specs=None) -> torch.Tensor:
+    """√(Σ g²) over every leaf, in f32. On a TP mesh (`ctx`, a
+    ``distributed.sharding.ShardingContext``, with `specs` from
+    ``sharding.param_specs``) `grads` are this rank's shards: the sharded
+    leaves' squares are summed over the model axis in one all-reduce and
+    each replicated leaf counts once, so every rank gets the norm of the
+    full gradient."""
+    sq = lambda g: torch.sum(torch.square(g.to(_F32)))
+    leaves = tree.leaves(grads)
+    if ctx is None or ctx.model_axis is None:
+        return torch.sqrt(sum(sq(g) for g in leaves))
+    flags = [s.sharded for s in tree.leaves(specs)]
+    rep = sum(sq(g) for g, f in zip(leaves, flags) if not f)
+    part = sum(sq(g) for g, f in zip(leaves, flags) if f)
+    part = shd.all_reduce(part, ctx.mesh, (ctx.model_axis,), "norm")
+    return torch.sqrt(rep + part)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,9 +58,14 @@ class AdamW:
         return {"m": tree.map(zeros, params), "v": tree.map(zeros, params),
                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
-    def update(self, grads, state, params) -> Tuple[Any, Dict[str, Any]]:
+    def update(self, grads, state, params,
+               gnorm: Optional[torch.Tensor] = None
+               ) -> Tuple[Any, Dict[str, Any]]:
+        """New (params, state). `gnorm`, the clip's norm, defaults to
+        ``global_norm(grads)``; a sharded step passes the full gradient's."""
         step = state["step"] + 1
-        gnorm = global_norm(grads)
+        if gnorm is None:
+            gnorm = global_norm(grads)
         scale = (torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-12),
                              max=1.0)
                  if self.clip_norm else 1.0)

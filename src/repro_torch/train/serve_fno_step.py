@@ -13,6 +13,12 @@ counterpart of the reference's jitted step and its one ``lax.scan``
 rollout: ``FNOServer`` captures one graph per (bucket, K, input dtype,
 request shape) at first use, so a served forward (K=1) or a whole K-step rollout is one
 replay, with no Python dispatch between its launches.
+
+On a DP×TP mesh (``FNOServer(ctx=)``) every rank receives the same request:
+each pads it to a bucket (a multiple of the DP degree), runs its DP rows
+inside the sharding context (TP over the hidden axis where the context has
+it) and all-gathers the outputs over the batch axes. Such a server runs
+eagerly: capturing the collectives in a graph is later work.
 """
 from __future__ import annotations
 
@@ -26,7 +32,9 @@ import torch.nn.functional as F
 from repro_torch import tree
 from repro_torch.configs.base import FNOConfig, torch_dtype
 from repro_torch.core import fno as fno_mod
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import engine
+from repro_torch.roofline.analysis import fno_collective_bytes
 
 
 def make_fno_serve_step(cfg: FNOConfig, *, path: Optional[str] = None,
@@ -159,24 +167,68 @@ class FNOServer:
     ``step_fn`` and ``step_with`` are the eager forward.
 
     A graphed server owns its params (a device copy); see ``params``.
+
+    **A mesh.** With ``ctx``, a multi-rank ``ShardingContext``, `params`
+    are this rank's shards, the device is the rank's, the quantum is
+    multiplied by the DP degree, and every rank serves every request: its
+    DP rows inside the context, the outputs all-gathered over the batch
+    axes. It runs eagerly (``graphed`` is False).
     """
 
     def __init__(self, cfg: FNOConfig, params, *, device="cuda",
                  path: Optional[str] = None, variant: str = "full",
-                 max_batch: int = 64, quantum: Optional[int] = None):
-        self.device = _device(device)
+                 max_batch: int = 64, quantum: Optional[int] = None,
+                 ctx: Optional[shd.ShardingContext] = None):
+        self.ctx = ctx if ctx is not None and ctx.multi_rank else None
+        self.device = (self.ctx.mesh.device if self.ctx is not None
+                       else _device(device))
         self.cfg = cfg
         self.path = path or cfg.path
-        self.buckets = bucket_sizes(max_batch, quantum=serve_quantum(quantum))
-        self.step_fn = make_fno_serve_step(cfg, path=path, variant=variant)
-        self.rollout_step_fn = make_fno_rollout_step(cfg, path=path,
-                                                     variant=variant)
-        self.graphed = self.device.type == "cuda" and self.path == "fused"
+        q = serve_quantum(quantum)
+        step = make_fno_serve_step(cfg, path=path, variant=variant)
+        roll = make_fno_rollout_step(cfg, path=path, variant=variant)
+        if self.ctx is not None:
+            q *= self.ctx.dp  # every bucket splits over the DP ranks
+            step, roll = _on_mesh(self.ctx, step), _on_mesh(self.ctx, roll)
+        self.buckets = bucket_sizes(max_batch, quantum=q)
+        self.step_fn, self.rollout_step_fn = step, roll
+        self.graphed = (self.device.type == "cuda" and self.path == "fused"
+                        and self.ctx is None)
         self._graphs: Dict[Tuple[int, int, torch.dtype, Tuple[int, ...]],
                            _Graph] = {}
         self._pool = torch.cuda.graph_pool_handle() if self.graphed else None
         self._params = _to_device(params, self.device, copy=self.graphed)
         self.stats = {"requests": 0, "samples": 0, "padded": 0}
+
+    def collective_plan(self) -> Dict[str, object]:
+        """The served forward's TP collectives as metadata (the reference's
+        ``collective_plan``): the layout, whether the interior
+        reduce-scatter runs as the ring (``cfg.tp_overlap``), the per-layer
+        kinds, the modeled wire bytes a rank per forward at the smallest
+        bucket (``roofline.analysis.fno_collective_bytes``), the backend
+        (None on one rank; gloo on a card stages through the host) and
+        whether the server replays CUDA graphs."""
+        ctx, cfg = self.ctx, self.cfg
+        tp_on = ctx is not None and ctx.model_axis is not None
+        dp = ctx.dp if ctx is not None else 1
+        tp = ctx.tp if tp_on else 1
+        layout = cfg.tp_layout if tp_on else None
+        scattered = layout == "scatter"
+        wire = fno_collective_bytes(cfg, dp, tp, scattered=scattered,
+                                    batch=self.buckets[0])
+        interior = ("none" if not tp_on else
+                    ("ppermute-ring" if scattered and cfg.tp_overlap
+                     else "psum_scatter" if scattered else "psum"))
+        return {
+            "tp_layout": layout, "tp_overlap": tp_on and cfg.tp_overlap,
+            "dp": dp, "tp": tp,
+            "interior_collective": interior,
+            "final_collective": "psum" if tp_on else "none",
+            "wire_bytes_per_fwd": wire["total"],
+            "wire_bytes_interior_layer": wire["interior_per_layer"],
+            "backend": ctx.mesh.backend if ctx is not None else None,
+            "graphed": self.graphed,
+        }
 
     @property
     def params(self):
@@ -295,6 +347,18 @@ class FNOServer:
         self.stats["requests"] += 1
         self.stats["samples"] += n
         return torch.cat(ys, 0) if len(ys) > 1 else ys[0]
+
+
+def _on_mesh(ctx: shd.ShardingContext, fn):
+    """`fn` (a serve or rollout step) on this rank's DP rows of the padded
+    batch, inside the context, its output all-gathered over the batch
+    axes."""
+    def step(params, batch, **kw):
+        x = batch["x"]
+        with shd.sharding_context(ctx):
+            y = fn(params, {"x": shd.local_rows(ctx, x)}, **kw)
+        return shd.gather_rows(ctx, y, x.shape[0])
+    return step
 
 
 def _same_layout(a, b) -> bool:

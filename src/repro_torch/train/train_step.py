@@ -9,6 +9,14 @@ backward per block (``kernels.ops.fno_block_nd``). Mixed precision needs
 nothing here: params stay f32 masters, the forward and backward run at the
 compute dtype inside ``apply_fno`` and the kernels, the casts' backward
 hands f32 grads to the params, and the AdamW update is f32.
+
+On a DP×TP mesh (``ctx``, a multi-rank ``ShardingContext``) params and
+optimizer state are this rank's shards (``sharding.shard_params``) and the
+batch is the global one: each rank takes its DP rows, runs the forward and
+backward inside the context, and the grads and the loss are averaged over
+the batch axes in one all-reduce, so ``metrics["loss"]`` is the global
+batch's; the clip's norm is the full gradient's (``global_norm`` under the
+context).
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import FNOConfig, torch_dtype
 from repro_torch.core import fno as fno_mod
+from repro_torch.distributed import sharding as shd
 from repro_torch.optim.adamw import AdamW, global_norm
 
 
@@ -51,18 +60,41 @@ def _split_microbatches(batch: Dict[str, torch.Tensor], n: int):
 def make_train_step(cfg: FNOConfig, optimizer: AdamW, *,
                     microbatches: int = 1, fno_path: str = "staged",
                     fno_variant: str = "full",
-                    grad_acc_dtype: Optional[str] = None):
+                    grad_acc_dtype: Optional[str] = None,
+                    ctx: Optional[shd.ShardingContext] = None):
     """train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm", "step"}).
 
+    ctx: a DP×TP sharding context (see the module docstring); params and
+    state are then this rank's shards and batch the global batch.
     fno_variant: full or partial fusion of the blocks' forward on the fused
     path (the backward is the same three launches for both).
     grad_acc_dtype: dtype of the microbatch gradient accumulator (default
     the config policy's ``grad_acc_dtype``)."""
     loss_fn = make_loss_fn(cfg, fno_path=fno_path, fno_variant=fno_variant)
     acc_dt = torch_dtype(grad_acc_dtype or cfg.precision.grad_acc_dtype)
+    ctx = ctx if ctx is not None and ctx.multi_rank else None
+    specs = (shd.context_specs(cfg, ctx, fno_mod.abstract_params(cfg))
+             if ctx is not None else None)
 
     def train_step(params, opt_state, batch):
+        if ctx is not None:
+            batch = {k: shd.local_rows(ctx, v) for k, v in batch.items()}
+            with shd.sharding_context(ctx):
+                loss, grads = _local_grads(params, batch)
+            *flat, loss = shd.mean_over_batch(
+                ctx, tree.leaves(grads) + [loss])
+            grads = tree.unflatten(grads, flat)
+        else:
+            loss, grads = _local_grads(params, batch)
+        gnorm = global_norm(grads, ctx, specs)
+        new_params, new_state = optimizer.update(grads, opt_state, params,
+                                                 gnorm)
+        metrics = {"loss": loss, "grad_norm": gnorm,
+                   "step": new_state["step"]}
+        return new_params, new_state, metrics
+
+    def _local_grads(params, batch):
         if microbatches == 1:
             loss, grads = value_and_grad(loss_fn, params, batch)
         else:
@@ -75,9 +107,6 @@ def make_train_step(cfg: FNOConfig, optimizer: AdamW, *,
                 grads = tree.map(lambda a, b: a + b.to(acc_dt), grads, g)
             loss = loss / microbatches
             grads = tree.map(lambda g: g / microbatches, grads)
-        new_params, new_state = optimizer.update(grads, opt_state, params)
-        metrics = {"loss": loss, "grad_norm": global_norm(grads),
-                   "step": new_state["step"]}
-        return new_params, new_state, metrics
+        return loss, grads
 
     return train_step
