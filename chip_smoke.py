@@ -246,6 +246,23 @@ fatal:
      block a rank (block_linear, dx_adjoint, wgrad). Logs the card count
      and the backend; nccl with two ranks on one card must refuse, and
      with two cards or more (1,2) also runs over nccl.
+  34. tuned plans — the committed cache of tuned launch plans
+     (``repro_torch.tuning``) is fresh on this checkout
+     (``check_tuning_cache``, the core's entries replanned through the
+     card's library; a stale cache is fatal); every cached entry of
+     fno2d, fno2d-large and fno3d at B=8 and B=1 (f32, bf16, the five
+     kinds) launched at its plan against its plain version (phase 2's
+     tolerances); each of their entries (B=1, 2, 4, 8) whose plan differs
+     from the rule plan on this card timed against it in turns (tuned,
+     rule, rule, tuned), queued, beside the card's name and power limit; fno2d and fno3d served (one bucket,
+     K=1 and K=4, f32 and bf16) at the cached plans and with the config
+     pinning the block forward's rule plan (``with_block_plan``), and one
+     batch-8 training step's loss and grads at the cached plans and at
+     the rule plans (the cache switched off): exact launches, equal
+     outputs; the launch lint at full width (fno2d's launch counts and
+     casts, ``launch/lint.py``) and ``check_smem`` over every preset with
+     the card's libraries. Every phase above launches at the plans the
+     resolver gives (the cached ones where an entry serves the launch).
 
 Each phase's seconds are printed. The last two lines are a
 ``{"kernels": [...]}`` JSON object and ``{"ok": true, "device": {...}}``.
@@ -254,6 +271,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import json
@@ -265,19 +283,25 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
+if os.path.isdir(os.path.join(SRC, "repro_torch")) and SRC not in sys.path:
+    sys.path.insert(0, SRC)
+try:
+    # The H100's published rates and each launch's least time, from the
+    # port's roofline (``repro_torch.roofline``); the tests read the rates
+    # and bounds through this module too.
+    from repro_torch.roofline.analysis import (  # noqa: E402,F401
+        PARTIAL_LAUNCHES, block_flops, bound_ms, bound_parts, cgemm_bound,
+        cgemm_bound_parts, dense_dft_flops)
+    from repro_torch.roofline.hw import (  # noqa: E402,F401
+        HBM_BW as PEAK_BYTES, PEAK_3XTF32_FLOPS, PEAK_BF16_FLOPS,
+        PEAK_F32_FLOPS, PEAK_FFMA_FLOPS)
+except ImportError as exc:
+    sys.exit(f"chip_smoke: {SRC}/repro_torch is not importable ({exc}): run "
+             f"from a checkout of the repository")
 
 F32_TOL = 2e-4   # DESIGN.md §4: f32 port == reference
 BF16_TOL = 2e-2  # DESIGN.md §4: bf16 forward within 2e-2 of the f32 reference
 BF16_GRAD_TOL = 5e-2  # DESIGN.md §4: bf16 grads within 5e-2 of f32
-PEAK_FFMA_FLOPS = 67e12    # H100 SXM, f32 on the CUDA cores (published, 700 W)
-PEAK_TF32_FLOPS = 495e12   # H100 SXM, dense TF32 tensor cores (published, 700 W)
-# f32-accurate products as three TF32 passes on the tensor cores (3xTF32,
-# csrc/tc_common.cuh): 165 TFLOP/s, 2.5x the CUDA cores.
-PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
-# The least time of f32 work: the faster of the two routes.
-PEAK_F32_FLOPS = max(PEAK_FFMA_FLOPS, PEAK_3XTF32_FLOPS)
-PEAK_BF16_FLOPS = 989e12   # H100 SXM, dense tensor cores (published, 700 W)
-PEAK_BYTES = 3.35e12       # H100 SXM HBM3 (published)
 DEVICE = "cuda"
 WINDOW_REQUESTS = 500      # requests per precision in the sustained window
 TRAIN_STEPS = 20           # AdamW steps on one batch: the loss must fall
@@ -287,7 +311,6 @@ WGRAD_REPLACES = "src/repro/kernels/engine.py:634"
 BLOCK_SOURCE = "src/repro_torch/csrc/fused_block.cu"
 WGRAD_SOURCE = "src/repro_torch/csrc/fused_wgrad.cu"
 BACKWARD = ("gz_recompute", "dx_adjoint", "wgrad")
-PARTIAL_LAUNCHES = ("rdft", "cdft", "icdft", "irdft", "core")
 SPECTRAL = ("spectral_fwd", "spectral_dx", "spectral_wgrad")
 DTYPES = ("float32", "bfloat16")
 ROWS_SOURCE = "src/repro_torch/csrc/dft_rows.cu"
@@ -370,169 +393,6 @@ def check(name: str, err: float, tol: float) -> None:
     log(f"  {name}: scaled_err={err:.3e} tol={tol:.0e} {status}")
     if err > tol:
         raise AssertionError(f"{name}: error {err:.3e} > {tol:.0e}")
-
-
-def block_flops(b, h, o, spatial, modes) -> float:
-    """Least operations of one fused block forward: a real FFT of each input
-    and each output channel (2.5·N·log2 N for N points), the CGEMM (8 per
-    complex multiply-add) and the bypass (2 per multiply-add)."""
-    pts, kk = math.prod(spatial), math.prod(modes)
-    fft = 2.5 * pts * math.log2(pts)
-    return b * ((h + o) * fft + 8 * o * h * kk + 2 * o * h * pts)
-
-
-def dense_dft_flops(b, h, o, spatial, modes) -> int:
-    """Operations of one fused block forward as the kernel computes it:
-    dense truncated-DFT stages, CGEMM, padded inverse stages, bypass."""
-    r = len(spatial)
-    macs = 0
-    cur = list(spatial)  # forward: axis s_R first, real input then complex
-    for i, ax in enumerate(range(r - 1, -1, -1)):
-        rest = math.prod(n for j, n in enumerate(cur) if j != ax)
-        macs += h * rest * spatial[ax] * modes[ax] * (2 if i == 0 else 4)
-        cur[ax] = modes[ax]
-    macs += o * h * math.prod(modes) * 4  # CGEMM
-    cur = list(modes)  # inverse: axis s_1 first, real output last
-    for ax in range(r):
-        rest = math.prod(n for j, n in enumerate(cur) if j != ax)
-        macs += o * rest * modes[ax] * spatial[ax] * (2 if ax == r - 1 else 4)
-        cur[ax] = spatial[ax]
-    macs += o * h * math.prod(spatial)  # bypass
-    return 2 * b * macs
-
-
-def wgrad_flops(b, h, o, spatial, modes) -> float:
-    """Least operations of the weight gradients: a real FFT of each x and
-    each gz channel, the spectral reduction (8 per complex multiply-add),
-    the dW_b reduction (2 per multiply-add) and dbias (1 per add)."""
-    return block_flops(b, h, o, spatial, modes) + b * o * math.prod(spatial)
-
-
-def bound_parts(kind, b, h, o, spatial, modes, elem_bytes, peak_flops,
-                per_mode=False, ends=None):
-    """(ms by bytes, ms by operations) of one launch of `kind` on the card:
-    each input read once and each output written once over the memory
-    rate, and the least operations over the peak rate for the element
-    type.
-
-    block_fwd reads x, the weights and the operands and writes y;
-    block_linear (the TP-partial block) does the same and writes y in
-    f32; gz_recompute reads gy too and writes gz; dx_adjoint reads gz and
-    writes dx (the same work with H and O swapped); wgrad reads x and gz
-    and writes the f32 weight gradients; the bare layer's spectral_fwd,
-    spectral_dx and spectral_wgrad do the same without the bypass, the
-    bias and dW_b;
-    the partial variant's launches as ``partial_work`` counts them;
-    block_ends (a block with the model's end MLPs, ends=(C_in, L, Lp,
-    C_out), L=0 without the lift, Lp=0 without the projection) reads the
-    raw input [B,C_in,s…] with the lift and writes [B,C_out,s…] with the
-    projection, reads the MLPs' weights once, and adds their
-    multiply-adds (2 operations each; the tanh of their GELUs is not
-    counted).
-    Spectral weights count 2·O·H elements shared and 2·O·H·ΠK per-mode
-    (read once, and written once by wgrad);
-    the operations are the same for both, as a shared W is applied at
-    every mode too."""
-    pts, kk = math.prod(spatial), math.prod(modes)
-    mats = sum(2 * 2 * n * k for n, k in zip(spatial, modes))  # 4R operands
-    act_in, act_out = b * h * pts, b * o * pts
-    spec_w = 2 * o * h * (kk if per_mode else 1)
-    weights = spec_w + o * h + o
-    flops = block_flops(b, h, o, spatial, modes)
-    if kind == "block_fwd":
-        nbytes = elem_bytes * (act_in + act_out + weights + mats)
-    elif kind == "block_linear":
-        nbytes = elem_bytes * (act_in + weights + mats) + 4 * act_out
-    elif kind == "gz_recompute":
-        nbytes = elem_bytes * (act_in + 2 * act_out + weights + mats)
-    elif kind == "dx_adjoint":
-        nbytes = elem_bytes * (act_out + act_in + spec_w + o * h + mats)
-    elif kind in ("spectral_fwd", "spectral_dx"):  # no bypass, no bias
-        nbytes = elem_bytes * (act_in + act_out + spec_w + mats)
-        flops -= b * 2 * o * h * pts
-    elif kind == "spectral_wgrad":  # dW only
-        nbytes = elem_bytes * (act_in + act_out + mats) + 4 * spec_w
-        flops -= b * 2 * o * h * pts
-    elif kind == "block_ends":
-        cin, lw, lp, cout = ends
-        a_in = b * (cin if lw else h) * pts
-        a_out = b * (cout if lp else o) * pts
-        mlp = ((lw * cin + lw + h * lw + h if lw else 0)
-               + (lp * o + lp + cout * lp + cout if lp else 0))
-        nbytes = elem_bytes * (a_in + a_out + weights + mats + mlp)
-        flops += 2 * b * pts * ((lw * (cin + h) if lw else 0)
-                                + (lp * (o + cout) if lp else 0))
-    elif kind in PARTIAL_LAUNCHES:
-        flops, elems = partial_work(kind, b, h, o, spatial, modes, per_mode)
-        nbytes = elem_bytes * elems
-    else:
-        nbytes = elem_bytes * (act_in + act_out + mats) + 4 * weights
-        flops = wgrad_flops(b, h, o, spatial, modes)
-    return 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / peak_flops
-
-
-def bound_ms(kind, b, h, o, spatial, modes, elem_bytes, peak_flops,
-             per_mode=False, ends=None):
-    """Least time for one launch of `kind` on the card, the larger of
-    ``bound_parts``; returns (ms, "bytes"|"operations")."""
-    t_bytes, t_ops = bound_parts(kind, b, h, o, spatial, modes, elem_bytes,
-                                 peak_flops, per_mode, ends)
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
-def cgemm_bound_parts(m, k, n, elem_bytes, peak_flops):
-    """(ms by bytes, ms by operations) of one (M,K)·(K,N) complex product:
-    the A, B and C planes each moved once, 8 operations per complex
-    multiply-add."""
-    nbytes = elem_bytes * 2 * (m * k + k * n + m * n)
-    return 1e3 * nbytes / PEAK_BYTES, 1e3 * 8 * m * k * n / peak_flops
-
-
-def cgemm_bound(m, k, n, elem_bytes, peak_flops):
-    """Least time of the complex product, the larger of
-    ``cgemm_bound_parts``; returns (ms, "bytes"|"operations")."""
-    t_bytes, t_ops = cgemm_bound_parts(m, k, n, elem_bytes, peak_flops)
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
-def fft_flops(n: int, real: bool) -> float:
-    """Least operations of one FFT of n points: 2.5·n·log2 n for real
-    input or output, 5·n·log2 n complex (the convention of
-    ``block_flops``)."""
-    return (2.5 if real else 5.0) * n * math.log2(n) if n > 1 else 0.0
-
-
-def partial_work(kind, b, h, o, spatial, modes, per_mode=False):
-    """(least operations, elements moved) of one partial-variant launch at
-    a block of B=b, H=h, O=o: each row read once and each output written
-    once (operands too), against FFTs of the transformed axes.
-
-    rdft: the b·h·s_1 rows over the outer axes s_2..s_R (one real FFT of
-    all outer points each), reading the per-axis factor pairs the launch
-    takes (2·Σ n_j·k_j elements: the one-axis operand at rank 2, never the
-    Kronecker operand at rank 3); irdft: the b·o·s_1 rows back; cdft / icdft:
-    the s_1 stage as a row launch over b·h·P (b·o·P) rows of s_1 points
-    (complex FFTs; P = Πk_2..k_R); core: z and y pairs, W, both s_1
-    operands, an s_1 FFT of every (b, channel, p) column each way and the
-    CGEMM (8 per complex multiply-add); per-mode W holds 2·O·H·K_1·P
-    elements."""
-    n1, k1 = spatial[0], modes[0]
-    n_out, p = math.prod(spatial[1:]), math.prod(modes[1:])
-    factors = 2 * sum(n * k for n, k in zip(spatial[1:], modes[1:]))
-    if kind == "rdft":
-        rows = b * h * n1
-        return (rows * fft_flops(n_out, True),
-                rows * (n_out + 2 * p) + factors)
-    if kind == "irdft":
-        rows = b * o * n1
-        return (rows * fft_flops(n_out, True),
-                rows * (2 * p + n_out) + factors)
-    if kind in ("cdft", "icdft"):
-        rows = b * (h if kind == "cdft" else o) * p
-        return rows * fft_flops(n1, False), rows * 2 * (n1 + k1) + 2 * n1 * k1
-    w = 2 * o * h * (k1 * p if per_mode else 1)
-    return (b * p * ((h + o) * fft_flops(n1, False) + 8 * o * h * k1),
-            2 * b * p * n1 * (h + o) + w + 4 * n1 * k1)
 
 
 def core_w_bytes(engine, torch, dtype, b, h, o, spatial, modes,
@@ -3489,6 +3349,160 @@ def phase_mesh(torch, np, configs, fno_mod, sfs, ts, optim, tree, engine,
     log(f"  one-rank references graphed: {sorted(set(servers.values()))}")
     return launches, cards
 
+TUNED_ARCHS = ("fno2d", LARGE, FNO3D)  # phase 34's cached entries
+TUNED_SERVED = ("fno2d", FNO3D)          # served and trained both ways
+
+
+def tuned_entries(configs, autotune, kinds, batches):
+    """(workload, entry) of every fresh cached entry of phase 34's presets
+    at these batches (f32 and bf16)."""
+    from repro_torch.tuning import store
+    out = []
+    for w in autotune.workloads(TUNED_ARCHS, autotune.DTYPES, kinds,
+                                batches):
+        fields = store.lookup(w.key, w.hidden, w.hidden, w.spatial,
+                              w.modes)
+        if fields is None:
+            raise AssertionError(f"{w.key}: no fresh cached entry for a "
+                                 f"tuned preset")
+        out.append((w, fields))
+    return out
+
+
+def serve_both_ways(torch, configs, fno_mod, sfs, engine, cfg, rule):
+    """Phase 34's serving: one bucket at K=1 and K=4 through a server at
+    the cached plans and one whose config pins the block forward's rule
+    plan (`rule`): exact launches, equal outputs."""
+    params = fno_mod.init_fno(torch.Generator().manual_seed(34), cfg, DEVICE)
+    x = torch.randn((4, cfg.in_channels) + tuple(cfg.spatial),
+                    generator=torch.Generator().manual_seed(3400)).to(DEVICE)
+    pinned = configs.with_block_plan(cfg, **rule)
+    ys = {}
+    for name, c in (("cache", cfg), ("rule", pinned)):
+        srv = sfs.FNOServer(c, params, device=DEVICE, max_batch=4)
+        for k in (1, 4):
+            srv(x, rollout_steps=k)  # build and capture outside the count
+            torch.cuda.synchronize()
+            engine.LAUNCHES.clear()
+            ys[(name, k)] = srv(x, rollout_steps=k)
+            torch.cuda.synchronize()
+            want = {key: v * k for key, v in
+                    per_step_launches(c, "full", engine).items()}
+            if dict(engine.LAUNCHES) != want:
+                raise AssertionError(f"{cfg.name} {name} K={k}: ran "
+                                     f"{dict(engine.LAUNCHES)}, want {want}")
+    tol = F32_TOL if cfg.precision.compute_dtype == "float32" else BF16_TOL
+    for k in (1, 4):
+        check(f"{cfg.name} {cfg.precision.compute_dtype} served K={k}, "
+              f"cached plans vs rule plan", rel_err(ys[("cache", k)],
+                                                    ys[("rule", k)]), tol)
+
+
+def train_both_ways(torch, fno_mod, batch_fn, tree, ts, engine, store, cfg):
+    """Phase 34's training: the loss and every grad of one batch-8 step at
+    the cached plans and at the rule plans (the cache switched off):
+    exactly num_layers launches of each whole-block kind, equal grads."""
+    params = fno_mod.init_fno(torch.Generator().manual_seed(34), cfg, DEVICE)
+    batch = batch_fn(cfg, 8, DEVICE)(0)
+    loss_fn = ts.make_loss_fn(cfg, fno_path="fused")
+    got = {}
+    for name in ("cache", "rule"):
+        with store.disabled() if name == "rule" else contextlib.nullcontext():
+            ts.value_and_grad(loss_fn, params, batch)  # warm
+            torch.cuda.synchronize()
+            engine.LAUNCHES.clear()
+            got[name] = ts.value_and_grad(loss_fn, params, batch)
+            torch.cuda.synchronize()
+        dt = cfg.precision.compute_dtype
+        want = {(k, dt): cfg.num_layers for k in ("block_fwd",) + BACKWARD}
+        if dict(engine.LAUNCHES) != want:
+            raise AssertionError(f"{cfg.name} train at the {name} plans ran "
+                                 f"{dict(engine.LAUNCHES)}, want {want}")
+    (l1, g1), (l2, g2) = got["cache"], got["rule"]
+    err = max([abs(float(l1) - float(l2)) / max(abs(float(l2)), 1e-30)]
+              + [leaf_err(a, b) for a, b in zip(tree.leaves(g1),
+                                                tree.leaves(g2))])
+    check(f"{cfg.name} train step, cached plans vs rule plans (loss and "
+          f"every grad)", err, F32_TOL)
+
+
+def phase_tuned(torch, configs, fno_mod, sfs, engine, build, batch_fn, tree,
+                ts, card):
+    """Phase 34: the tuned plans. The cache is fresh; every cached entry
+    of fno2d, fno2d-large and fno3d at B=8 and B=1 holds against its plain
+    version; each entry of theirs (B=1, 2, 4, 8) whose plan differs from
+    the rule plan on this card is timed against it in turns (tuned, rule,
+    rule, tuned), queued; fno2d and fno3d served and trained at the cached
+    plans against the rule plans; the launch lint at full width and the
+    shared-memory check of every preset with the card's libraries."""
+    from repro_torch.analysis import errors, format_findings, smem
+    from repro_torch.launch import lint
+    from repro_torch.tuning import autotune, store
+    log("== phase 34: tuned plans")
+    libs = {"block": build.load_fused_block(),
+            "wgrad": build.load_fused_wgrad(),
+            "core": build.load_fused_core()}
+    stale = errors(store.check_tuning_cache(core_lib=libs["core"]))
+    if stale:
+        raise AssertionError("the tuned plan cache is stale:\n"
+                             + format_findings(stale))
+    log(f"  check_tuning_cache: clean ({len(store.load_cache()['entries'])} "
+        f"entries)")
+    kinds = ("block_fwd", "core", "gz_recompute", "dx_adjoint", "wgrad")
+    t0 = time.perf_counter()
+    for w, fields in tuned_entries(configs, autotune, kinds, (8, 1)):
+        probe = autotune.Probe(w, DEVICE, seed=34)
+        outs = probe.run(tuple(sorted(fields.items())))
+        torch.cuda.synchronize()
+        err = max(rel_err(a, r) for a, r in zip(outs, probe.refs))
+        check(f"{w.key} at its cached plan {fields}", err, probe.tol)
+        del probe, outs
+    log(f"  every entry at B=8 and B=1 against its plain version: "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows = {}
+    for w, fields in tuned_entries(configs, autotune, kinds, (1, 2, 4, 8)):
+        rule = autotune.fields_of(w.kind, autotune._plan(
+            w, None, libs[engine.kernel_of(w.kind)]))
+        if rule == fields:
+            continue
+        probe = autotune.Probe(w, DEVICE, seed=34)
+        run = lambda f: (lambda: probe.run(tuple(sorted(f.items()))))
+        t = [time_ms(run(f), 10, queued=True)
+             for f in (fields, rule, rule, fields)]
+        faster = t[0] < t[1] and t[3] < t[2]
+        rows[w.key] = {"tuned": fields, "rule": rule,
+                       "tuned_ms": [t[0], t[3]], "rule_ms": [t[1], t[2]],
+                       "faster_both_turns": faster}
+        log(f"  {w.key}: tuned {fields} {t[0]:.4f}, {t[3]:.4f} ms; rule "
+            f"{rule} {t[1]:.4f}, {t[2]:.4f} ms (turns tuned, rule, rule, "
+            f"tuned; queued; {card}); tuned faster in both: {faster}")
+    log(f"  {len(rows)} entries differ from the rule plan on this card "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    for arch in TUNED_SERVED:
+        base = dataclasses.replace(configs.with_fuse_block(
+            configs.get_config(arch)), path="fused")
+        for dt in ("f32", "bf16"):
+            cfg = configs.with_precision(base, dt)
+            rule = autotune.fields_of("block_fwd", engine.plan_launch(
+                "block_fwd", getattr(torch, cfg.precision.compute_dtype), 4,
+                cfg.hidden, cfg.hidden, cfg.spatial, cfg.modes,
+                lib=libs["block"]))
+            serve_both_ways(torch, configs, fno_mod, sfs, engine, cfg, rule)
+        train_both_ways(torch, fno_mod, batch_fn, tree, ts, engine, store,
+                        base)
+    log(f"  served and trained both ways: {time.perf_counter() - t0:.1f} s")
+    findings = lint.run_checks(("launches", "casts"), "cuda", log=log)
+    findings += smem.check_smem(libs=libs)
+    if errors(findings):
+        raise AssertionError("launch lint at full width:\n"
+                             + format_findings(errors(findings)))
+    log(f"  launch lint (fno2d at full width) and check_smem (every preset, "
+        f"the card's libraries): clean ({len(findings)} warnings)")
+    return rows
+
+
 
 def main() -> int:
     import numpy as np
@@ -3685,6 +3699,8 @@ def main() -> int:
     mesh_launches, cards = timed("33 mesh", phase_mesh, torch, np, configs,
                                  fno_mod, sfs, ts, optim, tree, engine,
                                  batch_fn)
+    tuned = timed("34", phase_tuned, torch, configs, fno_mod, sfs, engine,
+                  build, batch_fn, tree, ts, card)
     for row in shard_rows:  # the launches at each shard shape, every rank
         mesh, names = SHARD_RUNS[row.pop("shard")]
         dt = row.pop("dtype")
@@ -3748,6 +3764,8 @@ def main() -> int:
         f"(mesh, case), every rank: " + json.dumps(
             {f"dp{m[0]}xtp{m[1]} {n}": dict(v)
              for (m, n), v in mesh_launches.items()}))
+    log(f"tuned plans against the rule plan at B=8 ({card}): "
+        f"{json.dumps(tuned)}")
     log(f"phase seconds: {json.dumps(seconds)}")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -1,14 +1,16 @@
 """Precision policy and FNO configuration (counterpart of the FNO part of
 ``repro/configs/base.py``).
 
-The reference's tuned block plans are not ported: the CUDA kernels plan
-their own launches (``kernels/engine.py``).
+``FNOConfig.block_plan`` overrides the fused launches' plans field by
+field (``repro_torch.tuning``); the reference's (bb, bo, bh) triple is a
+TPU tiling and has no counterpart: the CUDA kernels' plans have their own
+fields.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -94,6 +96,13 @@ class FNOConfig:
     # The scattered layout's reduce-scatter as a ring of tp-1 point-to-point
     # hops instead of one collective (same sum, same shard).
     tp_overlap: bool = False
+    # An explicit override of the fused launches' plans: sorted (field,
+    # value) pairs of ``tuning.plans.FIELDS`` (the block kernel's cluster,
+    # chain, rows_f, rows_i; the wgrad's cols; the core's np, nb, kc, ri,
+    # wj), each launch taking the fields its kernel has. None (the
+    # default): the tuned cache, then the rule planner
+    # (``tuning.resolve_plan``). See configs.fno.with_block_plan.
+    block_plan: Optional[Tuple[Tuple[str, Any], ...]] = None
 
     @property
     def precision(self) -> PrecisionPolicy:
@@ -127,3 +136,15 @@ class FNOConfig:
         if self.tp_layout not in ("scatter", "psum"):
             raise ValueError(f"{self.name}: tp_layout must be 'scatter' or "
                              f"'psum', got {self.tp_layout!r}")
+        if self.block_plan is not None:
+            from repro_torch.tuning.plans import normalize_override
+            try:
+                ok = normalize_override(self.block_plan) == tuple(
+                    self.block_plan)
+            except (TypeError, ValueError) as exc:
+                raise ValueError(f"{self.name}: block_plan: {exc}") from None
+            if not ok:
+                raise ValueError(
+                    f"{self.name}: block_plan must be sorted (field, value) "
+                    f"pairs without zero fields, as with_block_plan makes "
+                    f"them, got {self.block_plan!r}")

@@ -6,8 +6,10 @@ the reference's end-to-end training target (per-mode weights, hidden 128);
 (shared weights, as the reference reduces ``fno2d-large`` too).
 """
 import dataclasses
+from typing import Optional
 
 from repro_torch.configs.base import FNOConfig, PrecisionPolicy
+from repro_torch.tuning.plans import normalize_override
 
 
 def with_precision(cfg: FNOConfig, dtype: str) -> FNOConfig:
@@ -37,6 +39,26 @@ def with_fuse_ends(cfg: FNOConfig, on: bool = True) -> FNOConfig:
     projection MLP into the last one (fused path with fuse_block; ignored
     otherwise)."""
     return dataclasses.replace(cfg, fuse_ends=on)
+
+
+def with_block_plan(cfg: FNOConfig, *, cluster: int = 0,
+                    chain: Optional[str] = None, rows_f: int = 0,
+                    rows_i: int = 0, cols: int = 0, np: int = 0,
+                    nb: int = 0, kc: int = 0, ri: int = 0,
+                    wj: int = 0) -> FNOConfig:
+    """Pin fields of the fused launches' plans, over the tuned cache
+    (``repro_torch.tuning``): 0 or None keeps the resolved value. Each
+    launch takes the fields its kernel has: the block kernel's cluster,
+    chain ("tc" / "fma"), rows_f and rows_i (s_1 rows of a forward and an
+    inverse chunk); the wgrad's cluster, chain, rows_f and cols (points of
+    a dW_b chunk); the core's cluster, np, nb, kc, ri and wj. A field the
+    planner refuses raises at the launch (ValueError naming it). Composes
+    with :func:`with_precision` / :func:`with_fuse_block`."""
+    pins = dict(cluster=cluster, chain=chain, rows_f=rows_f, rows_i=rows_i,
+                cols=cols, np=np, nb=nb, kc=kc, ri=ri, wj=wj)
+    out = dataclasses.replace(cfg, block_plan=normalize_override(pins))
+    out.validate()
+    return out
 
 
 def fno1d() -> FNOConfig:

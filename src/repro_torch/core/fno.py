@@ -111,7 +111,8 @@ def apply_fno(params: Dict[str, Any], cfg: FNOConfig, x: torch.Tensor,
     block as the whole-block kernels, and without it each spectral conv as
     the spectral-layer kernels with the rest of the block in PyTorch;
     `variant` picks full or partial fusion there (the oracle paths compute
-    the same function either way)."""
+    the same function either way). Every launch takes ``cfg.block_plan``
+    as its plan's override."""
     path = path or cfg.path
     pol = cfg.precision
     fuse = path == "fused" and cfg.fuse_block
@@ -150,10 +151,11 @@ def apply_fno(params: Dict[str, Any], cfg: FNOConfig, x: torch.Tensor,
                 blk["spectral"], blk["bypass"], h, cfg.modes, path=path,
                 variant=variant, policy=pol, ends=ends,
                 tp_layout=cfg.tp_layout if i < last else "psum",
-                tp_overlap=cfg.tp_overlap)
+                tp_overlap=cfg.tp_overlap, plan=cfg.block_plan)
             continue
         s = sc.apply_spectral_nd(blk["spectral"], h, cfg.modes, path=path,
-                                 variant=variant, policy=pol)
+                                 variant=variant, policy=pol,
+                                 plan=cfg.block_plan)
         h = _gelu(s.to(h.dtype) + _dense(blk["bypass"], h))
     if ends_on:
         return h
@@ -165,8 +167,8 @@ def apply_fno(params: Dict[str, Any], cfg: FNOConfig, x: torch.Tensor,
 def _partial(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """x [B, C/tp, *sp] · w [C/tp, D], a row-parallel layer's partial, in
     f32 (the sum over ranks runs at the accumulator dtype)."""
-    return torch.einsum("bc...,cd->bd...", x.to(torch.float32),
-                        w.to(x.dtype).to(torch.float32))
+    f32 = torch.float32  # lint: allow-dtype (the TP partial's sum dtype)
+    return torch.einsum("bc...,cd->bd...", x.to(f32), w.to(x.dtype).to(f32))
 
 
 def _add(z: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

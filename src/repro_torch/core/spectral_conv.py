@@ -43,15 +43,17 @@ def init_spectral_nd(gen: torch.Generator, in_ch: int, out_ch: int,
 def apply_spectral_nd(params: Dict[str, torch.Tensor], x: torch.Tensor,
                       modes: Sequence[int], *, path: str = "staged",
                       variant: str = "full",
-                      policy: Optional[PrecisionPolicy] = None
-                      ) -> torch.Tensor:
+                      policy: Optional[PrecisionPolicy] = None,
+                      plan=None) -> torch.Tensor:
     """x: [B, C_in, *spatial] -> [B, C_out, *spatial]: the bare spectral
     layer, on the fused path the paper's fused FFT→CGEMM→iFFT with its
     fused backward (`variant` "full" or "partial"; at rank 1 both are the
     one launch, as the reference's ``apply_spectral_1d`` has no variant),
-    or an oracle path ("ref"/"staged")."""
+    or an oracle path ("ref"/"staged"). plan: an override of the launches'
+    plans (``FNOConfig.block_plan``)."""
     return ops.spectral_layer_nd(x, params["wr"], params["wi"], modes,
-                                 path=path, variant=variant, policy=policy)
+                                 path=path, variant=variant, policy=policy,
+                                 plan=plan)
 
 
 def apply_fno_block_nd(spec_params: Dict[str, torch.Tensor],
@@ -61,7 +63,8 @@ def apply_fno_block_nd(spec_params: Dict[str, torch.Tensor],
                        policy: Optional[PrecisionPolicy] = None,
                        ends: Optional[Tuple] = None,
                        tp_layout: str = "psum",
-                       tp_overlap: bool = False) -> torch.Tensor:
+                       tp_overlap: bool = False,
+                       plan=None) -> torch.Tensor:
     """One whole FNO block — gelu(spectral(x) + 1×1 bypass + bias) — as a
     single kernel launch on the fused path (variant="full"), or the paper's
     partial fusion (variant="partial": row DFT, fused core, row iDFT, then
@@ -81,7 +84,8 @@ def apply_fno_block_nd(spec_params: Dict[str, torch.Tensor],
     a reduce-scatter into the next layer's hidden shard, as a ring with
     `tp_overlap`; "psum": an all-reduce). Only the fused path runs there:
     the "staged" and "ref" oracles raise. The single-rank path ignores
-    tp_layout and tp_overlap."""
+    tp_layout and tp_overlap. plan: an override of every launch's plan
+    (``FNOConfig.block_plan``)."""
     wb = byp_params["w"].transpose(0, 1)
     ctx = shd.active_context()
     if ctx is not None:
@@ -89,12 +93,12 @@ def apply_fno_block_nd(spec_params: Dict[str, torch.Tensor],
         return ops.fno_block_nd_sharded(
             x, spec_params["wr"], spec_params["wi"], wb, byp_params["b"],
             tuple(modes), ctx=ctx, variant=variant, policy=policy,
-            tp_layout=tp_layout, tp_overlap=tp_overlap, ends=ends)
+            tp_layout=tp_layout, tp_overlap=tp_overlap, ends=ends, plan=plan)
     if ends is not None and any(e is not None for e in ends):
         return ops.fno_block_ends_nd(
             x, spec_params["wr"], spec_params["wi"], wb, byp_params["b"],
             tuple(modes), lift=ends[0], proj=ends[1], path=path,
-            variant=variant, policy=policy)
+            variant=variant, policy=policy, plan=plan)
     return ops.fno_block_nd(x, spec_params["wr"], spec_params["wi"], wb,
                             byp_params["b"], tuple(modes), path=path,
-                            variant=variant, policy=policy)
+                            variant=variant, policy=policy, plan=plan)

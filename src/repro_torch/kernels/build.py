@@ -53,17 +53,26 @@ def _ptxas_lines(log: str) -> List[str]:
                                         or "Compiling" in ln))]
 
 
+def source_digest(name: str, defines: Sequence[str] = ()) -> str:
+    """The hash a build of ``csrc/<name>.cu`` is keyed by: the source, the
+    shared headers (``csrc/*.cuh``) and the flags. Its build directory is
+    named by it, and the tuned plan cache (``repro_torch.tuning``) stamps
+    it, so a change to any of them rebuilds the kernel and makes its tuned
+    plans stale."""
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    text = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    return hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
+
+
 def build(name: str, defines: Sequence[str] = ()) -> Path:
     """Compile ``csrc/<name>.cu``, with ``-D`` for each of `defines`, into
-    ``lib<name>.so`` under a directory keyed by the hash of the source and
-    the flags; return its path and record ``BUILD_INFO``."""
+    ``lib<name>.so`` under a directory keyed by ``source_digest``; return
+    its path and record ``BUILD_INFO``."""
     src = CSRC / f"{name}.cu"
     flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     key = " ".join([name, *flags[len(NVCC_FLAGS):]])
-    text = src.read_bytes() + b"".join(
-        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
-    out_dir = BUILD_ROOT / digest
+    out_dir = BUILD_ROOT / source_digest(name, defines)
     lib = out_dir / f"lib{name}.so"
     log_path = out_dir / f"{name}.ptxas.log"
     if lib.exists():

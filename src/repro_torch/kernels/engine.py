@@ -56,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.roofline.hw import SMEM_PER_BLOCK as _SMEM_LIMIT
 
 _F32 = torch.float32
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -114,7 +115,6 @@ _MAX_ACC = 4
 _MAX_PT = 9
 _PORTABLE_CLUSTER = 8  # cluster size every Hopper part schedules
 _MAX_CLUSTER = 16  # Hopper's non-portable cluster size
-_SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block can use
 BATCH_BLOCK = 1    # samples per cluster: the serving quantum
 
 
@@ -342,32 +342,69 @@ def _tc_rows(spatial, fits: Callable[[int], bool]) -> int:
     return rows
 
 
-def _check_smem(smem: int, what: str, hidden, out, spatial, modes) -> None:
+class PlanRefused(ValueError):
+    """A plan the planner refuses. `field` names the pinned plan field it
+    refuses (``FNOConfig.block_plan``, a tuned entry, ``plan=`` of a
+    wrapper), or is None where the shape itself cannot be planned."""
+
+    def __init__(self, field: Optional[str], msg: str):
+        super().__init__(msg if field is None else
+                         f"plan field {field!r} refused: {msg}")
+        self.field = field
+
+
+def _check_smem(smem: int, what: str, hidden, out, spatial, modes,
+                field: Optional[str] = None) -> None:
     if smem > _SMEM_LIMIT:
-        raise ValueError(
+        raise PlanRefused(field, (
             f"{what} needs {smem} B of shared memory for hidden={hidden} "
             f"out={out} spatial={tuple(spatial)} modes={tuple(modes)} "
-            f"(limit {_SMEM_LIMIT}); this shape needs a tiled kernel")
+            f"(limit {_SMEM_LIMIT}); this shape needs a tiled kernel"))
 
 
-def _grow(plan_fn: Callable, max_cluster: int, *args) -> Dict[str, int]:
+def _grow(plan_fn: Callable, max_cluster: int, *args,
+          **pins) -> Dict[str, int]:
     """`plan_fn` at `max_cluster`, or at Hopper's clusters of 16 when the
     smaller cluster cannot hold the shape (too many out channels per block
     or too much shared memory); raises the larger cluster's ValueError when
     neither can."""
     try:
-        return plan_fn(*args, max_cluster)
+        return plan_fn(*args, max_cluster, **pins)
     except ValueError:
         if max_cluster >= _MAX_CLUSTER:
             raise
-        return plan_fn(*args, _MAX_CLUSTER)
+        return plan_fn(*args, _MAX_CLUSTER, **pins)
+
+
+def _rows_range(kind: str, spatial, modes) -> Tuple[int, int, int]:
+    """(least, most, step) of a forward chunk's s_1 rows (rank 1: points)
+    on chain `kind`: the tensor cores' up to ``_TC_ROWS`` (rank 1 in
+    multiples of 16 points), the CUDA cores' up to ``_chain_rows``."""
+    if kind == "tc":
+        step = 16 if len(spatial) == 1 else 1
+        return step, min(_pad(spatial[0], step), _TC_ROWS[len(spatial)]), step
+    return 1, _chain_rows(spatial, modes), 1
+
+
+def _pinned_rows(field: str, v: int, lo: int, hi: int, step: int,
+                 fits: bool) -> None:
+    """Refuse a pinned chunk size outside [lo, hi] in steps of `step`, or
+    whose layout does not fit."""
+    if not (lo <= v <= hi and v % step == 0):
+        raise PlanRefused(field, f"{field}={v} is outside {lo}..{hi}"
+                          + (f" in steps of {step}" if step > 1 else ""))
+    if not fits:
+        raise PlanRefused(field, f"{field}={v} does not fit the "
+                          f"{_SMEM_LIMIT} B of shared memory (or the "
+                          f"registers' tiles) of a block")
 
 
 def launch_plan(hidden: int, out: int, spatial: Sequence[int],
                 modes: Sequence[int], max_cluster: int = _PORTABLE_CLUSTER,
                 per_mode: bool = False,
                 ends: Optional[Tuple[int, int, int, int]] = None,
-                chain: Optional[str] = None) -> Dict[str, int]:
+                chain: Optional[str] = None, rows_f: int = 0,
+                rows_i: int = 0) -> Dict[str, int]:
     """The block kernel's cluster size, channel slices, chunk rows, phase
     1's chain and shared memory, at clusters of up to `max_cluster` blocks
     or of 16 when those cannot hold the shape; raises ValueError for shapes
@@ -395,10 +432,16 @@ def launch_plan(hidden: int, out: int, spatial: Sequence[int],
     and a piece's inner activation and lifted state, [L][ep] and [H][ep];
     in phase 3, over the inverse chain's stages, the bypass piece
     [max(L,O)][ep] with [H][ep]; the projection a piece's [O][ep] channels,
-    [Lp][ep] hidden units and [C_out][ep] outputs."""
+    [Lp][ep] hidden units and [C_out][ep] outputs.
+
+    rows_f / rows_i (0: the planner's) pin a chunk's rows: rows_f within
+    the chain's range (rank 1's tensor-core chain a multiple of 16 points)
+    where phase 1 fits at it, rows_i where phase 3 does; otherwise
+    ``PlanRefused`` naming the field."""
     return dict(_grow(_launch_plan, max_cluster, hidden, out,
                       tuple(spatial), tuple(modes), per_mode,
-                      tuple(ends) if ends is not None else None, chain))
+                      tuple(ends) if ends is not None else None, chain,
+                      rows_f=rows_f, rows_i=rows_i))
 
 
 def _inv_bytes(spatial, modes, os_, rows_i, wl, dp):
@@ -470,16 +513,18 @@ def _block_layout(esize, hidden, out, spatial, modes, hs, os_, rows_f,
             "tiles": tiles}
 
 
-@functools.lru_cache(maxsize=256)
+@functools.lru_cache(maxsize=1024)
 def _launch_plan(hidden, out, spatial, modes, per_mode, ends, chain,
-                 max_cluster):
+                 max_cluster, rows_f=0, rows_i=0):
     if chain not in (None,) + CHAINS:
-        raise ValueError(f"chain must be one of {CHAINS}, got {chain!r}")
+        raise PlanRefused("chain", f"chain must be one of {CHAINS}, got "
+                                   f"{chain!r}")
     cl, hs, os_ = _cluster_slices(hidden, out, max_cluster)
     _, lift, lp, cout = ends if ends is not None else (0, 0, 0, 0)
+    pinned_chain = chain is not None
     if lift:
         if chain == "tc":
-            raise ValueError("the lift feeds the CUDA cores' chain")
+            raise PlanRefused("chain", "the lift feeds the CUDA cores' chain")
         chain = "fma"
     # The ends: the most points a block of a piece (the pieces' count
     # bounds those launches) at one s_1 row a chunk, then the most rows.
@@ -497,25 +542,38 @@ def _launch_plan(hidden, out, spatial, modes, per_mode, ends, chain,
     p3 = lambda ri, wl, dp: lay(1, ri, "fma", wl, dp)["p3"] <= _SMEM_LIMIT
     dp = _most(rows1, lambda v: p3(1, low, v), 4)
     wl = low and _most(_pad(spatial[-1], 8), lambda v: p3(1, v, dp), 8)
-    rows_i = _most(spatial[0], lambda v: p3(v, wl, dp))
-    for kind in ((chain,) if chain is not None else CHAINS):
-        if kind == "tc":
-            rows_f = _tc_rows(spatial, lambda v: lay(v, 1, "tc")["p1"]
-                              <= _SMEM_LIMIT and lay(v, 1, "tc")["tiles"]
-                              <= _WARPS * _MAX_ACC)
+    if rows_i:
+        _pinned_rows("rows_i", rows_i, 1, spatial[0], 1,
+                     p3(rows_i, wl, dp))
+    else:
+        rows_i = _most(spatial[0], lambda v: p3(v, wl, dp))
+    fits_f = {"tc": lambda v: lay(v, 1, "tc")["p1"] <= _SMEM_LIMIT and lay(
+                  v, 1, "tc")["tiles"] <= _WARPS * _MAX_ACC,
+              "fma": lambda v: lay(v, 1, "fma")["p1"] <= _SMEM_LIMIT}
+    kinds = (chain,) if chain is not None else CHAINS
+    pin_f = rows_f
+    for kind in kinds:
+        lo, hi, step = _rows_range(kind, spatial, modes)
+        if pin_f:
+            if not (lo <= pin_f <= hi and pin_f % step == 0
+                    and fits_f[kind](pin_f)) and kind != kinds[-1]:
+                continue
+            _pinned_rows("rows_f", pin_f, lo, hi, step, fits_f[kind](pin_f))
+        elif kind == "tc":
+            rows_f = _tc_rows(spatial, fits_f["tc"])
         else:
-            rows_f = _most(_chain_rows(spatial, modes), lambda v: lay(
-                v, 1, "fma")["p1"] <= _SMEM_LIMIT)
+            rows_f = _most(hi, fits_f["fma"])
         got = lay(rows_f, rows_i, kind, wl, dp)
         if got["bytes"] <= _SMEM_LIMIT and got["tiles"] <= _WARPS * _MAX_ACC:
             break
+    field = ("chain" if pinned_chain else "rows_f" if pin_f else None)
     _check_smem(got["bytes"], "fused block kernel", hidden, out, spatial,
-                modes)
+                modes, field)
     if kind == "tc" and got["tiles"] > _WARPS * _MAX_ACC:
-        raise ValueError(
+        raise PlanRefused(field, (
             f"fused block kernel's tensor-core chain holds at most "
             f"{_WARPS * _MAX_ACC} tiles in registers, got {got['tiles']} for "
-            f"hidden={hidden} modes={tuple(modes)}")
+            f"hidden={hidden} modes={tuple(modes)}"))
     plan = {"cluster": cl, "hs": hs, "os": os_, "rows_f": rows_f,
             "rows_i": rows_i, "smem": got["bytes"], "chain": kind, "wl": wl,
             "dp": dp}
@@ -527,7 +585,8 @@ def _launch_plan(hidden, out, spatial, modes, per_mode, ends, chain,
 def wgrad_plan(hidden: int, out: int, spatial: Sequence[int],
                modes: Sequence[int], max_cluster: int = _PORTABLE_CLUSTER,
                per_mode: bool = False,
-               chain: Optional[str] = None) -> Dict[str, int]:
+               chain: Optional[str] = None, rows_f: int = 0,
+               cols: int = 0) -> Dict[str, int]:
     """The weight-gradient kernel's cluster size, channel slices, chunk
     sizes, phase 1's chain and shared memory, at clusters of up to
     `max_cluster` blocks or of 16 when those cannot hold the shape; raises
@@ -541,9 +600,17 @@ def wgrad_plan(hidden: int, out: int, spatial: Sequence[int],
     shared memory the chains take (at least 64 KB); "work" the floats
     after the flag that the per-mode batch reduction stages Ĝ in
     (``wgrad_mode_chunk``). Sized for f32 operands: bf16 ones take no more.
-    Planned once per shape (every launch asks)."""
+    Planned once per shape (every launch asks). rows_f and cols (0: the
+    planner's) pin the chain's rows, as ``launch_plan``'s, and the dW_b
+    chunk's points (one of ``WGRAD_COLS``, at most a block's share of the
+    points, where it fits); otherwise ``PlanRefused`` naming the field."""
     return dict(_grow(_wgrad_plan, max_cluster, hidden, out, tuple(spatial),
-                      tuple(modes), per_mode, chain))
+                      tuple(modes), per_mode, chain, rows_f=rows_f,
+                      cols=cols))
+
+
+# The points a dW_b chunk of the wgrad kernel may take, most first.
+WGRAD_COLS = (_WGRAD_COLS, 128, 64, 32, 16)
 
 
 def _pad(v: int, m: int) -> int:
@@ -616,44 +683,61 @@ def _wgrad_bytes(esize, hidden, out, spatial, modes, hs, os_, rows, cols,
     return nbytes, chain_tiles, tiles
 
 
-@functools.lru_cache(maxsize=256)
-def _wgrad_plan(hidden, out, spatial, modes, per_mode, chain, max_cluster):
+@functools.lru_cache(maxsize=1024)
+def _wgrad_plan(hidden, out, spatial, modes, per_mode, chain, max_cluster,
+                rows_f=0, cols=0):
     if hidden > _THREADS:
         raise ValueError(f"fused wgrad kernel takes at most {_THREADS} "
                          f"hidden channels, got {hidden}")
     if chain not in (None,) + CHAINS:
-        raise ValueError(f"chain must be one of {CHAINS}, got {chain!r}")
+        raise PlanRefused("chain", f"chain must be one of {CHAINS}, got "
+                                   f"{chain!r}")
     cl, hs, os_ = _cluster_slices(hidden, out, max_cluster)
     pts = 1
     for s in spatial:
         pts *= s
     share = max(16, _pad(-(-pts // cl), 16))  # a block's points, padded
-    for kind in ((chain,) if chain is not None else CHAINS):
+    kinds = (chain,) if chain is not None else CHAINS
+    if cols and not (cols in WGRAD_COLS and cols <= share):
+        raise PlanRefused("cols", f"cols={cols} is not one of {WGRAD_COLS} "
+                                  f"up to a block's {share} points")
+    for kind in kinds:
         at = lambda rows, cols, bypass=True, kind=kind: _wgrad_bytes(
             4, hidden, out, spatial, modes, hs, os_, rows, cols, bypass,
             kind)
-        if kind == "tc":
-            rows = _tc_rows(spatial, lambda v: at(v, 16, False)[0]
-                            <= _SMEM_LIMIT)
+        fits = lambda v: at(v, 16, False)[0] <= _SMEM_LIMIT
+        lo, hi, step = _rows_range(kind, spatial, modes)
+        if rows_f:
+            if not (lo <= rows_f <= hi and rows_f % step == 0
+                    and fits(rows_f)) and kind != kinds[-1]:
+                continue
+            _pinned_rows("rows_f", rows_f, lo, hi, step, fits(rows_f))
+            rows = rows_f
+        elif kind == "tc":
+            rows = _tc_rows(spatial, fits)
         else:
-            rows = _most(_chain_rows(spatial, modes),
-                         lambda v: at(v, 16, False)[0] <= _SMEM_LIMIT)
+            rows = _most(hi, fits)
         chains = at(rows, 16, False)[0]
-        cols = 16
-        for c in (_WGRAD_COLS, 128, 64, 32):
+        pick = cols or 16
+        for c in () if cols else WGRAD_COLS[:-1]:
             if c <= share and at(rows, c)[0] <= max(chains, 65536):
-                cols = c
+                pick = c
                 break
-        smem, chain_tiles, tiles = at(rows, cols)
+        smem, chain_tiles, tiles = at(rows, pick)
         if smem <= _SMEM_LIMIT and chain_tiles <= _WARPS * _MAX_ACC:
             break
-    _check_smem(smem, "fused wgrad kernel", hidden, out, spatial, modes)
+    field = ("cols" if cols and at(rows, 16)[0] <= _SMEM_LIMIT
+             else "chain" if chain is not None
+             else "rows_f" if rows_f else None)
+    _check_smem(smem, "fused wgrad kernel", hidden, out, spatial, modes,
+                field)
+    cols = pick
     if chain_tiles > _WARPS * _MAX_ACC or tiles > _WARPS * _MAX_PT:
-        raise ValueError(
+        raise PlanRefused(field, (
             f"fused wgrad kernel holds at most {_WARPS * _MAX_ACC} chain and "
             f"{_WARPS * _MAX_PT} dW_b tiles in registers, got {chain_tiles} "
             f"and {tiles} for hidden={hidden} out={out} modes="
-            f"{tuple(modes)}; this shape needs a tiled kernel")
+            f"{tuple(modes)}; this shape needs a tiled kernel"))
     return {"cluster": cl, "hs": hs, "os": os_, "rows_f": rows,
             "cols": cols, "work": (smem - _WGRAD_FLAG) // 4, "smem": smem,
             "chain": kind}
@@ -680,6 +764,20 @@ CORE_PLAN_FIELDS = ("cluster", "hs", "os", "nb", "np", "kc", "ri", "wj",
                     "groups", "ptiles", "smem", "w_bytes")
 CORE_LAUNCH = ("cluster", "np", "nb", "kc", "ri", "wj")
 
+# The fields of each kernel's plan a launch may pin (a config's
+# ``block_plan``, a tuned cache entry, a wrapper's ``plan=``); the planner
+# chooses the fields left unpinned. The kind a launch is counted as
+# (``launch_kind``) names its kernel.
+PLAN_FIELDS = {"block": ("cluster", "chain", "rows_f", "rows_i"),
+               "wgrad": ("cluster", "chain", "rows_f", "cols"),
+               "core": CORE_LAUNCH}
+_KERNEL_OF = {"wgrad": "wgrad", "spectral_wgrad": "wgrad", "core": "core"}
+
+
+def kernel_of(kind: str) -> str:
+    """The kernel ("block", "wgrad" or "core") a launch kind runs."""
+    return _KERNEL_OF.get(kind, "block")
+
 
 @functools.lru_cache(maxsize=256)
 def _core_plan(lib, code: int, dims: Tuple[int, ...], force: Tuple[int, ...]):
@@ -695,29 +793,36 @@ def _core_plan(lib, code: int, dims: Tuple[int, ...], force: Tuple[int, ...]):
 
 
 def _core_launch(lib, dtype: torch.dtype, b: int, h: int, o: int, n1: int,
-                 k1: int, p: int, per_mode: bool, k2: int):
+                 k1: int, p: int, per_mode: bool, k2: int,
+                 pins: Optional[Dict[str, int]] = None):
     """(plan, dims, launch plan) of ``core_plan``; the last two as the C
-    entries take them."""
+    entries take them. `pins` fixes fields of ``CORE_LAUNCH`` (a refused
+    pin raises ``PlanRefused`` naming the pinned fields); ``FORCED["core"]``
+    wins over them."""
     force = FORCED.get("core") or {}
     unknown = set(force) - set(CORE_LAUNCH)
     if unknown:
         raise ValueError(f"FORCED['core'] pins only {CORE_LAUNCH}, got "
                          f"{sorted(unknown)}")
+    force = {**(pins or {}), **force}
     ok, plan, dims, pl = _core_plan(
         lib, _DTYPE_CODES[dtype], (b, h, o, n1, k1, p, int(per_mode), k2 or p),
-        tuple(force.get(k, 0) for k in CORE_LAUNCH))
+        tuple(int(force.get(k, 0)) for k in CORE_LAUNCH))
     if not ok:
-        raise ValueError(
-            f"fused core kernel has no plan within {_SMEM_LIMIT} B of shared "
-            f"memory and the grid's limits for B={b} hidden={h} out={o} "
-            f"s_1={n1} k_1={k1} P={p} (last tried {plan}); this shape needs "
-            f"a tiled kernel")
+        msg = (f"fused core kernel has no plan within {_SMEM_LIMIT} B of "
+               f"shared memory and the grid's limits for B={b} hidden={h} "
+               f"out={o} s_1={n1} k_1={k1} P={p} (last tried {plan})")
+        if pins:
+            raise PlanRefused(",".join(k for k in CORE_LAUNCH if k in pins),
+                              f"{msg} with {pins} pinned")
+        raise PlanRefused(None, f"{msg}; this shape needs a tiled kernel")
     return plan, dims, pl
 
 
 def core_plan(lib, dtype: torch.dtype, b: int, h: int, o: int, n1: int,
               k1: int, p: int, per_mode: bool = False,
-              k2: int = 0) -> Dict[str, int]:
+              k2: int = 0, pins: Optional[Dict[str, int]] = None
+              ) -> Dict[str, int]:
     """The core kernel's launch plan, as the library computes it
     (``fused_core_plan``, the one source of its shared-memory layout): the
     cluster and its hidden / out slices, the samples and spectrum columns
@@ -725,10 +830,11 @@ def core_plan(lib, dtype: torch.dtype, b: int, h: int, o: int, n1: int,
     chunk, the points of an inverse chunk, the tiles (sample groups ×
     column tiles), a block's shared memory and the weight bytes a launch
     reads. b samples; p = Π K_R..K_2 and k2 = K_2 (per-mode W's column
-    order; p by default). ``FORCED["core"]`` pins fields of
-    ``CORE_LAUNCH``. Raises ValueError where no plan fits a block and the
-    grid."""
-    return _core_launch(lib, dtype, b, h, o, n1, k1, p, per_mode, k2)[0]
+    order; p by default). `pins` (and, over them, ``FORCED["core"]``) fix
+    fields of ``CORE_LAUNCH``. Raises ValueError where no plan fits a block
+    and the grid."""
+    return _core_launch(lib, dtype, b, h, o, n1, k1, p, per_mode, k2,
+                        pins)[0]
 
 
 def _check_mats(mats, spatial, inverse: bool):
@@ -921,52 +1027,130 @@ def _max_clusters(lib, prefix: str, dtype_code: int, rank: int,
     return n.value
 
 
-def _pick(plan_fn: Callable, lib, prefix: str, dtype_code: int, batch: int,
+def _pick(plan_fn: Callable, occupancy: Optional[Callable], batch: int,
           hidden: int, out: int, spatial, modes,
           per_mode: bool) -> Dict[str, int]:
-    """Clusters of 16 blocks halve a sample's time but the card holds fewer
-    of them at once: take 16 when the whole batch fits in one wave of
-    16-block clusters (asked of the card), else the portable 8 — unless
-    the portable 8 cannot hold the shape (hidden 128: more than 8 out
-    channels per block), when the plan is 16 and a batch larger than one
-    wave runs in waves."""
+    """The rule for the cluster: clusters of 16 blocks halve a sample's
+    time but the card holds fewer of them at once, so take 16 when the
+    whole batch fits in one wave of 16-block clusters (`occupancy(cluster,
+    smem)`, asked of the card), else the portable 8 — unless the portable 8
+    cannot hold the shape (hidden 128: more than 8 out channels per block),
+    when the plan is 16 and a batch larger than one wave runs in waves.
+    Without a card to ask (occupancy None) the portable plan."""
     plan = plan_fn(hidden, out, spatial, modes, _PORTABLE_CLUSTER, per_mode)
-    big = plan_fn(hidden, out, spatial, modes, _MAX_CLUSTER, per_mode)
-    if big["cluster"] <= plan["cluster"]:
+    try:
+        big = plan_fn(hidden, out, spatial, modes, _MAX_CLUSTER, per_mode)
+    except ValueError:  # pinned fields that hold at the portable size only
         return plan
-    fits = _max_clusters(lib, prefix, dtype_code, len(spatial),
-                         big["cluster"], big["smem"])
-    return big if batch <= fits else plan
+    if big["cluster"] <= plan["cluster"] or occupancy is None:
+        return plan
+    return big if batch <= occupancy(big["cluster"], big["smem"]) else plan
+
+
+def _exact_cluster(plan_fn: Callable, cluster: int, hidden: int, out: int,
+                   spatial, modes, per_mode: bool) -> Dict[str, int]:
+    """`plan_fn` at a pinned cluster size; ``PlanRefused`` naming "cluster"
+    where the planner would take another."""
+    try:
+        plan = plan_fn(hidden, out, spatial, modes, cluster, per_mode)
+    except PlanRefused as exc:
+        if exc.field is not None:
+            raise
+        raise PlanRefused("cluster", f"cluster={cluster}: {exc}") from None
+    if plan["cluster"] != cluster:
+        raise PlanRefused("cluster", (
+            f"cluster={cluster} cannot hold hidden={hidden} out={out} "
+            f"spatial={tuple(spatial)} modes={tuple(modes)}: the planner "
+            f"takes clusters of {plan['cluster']} there"))
+    return plan
+
+
+def plan_launch(kind: str, dtype: torch.dtype, batch: int, hidden: int,
+                out: int, spatial, modes, per_mode: bool = False,
+                pins: Optional[Dict[str, Any]] = None, *, lib=None,
+                ends: Optional[Tuple[int, int, int, int]] = None
+                ) -> Dict[str, Any]:
+    """The plan of one launch of `kind` (``launch_kind``'s names) with the
+    fields of `pins` that its kernel has (``PLAN_FIELDS``) fixed and the
+    planner's choice for the rest: the block kernel's (``launch_plan``,
+    `ends` as its), the wgrad kernel's (``wgrad_plan``) or the core's
+    (``core_plan``, from `lib`, its library). An unpinned cluster follows
+    ``_pick``'s rule, asking `lib`'s card how many clusters it holds (the
+    portable plan without a library). Raises ``PlanRefused`` naming a
+    pinned field the planner refuses. ``tuning.resolve_plan`` decides the
+    pins."""
+    kernel = kernel_of(kind)
+    pins = {k: v for k, v in (pins or {}).items()
+            if k in PLAN_FIELDS[kernel] and v}
+    if kernel == "core":
+        if lib is None:
+            raise ValueError("the core's plan comes from its library "
+                             "(fused_core_plan): pass lib")
+        p = 1
+        for k in modes[1:]:
+            p *= k
+        return dict(core_plan(lib, dtype, batch, hidden, out, spatial[0],
+                              modes[0], p, per_mode,
+                              modes[1] if len(modes) > 1 else 1, pins))
+    cluster = pins.pop("cluster", 0)
+    if kernel == "block":
+        plan_fn, prefix = launch_plan, "fused_block"
+        if ends is not None:
+            plan_fn = functools.partial(launch_plan, ends=ends)
+    else:
+        plan_fn, prefix = wgrad_plan, "fused_wgrad"
+    if pins:
+        plan_fn = functools.partial(plan_fn, **pins)
+    if cluster:
+        return _exact_cluster(plan_fn, cluster, hidden, out, spatial, modes,
+                              per_mode)
+    occupancy = None if lib is None else functools.partial(
+        _max_clusters, lib, prefix, _DTYPE_CODES[dtype], len(spatial))
+    return _pick(plan_fn, occupancy, batch, hidden, out, spatial, modes,
+                 per_mode)
+
+
+_CODE_DTYPES = {v: k for k, v in _DTYPE_CODES.items()}
 
 
 def pick_plan(lib, dtype_code: int, batch: int, hidden: int, out: int,
               spatial, modes, per_mode: bool = False,
-              ends: Optional[Tuple[int, int, int, int]] = None
-              ) -> Dict[str, int]:
-    """The block kernel's plan for this batch on this card (`ends` as
-    ``launch_plan``'s; the card's cluster occupancy is asked of the kernel
-    without the ends, which at the presets' ends plans is the same: one
-    block an SM)."""
+              ends: Optional[Tuple[int, int, int, int]] = None,
+              kind: Optional[str] = None, plan=None) -> Dict[str, int]:
+    """The block kernel's plan for this batch on this card, as
+    ``tuning.resolve_plan`` resolves it field by field: `plan` (an
+    override, ``FNOConfig.block_plan``'s (field, value) pairs), then a
+    fresh tuned entry for `kind` (the launch's ``launch_kind``; None or an
+    untuned kind: none), then the rule planner; ``FORCED`` over all of
+    them. `ends` as ``launch_plan``'s (the card's cluster occupancy is
+    asked of the kernel without the ends, which at the presets' ends plans
+    is the same: one block an SM)."""
+    from repro_torch.tuning import resolve
     plan_fn = (launch_plan if ends is None
                else functools.partial(launch_plan, ends=ends))
-    return _forced(plan_fn, _pick(plan_fn, lib, "fused_block", dtype_code,
-                                  batch, hidden, out, spatial, modes,
-                                  per_mode),
-                   hidden, out, spatial, modes, per_mode)
+    got = resolve.resolve_plan(
+        kind or "block_fwd", _CODE_DTYPES[dtype_code], batch, hidden, out,
+        spatial, modes, per_mode, plan, lib=lib, ends=ends,
+        use_cache=kind is not None).plan
+    return _forced(plan_fn, got, hidden, out, spatial, modes, per_mode)
 
 
 def pick_wgrad_plan(lib, dtype_code: int, batch: int, hidden: int,
-                    out: int, spatial, modes,
-                    per_mode: bool = False) -> Dict[str, int]:
-    """The weight-gradient kernel's plan for this batch on this card."""
-    return _forced(wgrad_plan, _pick(wgrad_plan, lib, "fused_wgrad",
-                                     dtype_code, batch, hidden, out, spatial,
-                                     modes, per_mode),
-                   hidden, out, spatial, modes, per_mode)
+                    out: int, spatial, modes, per_mode: bool = False,
+                    kind: Optional[str] = None, plan=None) -> Dict[str, int]:
+    """The weight-gradient kernel's plan for this batch on this card,
+    resolved as ``pick_plan``'s (`kind` "wgrad" is tuned)."""
+    from repro_torch.tuning import resolve
+    got = resolve.resolve_plan(
+        kind or "wgrad", _CODE_DTYPES[dtype_code], batch, hidden, out,
+        spatial, modes, per_mode, plan, lib=lib,
+        use_cache=kind is not None).plan
+    return _forced(wgrad_plan, got, hidden, out, spatial, modes, per_mode)
 
 
 # What ``pick_plan`` and ``pick_wgrad_plan`` force on the plans they pick,
-# for the measurements and tests that run a plan the planner does not pick:
+# for the measurements and tests that run a plan the planner does not pick;
+# it wins over a config's override and the tuned cache alike:
 # "chain" replans phase 1's chain at the picked cluster (ValueError where it
 # does not fit); "core" (a dict of ``CORE_LAUNCH`` fields) pins those fields
 # of ``core_plan``'s plans; any other key lowers that field of the plans
@@ -1017,16 +1201,19 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _launch(lib, x, wr, wi, wb, bias, mats, spatial, modes, stream, *,
-            act="gelu", gy=None, out_dtype=None, lift=None, proj=None):
+            act="gelu", gy=None, out_dtype=None, lift=None, proj=None,
+            adjoint=False, plan=None):
     """Allocate y and launch the block kernel through the C entry (no
-    checks)."""
+    checks), at the plan ``pick_plan`` resolves for the launch's kind."""
     b = x.shape[0]
     o, h = wr.shape[:2]
     per_mode = wr.ndim > 2
     code = _DTYPE_CODES[x.dtype]
     edims = (_check_ends(x, h, o, lift, proj)
              if lift is not None or proj is not None else None)
-    plan = pick_plan(lib, code, b, h, o, spatial, modes, per_mode, edims)
+    kind = launch_kind(wb, act, adjoint, edims is not None)
+    plan = pick_plan(lib, code, b, h, o, spatial, modes, per_mode, edims,
+                     kind=kind, plan=plan)
     od = out_dtype or x.dtype
     oc = edims[3] if proj is not None else o
     y = torch.empty((b, oc) + tuple(spatial), dtype=od, device=x.device)
@@ -1056,14 +1243,17 @@ def _launch(lib, x, wr, wi, wb, bias, mats, spatial, modes, stream, *,
 
 
 def _launch_wgrad(lib, x, gz, mats, spatial, modes, stream,
-                  per_mode=False, with_bypass=True):
+                  per_mode=False, with_bypass=True, plan=None):
     """Allocate the outputs and scratch and launch the weight-gradient
-    kernel through the C entry (no checks); returns (dwr, dwi, dwb,
-    dbias), or (dwr, dwi) without the bypass."""
+    kernel through the C entry (no checks) at the plan ``pick_wgrad_plan``
+    resolves; returns (dwr, dwi, dwb, dbias), or (dwr, dwi) without the
+    bypass."""
     b, h = x.shape[:2]
     o = gz.shape[1]
     code = _DTYPE_CODES[x.dtype]
-    plan = pick_wgrad_plan(lib, code, b, h, o, spatial, modes, per_mode)
+    plan = pick_wgrad_plan(lib, code, b, h, o, spatial, modes, per_mode,
+                           kind="wgrad" if with_bypass else "spectral_wgrad",
+                           plan=plan)
     chunk = wgrad_mode_chunk(plan, b, modes) if per_mode else 0
     dev = x.device
     kk = 1
@@ -1111,9 +1301,13 @@ def core_max_clusters(lib, dtype: torch.dtype, b: int, h: int, o: int,
     return n.value
 
 
-def _launch_core(lib, zr, zi, wr, wi, fr, fi, gr, gi, stream):
+def _launch_core(lib, zr, zi, wr, wi, fr, fi, gr, gi, stream, plan=None,
+                 spatial=None):
     """Allocate the y pair and launch the core kernel through the C entry
-    at ``core_plan``'s plan (no checks)."""
+    (no checks) at the plan ``tuning.resolve_plan`` resolves: `plan` (an
+    override), then, where `spatial` (the block's extents, which the tuned
+    cache keys by) is given, a fresh tuned entry, then the library's."""
+    from repro_torch.tuning import resolve
     b, h, n1 = zr.shape[:3]
     spec = tuple(zr.shape[3:])
     o, k1 = wr.shape[0], fr.shape[1]
@@ -1123,8 +1317,13 @@ def _launch_core(lib, zr, zi, wr, wi, fr, fi, gr, gi, stream):
         p *= k
     # Per-mode weights [O,H,K_1,K_2..K_R]: K_2 decodes p = (k_R..k_2).
     k2 = spec[-1] if spec else 1
+    modes = (k1,) + spec[::-1]
+    got = resolve.resolve_plan(
+        "core", zr.dtype, b, h, o, spatial or (n1,) + spec[::-1], modes,
+        per_mode, plan, lib=lib, use_cache=spatial is not None).plan
     plan, dims, pl = _core_launch(lib, zr.dtype, b, h, o, n1, k1, p,
-                                  per_mode, k2)
+                                  per_mode, k2,
+                                  {k: got[k] for k in CORE_LAUNCH})
     shape = (b,) + spec + (o, n1)
     yr = torch.empty(shape, dtype=zr.dtype, device=zr.device)
     yi = torch.empty(shape, dtype=zr.dtype, device=zr.device)
@@ -1155,8 +1354,8 @@ def fused_block(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
                 out_dtype: Optional[torch.dtype] = None,
                 adjoint: bool = False,
                 lift: Optional[Sequence[torch.Tensor]] = None,
-                proj: Optional[Sequence[torch.Tensor]] = None
-                ) -> torch.Tensor:
+                proj: Optional[Sequence[torch.Tensor]] = None,
+                plan=None) -> torch.Tensor:
     """One FNO block kernel launch in one of its three epilogue modes.
 
     x: [B,H,s_1..s_R] float32 or bfloat16; wr/wi: shared [O,H] or
@@ -1182,6 +1381,10 @@ def fused_block(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
     p2·gelu_tanh(p1·y + b1) + b2 [B,C_out,s…] of the activated block
     output y. Either or both; all at x's dtype and contiguous.
 
+    plan: an override of the launch's plan, (field, value) pairs of
+    ``PLAN_FIELDS["block"]`` (``FNOConfig.block_plan``); the tuned cache
+    and the rule planner fill the rest (``tuning.resolve_plan``).
+
     A CPU tensor runs ``fused_block_plain``; a CUDA tensor launches the
     kernel or raises.
     """
@@ -1197,7 +1400,8 @@ def fused_block(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         y = _launch(build.load_fused_block(), x, wr, wi, wb, bias, mats,
                     spatial, modes, stream, act=act, gy=gy,
-                    out_dtype=out_dtype, lift=lift, proj=proj)
+                    out_dtype=out_dtype, lift=lift, proj=proj,
+                    adjoint=adjoint, plan=plan)
     ends = lift is not None or proj is not None
     LAUNCHES[(launch_kind(wb, act, adjoint, ends),
               _dtype_name(x.dtype))] += 1
@@ -1206,7 +1410,8 @@ def fused_block(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
 
 def fused_wgrad(x: torch.Tensor, gz: torch.Tensor,
                 mats: Sequence[torch.Tensor], *, per_mode: bool = False,
-                with_bypass: bool = True) -> Tuple[torch.Tensor, ...]:
+                with_bypass: bool = True,
+                plan=None) -> Tuple[torch.Tensor, ...]:
     """The block's (or the bare spectral layer's) weight gradients in one
     kernel launch.
 
@@ -1217,7 +1422,8 @@ def fused_wgrad(x: torch.Tensor, gz: torch.Tensor,
     at x's dtype and contiguous. Returns float32 (dwr, dwi, dwb [O,H],
     dbias [O,1]), or (dwr, dwi) with with_bypass=False (the bare spectral
     layer's backward, counted "spectral_wgrad"); with per_mode, dwr and
-    dwi are one per mode, in the parameter layout [O,H,k_1..k_R]. A CPU
+    dwi are one per mode, in the parameter layout [O,H,k_1..k_R]. plan: an
+    override of ``PLAN_FIELDS["wgrad"]``, as ``fused_block``'s. A CPU
     tensor runs ``fused_wgrad_plain``; a CUDA tensor launches the kernel
     or raises.
     """
@@ -1228,7 +1434,7 @@ def fused_wgrad(x: torch.Tensor, gz: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         outs = _launch_wgrad(build.load_fused_wgrad(), x, gz, mats, spatial,
-                             modes, stream, per_mode, with_bypass)
+                             modes, stream, per_mode, with_bypass, plan)
     kind = "wgrad" if with_bypass else "spectral_wgrad"
     LAUNCHES[(kind, _dtype_name(x.dtype))] += 1
     return outs
@@ -1236,7 +1442,8 @@ def fused_wgrad(x: torch.Tensor, gz: torch.Tensor,
 
 def fused_core(zr: torch.Tensor, zi: torch.Tensor, wr: torch.Tensor,
                wi: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor,
-               gr: torch.Tensor, gi: torch.Tensor
+               gr: torch.Tensor, gi: torch.Tensor, *, plan=None,
+               spatial: Optional[Sequence[int]] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The partial variant's fused middle in one kernel launch: truncated
     cDFT along s_1 → CGEMM over hidden → padded icDFT along s_1.
@@ -1247,7 +1454,10 @@ def fused_core(zr: torch.Tensor, zi: torch.Tensor, wr: torch.Tensor,
     all at z's dtype and contiguous. Returns the y pair
     [B,K_R..K_2,O,s_1] at z's dtype with either weights (the reference's
     shared layout; its per-mode kernel emits [K_R..K_2,B,O,s_1]; the
-    caller transposes). A CPU tensor runs
+    caller transposes). plan: an override of ``CORE_LAUNCH``'s fields, as
+    ``fused_block``'s; spatial: the block's extents s_1..s_R, which the
+    tuned cache keys the core's plan by (without them the launch takes the
+    override and the library's plan). A CPU tensor runs
     ``fused_core_plain``; a CUDA tensor launches the kernel or raises.
     """
     _check_core(zr, zi, wr, wi, fr, fi, gr, gi)
@@ -1256,6 +1466,7 @@ def fused_core(zr: torch.Tensor, zi: torch.Tensor, wr: torch.Tensor,
     with torch.cuda.device(zr.device):
         stream = torch.cuda.current_stream(zr.device).cuda_stream
         y = _launch_core(build.load_fused_core(), zr, zi, wr, wi, fr, fi,
-                         gr, gi, stream)
+                         gr, gi, stream, plan,
+                         tuple(spatial) if spatial is not None else None)
     LAUNCHES[("core", _dtype_name(zr.dtype))] += 1
     return y

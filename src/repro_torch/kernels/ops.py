@@ -98,8 +98,8 @@ def _fnond_staged(x, wr, wi, modes, pol: Optional[PrecisionPolicy] = None):
 def spectral_layer_nd(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
                       modes: Sequence[int], *, path: str = "staged",
                       variant: str = "full",
-                      policy: Optional[PrecisionPolicy] = None
-                      ) -> torch.Tensor:
+                      policy: Optional[PrecisionPolicy] = None,
+                      plan=None) -> torch.Tensor:
     """The bare rank-R spectral layer y = Re iDFT(Σ_h DFT(x_h)·W[o,h(,k)]).
 
     x: [B,H,s_1..s_R]; w: [O,H] or [O,H,k_1..k_R]. path="fused" runs
@@ -109,6 +109,8 @@ def spectral_layer_nd(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
     adjoint, the bypass-free wgrad). "ref"/"staged" are the oracles
     (partial and full are one function). The result is at the policy's
     compute dtype (x's dtype without a policy; f32 on "ref" without one).
+    plan: an override of the launches' plans (``FNOConfig.block_plan``),
+    passed to every kernel launch.
     """
     modes = _modes_key(modes)
     if variant not in VARIANTS:
@@ -123,7 +125,7 @@ def spectral_layer_nd(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
         return _fnond_staged(x, wr, wi, modes, policy)
     _check_path(path)
     return _SpectralLayer.apply(x, wr, wi, modes,
-                                policy or _default_policy(x), variant)
+                                policy or _default_policy(x), variant, plan)
 
 
 def spectral_layer_1d(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
@@ -272,19 +274,21 @@ def _check_outer_rank(spatial):
                          f"a rank-3 field, got spatial {tuple(spatial)}")
 
 
-def _fnond_partial(x, wr, wi, modes, pol: PrecisionPolicy):
+def _fnond_partial(x, wr, wi, modes, pol: PrecisionPolicy, plan=None):
     """The spectral layer as the paper's partial fusion, at x's dtype (the
     compute dtype): the outer forward transforms as a standalone row launch
     (a single rDFT along s_2 at rank 2, both outer axes s_2, s_3 in one
     launch at rank 3), the fused core [cDFT_s1 → CGEMM → icDFT_s1], and
     the mirrored inverse row launch. Rank 1 has no outer stages: the bare
     spectral layer in one block-kernel launch. Operands are at the policy's
-    spectral dtype, detached and contiguous."""
+    spectral dtype, detached and contiguous. `plan` overrides the block
+    and core launches' plans."""
     r = len(modes)
     spatial = tuple(x.shape[2:])
     mats = _mats(x, modes, pol, "forward")
     if r == 1:
-        return engine.fused_block(x, wr, wi, None, None, mats, act="linear")
+        return engine.fused_block(x, wr, wi, None, None, mats, act="linear",
+                                  plan=plan)
     sd = pol.spectral_dtype
     if r == 2:
         zr, zi = truncated_rdft(x, modes[-1], operand_dtype=sd)
@@ -292,7 +296,8 @@ def _fnond_partial(x, wr, wi, modes, pol: PrecisionPolicy):
         zr, zi = _outer_fwd_batched(x, spatial, modes, sd)
     # The core's operands: forward cDFT along s_1 (forward stage R-1) and
     # inverse cDFT along s_1 (inverse stage 0) of the block bundle.
-    yr, yi = engine.fused_core(zr, zi, wr, wi, *mats[2 * r - 2:2 * r + 2])
+    yr, yi = engine.fused_core(zr, zi, wr, wi, *mats[2 * r - 2:2 * r + 2],
+                               plan=plan, spatial=spatial)
     # [B,K_R..K_2,O,s_1] -> [B,O,s_1,K_R..K_2], with per-mode weights too:
     # the port's core keeps the shared layout where the reference's
     # per-mode kernel emits [K_R..K_2,B,O,s_1].
@@ -354,21 +359,21 @@ class _SpectralLayer(torch.autograd.Function):
     the compute dtype."""
 
     @staticmethod
-    def forward(ctx, x, wr, wi, modes, pol, variant):
+    def forward(ctx, x, wr, wi, modes, pol, variant, plan):
         ctx.save_for_backward(x, wr, wi)
-        ctx.modes, ctx.pol = modes, pol
+        ctx.modes, ctx.pol, ctx.plan = modes, pol, plan
         cp = torch_dtype(pol.compute_dtype)
         xc, wrc, wic = (_c(a.to(cp)) for a in (x, wr, wi))
         if variant == "full":
             return engine.fused_block(xc, wrc, wic, None, None,
                                       _mats(xc, modes, pol, "forward"),
-                                      act="linear")
-        return _fnond_partial(xc, wrc, wic, modes, pol)
+                                      act="linear", plan=plan)
+        return _fnond_partial(xc, wrc, wic, modes, pol, plan)
 
     @staticmethod
     def backward(ctx, gy):
         x, wr, wi = ctx.saved_tensors
-        modes, pol = ctx.modes, ctx.pol
+        modes, pol, plan = ctx.modes, ctx.pol, ctx.plan
         cp = torch_dtype(pol.compute_dtype)
         xc, wrc, wic, gyc = (_c(a.to(cp)) for a in (x, wr, wi, gy))
         # dx = spectral_adjoint(gy): the bare kernel with the adjoint
@@ -377,11 +382,11 @@ class _SpectralLayer(torch.autograd.Function):
                                 wic.transpose(0, 1), None, None,
                                 _mats(xc, modes, pol, "adjoint"),
                                 act="linear", out_dtype=x.dtype,
-                                adjoint=True)
+                                adjoint=True, plan=plan)
         dwr, dwi = engine.fused_wgrad(xc, gyc, _mats(xc, modes, pol, "wgrad"),
                                       per_mode=wr.ndim > 2,
-                                      with_bypass=False)
-        return dx, dwr.to(wr.dtype), dwi.to(wi.dtype), None, None, None
+                                      with_bypass=False, plan=plan)
+        return dx, dwr.to(wr.dtype), dwi.to(wi.dtype), None, None, None, None
 
 
 class _FusedBlock(torch.autograd.Function):
@@ -399,22 +404,23 @@ class _FusedBlock(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, wr, wi, wb, bias, modes, pol, variant, act,
-                out_dtype):
+                out_dtype, plan):
         ctx.save_for_backward(x, wr, wi, wb, bias)
-        ctx.modes, ctx.pol, ctx.act = modes, pol, act
+        ctx.modes, ctx.pol, ctx.act, ctx.plan = modes, pol, act, plan
         ops_ = _operands(x, wr, wi, wb, bias, pol)
         if variant == "full":
             return engine.fused_block(*ops_,
                                       _mats(ops_[0], modes, pol, "forward"),
-                                      act=act, out_dtype=out_dtype)
+                                      act=act, out_dtype=out_dtype,
+                                      plan=plan)
         xc, wrc, wic, wbc, bc = ops_
-        s = _fnond_partial(xc, wrc, wic, modes, pol)
+        s = _fnond_partial(xc, wrc, wic, modes, pol, plan)
         return _block_tail(s, xc, wbc, bc, out_dtype or xc.dtype, act)
 
     @staticmethod
     def backward(ctx, gy):
         x, wr, wi, wb, bias = ctx.saved_tensors
-        modes, pol = ctx.modes, ctx.pol
+        modes, pol, plan = ctx.modes, ctx.pol, ctx.plan
         xc, wrc, wic, wbc, bc = _operands(x, wr, wi, wb, bias, pol)
         if ctx.act == "linear":  # z is the output: gz = gy, no recompute
             gz = _c(gy.to(xc.dtype))
@@ -423,7 +429,8 @@ class _FusedBlock(torch.autograd.Function):
             # forms gz = gy·gelu'(z), so z never reaches device memory.
             gz = engine.fused_block(xc, wrc, wic, wbc, bc,
                                     _mats(xc, modes, pol, "forward"),
-                                    act="gelu_vjp", gy=_c(gy.to(xc.dtype)))
+                                    act="gelu_vjp", gy=_c(gy.to(xc.dtype)),
+                                    plan=plan)
         # (2) dx = spectral_adjoint(gz) + wbᵀ·gz: the same kernel with the
         # adjoint operands, (out, hidden)-swapped weights, no bias, linear
         # epilogue, emitted at the primal dtype. Axes 0 and 1 swap, without
@@ -434,14 +441,15 @@ class _FusedBlock(torch.autograd.Function):
                                 wic.transpose(0, 1), _c(wbc.t()), None,
                                 _mats(xc, modes, pol, "adjoint"),
                                 act="linear", out_dtype=x.dtype,
-                                adjoint=True)
+                                adjoint=True, plan=plan)
         # (3) dW (per mode, in the parameter layout, for per-mode weights),
         # dW_b, dbias from one wgrad launch, in f32.
         dwr, dwi, dwb, db = engine.fused_wgrad(
-            xc, gz, _mats(xc, modes, pol, "wgrad"), per_mode=wr.ndim > 2)
+            xc, gz, _mats(xc, modes, pol, "wgrad"), per_mode=wr.ndim > 2,
+            plan=plan)
         return (dx, dwr.to(wr.dtype), dwi.to(wi.dtype), dwb.to(wb.dtype),
                 db.reshape(bias.shape).to(bias.dtype), None, None, None,
-                None, None)
+                None, None, None)
 
 
 class _AddBias(torch.autograd.Function):
@@ -459,7 +467,8 @@ class _AddBias(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         dims = (0,) + tuple(range(2, g.ndim))
-        return g, g.sum(dim=dims, dtype=torch.float32).to(ctx.b_dtype)
+        f32 = torch.float32  # lint: allow-dtype (the f32 bias-grad sum)
+        return g, g.sum(dim=dims, dtype=f32).to(ctx.b_dtype)
 
 
 def pointwise(w: torch.Tensor, b: torch.Tensor,
@@ -477,7 +486,8 @@ def fno_block_nd(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
                  variant: str = "full",
                  policy: Optional[PrecisionPolicy] = None,
                  act: str = "gelu",
-                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                 out_dtype: Optional[torch.dtype] = None,
+                 plan=None) -> torch.Tensor:
     """One whole FNO block: y = act(spectral(x) + x·W_bᵀ + bias).
 
     x: [B,H,s_1..s_R]; wr/wi: shared [O,H] or per-mode [O,H,k_1..k_R];
@@ -493,7 +503,9 @@ def fno_block_nd(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
     the TP-sharded block's partial, reduced over shards before the
     nonlinearity; its backward skips the gz recompute, two launches).
     out_dtype (fused path only) overrides the emitted dtype: the TP
-    partial is emitted at the accumulator dtype, f32 under bf16.
+    partial is emitted at the accumulator dtype, f32 under bf16. plan (fused
+    path only): an override of every launch's plan
+    (``FNOConfig.block_plan``; ``tuning.resolve_plan``).
     """
     modes = _modes_key(modes)
     if variant not in VARIANTS:
@@ -507,7 +519,7 @@ def fno_block_nd(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
         raise ValueError(f"unknown path {path!r}; known: {PATHS}")
     return _FusedBlock.apply(x, wr, wi, wb, bias, modes,
                              policy or _default_policy(x), variant, act,
-                             out_dtype)
+                             out_dtype, plan)
 
 
 # ---------------------------------------------------------------------------
@@ -555,7 +567,7 @@ class _FusedEnds(torch.autograd.Function):
     params come as eight tensors (None where an end is absent)."""
 
     @staticmethod
-    def forward(ctx, x, wr, wi, wb, bias, modes, pol, *ends):
+    def forward(ctx, x, wr, wi, wb, bias, modes, pol, plan, *ends):
         ctx.save_for_backward(x, wr, wi, wb, bias, *(
             t if t is not None else torch.empty(0) for t in ends))
         ctx.has = (ends[0] is not None, ends[4] is not None)
@@ -567,14 +579,14 @@ class _FusedEnds(torch.autograd.Function):
         return engine.fused_block(*ops_,
                                   _mats(ops_[0], modes, pol, "forward"),
                                   lift=_engine_end(lift, cp),
-                                  proj=_engine_end(proj, cp))
+                                  proj=_engine_end(proj, cp), plan=plan)
 
     @staticmethod
     def backward(ctx, gy):
         saved = ctx.saved_tensors
         need = ctx.needs_input_grad
         idx = [i for i in range(len(saved))
-               if need[i if i < 5 else i + 2]]
+               if need[i if i < 5 else i + 3]]
         leaves = [t.detach().requires_grad_(i in idx)
                   for i, t in enumerate(saved)]
         lift = tuple(leaves[5:9]) if ctx.has[0] else None
@@ -588,7 +600,7 @@ class _FusedEnds(torch.autograd.Function):
         grads = [None] * len(saved)
         for i, g in zip(idx, got):
             grads[i] = g
-        return (*grads[:5], None, None, *grads[5:])
+        return (*grads[:5], None, None, None, *grads[5:])
 
 
 def fno_block_ends_nd(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
@@ -597,8 +609,8 @@ def fno_block_ends_nd(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
                       lift: Optional[Tuple[torch.Tensor, ...]] = None,
                       proj: Optional[Tuple[torch.Tensor, ...]] = None,
                       path: str = "fused", variant: str = "full",
-                      policy: Optional[PrecisionPolicy] = None
-                      ) -> torch.Tensor:
+                      policy: Optional[PrecisionPolicy] = None,
+                      plan=None) -> torch.Tensor:
     """``fno_block_nd`` with the model's end MLPs folded into the launch.
 
     lift = (l1w [C_in,L], l1b [L], l2w [L,H], l2b [H]), the model's
@@ -608,7 +620,8 @@ def fno_block_ends_nd(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
     be None (the first or last block of a deeper model); both on a
     1-layer model. path="fused" runs ONE kernel launch forward (variant
     "full" only; "partial" raises) and differentiates through the staged
-    composition; "ref"/"staged" are that composition.
+    composition; "ref"/"staged" are that composition. plan: an override
+    of the launch's plan, as ``fno_block_nd``'s.
     """
     modes = _modes_key(modes)
     if variant not in VARIANTS:
@@ -626,7 +639,7 @@ def fno_block_ends_nd(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
                          "without either use fno_block_nd")
     ends = tuple(lift or (None,) * 4) + tuple(proj or (None,) * 4)
     return _FusedEnds.apply(x, wr, wi, wb, bias, modes,
-                            policy or _default_policy(x), *ends)
+                            policy or _default_policy(x), plan, *ends)
 
 
 # ---------------------------------------------------------------------------
@@ -655,7 +668,8 @@ def fno_block_nd_sharded(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
                          policy: Optional[PrecisionPolicy] = None,
                          act: str = "gelu", tp_layout: str = "psum",
                          tp_overlap: bool = False,
-                         ends: Optional[Tuple] = None) -> torch.Tensor:
+                         ends: Optional[Tuple] = None,
+                         plan=None) -> torch.Tensor:
     """``fno_block_nd`` on the mesh of `ctx` (a multi-rank
     ``distributed.sharding.ShardingContext``); x holds this rank's rows.
 
@@ -666,7 +680,8 @@ def fno_block_nd_sharded(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
     [B, H/tp, …]; the result is [B, O/tp, …] under the scattered layout,
     else [B, O, …]. Differentiable: each rank's backward runs the block's
     dx and wgrad launches on its slice, and the collectives transpose
-    (``sharding``)."""
+    (``sharding``). plan: an override of every launch's plan, as
+    ``fno_block_nd``'s."""
     if tp_layout not in ("psum", "scatter"):
         raise ValueError(f"tp_layout must be 'psum' or 'scatter', got "
                          f"{tp_layout!r}")
@@ -675,9 +690,9 @@ def fno_block_nd_sharded(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
         if ends is not None and any(e is not None for e in ends):
             return fno_block_ends_nd(x, wr, wi, wb, bias, modes,
                                      lift=ends[0], proj=ends[1],
-                                     variant=variant, policy=pol)
+                                     variant=variant, policy=pol, plan=plan)
         return fno_block_nd(x, wr, wi, wb, bias, modes, variant=variant,
-                            policy=pol, act=act)
+                            policy=pol, act=act, plan=plan)
     if ends is not None and any(e is not None for e in ends):
         raise ValueError("the model's ends fold into the block only without "
                          "TP; under TP they run as sharded MLPs")
@@ -688,7 +703,7 @@ def fno_block_nd_sharded(x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
     acc = torch_dtype(pol.accum_dtype)
     z = fno_block_nd(x, wr, wi, wb, torch.zeros_like(bias), modes,
                      variant=variant, policy=pol, act="linear",
-                     out_dtype=acc)
+                     out_dtype=acc, plan=plan)
     if tp_layout == "scatter" and o % tp == 0:
         z = (shd.ring_scatter_sum if tp_overlap else shd.scatter_sum)(
             z, mesh, m, 1)

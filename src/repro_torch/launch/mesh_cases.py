@@ -29,18 +29,18 @@ are optional.
 """
 from __future__ import annotations
 
-import collections
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
 from repro_torch import tree
+from repro_torch.analysis import launch_lint
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.core import fno as fno_mod
 from repro_torch.distributed import fault_tolerance as ft
 from repro_torch.distributed import sharding as shd
-from repro_torch.kernels import dft, engine
+from repro_torch.kernels import engine
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.optim import AdamW
 from repro_torch.optim.schedule import constant
@@ -127,61 +127,35 @@ def _case(case: Dict[str, Any], mesh) -> Dict[str, Any]:
     raise ValueError(f"unknown case kind {kind!r}")
 
 
-# The wrappers a case's calls are counted at, and the kind each call is
-# (``engine.launch_kind``'s names): on the card each call is one launch;
-# on the CPU, where the plain versions run and ``engine.LAUNCHES`` counts
-# nothing, the calls still show the launch structure.
-def _kinds():
-    return [(engine, "fused_block", lambda a, kw: engine.launch_kind(
-                a[3], kw.get("act", "gelu"), kw.get("adjoint", False),
-                kw.get("lift") is not None or kw.get("proj") is not None)),
-            (engine, "fused_wgrad", lambda a, kw: (
-                "wgrad" if kw.get("with_bypass", True)
-                else "spectral_wgrad")),
-            (engine, "fused_core", lambda a, kw: "core"),
-            (dft, "rdft", lambda a, kw: "rdft"),
-            (dft, "irdft", lambda a, kw: "irdft"),
-            (dft, "outer_rdft", lambda a, kw: "rdft"),
-            (dft, "outer_irdft", lambda a, kw: "irdft")]
-
-
-def _counting(calls: collections.Counter) -> None:
-    """Wrap every counted entry point so each call adds its kind."""
-    for mod, name, kind in _kinds():
-        fn = getattr(mod, name)
-
-        def wrapped(*a, _fn=fn, _kind=kind, **kw):
-            calls[_kind(a, kw)] += 1
-            return _fn(*a, **kw)
-        setattr(mod, name, wrapped)
-
-
 def run_rank(rank: int, world: int, init_method: str,
              job: Dict[str, Any]) -> list:
     """Join the world as `rank`, lay out ``job["mesh"]`` (dp, tp), run
     every case and return, for each, its results with this rank's
     ``launches``, wrapper ``calls`` by kind and ``collectives`` (counted
     from 0 for the case)."""
-    calls: collections.Counter = collections.Counter()
-    _counting(calls)
     dp, tp = job["mesh"]
     mesh = mesh_mod.make_mesh((dp, tp), ("data", "model"),
                               backend=job["backend"],
                               device=job.get("device", "cuda"), rank=rank,
                               world_size=world, init_method=init_method)
     out = []
-    for case in job["cases"]:
-        engine.LAUNCHES.clear()
-        shd.COLLECTIVES.clear()
-        calls.clear()
-        res = _case(case, mesh)
-        if mesh.device.type == "cuda":
-            torch.cuda.synchronize(mesh.device)
-        res["launches"] = {f"{k}/{d}": n for (k, d), n in
-                           engine.LAUNCHES.items()}
-        res["collectives"] = {f"{k}/{s}": n for (k, s), n in
-                              shd.COLLECTIVES.items()}
-        res["calls"] = dict(calls)
-        out.append(res)
+    # The kernels' entry points count the calls by kind (the kind
+    # ``engine.launch_kind`` names): on the card each call is one launch;
+    # on the CPU, where the plain versions run and ``engine.LAUNCHES``
+    # counts nothing, the calls still show the launch structure.
+    with launch_lint.counted_calls() as calls:
+        for case in job["cases"]:
+            engine.LAUNCHES.clear()
+            shd.COLLECTIVES.clear()
+            calls.clear()
+            res = _case(case, mesh)
+            if mesh.device.type == "cuda":
+                torch.cuda.synchronize(mesh.device)
+            res["launches"] = {f"{k}/{d}": n for (k, d), n in
+                               engine.LAUNCHES.items()}
+            res["collectives"] = {f"{k}/{s}": n for (k, s), n in
+                                  shd.COLLECTIVES.items()}
+            res["calls"] = dict(calls)
+            out.append(res)
     return out
 

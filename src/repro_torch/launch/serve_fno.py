@@ -42,7 +42,6 @@ back and a valid reload that must swap.
 from __future__ import annotations
 
 import argparse
-import collections
 import dataclasses
 import os
 import tempfile
@@ -51,11 +50,11 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.analysis import format_findings, launch_lint
 from repro_torch.configs import FNO_IDS, get_config, with_precision
 from repro_torch.configs.fno import with_fuse_block
 from repro_torch.core import fno as fno_mod
 from repro_torch.distributed import sharding as shd
-from repro_torch.kernels import engine
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.train import serve_fno_step as sfs
 
@@ -198,8 +197,7 @@ def _serve(args, cfg, server) -> dict:
     contract = fusion_contract(
         server, args.variant, args.rollout_steps,
         kind=("block_linear" if ctx is not None and ctx.model_axis
-              else "block_fwd"),
-        held=server.graphed or (ctx is not None and dev.type == "cuda"))
+              else "block_fwd"))
 
     rng = np.random.default_rng(0)
     sizes = rng.integers(1, args.max_batch + 1, size=args.requests)
@@ -251,37 +249,23 @@ def _serve(args, cfg, server) -> dict:
 
 
 def fusion_contract(server, variant: str, rollout_steps: int,
-                    kind: str = "block_fwd", held=None) -> dict:
+                    kind: str = "block_fwd", held: bool = True) -> dict:
     """Kernel launches a layer and step of one served request of each
-    bucket, read from ``engine.LAUNCHES`` across the request (graph replays
-    included): ``{bucket: {kind: n}}``. With whole-block fusion and the
-    full variant each must be exactly one ``block_fwd`` (a request runs
-    ``num_layers × K``, the reference's one fused kernel a layer); raises
-    otherwise. The partial and spectral-only designs' launches are
-    reported as they are. A mesh's rank passes `kind` "block_linear" under
-    TP, and `held` (default: the server is graphed) where its eager path
-    runs on the card."""
-    cfg = server.cfg
-    shape = (cfg.in_channels,) + tuple(cfg.spatial)
-    steps = cfg.num_layers * rollout_steps
-    out = {}
-    for b in server.buckets:
-        x = torch.zeros((b,) + shape, device=server.device)
-        before = collections.Counter(engine.LAUNCHES)
-        y = server(x, rollout_steps=rollout_steps)
-        _sync(y.device)
-        got = collections.Counter(engine.LAUNCHES) - before
-        if not bool(torch.isfinite(y).all()):
-            raise RuntimeError(f"non-finite output at bucket {b}")
-        out[b] = {k[0]: n / steps for k, n in sorted(got.items())}
-    # The plain versions on the CPU launch (and count) nothing.
-    held = server.graphed if held is None else held
-    if held and cfg.fuse_block and not cfg.fuse_ends and variant == "full":
-        for b, got in out.items():
-            if got != {kind: 1}:
-                raise AssertionError(
-                    f"fusion contract: bucket {b} K={rollout_steps} ran "
-                    f"{got} a layer and step, want one {kind}")
+    bucket (``analysis.launch_lint.serve_step_contract``: a graphed
+    server's from ``engine.LAUNCHES`` across its replays, an eager one's
+    from the kernels' entry points, on the CPU too): ``{bucket: {kind:
+    n}}``. With whole-block fusion and the full variant each must be
+    exactly one `kind` a layer and step (a request runs ``num_layers ×
+    K``, the reference's one fused kernel a layer; "block_linear" for a
+    mesh's TP rank); raises AssertionError otherwise (unless `held` is
+    False). The partial, spectral-only and ends designs' launches are
+    reported as they are."""
+    findings, out = launch_lint.serve_step_contract(
+        server, server.cfg, variant=variant, rollout_steps=rollout_steps,
+        kind=kind, held=held)
+    if findings:
+        raise AssertionError("fusion contract: "
+                             + format_findings(findings))
     return out
 
 

@@ -30,6 +30,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs
+from repro_torch.analysis import smem
 from repro_torch.core import spectral
 from repro_torch.kernels import build, dft, engine
 
@@ -613,6 +615,23 @@ def test_every_shape_the_first_core_planned_is_planned(emulated_core, shape):
 # Largest grid extent along y and z: the core's grid is (cluster, column
 # tiles, sample groups).
 GRID_YZ = 65535
+
+
+def test_core_footprint_through_the_library(emulated_core):
+    """The shared-memory check estimates the core's launch through its
+    library (``fused_core_plan``, the one source of its layout) at the
+    smallest shape of the partial path (reduced fno2d, B=2): the plan the
+    launch takes, within a block; without the library the core is
+    reported as not estimated."""
+    cfg = configs.get_config("fno2d", reduced=True)
+    est = smem.launch_estimate(cfg, "core", batch=2, lib=emulated_core)
+    n1, (k1, k2) = cfg.spatial[0], cfg.modes
+    assert est.fits and est.source == "rule"
+    assert est.plan == engine.core_plan(emulated_core, torch.float32, 2,
+                                        cfg.hidden, cfg.hidden, n1, k1, k2)
+    assert smem.check_smem([cfg], libs={"core": emulated_core}) == []
+    blind = smem.launch_estimate(cfg, "core", batch=2)
+    assert not blind.fits and blind.error.startswith("not estimated")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

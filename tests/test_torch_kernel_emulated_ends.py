@@ -84,7 +84,7 @@ def _force(monkeypatch, cluster, rows_f, rows_i, ep=None):
     `rows_i` s_1 rows a chunk and `ep` points a block of each piece (fewer
     rows and points need less of the work area)."""
     def forced(lib, code, b, h, o, spatial, modes, per_mode=False,
-               ends=None):
+               ends=None, kind=None, plan=None):
         plan = engine.launch_plan(h, o, spatial, modes, cluster, per_mode,
                                   ends)
         assert plan["cluster"] == cluster
