@@ -263,6 +263,22 @@ fatal:
      casts, ``launch/lint.py``) and ``check_smem`` over every preset with
      the card's libraries. Every phase above launches at the plans the
      resolver gives (the cached ones where an entry serves the launch).
+  35. tiled shapes — the shapes whose spectra do not fit one cluster of
+     the block and wgrad kernels (``configs.TILED``: fno2d at hidden 256,
+     fno2d-large's per-mode model there, fno2d at 256² modes 64², fno3d at
+     hidden 64, fno3d at 128³), which the planners tile (a hidden k-loop
+     of hc channels a block, ot out tiles a sample): each shape's plans on
+     this card with their tiling fields; every block mode (gelu, gelu_vjp,
+     the adjoint dx, the bare forward) and the wgrad with and without the
+     bypass against their plain versions at B=2 (f32 ≤ 2e-4, bf16 ≤ 2e-2);
+     each model, whole-block and spectral-only, f32 and bf16: served
+     through ``FNOServer`` (graphed; K=1 and K=4) against the staged path
+     with exactly num_layers launches a step, the step-0 loss and every
+     grad against the staged path (2e-4 / 5e-2) with exactly one launch of
+     each kind a layer, and 5 AdamW steps whose loss falls; the tiled
+     block forward and wgrad at B=8 timed queued beside their plain
+     versions, the staged ``torch.fft`` block (``wgrad_staged`` for the
+     wgrad) and the bound.
 
 Each phase's seconds are printed. The last two lines are a
 ``{"kernels": [...]}`` JSON object and ``{"ok": true, "device": {...}}``.
@@ -3504,6 +3520,257 @@ def phase_tuned(torch, configs, fno_mod, sfs, engine, build, batch_fn, tree,
 
 
 
+# ---------------------------------------------------------------------------
+# Shapes beyond one cluster: the block and wgrad kernels' tiled plans
+# ---------------------------------------------------------------------------
+TILED_BATCH = 2   # the models' batch (phase 28's)
+TILED_TIME_BATCH = 8  # the kernels' timed batch
+TILED_STEPS = 5   # AdamW steps on one batch: the loss must fall
+TILED_DESIGNS = {"whole-block": True, "spectral-only": False}
+
+
+def tiled_plans(engine, build, cfg, b):
+    """The block forward's and the wgrad's plans of `cfg` at batch b on
+    this card, each checked tiled (s4's wgrad fits one cluster)."""
+    per_mode = cfg.weight_mode == "per_mode"
+    args = (b, cfg.hidden, cfg.hidden, cfg.spatial, cfg.modes, per_mode)
+    block = engine.pick_plan(build.load_fused_block(), 0, *args,
+                             kind="block_fwd")
+    wgrad = engine.pick_wgrad_plan(build.load_fused_wgrad(), 0, *args,
+                                   kind="wgrad")
+    if not (block["hc"] < block["hs"] or block["ot"] > 1):
+        raise AssertionError(f"{cfg.spatial} hidden {cfg.hidden}: the block "
+                             f"plan {block} is not tiled")
+    return block, wgrad
+
+
+def tiled_kernel_cases(torch, engine, spectral, cfg, b, dt, seed):
+    """name -> (kernel call, plain version on the same inputs in f32) of
+    the block (gelu, gelu_vjp, the adjoint dx, the bare forward) and the
+    wgrad (with and without the bypass) at `cfg`'s shape and batch b."""
+    h, spatial, modes = cfg.hidden, tuple(cfg.spatial), tuple(cfg.modes)
+    per_mode = cfg.weight_mode == "per_mode"
+    gen = torch.Generator().manual_seed(seed)
+    rn = lambda *s, sc=1.0: (sc * torch.randn(s, generator=gen)).to(DEVICE)
+    wshape = (h, h) + (modes if per_mode else ())
+    x, gy = rn(b, h, *spatial), rn(b, h, *spatial)
+    wr, wi = rn(*wshape, sc=1.0 / h), rn(*wshape, sc=1.0 / h)
+    wb, bias = rn(h, h, sc=1.0 / h), rn(h, 1, sc=0.3)
+    tdt = getattr(torch, dt)
+    t = lambda a: a.to(tdt).contiguous()
+    sw = lambda a: t(a).transpose(0, 1)
+    m = backward_mats(spectral, spatial, modes, dt)
+    m32 = backward_mats(spectral, spatial, modes, "float32")
+    wrt = wr.transpose(0, 1).contiguous()
+    wit = wi.transpose(0, 1).contiguous()
+    return {
+        "block_fwd": (lambda: engine.fused_block(
+            t(x), t(wr), t(wi), t(wb), t(bias), m["forward"]),
+            lambda: engine.fused_block_plain(x, wr, wi, wb, bias,
+                                             m32["forward"])),
+        "gz_recompute": (lambda: engine.fused_block(
+            t(x), t(wr), t(wi), t(wb), t(bias), m["forward"],
+            act="gelu_vjp", gy=t(gy)),
+            lambda: engine.fused_block_plain(x, wr, wi, wb, bias,
+                                             m32["forward"],
+                                             act="gelu_vjp", gy=gy)),
+        "dx_adjoint": (lambda: engine.fused_block(
+            t(gy), sw(wr), sw(wi), t(wb.t()), None, m["adjoint"],
+            act="linear", out_dtype=torch.float32, adjoint=True),
+            lambda: engine.fused_block_plain(gy, wrt, wit,
+                                             wb.t().contiguous(), None,
+                                             m32["adjoint"], act="linear")),
+        "spectral_fwd": (lambda: engine.fused_block(
+            t(x), t(wr), t(wi), None, None, m["forward"], act="linear"),
+            lambda: engine.fused_block_plain(x, wr, wi, None, None,
+                                             m32["forward"], act="linear")),
+        "wgrad": (lambda: engine.fused_wgrad(
+            t(x), t(gy), m["wgrad"], per_mode=per_mode),
+            lambda: engine.fused_wgrad_plain(x, gy, m32["wgrad"],
+                                             per_mode=per_mode)),
+        "spectral_wgrad": (lambda: engine.fused_wgrad(
+            t(x), t(gy), m["wgrad"], per_mode=per_mode, with_bypass=False),
+            lambda: engine.fused_wgrad_plain(x, gy, m32["wgrad"],
+                                             per_mode=per_mode,
+                                             with_bypass=False)),
+    }, (x, wr, wi, wb, bias, gy)
+
+
+def tiled_model(torch, np, configs, fno_mod, sfs, ts, optim, tree, engine,
+                batch_fn, cfg, fuse):
+    """One design of `cfg` (whole-block or spectral-only), f32 and bf16:
+    FNOServer (graphed; K=1 and K=4) against the staged path and exactly
+    num_layers launches a step; step-0 loss and every grad against the
+    staged path with exactly one launch of each kind a layer; TILED_STEPS
+    AdamW steps whose loss falls. Returns the launches by (run, dtype)."""
+    b, L = TILED_BATCH, cfg.num_layers
+    cfg = configs.with_fuse_block(cfg, fuse)
+    fwd_kind = "block_fwd" if fuse else "spectral_fwd"
+    kinds = engine.KINDS if fuse else engine.SPECTRAL_KINDS
+    params = fno_mod.init_fno(torch.Generator().manual_seed(0), cfg, DEVICE)
+    fused = dataclasses.replace(cfg, path="fused")
+    staged = dataclasses.replace(cfg, path="staged", fuse_block=False)
+    shape = (cfg.in_channels,) + tuple(cfg.spatial)
+    gen = torch.Generator().manual_seed(3501)
+    reqs = [(torch.randn((n,) + shape, generator=gen).to(DEVICE), k)
+            for n, k in ((1, 1), (2, 1), (2, 4), (1, 4))]
+    batch = batch_fn(cfg, b, DEVICE)(0)
+    loss_ref, g_ref = ts.value_and_grad(
+        ts.make_loss_fn(staged, fno_path="staged"), params, batch)
+    ref = sfs.FNOServer(staged, params, device=DEVICE, max_batch=b)
+    refs = [ref(x, rollout_steps=k) for x, k in reqs]
+    del ref
+    counts = {}
+    for preset in ("f32", "bf16"):
+        c = configs.with_precision(fused, preset)
+        dt = c.precision.compute_dtype
+        srv = sfs.FNOServer(c, params, device=DEVICE, max_batch=b)
+        srv.warm((1, 4))  # build, plan and capture outside the count
+        torch.cuda.synchronize()
+        engine.LAUNCHES.clear()
+        outs = [srv(x, rollout_steps=k) for x, k in reqs]
+        torch.cuda.synchronize()
+        counts[("serve", dt)] = dict(engine.LAUNCHES)
+        want = {(fwd_kind, dt): L * sum(k for _, k in reqs)}
+        if counts[("serve", dt)] != want:
+            raise AssertionError(f"launches {counts[('serve', dt)]} != "
+                                 f"{want}")
+        tol = F32_TOL if preset == "f32" else BF16_TOL
+        for (x, k), y, r in zip(reqs, outs, refs):
+            if not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"non-finite output, K={k}")
+            check(f"serve {preset} n={x.shape[0]} K={k} vs staged f32",
+                  rel_err(y, r), tol)
+        del srv
+        torch.cuda.synchronize()
+        engine.LAUNCHES.clear()
+        loss, g = ts.value_and_grad(ts.make_loss_fn(c, fno_path="fused"),
+                                    params, batch)
+        torch.cuda.synchronize()
+        counts[("train", dt)] = dict(engine.LAUNCHES)
+        want = {(k, dt): L for k in kinds}
+        if counts[("train", dt)] != want:
+            raise AssertionError(f"launches {counts[('train', dt)]} != "
+                                 f"{want}")
+        gtol = F32_TOL if preset == "f32" else BF16_GRAD_TOL
+        check(f"train {preset} step-0 loss vs staged f32",
+              abs(float(loss) - float(loss_ref)) / abs(float(loss_ref)),
+              gtol)
+        for p, a, r in zip(tree.paths(g), tree.leaves(g),
+                           tree.leaves(g_ref)):
+            check(f"train {preset} grad {'.'.join(map(str, p))}",
+                  leaf_err(a, r), gtol)
+        opt = optim.AdamW(lr=optim.cosine_warmup(1e-3, 1, 10))
+        step = ts.make_train_step(c, opt, fno_path="fused")
+        p, st, losses = params, opt.init(params), []
+        for _ in range(TILED_STEPS):
+            p, st, m = step(p, st, batch)
+            losses.append(float(m["loss"]))
+        if not all(math.isfinite(v) for v in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"{preset}: loss did not fall: {losses}")
+        log(f"    {preset}: served {len(reqs)} requests (K=1, 4); step-0 "
+            f"loss {float(loss):.6f} (staged {float(loss_ref):.6f}); "
+            f"{TILED_STEPS} steps {losses[0]:.6f} -> {losses[-1]:.6f}; "
+            f"launches {counts[('serve', dt)]} {counts[('train', dt)]}")
+        del p, st, step, opt, g
+    return counts
+
+
+def phase_tiled(torch, np, engine, spectral, ops, configs, fno_mod, sfs,
+                ts, optim, tree, build, batch_fn):
+    """Phase 35: the shapes the block and wgrad kernels take only tiled
+    (``configs.TILED``)."""
+    log("== phase 35: tiled shapes (a hidden k-loop, out tiles)")
+    rows = []
+    for name in configs.TILED:
+        cfg = configs.tiled_config(name)
+        per_mode = cfg.weight_mode == "per_mode"
+        h, spatial, modes = cfg.hidden, tuple(cfg.spatial), tuple(cfg.modes)
+        what = (f"{name}: {len(spatial)}D {'x'.join(map(str, spatial))} "
+                f"modes {'x'.join(map(str, modes))} hidden {h}"
+                f"{' per-mode' if per_mode else ''}")
+        block, wgrad = tiled_plans(engine, build, cfg, TILED_BATCH)
+        log(f"  {what}: B={TILED_BATCH} block plan {block}; wgrad plan "
+            f"{wgrad}")
+        # Every mode of both kernels against its plain version, B=2.
+        errs = {}
+        for dt in DTYPES:
+            tol = F32_TOL if dt == "float32" else BF16_TOL
+            cases, _ = tiled_kernel_cases(torch, engine, spectral, cfg,
+                                          TILED_BATCH, dt, 3502)
+            for kind, (run, plain) in cases.items():
+                out = run()
+                torch.cuda.synchronize()
+                errs[(kind, dt)] = errors(
+                    out if isinstance(out, tuple) else (out,),
+                    (lambda r: r if isinstance(r, tuple) else (r,))(plain()))
+                check(f"{name} {kind} {dt} kernel vs plain",
+                      errs[(kind, dt)][1], tol)
+            del cases
+        # The model in both designs, served and trained.
+        counts = {}
+        for design, fuse in TILED_DESIGNS.items():
+            log(f"  {name}, {design}:")
+            counts.update({(design,) + k: v for k, v in tiled_model(
+                torch, np, configs, fno_mod, sfs, ts, optim, tree, engine,
+                batch_fn, cfg, fuse).items()})
+        gc.collect()
+        torch.cuda.empty_cache()
+        # The block forward and the wgrad timed at B=8, queued.
+        b = TILED_TIME_BATCH
+        tb, tw = tiled_plans(engine, build, cfg, b)
+        log(f"  {what}: B={b} block plan {tb}; wgrad plan {tw}")
+        for dt, peak, eb in (("float32", PEAK_F32_FLOPS, 4),
+                             ("bfloat16", PEAK_BF16_FLOPS, 2)):
+            tag = "f32" if dt == "float32" else "bf16"
+            cases, (x, wr, wi, wb, bias, gy) = tiled_kernel_cases(
+                torch, engine, spectral, cfg, b, dt, 3503)
+            for kind in ("block_fwd", "wgrad"):
+                run, plain = cases[kind]
+                kms = time_ms(run, 5, warmup=2, queued=True)
+                pms = time_ms(plain, 2, warmup=1, queued=True)
+                if kind == "block_fwd":
+                    t = lambda a: a.to(getattr(torch, dt))
+                    lib_ms = time_ms(lambda: ops.fno_block_nd(
+                        t(x), t(wr), t(wi), t(wb), t(bias).reshape(-1),
+                        modes, path="ref"), 3, warmup=1, queued=True)
+                else:
+                    lib_ms = staged_wgrad_ms(torch, x, gy, modes, per_mode)
+                bms, by = bound_ms(kind, b, h, h, spatial, modes, eb, peak,
+                                   per_mode)
+                where = ("serve" if kind == "block_fwd" else "train")
+                launches = counts[("whole-block", where, dt)].get(
+                    (kind, dt), 0)
+                plan = tb if kind == "block_fwd" else tw
+                e = errs[(kind, dt)]
+                log(f"  {tag} {kind} B={b}: kernel_ms={kms:.4f} plain_ms="
+                    f"{pms:.4f} staged_ms={lib_ms:.4f} bound_us="
+                    f"{1e3 * bms:.2f} ({by}); launches {launches} ({where}, "
+                    f"whole-block, B={TILED_BATCH})")
+                rows.append({
+                    "name": f"{kind}_tiled_{name}_{tag}", "route": "cuda",
+                    "source": WGRAD_SOURCE if kind == "wgrad"
+                    else BLOCK_SOURCE,
+                    "replaces": WGRAD_REPLACES if kind == "wgrad"
+                    else BLOCK_REPLACES,
+                    "shape": f"{what} B={b}",
+                    "plan": {k: plan[k] for k in ("cluster", "hs", "os",
+                                                  "hc", "ot", "chain")},
+                    "launches": launches, "max_abs_err": e[0],
+                    "scaled_err": e[1],
+                    "tol": F32_TOL if dt == "float32" else BF16_TOL,
+                    "ms": kms, "plain_ms": pms, "bound_ms": bms,
+                    "bound_by": by, "library_ms": None,
+                    "library_note": "no single PyTorch call computes it",
+                    ("torch_fft_ms" if kind == "block_fwd"
+                     else "staged_ms"): lib_ms})
+            del cases, x, wr, wi, wb, bias, gy
+            gc.collect()
+            torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3701,6 +3968,8 @@ def main() -> int:
                                  batch_fn)
     tuned = timed("34", phase_tuned, torch, configs, fno_mod, sfs, engine,
                   build, batch_fn, tree, ts, card)
+    rows += timed("35", phase_tiled, torch, np, engine, spectral, ops,
+                  configs, fno_mod, sfs, ts, optim, tree, build, batch_fn)
     for row in shard_rows:  # the launches at each shard shape, every rank
         mesh, names = SHARD_RUNS[row.pop("shard")]
         dt = row.pop("dtype")

@@ -99,17 +99,19 @@ def counted_calls(record: Optional[list] = None):
             setattr(mod, name, fn)
 
 
-def launch_counts(fn: Callable, *args, **kwargs) -> Dict[str, int]:
-    """{kind: calls} of the kernel entry points while fn runs."""
-    with counted_calls() as calls:
+def launch_counts(fn: Callable, *args, record: Optional[list] = None,
+                  **kwargs) -> Dict[str, int]:
+    """{kind: calls} of the kernel entry points while fn runs (`record` as
+    ``counted_calls``')."""
+    with counted_calls(record) as calls:
         fn(*args, **kwargs)
     return dict(calls)
 
 
 def check_launch_count(fn: Callable, args: Sequence, want: Dict[str, int],
-                       *, target: str,
-                       kwargs: Optional[dict] = None) -> List[Finding]:
-    got = launch_counts(fn, *args, **(kwargs or {}))
+                       *, target: str, kwargs: Optional[dict] = None,
+                       record: Optional[list] = None) -> List[Finding]:
+    got = launch_counts(fn, *args, record=record, **(kwargs or {}))
     return _compare_launches(got, want, target)
 
 
@@ -359,18 +361,22 @@ def lint_model(archs: Sequence[str] = ("fno1d", "fno2d", "fno3d"),
                designs: Sequence[str] = ("block", "partial", "spectral",
                                          "ends"),
                reduced: bool = True, device="cpu",
-               batch: int = 2) -> List[Finding]:
+               batch: int = 2, block_plan=None,
+               record: Optional[list] = None) -> List[Finding]:
     """``apply_fno`` forward and the loss's grad on the fused path, in the
     fused designs ("block": whole-block full; "partial"; "spectral":
     ``fuse_block`` off; "ends": ``fuse_ends``): exact launches and
-    policy-clean casts."""
+    policy-clean casts. block_plan: the configs' ``FNOConfig.block_plan``
+    (e.g. pins of hc / ot that force tiled plans); `record` collects each
+    launch's (kind, plan override) as ``counted_calls``'."""
     from repro_torch.core import fno as fno_mod
 
     findings: List[Finding] = []
     for arch, dtype, design in itertools.product(archs, dtypes, designs):
-        cfg = model_cfg(arch, dtype, reduced=reduced,
-                        fuse_block=design != "spectral",
-                        fuse_ends=design == "ends")
+        cfg = dataclasses.replace(
+            model_cfg(arch, dtype, reduced=reduced,
+                      fuse_block=design != "spectral",
+                      fuse_ends=design == "ends"), block_plan=block_plan)
         variant = "partial" if design == "partial" else "full"
         target = f"apply_fno {arch}/{design}/{dtype}"
         params = _model_params(cfg, device)
@@ -383,11 +389,12 @@ def lint_model(archs: Sequence[str] = ("fno1d", "fno2d", "fno3d"),
         want_fwd, want_grad = expected_model_launches(cfg, variant)
         with torch.no_grad():
             findings += check_launch_count(fwd, leaves, want_fwd,
-                                           target=f"{target} fwd")
+                                           target=f"{target} fwd",
+                                           record=record)
             findings += check_cast_ownership(fwd, leaves, cfg.precision,
                                              target=f"{target} fwd")
         findings += check_launch_count(_grad_fn(fwd), leaves, want_grad,
-                                       target=f"{target} grad")
+                                       target=f"{target} grad", record=record)
         findings += check_cast_ownership(_grad_fn(fwd), leaves,
                                          cfg.precision,
                                          target=f"{target} grad")

@@ -139,12 +139,15 @@ def block_launch_estimates(cfg, *, variant: str = "full", batch: int = 8,
 
 
 def default_configs() -> List[Any]:
-    """Every preset at full width and reduced, and the fused ends at full
-    width where the port serves them (fno2d, fno3d)."""
-    from repro_torch.configs import FNO_IDS, get_config, with_fuse_ends
+    """Every preset at full width and reduced, the fused ends at full
+    width where the port serves them (fno2d, fno3d), and the shapes the
+    block and wgrad kernels take only tiled (``configs.TILED``)."""
+    from repro_torch.configs import (FNO_IDS, TILED, get_config,
+                                     tiled_config, with_fuse_ends)
 
     out = [get_config(a, reduced=r) for r in (False, True) for a in FNO_IDS]
     out += [with_fuse_ends(get_config(a)) for a in ("fno2d", "fno3d")]
+    out += [tiled_config(n) for n in TILED]
     return out
 
 

@@ -43,19 +43,21 @@ def with_fuse_ends(cfg: FNOConfig, on: bool = True) -> FNOConfig:
 
 def with_block_plan(cfg: FNOConfig, *, cluster: int = 0,
                     chain: Optional[str] = None, rows_f: int = 0,
-                    rows_i: int = 0, cols: int = 0, np: int = 0,
-                    nb: int = 0, kc: int = 0, ri: int = 0,
-                    wj: int = 0) -> FNOConfig:
+                    rows_i: int = 0, cols: int = 0, hc: int = 0,
+                    ot: int = 0, np: int = 0, nb: int = 0, kc: int = 0,
+                    ri: int = 0, wj: int = 0) -> FNOConfig:
     """Pin fields of the fused launches' plans, over the tuned cache
     (``repro_torch.tuning``): 0 or None keeps the resolved value. Each
     launch takes the fields its kernel has: the block kernel's cluster,
     chain ("tc" / "fma"), rows_f and rows_i (s_1 rows of a forward and an
     inverse chunk); the wgrad's cluster, chain, rows_f and cols (points of
-    a dW_b chunk); the core's cluster, np, nb, kc, ri and wj. A field the
-    planner refuses raises at the launch (ValueError naming it). Composes
-    with :func:`with_precision` / :func:`with_fuse_block`."""
+    a dW_b chunk); both kernels' tiling, hc (hidden channels a block holds
+    at once) and ot (out tiles), which force a tiled plan; the core's
+    cluster, np, nb, kc, ri and wj. A field the planner refuses raises at
+    the launch (ValueError naming it). Composes with
+    :func:`with_precision` / :func:`with_fuse_block`."""
     pins = dict(cluster=cluster, chain=chain, rows_f=rows_f, rows_i=rows_i,
-                cols=cols, np=np, nb=nb, kc=kc, ri=ri, wj=wj)
+                cols=cols, hc=hc, ot=ot, np=np, nb=nb, kc=kc, ri=ri, wj=wj)
     out = dataclasses.replace(cfg, block_plan=normalize_override(pins))
     out.validate()
     return out
@@ -121,5 +123,25 @@ def get_config(arch: str, reduced: bool = False) -> FNOConfig:
         raise KeyError(f"unknown arch {arch!r}; known: {FNO_IDS}")
     full, red = _FACTORIES[arch]
     cfg = red() if reduced else full()
+    cfg.validate()
+    return cfg
+
+
+# Shapes whose spectra do not fit one cluster of the block and wgrad
+# kernels, which the planners tile (a hidden k-loop, out tiles): a preset
+# with the fields replaced. s1 is fno2d at hidden 256 (the out-channel
+# cap), s1-per-mode fno2d-large's per-mode model there (W 537 MB a layer),
+# s2 fno2d at 256² modes 64², s3 fno3d at hidden 64, s4 fno3d at 128³.
+TILED = {"s1": ("fno2d", {"hidden": 256}),
+         "s1-per-mode": ("fno2d-large", {"hidden": 256}),
+         "s2": ("fno2d", {"spatial": (256, 256), "modes": (64, 64)}),
+         "s3": ("fno3d", {"hidden": 64}),
+         "s4": ("fno3d", {"spatial": (128, 128, 128)})}
+
+
+def tiled_config(name: str) -> FNOConfig:
+    """One of ``TILED``'s shapes at its preset's depth and ends."""
+    arch, fields = TILED[name]
+    cfg = dataclasses.replace(get_config(arch), **fields)
     cfg.validate()
     return cfg

@@ -75,6 +75,16 @@
 // Occupancy is low at small batches (B·CL blocks of 132 SMs). Ragged extents
 // are masked here: the TPU's lane padding is not ported.
 //
+// Tiles (kTiled). Where a cluster cannot hold every hidden channel's
+// spectra or every out channel (more than CL·kMaxOut), the plan takes the
+// TPU kernel's two tiling axes: the hidden k-loop (phases 1 and 2 run once
+// per chunk of hc channels a block; C accumulates across the chunks and
+// stays resident, so phase 1's work area moves past C, onto the tail, and
+// phase 3's factors are copied after the last chunk) and out tiles (grid
+// z: each cluster owns CL·os out channels of a sample and forms their
+// epilogue, recomputing the forward spectra once a tile). The ends take no
+// tiled plan: the projection contracts every out channel.
+//
 // The ends (kEnds). The TPU kernel holds the lift's inner activation of a
 // whole sample in VMEM across its hidden loop; here both MLPs are
 // channel-pointwise, so each needs only the s_1 chunk at hand, and the lifted
@@ -134,33 +144,40 @@ enum Act { kGelu = 0, kGeluVjp = 1, kLinear = 2 };
 
 // Shared-memory layout (byte offsets, regions 128-B aligned): my rows of
 // the shared weights, and with the ends of wb and the bias, from 0; the
-// spectra A [2][hs][K]; C [dc][ldc] (phase 2's CGEMM result as the inverse
-// chain reads it, C[k1][o·Kp + k']); the tail. Phase 1's work area starts at C (over C and the tail: C is
-// written only after the cluster barrier that ends phase 1); phase 3 keeps
-// C, and its factors and stages in the tail, where the ends' scratch lies
-// over them (a launch with the ends copies the factors again each chunk),
-// and ys [os][ri·P] over A when it fits there (A is dead after the barrier
-// that ends phase 2), else after them.
+// spectra A [2][hc][K] of a hidden chunk; C [dc][ldc] (phase 2's CGEMM
+// result as the inverse chain reads it, C[k1][o·Kp + k']); the tail.
+// Phase 1's work area starts at C (over C and the tail: C is written only
+// after the cluster barrier that ends phase 1), or, with the hidden k-loop
+// (kloop: C accumulates over the chunks and stays resident), at the tail,
+// whose factors are copied only after the last chunk's phase 1; phase 3
+// keeps C, and its factors and stages in the tail, where the ends' scratch
+// lies over them (a launch with the ends copies the factors again each
+// chunk), and ys [os][ri·P] over A when it fits there (A is dead after the
+// barrier that ends phase 2), else after them.
 struct BLayout {
   long long a, c, t, ys;  // A, C, the tail, ys
+  long long w1;           // phase 1's work area
   long long p1, p3;       // the ends of phases 1 and 3
   long long bytes;
   chain::Layout chain;    // phase 1 on the tensor cores
   chain::InvLayout inv;   // phase 3's factors and stages, from t
 };
 
-// Mirrored by kernels/engine.py _block_layout. wl, dp: columns of the last
-// inverse factor and rows of the first held at once; fma: phase 1 on the
-// CUDA cores (fno::forward_chain); lift (> 0, the lift's width) runs it on
-// the lifted chunk; lp, cout: the projection's width and channels (0:
-// none); ep: points a block takes of a piece of the ends.
+// Mirrored by kernels/engine.py _block_layout. hc: hidden channels a block
+// holds at once (its whole slice hs, or with kloop a chunk of it); wl, dp:
+// columns of the last inverse factor and rows of the first held at once;
+// fma: phase 1 on the CUDA cores (fno::forward_chain); lift (> 0, the
+// lift's width) runs it on the lifted chunk; lp, cout: the projection's
+// width and channels (0: none); ep: points a block takes of a piece of the
+// ends.
 __host__ __device__ inline BLayout block_layout(int R, int esize, int H,
                                                 int O, const int* n,
-                                                const int* k, int hs, int os,
+                                                const int* k, int hc, int os,
                                                 int rows_f, int rows_i,
                                                 int wl, int dp, bool fma,
                                                 bool per_mode, int lift,
-                                                int lp, int cout, int ep) {
+                                                int lp, int cout, int ep,
+                                                bool kloop) {
   using tc::align128;
   BLayout B = {};
   const long long K = 1LL * k[0] * k[1] * k[2];
@@ -168,21 +185,22 @@ __host__ __device__ inline BLayout block_layout(int R, int esize, int H,
   const bool ends = lift > 0 || lp > 0;  // wb's rows and the bias too
   B.a = align128(4LL * ((per_mode ? 0 : 2) * os * H +
                         (ends ? os * H + kMaxOut : 0)));
-  B.c = align128(B.a + 8LL * hs * K);
+  B.c = align128(B.a + 8LL * hc * K);
   B.inv = chain::inv_layout(R, n, k, os, rows_i, wl, dp);
   B.t = align128(B.c + B.inv.cbytes);
   long long p1;
   if (lift > 0) {  // hbuf [hs][rf·P], then the chain's or the piece's
     const long long chain = fno::chain_work(R, n, k, rows_f) - rows_f * P;
     const long long piece = 1LL * (lift + H) * ep;
-    p1 = 4 * (hs * rows_f * P + (chain > piece ? chain : piece));
+    p1 = 4 * (hc * rows_f * P + (chain > piece ? chain : piece));
   } else if (fma) {
     p1 = 4 * fno::chain_work(R, n, k, rows_f);
   } else {
-    B.chain = chain::layout(R, esize, n, k, rows_f, hs);
+    B.chain = chain::layout(R, esize, n, k, rows_f, hc);
     p1 = B.chain.bytes;
   }
-  B.p1 = B.c + p1;
+  B.w1 = kloop ? B.t : B.c;
+  B.p1 = B.w1 + p1;
   // The factors and stages; over the stages the split epilogue's wb
   // columns [H][kOG], or over them all the ends' scratch.
   long long tail = B.inv.bytes;
@@ -194,7 +212,7 @@ __host__ __device__ inline BLayout block_layout(int R, int esize, int H,
   if (lp > 0 && projected > tail) tail = projected;
   long long end = align128(B.t + tail);
   const long long ysb = 4LL * os * rows_i * P;
-  if (ysb <= 8LL * hs * K) {
+  if (ysb <= 8LL * hc * K) {
     B.ys = B.a;
   } else {
     B.ys = end;
@@ -220,6 +238,7 @@ struct Args {
   int H, O;
   int n[3], k[3];  // extents and modes, axis order 1..R (unused = 1)
   int hs, os;      // hidden / out channels per block of the cluster
+  int hc;          // hidden channels a block's chunk (kTiled; else hs)
   int rows_f, rows_i;  // s_1 rows per forward / inverse chunk
   int fma;         // phase 1 on the CUDA cores (else the tensor cores)
   BLayout lay;
@@ -438,16 +457,153 @@ __device__ FNO_NOINLINE void split_epilogue(
   cluster.sync();  // every block has read the chunk's ys
 }
 
+// The tiled instances' body (kTiled): the hidden k-loop and out tiles (see
+// "Tiles" above), without the ends. A function of its own that the kernel
+// calls in place of its body, so that the untiled instances keep their
+// code: folded into the body, the switch cost them 11–37 % on the H100
+// (register allocation; turns against the code before it).
+template <int R, typename T, bool kBypass, bool kPerMode>
+__device__ __forceinline__ void tiled_block(const Args<T>& a, float* smem) {
+  char* base = reinterpret_cast<char*>(smem);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cl = static_cast<int>(gridDim.x);  // the cluster spans grid x
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int H = a.H, O = a.O, os = a.os, hc = a.hc;
+  const fno::Geom g = fno::make_geom<R>(a.n, a.k);
+  const int n1 = g.n1, k1 = g.k1;
+  const int P = g.P, Kp = g.Kp, K = g.K, S = g.S;
+  // The out tile's first channel and channels; my out slice of it.
+  const int ob = static_cast<int>(blockIdx.z) * cl * os;
+  const int on = min(cl * os, O - ob);
+  const int o0 = ob + rank * os, no = max(0, min(os, O - o0));
+  const BLayout& L = a.lay;
+  float* Wr = smem;
+  float* Wi = Wr + (kPerMode ? 0 : os * H);
+  float* Ar = reinterpret_cast<float*>(base + L.a);
+  float* Ai = Ar + hc * K;
+  float* Cr = reinterpret_cast<float*>(base + L.c);
+  float* Ci = Cr + L.inv.mc;
+  for (int i = tid; i < (kPerMode ? 0 : no * H); i += kThreads) {
+    const size_t at = (o0 + i / H) * a.w_so + i % H * a.w_sh;
+    Wr[i] = ld(a.wr + at);
+    Wi[i] = ld(a.wi + at);
+  }
+
+  // The hidden k-loop: chunk j holds channels hb + r·hc.. of block r.
+  // Phase 1's work area lies past C, which accumulates across the chunks;
+  // phase 3's factors go into the tail after the last chunk.
+  const int chunks = (H + cl * hc - 1) / (cl * hc);
+  for (int j = 0; j < chunks; ++j) {
+    const int hb = j * cl * hc;
+    const int h0 = hb + rank * hc, nh = max(0, min(hc, H - h0));
+    for (int i = tid; i < hc * K; i += kThreads) Ar[i] = Ai[i] = 0.f;
+    __syncthreads();
+    const T* xh = a.x + (static_cast<size_t>(b) * H + h0) * S;
+    if (a.fma) {
+      fno::forward_chain<R, T>(xh, PHASE_BOUND(1, nh), g, a.rows_f, a.f, Ar,
+                               Ai, K, reinterpret_cast<float*>(base + L.w1));
+    } else {
+      chain::forward_chain<R, T>(xh, PHASE_BOUND(1, nh), g, L.chain, a.f, Ar,
+                                 Ai, K, base + L.w1);
+    }
+    if (j == chunks - 1)
+      chain::inverse_factors<R, T>(L.inv, base + L.t, a.e, g);
+    cluster.sync();
+    // Phase 2 over the chunk's channels, added to the earlier chunks' sums
+    // in C (the first chunk writes them).
+    for (int i = tid; i < (L.inv.dc - k1) * L.inv.ldc; i += kThreads)
+      Cr[k1 * L.inv.ldc + i] = 0.f;
+    for (int kk = tid; kk < PHASE_BOUND(2, K); kk += kThreads) {
+      const size_t wbase = static_cast<size_t>(o0) * a.w_so + kk;
+      const int c1 = kk / Kp, at = c1 * L.inv.ldc + kk - c1 * Kp;
+      float cr[kMaxOut], ci[kMaxOut];
+#pragma unroll
+      for (int o = 0; o < kMaxOut; ++o) {
+        const bool acc = j > 0 && o < os;  // C holds the sums so far
+        cr[o] = acc ? Cr[at + o * Kp] : 0.f;
+        ci[o] = acc ? Ci[at + o * Kp] : 0.f;
+      }
+      for (int src = 0; src < cl; ++src) {
+        const float* rAr = cluster.map_shared_rank(Ar, src);
+        const float* rAi = cluster.map_shared_rank(Ai, src);
+        const int hsrc = hb + src * hc;
+        const int nhs = max(0, min(hc, H - hsrc));
+        for (int hh = 0; hh < nhs; ++hh) {
+          const float ar = rAr[hh * K + kk];
+          const float ai = rAi[hh * K + kk];
+          const int h = hsrc + hh;
+#pragma unroll
+          for (int o = 0; o < kMaxOut; ++o) {
+            if (o < no) {
+              float wr, wi;
+              if (kPerMode) {
+                const size_t w = wbase + o * a.w_so + h * a.w_sh;
+                wr = ld(a.wr + w);
+                wi = ld(a.wi + w);
+              } else {
+                wr = Wr[o * H + h];
+                wi = Wi[o * H + h];
+              }
+              cr[o] = fmaf(wr, ar, fmaf(-wi, ai, cr[o]));
+              ci[o] = fmaf(wr, ai, fmaf(wi, ar, ci[o]));
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int o = 0; o < kMaxOut; ++o) {
+        if (o < os) {
+          Cr[at + o * Kp] = o < no ? cr[o] : 0.f;
+          Ci[at + o * Kp] = o < no ? ci[o] : 0.f;
+        }
+      }
+    }
+    cluster.sync();  // no block reuses its spectra while another reads them
+  }
+
+  // Phase 3 as the untiled kernel's without the ends, the epilogue over
+  // the out tile's channels: its rows of wb, the bias, gy and y.
+  const int ri = a.rows_i;
+  float* ys = reinterpret_cast<float*>(base + L.ys);  // [os][nr·P]
+  const size_t sb = static_cast<size_t>(b) * S;  // the sample's offsets
+  const size_t so = sb * O + static_cast<size_t>(ob) * S;
+  for (int c0 = 0; c0 < PHASE_BOUND(3, n1); c0 += ri) {
+    const int nr = min(ri, n1 - c0);
+    tc::async_wait_all();
+    __syncthreads();  // the inverse factors have landed
+    if (PHASE_BOUND(6, 1))
+      chain::inverse_chunk<R, T>(Cr, L.inv, base + L.t, a.e, g, os, nr, c0,
+                                 ys);
+    split_epilogue<T, kBypass>(
+        a.x + sb * H, kBypass ? a.wb + static_cast<size_t>(ob) * H : a.wb,
+        a.bias ? a.bias + ob : nullptr, a.gy ? a.gy + so : nullptr,
+        a.out_f32 ? static_cast<void*>(static_cast<float*>(a.y) + so)
+                  : static_cast<void*>(static_cast<T*>(a.y) + so),
+        a.act, a.out_f32, H, on, os, ys,
+        reinterpret_cast<float*>(base + L.t + L.inv.fbytes), c0 * P,
+        nr * P, S);
+  }
+}
+
 // kBypass=false (wb null) compiles the bare spectral layer: no wb loads and
 // no bypass loop, while the bypass path keeps its code unchanged.
 // kPerMode=true reads per-mode weights from device memory in phase 2;
 // kPerMode=false stages the shared weights' rows in shared memory.
 // kEnds=true (with kBypass only) compiles the fused model ends; which ends
-// run is read from the operands, once per chunk.
-template <int R, typename T, bool kBypass, bool kPerMode, bool kEnds>
+// run is read from the operands, once per chunk. kTiled=true (never with
+// kEnds) runs tiled_block instead.
+template <int R, typename T, bool kBypass, bool kPerMode, bool kEnds,
+          bool kTiled>
 __global__ void __launch_bounds__(kThreads)
 fused_block_kernel(const Args<T> a) {
   extern __shared__ float smem[];
+  static_assert(!(kEnds && kTiled), "the ends contract the whole out axis");
+  if constexpr (kTiled) {
+    tiled_block<R, T, kBypass, kPerMode>(a, smem);
+    return;
+  }
   char* base = reinterpret_cast<char*>(smem);
   cg::cluster_group cluster = cg::this_cluster();
   const int cl = static_cast<int>(gridDim.x);  // the cluster spans grid x
@@ -729,54 +885,68 @@ fused_block_kernel(const Args<T> a) {
   }
 }
 
-template <int R, typename T, bool kBypass, bool kPerMode, bool kEnds>
-cudaError_t launch_kernel(const Args<T>& a, int batch, int cl,
+// One cluster of cl blocks per (sample, out tile): grid (cl, batch, ot).
+template <int R, typename T, bool kBypass, bool kPerMode, bool kEnds,
+          bool kTiled>
+cudaError_t launch_kernel(const Args<T>& a, int batch, int ot, int cl,
                           int smem_bytes, cudaStream_t stream) {
-  auto* kernel = fused_block_kernel<R, T, kBypass, kPerMode, kEnds>;
+  auto* kernel = fused_block_kernel<R, T, kBypass, kPerMode, kEnds, kTiled>;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = fno::configure(kernel, batch, cl, smem_bytes, stream,
-                                   &cfg, &attr);
+  cudaError_t err = fno::configure(kernel, dim3(cl, batch, ot), kThreads, cl,
+                                   smem_bytes, stream, &cfg, &attr);
   if (err != cudaSuccess) return err;
   err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <int R, typename T, bool kPerMode>
-cudaError_t launch_mode(const Args<T>& a, int batch, int cl, int smem_bytes,
-                        cudaStream_t stream) {
+template <int R, typename T, bool kPerMode, bool kTiled>
+cudaError_t launch_mode(const Args<T>& a, int batch, int ot, int cl,
+                        int smem_bytes, cudaStream_t stream) {
   if (!a.wb) {
-    return launch_kernel<R, T, false, kPerMode, false>(a, batch, cl,
-                                                       smem_bytes, stream);
+    return launch_kernel<R, T, false, kPerMode, false, kTiled>(
+        a, batch, ot, cl, smem_bytes, stream);
   }
-  if (a.l1w || a.p1w) {
-    return launch_kernel<R, T, true, kPerMode, true>(a, batch, cl,
-                                                     smem_bytes, stream);
+  if constexpr (!kTiled) {
+    if (a.l1w || a.p1w) {
+      return launch_kernel<R, T, true, kPerMode, true, false>(
+          a, batch, ot, cl, smem_bytes, stream);
+    }
   }
-  return launch_kernel<R, T, true, kPerMode, false>(a, batch, cl, smem_bytes,
-                                                    stream);
+  return launch_kernel<R, T, true, kPerMode, false, kTiled>(
+      a, batch, ot, cl, smem_bytes, stream);
 }
 
 template <int R, typename T>
-cudaError_t launch(const Args<T>& a, int per_mode, int batch, int cl,
-                   int smem_bytes, cudaStream_t stream) {
-  return per_mode
-             ? launch_mode<R, T, true>(a, batch, cl, smem_bytes, stream)
-             : launch_mode<R, T, false>(a, batch, cl, smem_bytes, stream);
+cudaError_t launch(const Args<T>& a, int per_mode, int tiled, int batch,
+                   int ot, int cl, int smem_bytes, cudaStream_t stream) {
+  if (tiled) {
+    return per_mode ? launch_mode<R, T, true, true>(a, batch, ot, cl,
+                                                    smem_bytes, stream)
+                    : launch_mode<R, T, false, true>(a, batch, ot, cl,
+                                                     smem_bytes, stream);
+  }
+  return per_mode ? launch_mode<R, T, true, false>(a, batch, ot, cl,
+                                                   smem_bytes, stream)
+                  : launch_mode<R, T, false, false>(a, batch, ot, cl,
+                                                    smem_bytes, stream);
 }
 
 template <typename T>
 int max_clusters_for(int rank, int cl, int smem_bytes, int* n) {
   switch (rank) {
     case 1: return static_cast<int>(fno::max_clusters(
-        fused_block_kernel<1, T, true, false, false>, cl, smem_bytes,
+        fused_block_kernel<1, T, true, false, false, false>, cl,
+        smem_bytes,
         n));
     case 2: return static_cast<int>(fno::max_clusters(
-        fused_block_kernel<2, T, true, false, false>, cl, smem_bytes,
+        fused_block_kernel<2, T, true, false, false, false>, cl,
+        smem_bytes,
         n));
     case 3: return static_cast<int>(fno::max_clusters(
-        fused_block_kernel<3, T, true, false, false>, cl, smem_bytes,
+        fused_block_kernel<3, T, true, false, false, false>, cl,
+        smem_bytes,
         n));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -791,10 +961,11 @@ BLayout layout_of(int rank, int esize, const int* dims, const int* plan,
     n[i] = i < rank ? dims[3 + i] : 1;
     k[i] = i < rank ? dims[6 + i] : 1;
   }
-  return block_layout(rank, esize, dims[1], dims[2], n, k, plan[1], plan[2],
+  return block_layout(rank, esize, dims[1], dims[2], n, k, plan[10], plan[2],
                       plan[3], plan[4], plan[8], plan[9],
                       plan[7] != 0 || lift > 0,
-                      wl[0] != 0, lift, lp, cout, plan[6]);
+                      wl[0] != 0, lift, lp, cout, plan[6],
+                      plan[10] < plan[1]);
 }
 
 template <typename T>
@@ -834,6 +1005,11 @@ int dispatch(int rank, int act, int out_f32, const void* x, const void* wr,
   const int smem_bytes = plan[5];
   a.ep = plan[6];
   a.fma = plan[7];
+  a.hc = plan[10];
+  const int ot = plan[11];
+  // Tiled: a hidden k-loop (hc < hs) or out tiles (ot > 1), each tile
+  // holding some out channels.
+  const int tiled = a.hc < a.hs || ot > 1;
   const int per_mode = wl[0];
   a.w_so = wl[1];
   a.w_sh = wl[2];
@@ -849,15 +1025,18 @@ int dispatch(int rank, int act, int out_f32, const void* x, const void* wr,
   if (a.os > kMaxOut || act < kGelu || act > kLinear ||
       (act == kGeluVjp) != (gy != nullptr) || a.rows_f < 1 || a.rows_i < 1 ||
       (rank > 1 && (plan[8] < 8 || plan[8] % 8 != 0)) || plan[9] < 4 ||
-      plan[9] % 4 != 0) {
+      plan[9] % 4 != 0 || a.hc < 1 || a.hc > a.hs || ot < 1 ||
+      1LL * ot * cl * a.os < a.O || 1LL * (ot - 1) * cl * a.os >= a.O) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (a.l1w || a.p1w) {  // the ends: a block forward, each end whole
+  if (a.l1w || a.p1w) {  // the ends: a block forward, each end whole, and
+                         // the projection contracts every out channel
     const bool lift_ok = !a.l1w || (a.l1b && a.l2w && a.l2b && a.cin > 0 &&
                                     a.L > 0);
     const bool proj_ok = !a.p1w || (a.p1b && a.p2w && a.p2b && a.Lp > 0 &&
                                     a.cout > 0);
-    if (!wb || !bias || act != kGelu || !lift_ok || !proj_ok || a.ep < 1)
+    if (!wb || !bias || act != kGelu || !lift_ok || !proj_ok || a.ep < 1 ||
+        tiled)
       return static_cast<int>(cudaErrorInvalidValue);
   }
   a.lay = layout_of(rank, static_cast<int>(sizeof(T)), dims, plan, wl,
@@ -870,11 +1049,11 @@ int dispatch(int rank, int act, int out_f32, const void* x, const void* wr,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (rank) {
     case 1: return static_cast<int>(
-        launch<1, T>(a, per_mode, batch, cl, smem_bytes, s));
+        launch<1, T>(a, per_mode, tiled, batch, ot, cl, smem_bytes, s));
     case 2: return static_cast<int>(
-        launch<2, T>(a, per_mode, batch, cl, smem_bytes, s));
+        launch<2, T>(a, per_mode, tiled, batch, ot, cl, smem_bytes, s));
     case 3: return static_cast<int>(
-        launch<3, T>(a, per_mode, batch, cl, smem_bytes, s));
+        launch<3, T>(a, per_mode, tiled, batch, ot, cl, smem_bytes, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -891,7 +1070,10 @@ int dispatch(int rank, int act, int out_f32, const void* x, const void* wr,
 // points a block takes of a piece (the ends only), phase 1's chain (0 the
 // tensor cores, 1 the CUDA cores; a launch with the lift takes 1), columns
 // of the last inverse factor held at once (rank ≥ 2; n_R padded to 8: all
-// of it, resident), rows of the first at once (k_1 padded to 4: all)}.
+// of it, resident), rows of the first at once (k_1 padded to 4: all),
+// hidden channels a block's chunk (hidden/block: no k-loop), out tiles
+// (clusters a sample, each out/block · cluster channels; 1: untiled)}; a
+// tiled plan (a k-loop or out tiles) takes no ends.
 // wl: {per_mode, stride of o, stride of h}: wr, wi are [O, H] (per_mode =
 // 0) or [O, H, K] with the modes contiguous, at these element strides.
 // ends: null, or the model ends' 8 device pointers {l1w [L,cin], l1b [L],

@@ -61,6 +61,16 @@
 //     writing). It stages Ĝ of the whole batch over a chunk of modes in
 //     shared memory; each thread takes kHP hidden channels of one mode, so
 //     every staged Ĝ value feeds kHP complex multiply-adds.
+//   * tiles (kTiled), for shapes whose spectra or dW_b product do not fit a
+//     cluster: the reference's grid (o/bo, h/bh, b/bb). A launch runs a
+//     cluster per (sample, out tile, hidden tile) (grid z: out tile ·
+//     hidden tiles + hidden tile); the cluster of out tile t and hidden
+//     tile u holds Ĝ of out channels t·cl·os.. and A of hidden channels
+//     u·cl·hc.., forms their dW and the [O_t × H_u] block of dW_b, and its
+//     blocks take their own tickets (rank, t, u): every tile's batch
+//     reduction writes a disjoint block of the outputs, dbias from hidden
+//     tile 0 only. Ĝ is formed once per hidden tile and A once per out
+//     tile, as the reference's grid forms them.
 #include <cooperative_groups.h>
 
 #include "chain_tc.cuh"
@@ -100,7 +110,8 @@ struct WLayout {
   long long g0, g1, x0, x1, part, spl, bytes;
 };
 
-// Mirrored by kernels/engine.py _wgrad_bytes.
+// Mirrored by kernels/engine.py _wgrad_bytes. H, O: the hidden and out
+// channels of a cluster's tile (untiled: all); hs, os: a block's.
 __host__ __device__ inline WLayout wgrad_layout(int R, int esize, int H,
                                                 int O, const int* n,
                                                 const int* k, int hs, int os,
@@ -161,6 +172,7 @@ struct Args {
   int H, O;
   int n[3], k[3];   // extents and modes, axis order 1..R (unused = 1)
   int hs, os;       // hidden / out channels per block of the cluster
+  int hc, ht;       // kTiled: hidden channels a block, hidden tiles
   int cols;         // points per chunk of phase 3
   int kc;           // per-mode: modes per chunk of the batch reduction
   WLayout L;
@@ -286,7 +298,9 @@ __device__ void bypass_partial(const T* xsrc, const T* gsrc, int H, int O,
 // layer's backward. kPerMode=true forms dW per mode in the batch
 // reduction; kPerMode=false sums the modes in phase 2. kFma=true runs
 // phase 1 on the CUDA cores' chain, kFma=false on the tensor cores'.
-template <int R, typename T, bool kBypass, bool kPerMode, bool kFma>
+// kTiled=true runs a cluster per (sample, out tile, hidden tile).
+template <int R, typename T, bool kBypass, bool kPerMode, bool kFma,
+          bool kTiled>
 __global__ void __launch_bounds__(kThreads)
 fused_wgrad_kernel(const Args<T> a) {
   extern __shared__ float smem[];
@@ -297,19 +311,33 @@ fused_wgrad_kernel(const Args<T> a) {
   const int b = blockIdx.y;
   const int nb = static_cast<int>(gridDim.y);
   const int tid = threadIdx.x;
-  const int H = a.H, O = a.O, hs = a.hs, os = a.os;
+  const int H = a.H, O = a.O, os = a.os;
   const WLayout L = a.L;
   const fno::Geom g = fno::make_geom<R>(a.n, a.k);
   const int K = g.K, S = g.S, ldk = K + 1;
-  const int h0 = rank * hs, nh = max(0, min(hs, H - h0));
-  const int o0 = rank * os, no = max(0, min(os, O - o0));
+  // The cluster's tile (untiled: every channel): z, its out and hidden
+  // tiles, their first channels and channels; a block's hidden channels.
+  const int hs = kTiled ? a.hc : a.hs;
+  const int z = kTiled ? static_cast<int>(blockIdx.z) : 0;
+  const int th = kTiled ? z % a.ht : 0;
+  const int ob = kTiled ? z / a.ht * cl * os : 0;
+  const int hb = kTiled ? th * cl * hs : 0;
+  const int Ot = kTiled ? min(cl * os, O - ob) : O;
+  const int Ht = kTiled ? min(cl * hs, H - hb) : H;
+  const int h0 = hb + rank * hs, nh = max(0, min(hs, H - h0));
+  const int o0 = ob + rank * os, no = max(0, min(os, O - o0));
   // Floats of one sample's workspace: the dW partials, the dW_b and dbias
-  // partials (at nd), then the per-mode spectra (at np_).
+  // partials (at nd), then the per-mode spectra (at np_), a slot of SH
+  // hidden and SO out channels' spectra a tile.
+  const int SH = kTiled ? cl * hs : H, SO = kTiled ? cl * os : O;
   const int nd = kPerMode ? 0 : 2 * O * H;
   const int np_ = nd + (kBypass ? O * H + O : 0);
-  const int wsn = np_ + (kPerMode ? 2 * (H + O) * K : 0);
+  const int slot = 2 * (SH + SO) * K;
+  const int wsn =
+      np_ + (kPerMode ? (kTiled ? static_cast<int>(gridDim.z) : 1) * slot
+                      : 0);
   float* wsb = a.ws + static_cast<size_t>(b) * wsn;
-  float* wsp = wsb + np_;  // per-mode spectra of this sample
+  float* wsp = wsb + np_ + static_cast<size_t>(z) * slot;  // my tile's
 
   // Shared memory: the last-block flag; from kFlag the spectra A of my
   // hidden slice and Ĝ of my out slice; then the work area.
@@ -343,28 +371,28 @@ fused_wgrad_kernel(const Args<T> a) {
     // workspace, for the batch reduction.
     for (int i = tid; i < PHASE_BOUND(2, nh * K); i += kThreads) {
       const int c = i / K, kk = i % K;
-      const size_t at = static_cast<size_t>(h0 + c) * K + kk;
+      const size_t at = static_cast<size_t>(h0 - hb + c) * K + kk;
       wsp[at] = Ar[c * ldk + kk];
-      wsp[static_cast<size_t>(H) * K + at] = Ai[c * ldk + kk];
+      wsp[static_cast<size_t>(SH) * K + at] = Ai[c * ldk + kk];
     }
     for (int i = tid; i < PHASE_BOUND(2, no * K); i += kThreads) {
       const int c = i / K, kk = i % K;
-      const size_t at = static_cast<size_t>(2 * H + o0 + c) * K + kk;
+      const size_t at = static_cast<size_t>(2 * SH + o0 - ob + c) * K + kk;
       wsp[at] = Gr[c * ldk + kk];
-      wsp[static_cast<size_t>(O) * K + at] = Gi[c * ldk + kk];
+      wsp[static_cast<size_t>(SO) * K + at] = Gi[c * ldk + kk];
     }
     // The batch reduction of rank r reads every rank's A: each sample's
     // blocks have all written theirs before any of them takes a ticket.
     __threadfence();
     cluster.sync();
   } else {
-    // Phase 2: dW[o,h] of this sample for my out slice and every h. Warp w
-    // takes the hidden channels h ≡ w (mod kWarps), its lanes the modes
-    // k ≡ lane (mod 32) of that row of A (read from its block through
-    // distributed shared memory, 128 bytes a load) for all my o; the lanes'
-    // sums meet by shuffles in a fixed order.
+    // Phase 2: dW[o,h] of this sample for my out slice and every h of the
+    // tile (h: its index there). Warp w takes the hidden channels h ≡ w
+    // (mod kWarps), its lanes the modes k ≡ lane (mod 32) of that row of A
+    // (read from its block through distributed shared memory, 128 bytes a
+    // load) for all my o; the lanes' sums meet by shuffles in a fixed order.
     const int lane = tid & 31;
-    for (int h = tid >> 5; h < H; h += kWarps) {
+    for (int h = tid >> 5; h < Ht; h += kWarps) {
       const float* rAr = cluster.map_shared_rank(Ar, h / hs) + h % hs * ldk;
       const float* rAi = cluster.map_shared_rank(Ai, h / hs) + h % hs * ldk;
       float accr[kMaxOut], acci[kMaxOut];
@@ -390,8 +418,8 @@ fused_wgrad_kernel(const Args<T> a) {
           acci[o] += __shfl_xor_sync(0xffffffffu, acci[o], m);
         }
         if (lane == 0 && o < no) {
-          wsb[(o0 + o) * H + h] = accr[o];
-          wsb[O * H + (o0 + o) * H + h] = -acci[o];  // conj
+          wsb[(o0 + o) * H + hb + h] = accr[o];
+          wsb[O * H + (o0 + o) * H + hb + h] = -acci[o];  // conj
         }
       }
     }
@@ -404,17 +432,17 @@ fused_wgrad_kernel(const Args<T> a) {
   // over its points, then my out slice summed over the ranks in order.
   if constexpr (kBypass) {
     float* part = reinterpret_cast<float*>(base + L.part);
-    bypass_partial<T>(a.x + static_cast<size_t>(b) * H * S,
-                      a.gz + static_cast<size_t>(b) * O * S, H, O, S, a.cols,
-                      L, rank, cl, base, part);
+    bypass_partial<T>(a.x + (static_cast<size_t>(b) * H + hb) * S,
+                      a.gz + (static_cast<size_t>(b) * O + ob) * S, Ht, Ot,
+                      S, a.cols, L, rank, cl, base, part);
     cluster.sync();  // every rank's partial is in place
-    const int ldq = H + 1;
+    const int ldq = Ht + 1;
     for (int i = tid; i < no * ldq; i += kThreads) {
-      const int o = o0 + i / ldq, hc = i % ldq, at = o * ldq + hc;
+      const int o = o0 + i / ldq, hc = i % ldq, at = (o - ob) * ldq + hc;
       float s = 0.f;
       for (int q = 0; q < cl; ++q) s += cluster.map_shared_rank(part, q)[at];
-      if (hc < H) {
-        wsb[nd + o * H + hc] = s;
+      if (hc < Ht) {
+        wsb[nd + o * H + hb + hc] = s;
       } else {
         wsb[nd + O * H + o] = s;
       }
@@ -422,17 +450,20 @@ fused_wgrad_kernel(const Args<T> a) {
     cluster.sync();  // no block reuses its partial while others read it
   }
 
-  // Phase 4, the batch reduction: the last of the B blocks of my rank sums
-  // the partials of out slice `rank` in sample order.
+  // Phase 4, the batch reduction: the last of the B blocks of my rank (and
+  // tile) sums the partials of out slice `rank` in sample order.
   __threadfence();
   __syncthreads();
-  if (tid == 0) *last = atomicAdd(a.tickets + rank, 1u) == nb - 1u;
+  if (tid == 0) {
+    *last = atomicAdd(a.tickets + (kTiled ? z * cl + rank : rank), 1u) ==
+            nb - 1u;
+  }
   __syncthreads();
   if (!*last) return;
   __threadfence();
   if constexpr (!kPerMode || kBypass) {  // the [O,H] sums
-    for (int i = tid; i < PHASE_BOUND(4, no * H); i += kThreads) {
-      const int at = (o0 + i / H) * H + i % H;
+    for (int i = tid; i < PHASE_BOUND(4, no * Ht); i += kThreads) {
+      const int at = (o0 + i / Ht) * H + hb + i % Ht;
       float sr = 0.f, si = 0.f, sb = 0.f;
       for (int q = 0; q < nb; ++q) {
         const float* p = a.ws + static_cast<size_t>(q) * wsn;
@@ -450,7 +481,7 @@ fused_wgrad_kernel(const Args<T> a) {
     }
   }
   if constexpr (kBypass) {
-    for (int o = tid; o < PHASE_BOUND(4, no); o += kThreads) {
+    for (int o = tid; o < PHASE_BOUND(4, th == 0 ? no : 0); o += kThreads) {
       float s = 0.f;
       for (int q = 0; q < nb; ++q)
         s += __ldcg(a.ws + static_cast<size_t>(q) * wsn + nd + O * H + o0 +
@@ -463,17 +494,19 @@ fused_wgrad_kernel(const Args<T> a) {
     // of kc modes: Ĝ of the whole batch staged as gs[b][2][os][kc], A read
     // from the workspace (coalesced over k), samples summed in order.
     const int kc = a.kc;
-    const size_t spo = np_;  // the spectra's offset in a sample
+    // The offset of my tile's spectra in a sample.
+    const size_t spo = np_ + static_cast<size_t>(z) * slot;
     float* gs = reinterpret_cast<float*>(base + kFlag);
-    const int hg = (H + kHP - 1) / kHP;
+    const int hg = (Ht + kHP - 1) / kHP;
     for (int k0 = 0; k0 < PHASE_BOUND(4, K); k0 += kc) {
       const int nk = min(kc, K - k0);
       __syncthreads();  // the previous chunk is consumed
       for (int i = tid; i < nb * 2 * no * nk; i += kThreads) {
         const int kk = i % nk, o = i / nk % no, c = i / nk / no % 2;
         const int q = i / nk / no / 2;
-        const float* gp = a.ws + static_cast<size_t>(q) * wsn + spo +
-                          static_cast<size_t>(2 * H + c * O + o0 + o) * K;
+        const float* gp =
+            a.ws + static_cast<size_t>(q) * wsn + spo +
+            static_cast<size_t>(2 * SH + c * SO + o0 - ob + o) * K;
         gs[((q * 2 + c) * os + o) * kc + kk] = __ldcg(gp + k0 + kk);
       }
       __syncthreads();
@@ -496,9 +529,9 @@ fused_wgrad_kernel(const Args<T> a) {
                               k0 + kk;
 #pragma unroll
             for (int u = 0; u < kHP; ++u) {
-              const size_t h = min(hq + u, H - 1);
+              const size_t h = min(hq + u, Ht - 1);
               ar[j][u] = __ldcg(sp + h * K);
-              ai[j][u] = __ldcg(sp + (H + h) * K);
+              ai[j][u] = __ldcg(sp + (SH + h) * K);
             }
           }
 #pragma unroll
@@ -522,12 +555,13 @@ fused_wgrad_kernel(const Args<T> a) {
         }
 #pragma unroll
         for (int u = 0; u < kHP; ++u) {
-          if (hq + u >= H) break;
+          if (hq + u >= Ht) break;
 #pragma unroll
           for (int o = 0; o < kMaxOut; ++o) {
             if (o < no) {
               const size_t at =
-                  (static_cast<size_t>(o0 + o) * H + hq + u) * K + k0 + kk;
+                  (static_cast<size_t>(o0 + o) * H + hb + hq + u) * K + k0 +
+                  kk;
               a.dwr[at] = accr[u][o];
               a.dwi[at] = -acci[u][o];  // conj
             }
@@ -538,70 +572,92 @@ fused_wgrad_kernel(const Args<T> a) {
   }
 }
 
-template <int R, typename T, bool kBypass, bool kPerMode, bool kFma>
-cudaError_t launch_kernel(const Args<T>& a, int batch, int cl,
+// One cluster of cl blocks per (sample, tile): grid (cl, batch, tiles).
+template <int R, typename T, bool kBypass, bool kPerMode, bool kFma,
+          bool kTiled>
+cudaError_t launch_kernel(const Args<T>& a, int batch, int tiles, int cl,
                           int smem_bytes, cudaStream_t stream) {
-  auto* kernel = fused_wgrad_kernel<R, T, kBypass, kPerMode, kFma>;
+  auto* kernel = fused_wgrad_kernel<R, T, kBypass, kPerMode, kFma, kTiled>;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = fno::configure(kernel, batch, cl, smem_bytes, stream,
-                                   &cfg, &attr);
+  cudaError_t err = fno::configure(kernel, dim3(cl, batch, tiles), kThreads,
+                                   cl, smem_bytes, stream, &cfg, &attr);
   if (err != cudaSuccess) return err;
   err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <int R, typename T, bool kBypass, bool kPerMode>
-cudaError_t launch_chain(const Args<T>& a, int batch, int cl, int smem_bytes,
-                         cudaStream_t stream) {
-  return a.L.fma ? launch_kernel<R, T, kBypass, kPerMode, true>(
-                       a, batch, cl, smem_bytes, stream)
-                 : launch_kernel<R, T, kBypass, kPerMode, false>(
-                       a, batch, cl, smem_bytes, stream);
+template <int R, typename T, bool kBypass, bool kPerMode, bool kTiled>
+cudaError_t launch_chain(const Args<T>& a, int batch, int tiles, int cl,
+                         int smem_bytes, cudaStream_t stream) {
+  return a.L.fma ? launch_kernel<R, T, kBypass, kPerMode, true, kTiled>(
+                       a, batch, tiles, cl, smem_bytes, stream)
+                 : launch_kernel<R, T, kBypass, kPerMode, false, kTiled>(
+                       a, batch, tiles, cl, smem_bytes, stream);
 }
 
-template <int R, typename T, bool kBypass>
-cudaError_t launch_modes(const Args<T>& a, int per_mode, int batch, int cl,
-                         int smem_bytes, cudaStream_t stream) {
-  return per_mode ? launch_chain<R, T, kBypass, true>(a, batch, cl,
-                                                      smem_bytes, stream)
-                  : launch_chain<R, T, kBypass, false>(a, batch, cl,
-                                                       smem_bytes, stream);
+template <int R, typename T, bool kBypass, bool kTiled>
+cudaError_t launch_modes(const Args<T>& a, int per_mode, int batch,
+                         int tiles, int cl, int smem_bytes,
+                         cudaStream_t stream) {
+  return per_mode ? launch_chain<R, T, kBypass, true, kTiled>(
+                        a, batch, tiles, cl, smem_bytes, stream)
+                  : launch_chain<R, T, kBypass, false, kTiled>(
+                        a, batch, tiles, cl, smem_bytes, stream);
+}
+
+template <int R, typename T, bool kTiled>
+cudaError_t launch_tiles(const Args<T>& a, int per_mode, int bypass,
+                         int batch, int tiles, int cl, int smem_bytes,
+                         cudaStream_t stream) {
+  return bypass ? launch_modes<R, T, true, kTiled>(a, per_mode, batch, tiles,
+                                                   cl, smem_bytes, stream)
+                : launch_modes<R, T, false, kTiled>(a, per_mode, batch,
+                                                    tiles, cl, smem_bytes,
+                                                    stream);
 }
 
 template <int R, typename T>
-cudaError_t launch(const Args<T>& a, int per_mode, int bypass, int batch,
-                   int cl, int smem_bytes, cudaStream_t stream) {
-  return bypass ? launch_modes<R, T, true>(a, per_mode, batch, cl,
-                                           smem_bytes, stream)
-                : launch_modes<R, T, false>(a, per_mode, batch, cl,
-                                            smem_bytes, stream);
+cudaError_t launch(const Args<T>& a, int per_mode, int bypass, int tiled,
+                   int batch, int tiles, int cl, int smem_bytes,
+                   cudaStream_t stream) {
+  return tiled ? launch_tiles<R, T, true>(a, per_mode, bypass, batch, tiles,
+                                          cl, smem_bytes, stream)
+               : launch_tiles<R, T, false>(a, per_mode, bypass, batch, tiles,
+                                           cl, smem_bytes, stream);
 }
 
 template <typename T>
 int max_clusters_for(int rank, int cl, int smem_bytes, int* n) {
   switch (rank) {
     case 1: return static_cast<int>(fno::max_clusters(
-        fused_wgrad_kernel<1, T, true, false, false>, cl, smem_bytes, n));
+        fused_wgrad_kernel<1, T, true, false, false, false>, cl,
+        smem_bytes, n));
     case 2: return static_cast<int>(fno::max_clusters(
-        fused_wgrad_kernel<2, T, true, false, false>, cl, smem_bytes, n));
+        fused_wgrad_kernel<2, T, true, false, false, false>, cl,
+        smem_bytes, n));
     case 3: return static_cast<int>(fno::max_clusters(
-        fused_wgrad_kernel<3, T, true, false, false>, cl, smem_bytes, n));
+        fused_wgrad_kernel<3, T, true, false, false, false>, cl,
+        smem_bytes, n));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // The layout of a launch from its C arguments (dims, plan as the entry
-// below takes them).
+// below takes them): a cluster's tile of cl·hc hidden and cl·os out
+// channels (untiled: hc = hs, every channel).
 WLayout layout_of(int rank, int esize, const int* dims, const int* plan) {
   int n[3], k[3];
   for (int i = 0; i < 3; ++i) {
     n[i] = i < rank ? dims[3 + i] : 1;
     k[i] = i < rank ? dims[6 + i] : 1;
   }
-  return wgrad_layout(rank, esize, dims[1], dims[2], n, k, plan[1], plan[2],
-                      plan[3], plan[4], plan[8] != 0, plan[9] != 0);
+  const int cl = plan[0], hc = plan[10], os = plan[2];
+  const int ht = 1LL * cl * hc < dims[1] ? cl * hc : dims[1];
+  const int ot = 1LL * cl * os < dims[2] ? cl * os : dims[2];
+  return wgrad_layout(rank, esize, ht, ot, n, k, hc, os, plan[3], plan[4],
+                      plan[8] != 0, plan[9] != 0);
 }
 
 template <typename T>
@@ -641,6 +697,14 @@ int dispatch(int rank, const void* x, const void* gz,
   const int per_mode = plan[6];
   a.kc = plan[7];
   const int bypass = plan[8];
+  a.hc = plan[10];
+  const int ot = plan[11];
+  if (a.hc < 1 || a.hc > a.hs || ot < 1 || 1LL * ot * cl * a.os < a.O ||
+      1LL * (ot - 1) * cl * a.os >= a.O) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  a.ht = (a.H + cl * a.hc - 1) / (cl * a.hc);
+  const int tiled = a.hc < a.hs || ot > 1;
   a.L = layout_of(rank, static_cast<int>(sizeof(T)), dims, plan);
   if (a.os > kMaxOut || a.H > kThreads || rows < 1 ||
       (rank == 1 && !a.L.fma && rows % 16 != 0) || a.cols < 16 ||
@@ -653,12 +717,12 @@ int dispatch(int rank, const void* x, const void* gz,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (rank) {
-    case 1: return static_cast<int>(
-        launch<1, T>(a, per_mode, bypass, batch, cl, smem_bytes, s));
-    case 2: return static_cast<int>(
-        launch<2, T>(a, per_mode, bypass, batch, cl, smem_bytes, s));
-    default: return static_cast<int>(
-        launch<3, T>(a, per_mode, bypass, batch, cl, smem_bytes, s));
+    case 1: return static_cast<int>(launch<1, T>(
+        a, per_mode, bypass, tiled, batch, ot * a.ht, cl, smem_bytes, s));
+    case 2: return static_cast<int>(launch<2, T>(
+        a, per_mode, bypass, tiled, batch, ot * a.ht, cl, smem_bytes, s));
+    default: return static_cast<int>(launch<3, T>(
+        a, per_mode, bypass, tiled, batch, ot * a.ht, cl, smem_bytes, s));
   }
 }
 
@@ -667,15 +731,18 @@ int dispatch(int rank, const void* x, const void* gz,
 // C entry, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16 (x, gz,
 // operands). mats: 4·rank device pointers (the x chain's re/im per stage,
 // then the gz chain's). ws: B·(2·O·H (shared W) + O·H + O (bypass) +
-// 2·(H+O)·K (per-mode W)) floats of scratch; tickets: `cluster` zeroed
-// unsigned ints. outs: {dwr, dwi [O,H] (per-mode [O,H,K]), dwb [O,H],
+// 2·(H+O)·K (per-mode W; tiled: 2·cl·(hc+os)·K a tile)) floats of
+// scratch; tickets: `cluster` (tiled: cluster · tiles) zeroed unsigned
+// ints. outs: {dwr, dwi [O,H] (per-mode [O,H,K]), dwb [O,H],
 // dbias [O]}, float32; dwb and dbias null without the bypass.
 // dims: {B, H, O, n_1, n_2, n_3, k_1, k_2, k_3}.
 // plan: {cluster, hidden/block, out/block, s_1 rows per chain chunk (rank
 // 1, tensor cores: points, a multiple of 16), points per phase-3 chunk (a
 // multiple of 16), smem bytes, per_mode, modes per chunk of the per-mode
 // batch reduction, bypass, phase 1's chain (0 the tensor cores, 1 the CUDA
-// cores)}.
+// cores), hidden channels a block (hidden/block: untiled; else hidden tiles
+// of cluster · that many), out tiles (of cluster · out/block channels)};
+// a launch runs out tiles · hidden tiles clusters a sample.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int fused_wgrad(int dtype, int rank, const void* x, const void* gz,
                            const void* const* mats, void* ws, void* tickets,

@@ -8,6 +8,11 @@ root, keyed by a hash of the source, the shared headers (``csrc/*.cuh``)
 and the flags, so a changed source rebuilds and an unchanged one loads at
 once. There is no fallback: without
 ``nvcc`` the build raises.
+
+``cpu_library`` builds a source with g++ against the CUDA emulation headers
+of the repository's tests instead (``tests/cuda_emulation``), for what
+only reads a kernel's own plan or layout off the card: the core's plan
+(``fused_core_plan``) in the launch lint on the CPU.
 """
 from __future__ import annotations
 
@@ -134,6 +139,46 @@ def load_wgrad_library(path: Path) -> ctypes.CDLL:
     lib.fused_wgrad_smem.restype = ctypes.c_longlong
     lib.fused_wgrad_error_string.argtypes = [i]
     lib.fused_wgrad_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+EMULATION = BUILD_ROOT.parents[1] / "tests" / "cuda_emulation"
+
+
+def cpu_library(name: str) -> Path:
+    """``csrc/<name>.cu`` compiled with g++ for the CPU against
+    ``EMULATION`` (one POSIX thread per CUDA thread) into
+    ``build/repro_torch/cpu-<digest>/``; raises where g++ or the headers
+    are absent or the compile fails. Its launches are slow emulations: use
+    it for plans and layouts."""
+    gxx = shutil.which("g++")
+    if gxx is None or not EMULATION.is_dir():
+        raise RuntimeError(f"building {name} for the CPU needs g++ and "
+                           f"{EMULATION}")
+    out_dir = BUILD_ROOT / f"cpu-{source_digest(name)}"
+    lib = out_dir / f"lib{name}_cpu.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = (CSRC / f"{name}.cu").read_text().replace(
+        "extern __shared__ float smem[];",
+        "float* smem = g_smem[blockIdx.x].data();")
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cpp = out_dir / f"{name}.cpp"
+    cpp.write_text(src)
+    try:
+        proc = subprocess.run(
+            [gxx, "-std=c++17", "-O0", "-shared", "-fPIC", "-pthread",
+             "-fno-strict-aliasing", "-Wno-unknown-pragmas", "-include",
+             "cuda_runtime.h", f"-I{EMULATION}", f"-I{CSRC}", str(cpp),
+             "-o", tmp], capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed for {name}:\n{proc.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
     return lib
 
 

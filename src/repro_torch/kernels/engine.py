@@ -359,7 +359,7 @@ def _check_smem(smem: int, what: str, hidden, out, spatial, modes,
         raise PlanRefused(field, (
             f"{what} needs {smem} B of shared memory for hidden={hidden} "
             f"out={out} spatial={tuple(spatial)} modes={tuple(modes)} "
-            f"(limit {_SMEM_LIMIT}); this shape needs a tiled kernel"))
+            f"(limit {_SMEM_LIMIT})"))
 
 
 def _grow(plan_fn: Callable, max_cluster: int, *args,
@@ -404,7 +404,8 @@ def launch_plan(hidden: int, out: int, spatial: Sequence[int],
                 per_mode: bool = False,
                 ends: Optional[Tuple[int, int, int, int]] = None,
                 chain: Optional[str] = None, rows_f: int = 0,
-                rows_i: int = 0) -> Dict[str, int]:
+                rows_i: int = 0, hc: int = 0, ot: int = 0
+                ) -> Dict[str, int]:
     """The block kernel's cluster size, channel slices, chunk rows, phase
     1's chain and shared memory, at clusters of up to `max_cluster` blocks
     or of 16 when those cannot hold the shape; raises ValueError for shapes
@@ -437,11 +438,102 @@ def launch_plan(hidden: int, out: int, spatial: Sequence[int],
     rows_f / rows_i (0: the planner's) pin a chunk's rows: rows_f within
     the chain's range (rank 1's tensor-core chain a multiple of 16 points)
     where phase 1 fits at it, rows_i where phase 3 does; otherwise
-    ``PlanRefused`` naming the field."""
-    return dict(_grow(_launch_plan, max_cluster, hidden, out,
-                      tuple(spatial), tuple(modes), per_mode,
-                      tuple(ends) if ends is not None else None, chain,
-                      rows_f=rows_f, rows_i=rows_i))
+    ``PlanRefused`` naming the field.
+
+    "hc" and "ot" are the reference's two tiling axes: the hidden channels
+    a block holds at once (the hidden k-loop: phases 1 and 2 run once per
+    chunk of cluster·hc channels, C accumulating) and the out tiles (the
+    clusters a sample, each cluster·os out channels). Wherever the
+    untiled plan (hc = hs, ot = 1) fits, at either cluster size, it is the
+    plan. Only where it does not is the plan tiled (``_tiled_plan``): the
+    fewest out tiles, then the largest hc, that fit; a shape no tiling
+    holds raises ``PlanRefused``, and so does one with the ends (the
+    projection contracts every out channel: ot = 1 and no k-loop). hc / ot
+    (0: the planner's) pin them, and force a tiling on a shape that does
+    not need one."""
+    args = (hidden, out, tuple(spatial), tuple(modes), per_mode,
+            tuple(ends) if ends is not None else None)
+    if not _needs_tiles(_launch_plan, *args):
+        plan = _grow(_launch_plan, max_cluster, *args, chain, rows_f=rows_f,
+                     rows_i=rows_i)
+        if hc in (0, plan["hc"]) and ot in (0, 1):
+            return dict(plan)
+    return dict(_grow(_tiled_plan, max_cluster, *args, chain,
+                      rows_f=rows_f, rows_i=rows_i, hc=hc, ot=ot))
+
+
+@functools.lru_cache(maxsize=1024)
+def _needs_tiles(plan_fn: Callable, *args) -> bool:
+    """Whether `plan_fn`'s untiled plan (no pins) refuses the shape at
+    clusters of 8 and of 16."""
+    try:
+        _grow(plan_fn, _PORTABLE_CLUSTER, *args, None)
+    except ValueError:
+        return True
+    return False
+
+
+def _tile_counts(hidden: int, out: int, max_cluster: int, hc: int,
+                 ot: int, ends) -> Tuple[int, int, Sequence[int]]:
+    """(cluster, hs, the out tiles to try, fewest first) of a tiled plan:
+    the cluster as ``_cluster_slices``'s, each out-tile count whose slice
+    (os = ⌈out / (cluster·tiles)⌉) fits the registers' kMaxOut and gives
+    that count back; `hc` / `ot` pinned (0: free) are checked here."""
+    if ends is not None:
+        raise PlanRefused("ot" if ot else "hc" if hc else None, (
+            "the model ends take no tiled plan: the projection contracts "
+            "every out channel (one out tile, as the reference's bo == o) "
+            "and the lift is formed once a chunk; this shape needs the "
+            "ends unfused"))
+    cl = 1
+    while cl * 2 <= min(max_cluster, hidden, out):
+        cl *= 2
+    hs = -(-hidden // cl)
+    if hc and not 1 <= hc <= hs:
+        raise PlanRefused("hc", f"hc={hc} is outside 1..{hs} (the hidden "
+                                f"channels a block of {cl} holds)")
+    tiles = [t for t in range(-(-out // (cl * _MAX_OUT)), -(-out // cl) + 1)
+             if -(-out // (cl * -(-out // (cl * t)))) == t]
+    if ot:
+        if ot not in tiles:
+            raise PlanRefused("ot", f"ot={ot} is not one of {tiles}: the "
+                                    f"out tiles whose slice of clusters of "
+                                    f"{cl} holds at most {_MAX_OUT} "
+                                    f"channels a block")
+        tiles = [ot]
+    return cl, hs, tiles
+
+
+def _tiled(at: Callable[[int, int], Dict[str, Any]], hs: int,
+           tiles: Sequence[int], hc: int, field: Optional[str],
+           what: str) -> Dict[str, Any]:
+    """The first of `tiles` (out tiles) at which some hc fits, with the
+    largest such hc (`hc` pinned: that one); at(hc, tiles) plans or raises
+    ValueError. ``PlanRefused`` (naming `field`) where none fits."""
+    def fits(t, v):
+        try:
+            at(v, t)
+        except ValueError:
+            return False
+        return True
+
+    for t in tiles:
+        if hc:
+            if fits(t, hc):
+                return {**at(hc, t), "hc": hc, "ot": t}
+            continue
+        v = _most(hs, lambda v: fits(t, v))
+        if fits(t, v):
+            return {**at(v, t), "hc": v, "ot": t}
+    try:  # why the smallest tiling tried does not fit
+        at(hc or 1, tiles[-1])
+        least = ""
+    except ValueError as exc:
+        least = f"; at ot={tiles[-1]}, hc={hc or 1}: {exc}"
+    raise PlanRefused(field, (
+        f"{what}: no tiling holds this shape within {_SMEM_LIMIT} B of "
+        f"shared memory and the registers' tiles (out tiles {list(tiles)}, "
+        f"hidden channels a block {hc or f'1..{hs}'}){least}"))
 
 
 def _inv_bytes(spatial, modes, os_, rows_i, wl, dp):
@@ -472,10 +564,13 @@ def _inv_bytes(spatial, modes, os_, rows_i, wl, dp):
 
 def _block_layout(esize, hidden, out, spatial, modes, hs, os_, rows_f,
                   rows_i, wl, dp, chain, per_mode, lift=0, lp=0, cout=0,
-                  ep=0):
+                  ep=0, kloop=False):
     """{"p1", "p3", "bytes", "tiles"}: the ends of phases 1 and 3, the
     shared memory of a block launch and (chain "tc") the chain's
-    accumulator tiles: ``block_layout`` of csrc/fused_block.cu."""
+    accumulator tiles: ``block_layout`` of csrc/fused_block.cu. hs: the
+    hidden channels a block holds at once (its slice, or with the hidden
+    k-loop, kloop=True, a chunk's "hc": phase 1's work area then lies past
+    C, which stays resident across the chunks)."""
     r = len(spatial)
     n = list(spatial) + [1] * (3 - r)
     kk = 1
@@ -496,6 +591,7 @@ def _block_layout(esize, hidden, out, spatial, modes, hs, os_, rows_f,
         p1 = 4 * _chain_work(spatial, modes, rows_f)
     else:
         p1, tiles = _chain_bytes(esize, spatial, modes, rows_f, hs)
+    w1 = t if kloop else c
     # Over the stages the split epilogue's wb columns [H][kOG] (kOG = 32),
     # or over the factors and stages the ends' scratch.
     tail = fbytes + stages
@@ -509,17 +605,48 @@ def _block_layout(esize, hidden, out, spatial, modes, hs, os_, rows_f,
     ys = 4 * os_ * rows_i * p
     if ys > 8 * hs * kk:
         end = _pad(end + ys, 128)
-    return {"p1": c + p1, "p3": end, "bytes": max(c + p1, end),
+    return {"p1": w1 + p1, "p3": end, "bytes": max(w1 + p1, end),
             "tiles": tiles}
+
+
+def _check_chain(chain) -> None:
+    if chain not in (None,) + CHAINS:
+        raise PlanRefused("chain", f"chain must be one of {CHAINS}, got "
+                                   f"{chain!r}")
 
 
 @functools.lru_cache(maxsize=1024)
 def _launch_plan(hidden, out, spatial, modes, per_mode, ends, chain,
                  max_cluster, rows_f=0, rows_i=0):
-    if chain not in (None,) + CHAINS:
-        raise PlanRefused("chain", f"chain must be one of {CHAINS}, got "
-                                   f"{chain!r}")
+    """The untiled plan: a cluster's blocks hold every hidden channel's
+    spectra (hc = hs) and every out channel (ot = 1)."""
+    _check_chain(chain)
     cl, hs, os_ = _cluster_slices(hidden, out, max_cluster)
+    return {**_block_at(hidden, out, spatial, modes, per_mode, ends, chain,
+                        cl, hs, os_, hs, rows_f, rows_i), "hc": hs, "ot": 1}
+
+
+@functools.lru_cache(maxsize=1024)
+def _tiled_plan(hidden, out, spatial, modes, per_mode, ends, chain,
+                max_cluster, rows_f=0, rows_i=0, hc=0, ot=0):
+    """The tiled plan (``launch_plan``): the fewest out tiles, then the
+    largest hc, that fit."""
+    _check_chain(chain)
+    cl, hs, tiles = _tile_counts(hidden, out, max_cluster, hc, ot, ends)
+    at = lambda v, t: _block_at(hidden, out, spatial, modes, per_mode, ends,
+                                chain, cl, hs, -(-out // (cl * t)), v,
+                                rows_f, rows_i)
+    field = ("hc" if hc else "ot" if ot else "chain" if chain is not None
+             else "rows_f" if rows_f else "rows_i" if rows_i else None)
+    return _tiled(at, hs, tiles, hc, field, "fused block kernel")
+
+
+def _block_at(hidden, out, spatial, modes, per_mode, ends, chain, cl, hs,
+              os_, hc, rows_f, rows_i):
+    """The block plan at a cluster of `cl` blocks of hs hidden and os_ out
+    channels, holding hc hidden channels' spectra at once (hc < hs: the
+    hidden k-loop)."""
+    kloop = hc < hs
     _, lift, lp, cout = ends if ends is not None else (0, 0, 0, 0)
     pinned_chain = chain is not None
     if lift:
@@ -535,8 +662,8 @@ def _launch_plan(hidden, out, spatial, modes, per_mode, ends, chain,
     rows1 = _pad(modes[0], 4)
     for ep in ((128, 64, 32, 16, 8) if ends is not None else (0,)):
         lay = lambda rf, ri, kind, wl=low, dp=4, ep=ep: _block_layout(
-            4, hidden, out, spatial, modes, hs, os_, rf, ri, wl, dp, kind,
-            per_mode, lift, lp, cout, ep)
+            4, hidden, out, spatial, modes, hc, os_, rf, ri, wl, dp, kind,
+            per_mode, lift, lp, cout, ep, kloop)
         if lay(1, 1, "fma")["bytes"] <= _SMEM_LIMIT:
             break
     p3 = lambda ri, wl, dp: lay(1, ri, "fma", wl, dp)["p3"] <= _SMEM_LIMIT
@@ -586,7 +713,7 @@ def wgrad_plan(hidden: int, out: int, spatial: Sequence[int],
                modes: Sequence[int], max_cluster: int = _PORTABLE_CLUSTER,
                per_mode: bool = False,
                chain: Optional[str] = None, rows_f: int = 0,
-               cols: int = 0) -> Dict[str, int]:
+               cols: int = 0, hc: int = 0, ot: int = 0) -> Dict[str, int]:
     """The weight-gradient kernel's cluster size, channel slices, chunk
     sizes, phase 1's chain and shared memory, at clusters of up to
     `max_cluster` blocks or of 16 when those cannot hold the shape; raises
@@ -603,10 +730,22 @@ def wgrad_plan(hidden: int, out: int, spatial: Sequence[int],
     Planned once per shape (every launch asks). rows_f and cols (0: the
     planner's) pin the chain's rows, as ``launch_plan``'s, and the dW_b
     chunk's points (one of ``WGRAD_COLS``, at most a block's share of the
-    points, where it fits); otherwise ``PlanRefused`` naming the field."""
-    return dict(_grow(_wgrad_plan, max_cluster, hidden, out, tuple(spatial),
-                      tuple(modes), per_mode, chain, rows_f=rows_f,
-                      cols=cols))
+    points, where it fits); otherwise ``PlanRefused`` naming the field.
+
+    "hc" and "ot" tile it as the reference's grid (o/bo, h/bh, b/bb):
+    a cluster per (sample, out tile, hidden tile), its blocks holding hc
+    hidden and os out channels' spectra; "ht", the hidden tiles
+    (⌈hidden / (cluster·hc)⌉), follows from hc. As ``launch_plan``'s, the
+    untiled plan (hc = hs, ot = 1, ht = 1) wherever it fits, else the
+    fewest out tiles, then the largest hc, that fit; pins force them."""
+    args = (hidden, out, tuple(spatial), tuple(modes), per_mode)
+    if not _needs_tiles(_wgrad_plan, *args):
+        plan = _grow(_wgrad_plan, max_cluster, *args, chain, rows_f=rows_f,
+                     cols=cols)
+        if hc in (0, plan["hc"]) and ot in (0, 1):
+            return dict(plan)
+    return dict(_grow(_tiled_wgrad_plan, max_cluster, *args, chain,
+                      rows_f=rows_f, cols=cols, hc=hc, ot=ot))
 
 
 # The points a dW_b chunk of the wgrad kernel may take, most first.
@@ -686,13 +825,42 @@ def _wgrad_bytes(esize, hidden, out, spatial, modes, hs, os_, rows, cols,
 @functools.lru_cache(maxsize=1024)
 def _wgrad_plan(hidden, out, spatial, modes, per_mode, chain, max_cluster,
                 rows_f=0, cols=0):
+    """The untiled plan: a cluster per sample, its blocks holding every
+    hidden and out channel's spectra."""
+    _check_wgrad_hidden(hidden)
+    _check_chain(chain)
+    cl, hs, os_ = _cluster_slices(hidden, out, max_cluster)
+    return {**_wgrad_at(hidden, out, spatial, modes, chain, cl, hs, os_, hs,
+                        rows_f, cols), "hc": hs, "ot": 1, "ht": 1}
+
+
+def _check_wgrad_hidden(hidden: int) -> None:
     if hidden > _THREADS:
         raise ValueError(f"fused wgrad kernel takes at most {_THREADS} "
                          f"hidden channels, got {hidden}")
-    if chain not in (None,) + CHAINS:
-        raise PlanRefused("chain", f"chain must be one of {CHAINS}, got "
-                                   f"{chain!r}")
-    cl, hs, os_ = _cluster_slices(hidden, out, max_cluster)
+
+
+@functools.lru_cache(maxsize=1024)
+def _tiled_wgrad_plan(hidden, out, spatial, modes, per_mode, chain,
+                      max_cluster, rows_f=0, cols=0, hc=0, ot=0):
+    """The tiled wgrad plan (``wgrad_plan``)."""
+    _check_wgrad_hidden(hidden)
+    _check_chain(chain)
+    cl, hs, tiles = _tile_counts(hidden, out, max_cluster, hc, ot, None)
+    at = lambda v, t: _wgrad_at(hidden, out, spatial, modes, chain, cl, hs,
+                                -(-out // (cl * t)), v, rows_f, cols)
+    field = ("hc" if hc else "ot" if ot else "chain" if chain is not None
+             else "rows_f" if rows_f else "cols" if cols else None)
+    plan = _tiled(at, hs, tiles, hc, field, "fused wgrad kernel")
+    return {**plan, "ht": -(-hidden // (cl * plan["hc"]))}
+
+
+def _wgrad_at(hidden, out, spatial, modes, chain, cl, hs, os_, hc, rows_f,
+              cols):
+    """The wgrad plan at a cluster of `cl` blocks of hs hidden and os_ out
+    channels, holding hc hidden channels' spectra (hc < hs or out tiles: a
+    tile of cluster·hc hidden and cluster·os_ out channels a cluster)."""
+    th, to = min(hidden, cl * hc), min(out, cl * os_)  # the tile's channels
     pts = 1
     for s in spatial:
         pts *= s
@@ -703,8 +871,7 @@ def _wgrad_plan(hidden, out, spatial, modes, per_mode, chain, max_cluster,
                                   f"up to a block's {share} points")
     for kind in kinds:
         at = lambda rows, cols, bypass=True, kind=kind: _wgrad_bytes(
-            4, hidden, out, spatial, modes, hs, os_, rows, cols, bypass,
-            kind)
+            4, th, to, spatial, modes, hc, os_, rows, cols, bypass, kind)
         fits = lambda v: at(v, 16, False)[0] <= _SMEM_LIMIT
         lo, hi, step = _rows_range(kind, spatial, modes)
         if rows_f:
@@ -737,7 +904,7 @@ def _wgrad_plan(hidden, out, spatial, modes, per_mode, chain, max_cluster,
             f"fused wgrad kernel holds at most {_WARPS * _MAX_ACC} chain and "
             f"{_WARPS * _MAX_PT} dW_b tiles in registers, got {chain_tiles} "
             f"and {tiles} for hidden={hidden} out={out} modes="
-            f"{tuple(modes)}; this shape needs a tiled kernel"))
+            f"{tuple(modes)}"))
     return {"cluster": cl, "hs": hs, "os": os_, "rows_f": rows,
             "cols": cols, "work": (smem - _WGRAD_FLAG) // 4, "smem": smem,
             "chain": kind}
@@ -768,8 +935,9 @@ CORE_LAUNCH = ("cluster", "np", "nb", "kc", "ri", "wj")
 # ``block_plan``, a tuned cache entry, a wrapper's ``plan=``); the planner
 # chooses the fields left unpinned. The kind a launch is counted as
 # (``launch_kind``) names its kernel.
-PLAN_FIELDS = {"block": ("cluster", "chain", "rows_f", "rows_i"),
-               "wgrad": ("cluster", "chain", "rows_f", "cols"),
+PLAN_FIELDS = {"block": ("cluster", "chain", "rows_f", "rows_i", "hc",
+                         "ot"),
+               "wgrad": ("cluster", "chain", "rows_f", "cols", "hc", "ot"),
                "core": CORE_LAUNCH}
 _KERNEL_OF = {"wgrad": "wgrad", "spectral_wgrad": "wgrad", "core": "core"}
 
@@ -1036,13 +1204,22 @@ def _pick(plan_fn: Callable, occupancy: Optional[Callable], batch: int,
     smem)`, asked of the card), else the portable 8 — unless the portable 8
     cannot hold the shape (hidden 128: more than 8 out channels per block),
     when the plan is 16 and a batch larger than one wave runs in waves.
-    Without a card to ask (occupancy None) the portable plan."""
+    A tiled plan takes 16 wherever 16 holds it: fewer out tiles (and
+    hidden tiles) form each sample's spectra fewer times; at the tiled
+    shapes of ``configs.TILED``, B=8, 16 ran the wgrad 1.3–8.7× and the
+    block 1.07–1.9× faster than 8, but fno2d's block at hidden 256 0.9×
+    (``launch/kernel_turns.py --tiled``). Without a card to ask (occupancy
+    None) an untiled shape takes the portable plan."""
     plan = plan_fn(hidden, out, spatial, modes, _PORTABLE_CLUSTER, per_mode)
     try:
         big = plan_fn(hidden, out, spatial, modes, _MAX_CLUSTER, per_mode)
     except ValueError:  # pinned fields that hold at the portable size only
         return plan
-    if big["cluster"] <= plan["cluster"] or occupancy is None:
+    if big["cluster"] <= plan["cluster"]:
+        return plan
+    if plan["hc"] < plan["hs"] or plan["ot"] > 1:
+        return big  # tiled: 16 blocks hold a shape in fewer tiles
+    if occupancy is None:
         return plan
     return big if batch <= occupancy(big["cluster"], big["smem"]) else plan
 
@@ -1196,6 +1373,25 @@ def _dims(b, h, o, spatial, modes):
                  + list(modes) + [1] * (3 - r))
 
 
+def block_ints(plan: Dict[str, Any]):
+    """A block plan as ``fused_block_forward`` / ``fused_block_smem`` take
+    it (their ``plan`` argument)."""
+    return _ints([plan["cluster"], plan["hs"], plan["os"], plan["rows_f"],
+                  plan["rows_i"], plan["smem"], plan.get("ep", 0),
+                  CHAINS.index(plan["chain"]), plan["wl"], plan["dp"],
+                  plan["hc"], plan["ot"]])
+
+
+def wgrad_ints(plan: Dict[str, Any], per_mode: bool, chunk: int,
+               bypass: bool):
+    """A wgrad plan as ``fused_wgrad`` / ``fused_wgrad_smem`` take it, with
+    per-mode W, its batch reduction's modes a chunk and the bypass."""
+    return _ints([plan["cluster"], plan["hs"], plan["os"], plan["rows_f"],
+                  plan["cols"], plan["smem"], int(per_mode), chunk,
+                  int(bypass), CHAINS.index(plan["chain"]), plan["hc"],
+                  plan["ot"]])
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
@@ -1217,9 +1413,7 @@ def _launch(lib, x, wr, wi, wb, bias, mats, spatial, modes, stream, *,
     od = out_dtype or x.dtype
     oc = edims[3] if proj is not None else o
     y = torch.empty((b, oc) + tuple(spatial), dtype=od, device=x.device)
-    pl = _ints([plan["cluster"], plan["hs"], plan["os"], plan["rows_f"],
-                plan["rows_i"], plan["smem"], plan.get("ep", 0),
-                CHAINS.index(plan["chain"]), plan["wl"], plan["dp"]])
+    pl = block_ints(plan)
     # The weights' element strides of their out and hidden axes (dx takes
     # a transposed view, without a copy); per-mode, the modes are
     # contiguous.
@@ -1261,19 +1455,22 @@ def _launch_wgrad(lib, x, gz, mats, spatial, modes, stream,
         kk *= m
     # Per sample: the dW partials (shared W), the dW_b and dbias partials
     # (with the bypass), then the spectra A [2][H][K] and Ĝ [2][O][K] for
-    # the batch reduction (per-mode W).
-    wsn = ((2 * (h + o) * kk if per_mode else 2 * o * h)
+    # the batch reduction (per-mode W; tiled, A [2][cluster·hc][K] and Ĝ
+    # [2][cluster·os][K] a tile). A ticket counter per rank and tile.
+    cl, tiles = plan["cluster"], plan["ot"] * plan["ht"]
+    tiled = plan["hc"] < plan["hs"] or plan["ot"] > 1
+    spectra = (2 * cl * (plan["hc"] + plan["os"]) * kk * tiles if tiled
+               else 2 * (h + o) * kk)
+    wsn = ((spectra if per_mode else 2 * o * h)
            + (o * h + o if with_bypass else 0))
     ws = torch.empty((b, wsn), dtype=_F32, device=dev)
-    tickets = torch.zeros((plan["cluster"],), dtype=torch.int32, device=dev)
+    tickets = torch.zeros((cl * tiles,), dtype=torch.int32, device=dev)
     dw = (o, h) + (tuple(modes) if per_mode else ())
     outs = [torch.empty(dw, dtype=_F32, device=dev) for _ in range(2)]
     if with_bypass:
         outs.append(torch.empty((o, h), dtype=_F32, device=dev))
         outs.append(torch.empty((o, 1), dtype=_F32, device=dev))
-    pl = _ints([plan["cluster"], plan["hs"], plan["os"], plan["rows_f"],
-                plan["cols"], plan["smem"], int(per_mode), chunk,
-                int(with_bypass), CHAINS.index(plan["chain"])])
+    pl = wgrad_ints(plan, per_mode, chunk, with_bypass)
     ptrs = (ctypes.c_void_p * len(mats))(*[m.data_ptr() for m in mats])
     optrs = (ctypes.c_void_p * 4)(*[t.data_ptr() for t in outs])
     err = lib.fused_wgrad(code, len(spatial), x.data_ptr(), gz.data_ptr(),

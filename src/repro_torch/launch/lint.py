@@ -16,9 +16,11 @@
   --tuning       the committed tuned-plan cache is fresh
                  (tuning.store.check_tuning_cache).
 
-On the CPU the calls run at the reference's reduced shapes; on the card
-(``--device cuda``) the launches and casts run fno2d at full width and the
-smem and tuning checks take the card's libraries. Exits 1 on any error
+On the CPU the calls run at the reference's reduced shapes and the smem
+and tuning checks read the core's plan from its library built with g++
+(``build.cpu_library``); on the card (``--device cuda``) the launches and
+casts run fno2d at full width and the smem and tuning checks take the
+card's libraries. Exits 1 on any error
 finding; warnings are printed.
 """
 from __future__ import annotations
@@ -39,11 +41,15 @@ def run_checks(checks, device: str = "cpu", log=print):
 
     card = device == "cuda"
     libs = {}
-    if card and {"smem", "tuning"} & set(checks):
+    if {"smem", "tuning"} & set(checks):
         from repro_torch.kernels import build
-        libs = {"block": build.load_fused_block(),
-                "wgrad": build.load_fused_wgrad(),
-                "core": build.load_fused_core()}
+        if card:
+            libs = {"block": build.load_fused_block(),
+                    "wgrad": build.load_fused_wgrad(),
+                    "core": build.load_fused_core()}
+        else:  # the core's plan only; the portable cluster elsewhere
+            libs = {"core": build.load_core_library(
+                build.cpu_library("fused_core"))}
     findings = []
 
     def step(name, fn):

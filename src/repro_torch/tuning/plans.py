@@ -3,8 +3,9 @@
 
 A launch's *plan* is its kernel's plan fields (``engine.PLAN_FIELDS``):
 the block kernel's ``cluster``, ``chain``, ``rows_f`` and ``rows_i``, the
-wgrad kernel's ``cluster``, ``chain``, ``rows_f`` and ``cols``, the core's
-``engine.CORE_LAUNCH``. An *override* is a hashable tuple of (field,
+wgrad kernel's ``cluster``, ``chain``, ``rows_f`` and ``cols``, both
+kernels' tiling ``hc`` (hidden channels a block holds at once) and ``ot``
+(out tiles), the core's ``engine.CORE_LAUNCH``. An *override* is a hashable tuple of (field,
 value) pairs (``FNOConfig.block_plan``); each launch takes the fields its
 kernel has.
 
@@ -40,8 +41,8 @@ _DTYPE_TAGS = {"float32": "f32", "bfloat16": "bf16"}
 # Every field an override may hold, and the values each takes.
 CHAINS = ("tc", "fma")
 CLUSTERS = (1, 2, 4, 8, 16)
-FIELDS = ("cluster", "chain", "rows_f", "rows_i", "cols", "np", "nb", "kc",
-          "ri", "wj")
+FIELDS = ("cluster", "chain", "rows_f", "rows_i", "cols", "hc", "ot", "np",
+          "nb", "kc", "ri", "wj")
 
 Override = Optional[Tuple[Tuple[str, Any], ...]]
 

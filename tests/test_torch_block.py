@@ -245,10 +245,14 @@ def test_launch_plan_full_width_and_limits():
     with pytest.raises(ValueError, match="shared memory"):
         engine.launch_plan(32, 32, (64, 64, 64), (32, 32, 32))
     # 128 out channels: clusters of 16 (8 per block), since 8 blocks cannot
-    # hold them; 256 are more than a cluster of 16 holds.
+    # hold them; 256 are more than a cluster of 16 holds, so they take out
+    # tiles (clusters of 8: four tiles of 64 channels; of 16: two of 128).
     assert engine.launch_plan(128, 128, (32, 32), (8, 8))["cluster"] == 16
     with pytest.raises(ValueError, match="out channels"):
-        engine.launch_plan(256, 256, (32, 32), (8, 8))
+        engine._cluster_slices(256, 256, 16)
+    for cl, tiles in ((8, 4), (16, 2)):
+        wide = engine.launch_plan(256, 256, (32, 32), (8, 8), cl)
+        assert (wide["cluster"], wide["os"], wide["ot"]) == (cl, 8, tiles)
 
 
 # Every shape of a sweep (hidden 16–128; 1D 256–8192 at modes N/8 and N/4;

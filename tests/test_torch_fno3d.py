@@ -110,11 +110,13 @@ def test_plans_hold_fno3d_full_width(kind, per_mode):
 # The plans of fno1d, fno2d and fno2d-large (the block kernel's with both
 # chains on the tensor cores: the forward chain's rows up to 64, the
 # inverse chain's as many as shared memory holds; the wgrad kernel's of
-# its tensor-core design, unchanged): (hidden, spatial, modes, per_mode,
+# its tensor-core design, unchanged; both untiled: hc = hs, one out tile,
+# the wgrad one hidden tile): (hidden, spatial, modes, per_mode,
 # max_cluster) -> (block plan, wgrad plan).
 _B = lambda cl, s, rf, ri, smem, wl, dp: {
     "cluster": cl, "hs": s, "os": s, "rows_f": rf, "rows_i": ri,
-    "smem": smem, "chain": "tc", "wl": wl, "dp": dp}
+    "smem": smem, "chain": "tc", "wl": wl, "dp": dp, "hc": s, "ot": 1}
+_W = lambda plan: {**plan, "hc": plan["hs"], "ot": 1, "ht": 1}
 _UNCHANGED = {
     "fno1d-8": ((64, (256,), (64,), False, 8), (
         _B(8, 8, 64, 256, 161920, 0, 64),
@@ -151,7 +153,7 @@ def test_plans_of_the_other_presets_are_unchanged(name):
     design plans them (unchanged but for the "chain" it records)."""
     (h, spatial, modes, per_mode, cl), (block, wgrad) = _UNCHANGED[name]
     assert engine.launch_plan(h, h, spatial, modes, cl, per_mode) == block
-    assert engine.wgrad_plan(h, h, spatial, modes, cl, per_mode) == wgrad
+    assert engine.wgrad_plan(h, h, spatial, modes, cl, per_mode) == _W(wgrad)
 
 
 def test_plans_refuse_what_one_row_cannot_hold():

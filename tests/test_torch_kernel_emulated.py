@@ -785,11 +785,7 @@ def test_emulated_wgrad_plan_matches_the_kernel_layout(emulated_wgrad):
             r = len(spatial)
             dims = engine._dims(1, h, o, spatial, modes)
             for bypass in (True, False):
-                pl = engine._ints([plan["cluster"], plan["hs"], plan["os"],
-                                   plan["rows_f"], plan["cols"],
-                                   plan["smem"], int(per_mode), 1,
-                                   int(bypass),
-                                   engine.CHAINS.index(plan["chain"])])
+                pl = engine.wgrad_ints(plan, per_mode, 1, bypass)
                 for code, esize in ((0, 4), (1, 2)):
                     want = engine._wgrad_bytes(
                         esize, h, o, spatial, modes, plan["hs"], plan["os"],
@@ -949,9 +945,11 @@ def test_emulated_per_mode_core_matches_plain(emulated_core, case, dtype):
 
 # Mutations of the per-mode paths: (source, what, (old, new)).
 PER_MODE_MUTATIONS = [
-    ("fused_block", "wrong mode index",
-     ("const size_t wbase = static_cast<size_t>(o0) * a.w_so + kk;",
-      "const size_t wbase = static_cast<size_t>(o0) * a.w_so + (kk ^ 1);")),
+    ("fused_block", "wrong mode index",  # the untiled kernel's line
+     ("const size_t wbase = static_cast<size_t>(o0) * a.w_so + kk;\n"
+      "    float cr[kMaxOut]",
+      "const size_t wbase = static_cast<size_t>(o0) * a.w_so + (kk ^ 1);\n"
+      "    float cr[kMaxOut]")),
     ("fused_wgrad", "dropped conj",
      ("a.dwi[at] = -acci[u][o];  // conj", "a.dwi[at] = acci[u][o];")),
     ("fused_core", "wrong mode index",

@@ -54,8 +54,8 @@ ONE_PASS = ("chain_tc.cuh",
             "#pragma unroll\n    for (int i = 0; i < N; ++i) tc::mma_tf32("
             "s[i], a[i].lo, b[i].hi);\n#pragma unroll\n    for (int i = 0; "
             "i < N; ++i) tc::mma_tf32(s[i], a[i].hi, b[i].lo);\n", "")
-C_OVER_A = ("B.c = align128(B.a + 8LL * hs * K);",
-            "B.c = align128(B.a + 4LL * hs * K);")
+C_OVER_A = ("B.c = align128(B.a + 8LL * hc * K);",
+            "B.c = align128(B.a + 4LL * hc * K);")
 
 
 def _compile(out: Path, name: str, mutation=None, header=None) -> Path:
@@ -218,11 +218,7 @@ def test_emulated_block_plan_matches_the_kernel_layout(emulated):
                     continue
                 lift, lp, cout = ends[1:] if ends else (0, 0, 0)
                 dims = engine._dims(1, h, h, spatial, modes)
-                pl = engine._ints([plan["cluster"], plan["hs"], plan["os"],
-                                   plan["rows_f"], plan["rows_i"],
-                                   plan["smem"], plan.get("ep", 0),
-                                   engine.CHAINS.index(plan["chain"]),
-                                   plan["wl"], plan["dp"]])
+                pl = engine.block_ints(plan)
                 wl = engine._ints([int(per_mode), 1, 1])
                 ed = engine._ints(list(ends)) if ends else None
                 for code, esize in ((0, 4), (1, 2)):

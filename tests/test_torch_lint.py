@@ -7,7 +7,8 @@ recorded ``COLLECTIVES`` counter (the collective budget; one clean case on
 a real (1,2) gloo mesh), a ``torch.fft`` call, a dtype literal, a
 module-level ``import triton``, a ``ctypes.CDLL`` and an ``import jax`` in
 a temporary file (the source rules, whose pragma allows what it should),
-and 3D 64³ at hidden 64, which the planners refuse at 317,440 B (the
+and 3D 64³ at modes 32³, which the planners refuse even tiled (one
+channel's spectra alone take 262,144 B; the smallest tiling 573,184 B: the
 shared-memory check). The card: chip_smoke.py phase 34 runs the launch
 lint at full width and the shared-memory check with the card's libraries.
 """
@@ -214,12 +215,13 @@ def test_every_preset_fits_a_block():
 
 
 def test_an_oversized_launch_fires():
-    big = dataclasses.replace(configs.get_config("fno3d"), hidden=64,
-                              name="fno3d-h64")
+    big = dataclasses.replace(configs.get_config("fno3d"),
+                              modes=(32, 32, 32), name="fno3d-m32")
     found = smem.check_smem([big], dtypes=("f32",), variants=("full",))
     assert {f.target.rsplit("/", 1)[1] for f in found} == {
         "block_fwd", "gz_recompute", "dx_adjoint", "wgrad"}
-    assert "317440 B" in found[0].message
+    assert "no tiling holds" in found[0].message
+    assert "573184 B" in found[0].message
     est = smem.launch_estimate(big, "block_fwd")
     assert not est.fits and est.plan is None
     pinned = smem.launch_estimate(configs.get_config("fno2d"), "block_fwd",
