@@ -279,6 +279,26 @@ fatal:
      block forward and wgrad at B=8 timed queued beside their plain
      versions, the staged ``torch.fft`` block (``wgrad_staged`` for the
      wgrad) and the bound.
+  36. LM serving (``launch/lm_smoke.py``; no TPU kernel lies on this path,
+     so it holds the port against itself and plain versions):
+     qwen2-1.5b and hymba-1.5b (ring caches, window-slice attention, SSD)
+     at full width, random weights from seed 0, batch 4, a 2048-token
+     prompt, f32 (TF32 off) and bf16, and the same code in float64 as the
+     oracle: 32 teacher-forced decode steps after a 1536-token prefill
+     against ``forward``'s rows (float64 within 1e-6; f32 within 3× the f32
+     forward's own error against float64, and rtol = atol = 2e-3 where no
+     SSD layer amplifies the rounding; bf16 within 3× bf16's own gap to
+     f32), the served prefill and
+     32 greedy decode steps (tokens in the vocabulary, logits finite) with
+     prefill ms, decode ms a token, tokens/s, peak memory, device-busy ms
+     a step and the decode bound (params and cache bytes over the card's
+     memory rate), ``multihead_attention`` at the prefill shape against a
+     dense masked softmax (2e-4) beside ``F.scaled_dot_product_attention``
+     (a yardstick); every preset reduced: decode against forward (2e-3),
+     greedy steps, hubert's encoder step. It needs no kernel, so it runs
+     right after phase 1 starts the builds, while nvcc compiles on the
+     host's other cores (its host-bound decode times share the host with
+     them).
 
 Each phase's seconds are printed. The last two lines are a
 ``{"kernels": [...]}`` JSON object and ``{"ok": true, "device": {...}}``.
@@ -498,9 +518,22 @@ def phase_environment(torch, build):
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(build.SOURCES)) as pool:
-        list(pool.map(build.build, build.SOURCES))  # one nvcc per source
+    # one nvcc per source, all started together; phase 36, which needs no
+    # kernel, runs while they compile (finish_builds waits for them)
+    pool = concurrent.futures.ThreadPoolExecutor(len(build.SOURCES))
+    futures = [pool.submit(build.build, name) for name in build.SOURCES]
+    return card, (pool, futures, time.perf_counter())
+
+
+def finish_builds(build, builds) -> None:
+    """Wait for phase 1's builds (raising the first that failed) and log
+    each one's nvcc seconds and ptxas lines."""
+    pool, futures, t0 = builds
+    try:
+        for future in futures:
+            future.result()
+    finally:
+        pool.shutdown()
     log(f"  build: {time.perf_counter() - t0:.2f} s for {build.SOURCES}")
     for name in build.SOURCES:
         info = build.BUILD_INFO[name]
@@ -508,7 +541,6 @@ def phase_environment(torch, build):
             f"(cached={info['cached']})")
         for line in info["ptxas"]:
             log(f"    {line}")
-    return card
 
 
 def check_shapes(configs):
@@ -3771,6 +3803,19 @@ def phase_tiled(torch, np, engine, spectral, ops, configs, fno_mod, sfs,
     return rows
 
 
+def phase_lm_serving(torch, card):
+    """The LM zoo's serving path at full width and every preset reduced
+    (``repro_torch.launch.lm_smoke``); raises on a failed check."""
+    log("== phase 36: LM serving — qwen2-1.5b and hymba-1.5b at full "
+        "width, f32 and bf16; the ten presets reduced")
+    from repro_torch.launch import lm_smoke
+    try:
+        return lm_smoke.run(torch.device(DEVICE), log=log, card=card)
+    finally:  # its ~30 GB of blocks back to the card for the FNO phases
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3804,7 +3849,9 @@ def main() -> int:
         log(f"  phase {label}: {seconds[label]:.1f} s")
         return out
 
-    card = timed("1", phase_environment, torch, build)
+    card, builds = timed("1", phase_environment, torch, build)
+    lm = timed("36", phase_lm_serving, torch, card)  # beside the builds
+    timed("1 builds", finish_builds, build, builds)
     errs = timed("2", phase_kernel_vs_plain, torch, engine, spectral,
                  configs)
     counts, servers = timed("3", phase_serve, torch, np, configs, fno_mod,
@@ -4035,6 +4082,12 @@ def main() -> int:
              for (m, n), v in mesh_launches.items()}))
     log(f"tuned plans against the rule plan at B=8 ({card}): "
         f"{json.dumps(tuned)}")
+    log(f"LM serving, full width ({card}): " + json.dumps(
+        {f"{arch} {dt}": {k: v for k, v in r.items() if k != "tokens_row0"}
+         for arch, res in lm["full_width"].items()
+         for dt, r in res.items()}))
+    log(f"LM attention at the prefill shape ({card}): "
+        f"{json.dumps(lm['attention'])}")
     log(f"phase seconds: {json.dumps(seconds)}")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -1,5 +1,10 @@
-"""Precision policy and FNO configuration (counterpart of the FNO part of
+"""Model, shape, precision and FNO configurations (counterpart of
 ``repro/configs/base.py``).
+
+``ModelConfig`` describes every architecture of the LM zoo; the unified
+transformer (``repro_torch.models.transformer``) interprets it.
+``ShapeSpec`` names an input-shape cell (``SHAPES``; ``SMOKE_SHAPES`` are
+their CPU sizes).
 
 ``FNOConfig.block_plan`` overrides the fused launches' plans field by
 field (``repro_torch.tuning``); the reference's (bb, bo, bh) triple is a
@@ -24,6 +29,183 @@ def torch_dtype(name: str) -> torch.dtype:
         return _TORCH_DTYPES[name]
     except KeyError:
         raise ValueError(f"unsupported dtype name {name!r}") from None
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Unified LM-family architecture description."""
+
+    name: str
+    family: str  # dense | moe | ssm | hybrid | encoder | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+
+    # --- attention ---
+    attention: str = "full"  # full | swa | local_global | bidirectional | none
+    window_size: int = 0  # for swa / local layers of local_global
+    local_per_global: int = 0  # local_global: N local layers per global layer
+    qkv_bias: bool = False
+    logit_softcap: float = 0.0
+
+    # --- positional encoding ---
+    rope_style: str = "full"  # full | partial | none
+    rope_fraction: float = 1.0  # fraction of head_dim rotated (partial RoPE)
+    rope_base: float = 10000.0
+
+    # --- mlp / norm ---
+    mlp: str = "swiglu"  # swiglu | geglu | gelu | relu2
+    norm: str = "rmsnorm"  # rmsnorm | layernorm
+    tie_embeddings: bool = False
+
+    # --- MoE ---
+    num_experts: int = 0
+    top_k: int = 0
+    dense_residual: bool = False  # Arctic: dense FFN in parallel with MoE
+    capacity_factor: float = 1.25
+
+    # --- SSM (Mamba2 / SSD) ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 128
+    ssm_conv_width: int = 4
+
+    # --- hybrid (Hymba) ---
+    hybrid_parallel: bool = False  # attention and SSM heads in parallel
+    global_layers: Tuple[int, ...] = ()  # layer indices using full attention
+
+    # --- modality frontend (a stub: the caller provides embeddings) ---
+    frontend: str = "none"  # none | audio | vision
+    num_prefix_embeds: int = 0  # VLM: patch embeddings prepended to tokens
+
+    dtype: str = "bfloat16"
+
+    @property
+    def d_attn(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def d_kv(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    @property
+    def d_inner(self) -> int:
+        """SSM inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
+
+    @property
+    def is_decoder(self) -> bool:
+        return self.attention != "bidirectional"
+
+    @property
+    def has_attention(self) -> bool:
+        return self.attention != "none"
+
+    @property
+    def has_ssm(self) -> bool:
+        return self.ssm_state > 0
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True when seq-len scaling is sub-quadratic (SSM / windowed)."""
+        if not self.has_attention:
+            return True
+        return (self.attention in ("swa", "local_global")
+                or self.hybrid_parallel)
+
+    def param_count(self, active_only: bool = False) -> int:
+        """The parameter count behind MODEL_FLOPS = 6·N·D, the
+        reference's (``active_only``: the top-k experts of a MoE layer
+        instead of all of them)."""
+        d, f = self.d_model, self.d_ff
+        emb = self.vocab_size * d
+        per_layer = 0
+        if self.has_attention:
+            per_layer += d * self.d_attn + 2 * d * self.d_kv  # QKV
+            per_layer += self.d_attn * d  # O
+            if self.qkv_bias:
+                per_layer += self.d_attn + 2 * self.d_kv
+        if self.has_ssm:
+            di = self.d_inner
+            per_layer += d * 2 * di  # in_proj (x, z)
+            per_layer += d * 2 * self.ssm_state  # B, C proj (ngroups=1)
+            per_layer += d * self.ssm_heads  # dt proj
+            per_layer += di * self.ssm_conv_width  # depthwise conv
+            per_layer += di * d  # out proj
+            per_layer += 2 * self.ssm_heads  # A_log, D
+        gated = self.mlp in ("swiglu", "geglu")
+        mlp_p = d * f * (3 if gated else 2)
+        if self.num_experts:
+            experts = self.top_k if active_only else self.num_experts
+            per_layer += experts * mlp_p + d * self.num_experts  # + router
+            if self.dense_residual:
+                per_layer += mlp_p
+        elif f > 0:
+            per_layer += mlp_p
+        per_layer += 2 * d  # norms
+        total = emb + self.num_layers * per_layer + d
+        if not self.tie_embeddings:
+            total += self.vocab_size * d  # lm head
+        return total
+
+    def validate(self) -> None:
+        def need(ok: bool, msg: str) -> None:
+            if not ok:
+                raise ValueError(f"{self.name}: {msg}")
+
+        need(self.d_model > 0 and self.num_layers > 0,
+             "d_model and num_layers must be positive")
+        if self.has_attention:
+            need(self.num_heads % max(self.num_kv_heads, 1) == 0,
+                 f"num_heads {self.num_heads} not divisible by "
+                 f"num_kv_heads {self.num_kv_heads}")
+        if self.num_experts:
+            need(0 < self.top_k <= self.num_experts,
+                 f"top_k {self.top_k} not in 1..{self.num_experts}")
+        if self.has_ssm:
+            need(self.d_inner % self.ssm_head_dim == 0,
+                 f"d_inner={self.d_inner} not divisible by "
+                 f"ssm_head_dim={self.ssm_head_dim}")
+        if self.attention == "local_global":
+            need(self.local_per_global > 0 and self.window_size > 0,
+                 "local_global needs local_per_global and window_size")
+        if self.attention == "swa":
+            need(self.window_size > 0, "swa needs window_size")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One input-shape cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+# Reduced shapes for CPU smoke tests.
+SMOKE_SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 64, 2, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 128, 1, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 128, 2, "decode"),
+    "long_500k": ShapeSpec("long_500k", 256, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -37,6 +37,9 @@ mean of the grads and the loss), "norm" (the grad norm's TP sum),
 "batch" (a server's outputs) or "gather" (``gather_params``). Under
 gloo on a card (``Mesh.host_staged``) each collective copies its operand
 to the host and back.
+
+The LM zoo runs on one card: ``shard_activation`` and ``kv_rep`` are the
+identity and 1 outside a context and raise under one.
 """
 from __future__ import annotations
 
@@ -233,6 +236,39 @@ def gather_params(local, specs, mesh: Mesh) -> Any:
                 t = all_gather(t, d, mesh, _axes_of(entry), "gather")
         return t
     return tree.map(gather, local, specs)
+
+
+# ---------------------------------------------------------------------------
+# The LM zoo on one card
+# ---------------------------------------------------------------------------
+LM_UNSHARDED = ("the LM zoo runs on one card only: its sharding "
+                "(activation specs, KV-head replication, cache specs) is "
+                "not ported yet (ROADMAP Queue A item 5)")
+
+
+def shard_activation(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The LM's activation placement at a layer boundary (`kind`: "embed",
+    "heads", "kv", "ffn", "experts", "ssm_inner" or "logits"): the
+    identity outside a sharding context; under one it raises, since the
+    LM's placement is not ported."""
+    if current_context() is not None:
+        raise NotImplementedError(f"shard_activation({kind!r}): "
+                                  f"{LM_UNSHARDED}")
+    return x
+
+
+def kv_rep() -> int:
+    """KV-head replication factor for TP: 1 outside a sharding context;
+    under one it raises (LM sharding is not ported)."""
+    if current_context() is not None:
+        raise NotImplementedError(f"kv_rep: {LM_UNSHARDED}")
+    return 1
+
+
+def effective_kv_heads(cfg) -> int:
+    """KV heads a rank holds in its cache (``cfg.num_kv_heads`` times
+    ``kv_rep``)."""
+    return cfg.num_kv_heads * kv_rep()
 
 
 # ---------------------------------------------------------------------------

@@ -302,12 +302,26 @@ def test_package_imports_neither_jax_nor_reference():
         "'repro_torch.distributed.fault_tolerance', "
         "'repro_torch.train.serve_runtime', 'repro_torch.train.serve_queue',"
         " 'repro_torch.train.trainer', 'repro_torch.launch.chaos_smoke', "
-        "'repro_torch.launch.serve_replay_smoke'}\n"
+        "'repro_torch.launch.serve_replay_smoke', "
+        "'repro_torch.models', 'repro_torch.models.layers', "
+        "'repro_torch.models.attention', 'repro_torch.models.moe', "
+        "'repro_torch.models.ssm', 'repro_torch.models.frontend', "
+        "'repro_torch.models.transformer', 'repro_torch.train.serve_step', "
+        "'repro_torch.launch.serve', 'repro_torch.configs.qwen2_1_5b', "
+        "'repro_torch.configs.gemma3_27b', "
+        "'repro_torch.configs.nemotron_4_340b', "
+        "'repro_torch.configs.chatglm3_6b', "
+        "'repro_torch.configs.mamba2_370m', "
+        "'repro_torch.configs.hubert_xlarge', "
+        "'repro_torch.configs.internvl2_26b', "
+        "'repro_torch.configs.mixtral_8x7b', "
+        "'repro_torch.configs.arctic_480b', "
+        "'repro_torch.configs.hymba_1_5b'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
-        "assert len(names) >= 22, names\n"
+        "assert len(names) >= 80, names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=SRC)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120, env=env)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 22
+    assert int(proc.stdout.strip()) >= 80
