@@ -299,6 +299,27 @@ fatal:
      right after phase 1 starts the builds, while nvcc compiles on the
      host's other cores (its host-bound decode times share the host with
      them).
+  37. LM training (``launch/lm_train_smoke.py``; no TPU kernel lies on
+     this path either): qwen2-1.5b and hymba-1.5b at full width, random
+     weights from seed 0, train_4k's 4096 tokens, a global batch of 4 as
+     2 microbatches of 2, per-layer remat, the attention in blocks of
+     1024 (``transformer.TRAIN_BLOCK``), the Zipf token stream, f32 (TF32
+     off) and bf16 params: the step-0 loss and grads at 1 × 4096 against
+     the same code in float64 on the same params (f32 2e-4; bf16 loss
+     2e-2, grads 5e-2; a grad scaled by its leaf's magnitude floored at
+     1e-3 of the tree's largest; hymba, whose SSD amplifies the rounding
+     layer by layer: the same loss limits, its f32 gradient's direction,
+     1 − cos, within 3× the f32 forward's own error and at most 0.1, and
+     every leaf's grad on the model cut to its first layer within the
+     dtype's limit or 3× the cut's forward error, at most 0.1; its whole
+     grads' error logged layer by layer); 2 warm steps (the second traced by
+     ``torch.profiler``) and 5 timed: step ms (median, host clock),
+     tokens/s, the model-FLOPs share of the card's peak, busy / idle
+     share, peak memory; batch 0's loss after the steps below step 0's;
+     every preset reduced: a 2-microbatch step on the card against the
+     CPU (nemotron-4-340b and arctic-480b with bf16 accumulation and
+     AdamW state) and remat against none. It runs after phase 36,
+     beside the builds.
 
 Each phase's seconds are printed. The last two lines are a
 ``{"kernels": [...]}`` JSON object and ``{"ok": true, "device": {...}}``.
@@ -518,8 +539,8 @@ def phase_environment(torch, build):
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    # one nvcc per source, all started together; phase 36, which needs no
-    # kernel, runs while they compile (finish_builds waits for them)
+    # one nvcc per source, all started together; phases 36 and 37, which
+    # need no kernel, run while they compile (finish_builds waits for them)
     pool = concurrent.futures.ThreadPoolExecutor(len(build.SOURCES))
     futures = [pool.submit(build.build, name) for name in build.SOURCES]
     return card, (pool, futures, time.perf_counter())
@@ -3816,6 +3837,20 @@ def phase_lm_serving(torch, card):
         torch.cuda.empty_cache()
 
 
+def phase_lm_training(torch, card):
+    """The LM zoo's training path at full width and every preset reduced
+    (``repro_torch.launch.lm_train_smoke``); raises on a failed check."""
+    log("== phase 37: LM training — qwen2-1.5b and hymba-1.5b at full "
+        "width, seq 4096, batch 4 in 2 microbatches, remat, f32 and bf16, "
+        "the float64 oracle; the ten presets reduced")
+    from repro_torch.launch import lm_train_smoke
+    try:
+        return lm_train_smoke.run(torch.device(DEVICE), log=log, card=card)
+    finally:  # its ~50 GB of blocks back to the card for the FNO phases
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3851,6 +3886,7 @@ def main() -> int:
 
     card, builds = timed("1", phase_environment, torch, build)
     lm = timed("36", phase_lm_serving, torch, card)  # beside the builds
+    lm_train = timed("37", phase_lm_training, torch, card)  # beside them too
     timed("1 builds", finish_builds, build, builds)
     errs = timed("2", phase_kernel_vs_plain, torch, engine, spectral,
                  configs)
@@ -4088,6 +4124,14 @@ def main() -> int:
          for dt, r in res.items()}))
     log(f"LM attention at the prefill shape ({card}): "
         f"{json.dumps(lm['attention'])}")
+    log(f"LM training, full width ({card}): " + json.dumps(
+        {f"{arch} {dt}": {k: v for k, v in res[dt].items()
+                          if k != "step_ms"}
+         for arch, res in lm_train["full_width"].items()
+         for dt in ("f32", "bf16")}))
+    log(f"LM training, float64 oracle ({card}): " + json.dumps(
+        {arch: res["oracle"] for arch, res in
+         lm_train["full_width"].items()}))
     log(f"phase seconds: {json.dumps(seconds)}")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

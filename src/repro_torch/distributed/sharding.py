@@ -27,16 +27,19 @@ computes the same loss from replicated downstream values:
   * ``split``: this rank's chunk of a replicated tensor forward; an
     all-gather backward (the whole gradient on every rank);
   * ``shared_input``: identity forward; an all-reduce backward (the
-    gradient of a replicated input read by column-parallel weights).
+    gradient of a replicated input read by column-parallel weights);
+  * ``shift``: one ring hop i -> i+1 forward (``ring_shift``, the GPipe
+    schedule's ``ppermute``); the hop i -> i-1 backward.
 
 ``COLLECTIVES`` counts every collective a rank issues by (kind, site),
 as ``engine.LAUNCHES`` counts kernel launches: kind "psum"
 (all-reduce), "reduce_scatter", "all_gather" or "p2p" (one ring hop);
 site "block" (a block's TP reduction), "lift", "proj", "grad" (the DP
 mean of the grads and the loss), "norm" (the grad norm's TP sum),
-"batch" (a server's outputs) or "gather" (``gather_params``). Under
-gloo on a card (``Mesh.host_staged``) each collective copies its operand
-to the host and back.
+"batch" (a server's outputs), "gather" (``gather_params``), "gpipe"
+(``distributed.pipeline``'s shifts) or "ef" (``compression.ef_psum``).
+Under gloo on a card (``Mesh.host_staged``) each collective copies its
+operand to the host and back.
 
 The LM zoo runs on one card: ``shard_activation`` and ``kv_rep`` are the
 identity and 1 outside a context and raise under one.
@@ -396,6 +399,40 @@ def ring_reduce_scatter(t: torch.Tensor, dim: int, mesh: Mesh,
     return acc
 
 
+def ring_shift(t: torch.Tensor, mesh: Mesh, axes: Sequence[str],
+               site: str, offset: int = 1) -> torch.Tensor:
+    """Every rank of the group over `axes` sends `t` to the rank `offset`
+    places on (ring-wise) and returns what the rank `offset` places back
+    sent it: one hop of ``batch_isend_irecv`` (``lax.ppermute`` with the
+    permutation i -> i + offset)."""
+    n = mesh.axis_size(axes)
+    if n == 1:
+        return t
+    idx = mesh.axis_index(axes)
+    ranks = mesh.group_ranks(axes)
+    send = _host(t, mesh)
+    recv = torch.empty_like(send)
+    ops = [dist.P2POp(dist.isend, send, ranks[(idx + offset) % n],
+                      mesh.group(axes)),
+           dist.P2POp(dist.irecv, recv, ranks[(idx - offset) % n],
+                      mesh.group(axes))]
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    COLLECTIVES[("p2p", site)] += 1
+    return recv.to(t.device)
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, site, offset):
+        ctx.args = (mesh, axes, site, -offset)
+        return ring_shift(x, mesh, axes, site, offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ring_shift(g, *ctx.args), None, None, None, None
+
+
 class _Psum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, z, mesh, axes, site):
@@ -446,6 +483,14 @@ def psum(z: torch.Tensor, mesh: Mesh, axis_name: str = "model",
     """All-reduce over `axis_name`; the backward passes the cotangent
     through (every TP rank holds all of it)."""
     return _Psum.apply(z, mesh, (axis_name,), site)
+
+
+def shift(x: torch.Tensor, mesh: Mesh, axis_name: str, site: str,
+          offset: int = 1) -> torch.Tensor:
+    """``ring_shift`` of `x` along `axis_name`, differentiable: the
+    backward shifts the cotangent the other way (``ppermute``'s
+    transpose). Every rank must run the same shifts, backward too."""
+    return _Shift.apply(x, mesh, (axis_name,), site, offset)
 
 
 def scatter_sum(z: torch.Tensor, mesh: Mesh, axis_name: str = "model",

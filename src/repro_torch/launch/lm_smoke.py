@@ -76,17 +76,17 @@ ATTN_TOL = 2e-4     # DESIGN.md §4, scaled by max(1, max|ref|)
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
-def _sync(dev: torch.device) -> None:
+def sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
 
-def _host_ms(fn: Callable, dev: torch.device):
+def host_ms(fn: Callable, dev: torch.device):
     """(fn's result, ms on the host clock around synchronised work)."""
-    _sync(dev)
+    sync(dev)
     t0 = time.perf_counter()
     out = fn()
-    _sync(dev)
+    sync(dev)
     return out, 1e3 * (time.perf_counter() - t0)
 
 
@@ -95,7 +95,7 @@ def _device_ms(fn: Callable, dev: torch.device, iters: int = 3) -> float:
     clock elsewhere."""
     fn()
     if dev.type != "cuda":
-        return _host_ms(lambda: [fn() for _ in range(iters)], dev)[1] / iters
+        return host_ms(lambda: [fn() for _ in range(iters)], dev)[1] / iters
     torch.cuda.synchronize(dev)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
@@ -111,7 +111,7 @@ def _scaled_err(y: torch.Tensor, ref: torch.Tensor) -> float:
     return float((y - ref).abs().max()) / max(float(ref.abs().max()), 1.0)
 
 
-def _require(ok: bool, msg: str) -> None:
+def require(ok: bool, msg: str) -> None:
     if not ok:
         raise AssertionError(msg)
 
@@ -159,8 +159,8 @@ def attention_check(cfg, dev: torch.device, batch: int, seq: int) -> dict:
                                            window=window)
     err = _scaled_err(run(), dense_attention(q, k, v, causal=True,
                                              window=window))
-    _require(err <= ATTN_TOL, f"{cfg.name}: multihead_attention against "
-             f"the dense plain version: {err:.3e} > {ATTN_TOL}")
+    require(err <= ATTN_TOL, f"{cfg.name}: multihead_attention against "
+            f"the dense plain version: {err:.3e} > {ATTN_TOL}")
     g = cfg.num_heads // cfg.num_kv_heads
     qt = q.transpose(1, 2)
     kt = k.repeat_interleave(g, dim=2).transpose(1, 2)
@@ -175,14 +175,15 @@ def attention_check(cfg, dev: torch.device, batch: int, seq: int) -> dict:
             "sdpa_ms": _device_ms(sdpa, dev)}
 
 
-def _decode_trace(step: Callable, steps: int, top: int = 6) -> tuple:
+def device_trace(step: Callable, steps: int, top: int = 6) -> tuple:
     """(device-busy ms a step, the `top` device kernels by ms a step) of
-    `step` from a ``torch.profiler`` trace of `steps` steps."""
+    `step` from a ``torch.profiler`` trace of `steps` steps (a decode step
+    here, a training step in ``lm_train_smoke``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    # device activity alone: the host's op events of a decode step number
-    # in the thousands, and reading them back costs seconds
+    # device activity alone: the host's op events of a step number in the
+    # thousands, and reading them back costs seconds
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             step()
@@ -190,7 +191,7 @@ def _decode_trace(step: Callable, steps: int, top: int = 6) -> tuple:
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
     us = sum(e.self_device_time_total for e in events)
-    _require(us > 0, "the decode trace holds no device events")
+    require(us > 0, "the trace holds no device events")
     rows = [{"name": e.key[:60],
              "ms": e.self_device_time_total / 1e3 / steps,
              "calls": e.count / steps}
@@ -228,7 +229,7 @@ def _served(params, cfg, tokens: torch.Tensor, new: int,
     prefill(params, {"tokens": tokens})  # warm (cuBLAS plans at 2048)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    (last, cache), prefill_ms = _host_ms(
+    (last, cache), prefill_ms = host_ms(
         lambda: prefill(params, {"tokens": tokens}), dev)
     tok = torch.argmax(last, dim=-1).to(torch.int32)
     finite = torch.isfinite(last).all()
@@ -241,12 +242,12 @@ def _served(params, cfg, tokens: torch.Tensor, new: int,
             finite = finite & torch.isfinite(lg).all()
             out.append(tok)
 
-    _, decode_total = _host_ms(generate, dev)
+    _, decode_total = host_ms(generate, dev)
     gen_tokens = torch.stack(out, dim=1)
-    _require(bool(finite), f"{cfg.name}: a non-finite logit")
-    _require(int(gen_tokens.min()) >= 0
-             and int(gen_tokens.max()) < cfg.vocab_size,
-             f"{cfg.name}: a generated token outside the vocabulary")
+    require(bool(finite), f"{cfg.name}: a non-finite logit")
+    require(int(gen_tokens.min()) >= 0
+            and int(gen_tokens.max()) < cfg.vocab_size,
+            f"{cfg.name}: a generated token outside the vocabulary")
     decode_ms = decode_total / new
     res = {"prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
            "tokens_per_s": tokens.shape[0] * 1e3 / decode_ms,
@@ -258,7 +259,7 @@ def _served(params, cfg, tokens: torch.Tensor, new: int,
         def one():
             nonlocal tok, cache
             tok, _, cache = step(params, cache, tok)
-        busy, res["decode_top_kernels"] = _decode_trace(one, PROFILED)
+        busy, res["decode_top_kernels"] = device_trace(one, PROFILED)
         res["decode_busy_ms_per_token"] = busy
         res["decode_idle_share"] = 1.0 - busy / decode_ms
     return res
@@ -283,16 +284,16 @@ def serve_check(cfg, dev: torch.device, batch: int = BATCH,
                                                       p32)
             rows[dt], dec = _consistency(params, cfg, tokens, prefix,
                                          checked)
-            _require(bool(torch.isfinite(rows[dt]).all()
-                          and torch.isfinite(dec).all()),
-                     f"{cfg.name} {dt}: a non-finite logit")
+            require(bool(torch.isfinite(rows[dt]).all()
+                         and torch.isfinite(dec).all()),
+                    f"{cfg.name} {dt}: a non-finite logit")
             gap = float((dec - rows[dt]).abs().max())
             res = {"decode_vs_forward_max_abs": gap}
             if dt == "f64":  # the decode path equals the forward path
                 scale = max(float(rows[dt].abs().max()), 1.0)
-                _require(gap <= F64_TOL * scale,
-                         f"{cfg.name} f64: decode against forward "
-                         f"{gap:.4g} > {F64_TOL} x {scale:.4g}")
+                require(gap <= F64_TOL * scale,
+                        f"{cfg.name} f64: decode against forward "
+                        f"{gap:.4g} > {F64_TOL} x {scale:.4g}")
                 out[dt] = dict(res, seconds=time.perf_counter() - t0)
                 rows64 = rows[dt]
                 del params, dec
@@ -305,23 +306,23 @@ def serve_check(cfg, dev: torch.device, batch: int = BATCH,
                     forward_vs_f64_max_abs=float(
                         (rows[dt] - rows64).abs().max()),
                     decode_vs_f64_max_abs=float((dec - rows64).abs().max()))
-                _require(res["decode_vs_f64_max_abs"]
-                         <= BF16_FACTOR * res["forward_vs_f64_max_abs"],
-                         f"{cfg.name} f32: decode against the float64 "
-                         f"forward {res['decode_vs_f64_max_abs']:.4g} > "
-                         f"{BF16_FACTOR}x the f32 forward's "
-                         f"{res['forward_vs_f64_max_abs']:.4g}")
+                require(res["decode_vs_f64_max_abs"]
+                        <= BF16_FACTOR * res["forward_vs_f64_max_abs"],
+                        f"{cfg.name} f32: decode against the float64 "
+                        f"forward {res['decode_vs_f64_max_abs']:.4g} > "
+                        f"{BF16_FACTOR}x the f32 forward's "
+                        f"{res['forward_vs_f64_max_abs']:.4g}")
                 # the reference's bound, where no SSD layer amplifies the
                 # rounding past it (F32_TOL)
-                _require(excess <= 0 or cfg.has_ssm,
-                         f"{cfg.name} f32: decode against forward beyond "
-                         f"rtol = atol = {F32_TOL} (excess {excess:.4g})")
+                require(excess <= 0 or cfg.has_ssm,
+                        f"{cfg.name} f32: decode against forward beyond "
+                        f"rtol = atol = {F32_TOL} (excess {excess:.4g})")
             else:
                 ref_gap = float((rows[dt] - rows["f32"]).abs().max())
                 res["bf16_vs_f32_forward_max_abs"] = ref_gap
-                _require(gap <= BF16_FACTOR * ref_gap,
-                         f"{cfg.name} bf16: decode gap {gap:.4g} > "
-                         f"{BF16_FACTOR}x the bf16/f32 gap {ref_gap:.4g}")
+                require(gap <= BF16_FACTOR * ref_gap,
+                        f"{cfg.name} bf16: decode gap {gap:.4g} > "
+                        f"{BF16_FACTOR}x the bf16/f32 gap {ref_gap:.4g}")
             del dec
             t1 = time.perf_counter()
             res.update(_served(params, cfg, tokens, new, dev))
@@ -349,10 +350,10 @@ def reduced_check(arch: str, dev: torch.device) -> dict:
         if not cfg.is_decoder:
             logits = serve_step.make_encoder_step(cfg)(params, extra)
             ref, _ = tf.forward(params, cfg, **extra)
-            _require(tuple(logits.shape) == (b, s, cfg.vocab_size)
-                     and bool(torch.isfinite(logits).all())
-                     and torch.equal(logits, ref),
-                     f"{arch}: the encoder step")
+            require(tuple(logits.shape) == (b, s, cfg.vocab_size)
+                    and bool(torch.isfinite(logits).all())
+                    and torch.equal(logits, ref),
+                    f"{arch}: the encoder step")
             return {"encoder_logits": list(logits.shape)}
         full, _ = tf.forward(params, cfg, tokens, **extra)
         max_len = s + 4 + cfg.num_prefix_embeds
@@ -362,18 +363,18 @@ def reduced_check(arch: str, dev: torch.device) -> dict:
         tok, lg, cache = step(params, cache, tokens[:, s - 1])
         diff = (lg - full[:, -1]).abs()
         excess = float((diff - F32_TOL * (1 + full[:, -1].abs())).max())
-        _require(excess <= 0, f"{arch}: decode against forward beyond "
-                 f"rtol = atol = {F32_TOL}")
+        require(excess <= 0, f"{arch}: decode against forward beyond "
+                f"rtol = atol = {F32_TOL}")
         toks = [tok]
         for _ in range(3):
             tok, lg, cache = step(params, cache, tok)
             toks.append(tok)
         t = torch.stack(toks)
-        _require(bool(torch.isfinite(lg).all()) and int(t.min()) >= 0
-                 and int(t.max()) < cfg.vocab_size,
-                 f"{arch}: greedy steps")
-        _require(int(cache["len"]) == s + 3 + cfg.num_prefix_embeds,
-                 f"{arch}: cache len")
+        require(bool(torch.isfinite(lg).all()) and int(t.min()) >= 0
+                and int(t.max()) < cfg.vocab_size,
+                f"{arch}: greedy steps")
+        require(int(cache["len"]) == s + 3 + cfg.num_prefix_embeds,
+                f"{arch}: cache len")
     return {"decode_vs_forward_max_abs": float(diff.max()),
             "allclose_excess": excess}
 

@@ -6,8 +6,9 @@ on this rank's shards, and returns numpy results with the full shapes for
 the caller to hold against its reference, beside this rank's kernel
 launches (``engine.LAUNCHES``) and collectives (``sharding.COLLECTIVES``).
 
-A job is ``{"mesh": (dp, tp), "backend", "device", "cases": [...]}``; a
-case is a dict with its ``kind``:
+A job is ``{"mesh": (dp, tp), "backend", "device", "cases": [...]}``
+(with ``"axes"``, the mesh's axes when they are not ("data", "model"));
+a case is a dict with its ``kind``:
 
   * "forward": ``apply_fno`` of the global batch ``x`` (this rank's rows
     in the context, the outputs all-gathered) -> ``y``;
@@ -20,7 +21,16 @@ case is a dict with its ``kind``:
   * "save": a train step, then the params and AdamW state saved under the
     mesh to ``dir`` at ``step`` -> the gathered ``state``;
   * "restore": ``elastic_restore`` of ``dir`` at ``step`` onto this mesh
-    -> the gathered ``state``.
+    -> the gathered ``state``;
+  * "ef_psum": ``compression.ef_psum`` over ``axis`` of this rank's row
+    of ``g`` [n, ...] from a zero residual -> ``summed``, ``residual``;
+    then ``steps`` sums of ``tree_ef_psum`` of {"g": row} carrying the
+    residual -> ``acc``, the sums' total;
+  * "gpipe": ``pipeline.make_gpipe_fn`` of ``tanh_stage`` over ``axis``
+    with the stacked stage weights ``ws`` [S, d, d] on microbatches ``x``
+    [M, mb, d] -> ``out``; with ``ct`` (a cotangent of ``out``) the
+    grads of Σ out·ct as well -> ``ws_grad`` (this rank's stage's chunk
+    alone is not zero) and ``x_grad``.
 
 Params come as a numpy tree (``params``) or a seed (``seed``:
 ``init_fno`` from ``torch.Generator().manual_seed(seed)`` on every rank).
@@ -38,7 +48,9 @@ from repro_torch import tree
 from repro_torch.analysis import launch_lint
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.core import fno as fno_mod
+from repro_torch.distributed import compression as comp
 from repro_torch.distributed import fault_tolerance as ft
+from repro_torch.distributed import pipeline as pipe
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import engine
 from repro_torch.launch import mesh as mesh_mod
@@ -66,7 +78,42 @@ def _state(cfg, ctx, params, opt_state):
     return state, shd.context_specs(cfg, ctx, state)
 
 
+def tanh_stage(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The reference test's stage: tanh(x @ w[0]) on its [1, d, d] chunk."""
+    return torch.tanh(x @ w[0])
+
+
+def _comm_case(case: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """The cases with no model: compression and the GPipe schedule."""
+    axis = case["axis"]
+    on = lambda a: torch.from_numpy(np.asarray(a)).to(mesh.device)
+    if case["kind"] == "ef_psum":
+        g = on(case["g"])[mesh.axis_index((axis,))]
+        summed, res = comp.ef_psum(g, torch.zeros_like(g), mesh, axis)
+        acc, r = torch.zeros_like(g), {"g": torch.zeros_like(g)}
+        for _ in range(case["steps"]):
+            s, r = comp.tree_ef_psum({"g": g}, r, mesh, axis)
+            acc = acc + s["g"]
+        return {"summed": _np(summed), "residual": _np(res),
+                "acc": _np(acc)}
+    ws, x = on(case["ws"]), on(case["x"])
+    fn = pipe.make_gpipe_fn(tanh_stage, mesh=mesh, axis=axis,
+                            num_stages=ws.shape[0])
+    if "ct" not in case:
+        with torch.no_grad():
+            return {"out": _np(fn(ws, x))}
+    ws.requires_grad_(True)
+    x.requires_grad_(True)
+    out = fn(ws, x)
+    ws_grad, x_grad = torch.autograd.grad((out * on(case["ct"])).sum(),
+                                          (ws, x))
+    return {"out": _np(out), "ws_grad": _np(ws_grad),
+            "x_grad": _np(x_grad)}
+
+
 def _case(case: Dict[str, Any], mesh) -> Dict[str, Any]:
+    if case["kind"] in ("ef_psum", "gpipe"):
+        return _comm_case(case, mesh)
     cfg = case["cfg"]
     ctx = shd.make_context(cfg, mesh, fno_strategy=case.get("fno_strategy"))
     variant = case.get("variant", "full")
@@ -129,12 +176,13 @@ def _case(case: Dict[str, Any], mesh) -> Dict[str, Any]:
 
 def run_rank(rank: int, world: int, init_method: str,
              job: Dict[str, Any]) -> list:
-    """Join the world as `rank`, lay out ``job["mesh"]`` (dp, tp), run
-    every case and return, for each, its results with this rank's
-    ``launches``, wrapper ``calls`` by kind and ``collectives`` (counted
-    from 0 for the case)."""
-    dp, tp = job["mesh"]
-    mesh = mesh_mod.make_mesh((dp, tp), ("data", "model"),
+    """Join the world as `rank`, lay out ``job["mesh"]`` (dp, tp) over
+    ``job.get("axes")`` (default ("data", "model")), run every case and
+    return, for each, its results with this rank's ``launches``, wrapper
+    ``calls`` by kind and ``collectives`` (counted from 0 for the
+    case)."""
+    mesh = mesh_mod.make_mesh(tuple(job["mesh"]),
+                              tuple(job.get("axes", ("data", "model"))),
                               backend=job["backend"],
                               device=job.get("device", "cuda"), rank=rank,
                               world_size=world, init_method=init_method)

@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig, torch_dtype
@@ -211,6 +212,29 @@ def _layer_fwd(lp, x: torch.Tensor, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 # embedding / head
 # ---------------------------------------------------------------------------
+class _Lookup(torch.autograd.Function):
+    """``table[idx]``, whose backward sums each row's grads at
+    ``acc_dtype`` and rounds once: the index's own backward adds a bf16
+    table's rows in bf16, so a frequent token's row (a Zipf head token is
+    hundreds of a 4096-token row) carries the rounding of every add
+    (PERF.md §6)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.meta = (table.shape, table.dtype)
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        shape, dtype = ctx.meta
+        acc = torch.zeros(shape, dtype=acc_dtype(dtype), device=g.device)
+        acc.index_add_(0, idx.reshape(-1),
+                       g.reshape(-1, shape[-1]).to(acc.dtype))
+        return acc.to(dtype), None
+
+
 def embed_inputs(params, cfg: ModelConfig, tokens=None, inputs_embeds=None,
                  prefix_embeds=None) -> torch.Tensor:
     """Token embeddings (tokens int32 [B,S]) or the given frame embeddings,
@@ -218,7 +242,7 @@ def embed_inputs(params, cfg: ModelConfig, tokens=None, inputs_embeds=None,
     if inputs_embeds is not None:
         x = inputs_embeds
     else:
-        x = params["embed"][tokens.long()]
+        x = _Lookup.apply(params["embed"], tokens.long())
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     return shard_activation(x, "embed")
@@ -241,9 +265,16 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 # forward
 # ---------------------------------------------------------------------------
 def forward(params, cfg: ModelConfig, tokens=None, inputs_embeds=None,
-            prefix_embeds=None, q_block: int = 256, kv_block: int = 512
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. Returns (logits [B,S,V], MoE aux loss)."""
+            prefix_embeds=None, q_block: int = 256, kv_block: int = 512,
+            remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. Returns (logits [B,S,V], MoE aux loss).
+
+    remat=True checkpoints each layer (``torch.utils.checkpoint``, the
+    non-reentrant form): the backward keeps a layer's input alone and runs
+    the layer again, as the reference's ``jax.checkpoint`` with the
+    ``nothing_saveable`` policy — the memory / FLOP trade of the big archs
+    at train_4k. The recompute is the same code on the same inputs, so it
+    changes no bit where the forward is deterministic."""
     x = embed_inputs(params, cfg, tokens, inputs_embeds, prefix_embeds)
     positions = _positions(x.shape[0], x.shape[1], x.device)
     angles = rope_angles(positions, cfg, acc_dtype(x.dtype))
@@ -251,12 +282,63 @@ def forward(params, cfg: ModelConfig, tokens=None, inputs_embeds=None,
     aux_total = torch.zeros((), dtype=_F32, device=x.device)
     for (s, e, is_global) in segments(cfg):
         window = 0 if is_global else cfg.window_size
+
+        def one_layer(lp, xx, window=window):
+            return _layer_fwd(lp, xx, cfg, positions, window=window,
+                              q_block=q_block, kv_block=kv_block,
+                              angles=angles)[:2]
+
         for i in range(s, e):
-            x, aux, _, _ = _layer_fwd(
-                layers[i], x, cfg, positions, window=window,
-                q_block=q_block, kv_block=kv_block, angles=angles)
+            if remat:
+                x, aux = checkpoint(one_layer, layers[i], x,
+                                    use_reentrant=False)
+            else:
+                x, aux = one_layer(layers[i], x)
             aux_total = aux_total + aux
     return lm_logits(params, cfg, x), aux_total
+
+
+# The attention's q and kv block in training. At the reference's 256 / 512
+# a 4096-token step waits on the host: each block pair is a dozen ops,
+# forward, recompute and backward (PERF.md §6). Serving keeps forward's.
+TRAIN_BLOCK = 1024
+
+
+def lm_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            aux_coef: float = 0.01, remat: bool = False) -> torch.Tensor:
+    """The mean next-token NLL plus ``aux_coef`` times the MoE aux loss.
+
+    batch: tokens [B,S] and labels [B,S] (-1 = ignore), or inputs_embeds
+    [B,S,d] with labels; optional prefix_embeds, whose positions carry no
+    loss. The logsumexp − gather form: the target logit is gathered at the
+    logits' dtype (rounded to bf16 under bf16, as the reference's) and
+    only then widened, and no full-vocabulary log-softmax is formed. The
+    attention runs in blocks of ``TRAIN_BLOCK``."""
+    logits, aux = forward(
+        params, cfg, batch.get("tokens"), batch.get("inputs_embeds"),
+        batch.get("prefix_embeds"), q_block=TRAIN_BLOCK,
+        kv_block=TRAIN_BLOCK, remat=remat)
+    labels = batch["labels"]
+    npad = logits.shape[1] - labels.shape[1]
+    if npad:  # prefix embeds: no loss on prefix positions
+        logits = logits[:, npad:]
+    f = acc_dtype(logits.dtype)
+    mask = labels >= 0
+    labels_c = torch.clamp(labels, min=0).long()
+    lse = torch.logsumexp(logits.to(f), dim=-1)
+    tgt = torch.gather(logits, -1, labels_c[..., None])[..., 0]
+    nll = lse - tgt.to(f)
+    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return loss + aux_coef * aux
+
+
+def unread_leaves(cfg: ModelConfig, batch) -> Tuple[Tuple[str], ...]:
+    """Key paths of the params ``lm_loss`` does not read on `batch`: the
+    token table, where the batch brings frame embeddings in place of
+    tokens and the head is a table of its own (hubert)."""
+    if "tokens" not in batch and not cfg.tie_embeddings:
+        return (("embed",),)
+    return ()
 
 
 # ---------------------------------------------------------------------------

@@ -5,11 +5,12 @@ least time of each kernel launch (counterpart of
 Two groups of functions:
 
 * the model's counts, held equal to the reference's: ``fno_model_flops``
-  (useful operations of an FNO step), ``fno_model_bytes`` (its modelled
-  device-memory traffic), ``fno_collective_bytes`` (the TP collectives'
-  wire bytes), and ``fno_roofline``, a ``Roofline`` of compute / memory /
-  collective ms from them over ``hw`` (the reference's ``Roofline``
-  without its HLO parsing: the port has no compiled module to read);
+  (useful operations of an FNO step), ``lm_model_flops`` (an LM step's),
+  ``fno_model_bytes`` (the FNO's modelled device-memory traffic),
+  ``fno_collective_bytes`` (the TP collectives' wire bytes), and
+  ``fno_roofline``, a ``Roofline`` of compute / memory / collective ms
+  from them over ``hw`` (the reference's ``Roofline`` without its HLO
+  parsing: the port has no compiled module to read);
 * the per-launch bounds ``chip_smoke.py`` holds each kernel's time
   against: ``bound_parts`` / ``bound_ms`` (a launch of a kind at a block's
   shape), ``cgemm_bound_parts`` / ``cgemm_bound``, and the counts under
@@ -75,6 +76,18 @@ def fno_model_flops(cfg, batch: int, *, training: bool = True) -> float:
     proj = 2 * sp * (h * lift + lift * cfg.out_channels)
     fwd = batch * (cfg.num_layers * per_layer + lifting + proj)
     return (3.0 if training else 1.0) * fwd
+
+
+def lm_model_flops(cfg, shape_kind: str, seq_len: int, global_batch: int
+                   ) -> float:
+    """Useful operations of an LM step: 6·N_active·tokens for training
+    (shape_kind "train"), 2·N_active·tokens for inference ("prefill"; one
+    token a row for "decode"), N_active the parameters a token reaches
+    (``ModelConfig.param_count(active_only=True)``)."""
+    n_active = cfg.param_count(active_only=True)
+    tokens = global_batch * (seq_len if shape_kind != "decode" else 1)
+    mult = 6.0 if shape_kind == "train" else 2.0
+    return mult * n_active * tokens
 
 
 def fno_model_bytes(cfg, batch: int, *, variant: str = "full",

@@ -1,9 +1,11 @@
 """Port parity: the checkpointer (``repro_torch.checkpoint``) against the
 JAX reference's — one on-disk format, so a checkpoint written by either
-package is restored by the other bit for bit (params and the AdamW state);
+package is restored by the other bit for bit (params and the AdamW state,
+of a reduced FNO and of a reduced qwen2 LM);
 ``verify``, ``latest_valid_step``, the ``.tmp_step_*`` sweep, ``keep``,
 async saves, and restore onto the target's device and dtype.
 """
+import functools
 import json
 import os
 import tempfile
@@ -17,11 +19,13 @@ import torch
 from repro.checkpoint import Checkpointer as JCheckpointer
 from repro.configs import get_config as jget_config
 from repro.core import fno as jfno
+from repro.models import transformer as jtf
 from repro.optim import AdamW as JAdamW
 from repro.optim.schedule import constant as jconstant
 from repro_torch import tree
 from repro_torch.checkpoint import Checkpointer
-from repro_torch.convert import params_from_jax
+from repro_torch import configs as tconfigs
+from repro_torch.convert import lm_params_from_jax, params_from_jax
 from repro_torch.distributed import faults as flt
 
 
@@ -38,6 +42,30 @@ def _state(arch="fno2d", seed=0):
     tstate = {"params": params_from_jax(np_state["params"]),
               "opt": {"m": params_from_jax(np_state["opt"]["m"]),
                       "v": params_from_jax(np_state["opt"]["v"]),
+                      "step": torch.tensor(np.asarray(ostate["step"]))}}
+    return jstate, tstate
+
+
+_lm_init = jax.jit(lambda key: jtf.init_lm(
+    key, jget_config("qwen2-1.5b", reduced=True), jnp.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _lm_state(seed=0):
+    """``_state`` for reduced qwen2: the reference's LM params and AdamW
+    state after one update, and the port's copy of both (the moments
+    through ``lm_params_from_jax``, as the params)."""
+    params = _lm_init(jax.random.PRNGKey(seed))
+    opt = JAdamW(lr=jconstant(1e-3))
+    grads = jax.tree_util.tree_map(lambda p: jnp.full_like(p, 0.5), params)
+    params, ostate = jax.jit(opt.update)(grads, opt.init(params), params)
+    jstate = {"params": params, "opt": ostate}
+    np_state = jax.tree_util.tree_map(np.asarray, jstate)
+    tcfg = tconfigs.get_config("qwen2-1.5b", reduced=True)
+    carry = lambda t: lm_params_from_jax(t, tcfg)
+    tstate = {"params": carry(np_state["params"]),
+              "opt": {"m": carry(np_state["opt"]["m"]),
+                      "v": carry(np_state["opt"]["v"]),
                       "step": torch.tensor(np.asarray(ostate["step"]))}}
     return jstate, tstate
 
@@ -85,6 +113,25 @@ def test_reference_restores_a_port_checkpoint_bit_for_bit():
         assert ck.verify(2) and ck.latest_valid_step() == 2
         got = ck.restore(2, jtarget)
     _equal_bits(tstate, got)
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_lm_train_state_restores_across_packages(writer):
+    """Reduced qwen2's params and AdamW state: either package restores
+    the other's checkpoint bit for bit, into its own tree."""
+    jstate, tstate = _lm_state(seed=3)
+    jtarget, ttarget = _lm_state(seed=4)
+    with tempfile.TemporaryDirectory() as d:
+        if writer == "reference":
+            JCheckpointer(d).save(7, jstate)
+            got = Checkpointer(d).restore(7, ttarget)
+            _equal_bits(got, jstate)
+            assert tree.paths(got) == tree.paths(ttarget)
+        else:
+            Checkpointer(d).save(7, tstate)
+            ck = JCheckpointer(d)
+            assert ck.verify(7) and ck.latest_valid_step() == 7
+            _equal_bits(tstate, ck.restore(7, jtarget))
 
 
 def test_restore_takes_the_targets_dtype():

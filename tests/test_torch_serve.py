@@ -316,12 +316,15 @@ def test_package_imports_neither_jax_nor_reference():
         "'repro_torch.configs.internvl2_26b', "
         "'repro_torch.configs.mixtral_8x7b', "
         "'repro_torch.configs.arctic_480b', "
-        "'repro_torch.configs.hymba_1_5b'}\n"
+        "'repro_torch.configs.hymba_1_5b', 'repro_torch.data.tokens', "
+        "'repro_torch.distributed.pipeline', "
+        "'repro_torch.distributed.compression', "
+        "'repro_torch.launch.train', 'repro_torch.launch.lm_train_smoke'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
-        "assert len(names) >= 80, names\n"
+        "assert len(names) >= 86, names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=SRC)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120, env=env)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 80
+    assert int(proc.stdout.strip()) >= 86

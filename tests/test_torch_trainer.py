@@ -3,8 +3,10 @@
 reference's — the same data and fault plan give the same loss a step
 (within 2e-4) and equal NaN-skip, restart and save-retry counts; a
 restart restores params and AdamW state from a checkpoint either package
-wrote; the prefetch pipeline's timeout and terminal producer death; the
-watchdog's one-shot firing; the straggler monitor's reset.
+wrote; an LM (reduced qwen2, the reference's weights) trained three steps
+on the same token batches with one restart gives the same losses; the
+prefetch pipeline's timeout and terminal producer death; the watchdog's
+one-shot firing; the straggler monitor's reset.
 """
 import tempfile
 import threading
@@ -18,7 +20,9 @@ import torch
 
 from repro.configs import get_config as jget_config
 from repro.core import fno as jfno
+from repro.models import transformer as jtf
 from repro.data import pde as jpde
+from repro.data import tokens as jtokens
 from repro.distributed import faults as jflt
 from repro.optim import AdamW as JAdamW
 from repro.optim.schedule import constant as jconstant
@@ -28,7 +32,7 @@ from repro.train.trainer import TrainerConfig as JTrainerConfig
 from repro_torch import configs as tconfigs
 from repro_torch import tree
 from repro_torch.checkpoint import Checkpointer
-from repro_torch.convert import params_from_jax
+from repro_torch.convert import lm_params_from_jax, params_from_jax
 from repro_torch.data.pipeline import PrefetchPipeline
 from repro_torch.distributed import faults as flt
 from repro_torch.distributed.fault_tolerance import StragglerMonitor, Watchdog
@@ -134,6 +138,47 @@ def test_restart_resumes_from_a_reference_checkpoint(task):
         for tm, jm in zip(tout["metrics"], full["metrics"][4:]):
             assert abs(tm["loss"] - jm["loss"]) <= 2e-4 * max(
                 abs(jm["loss"]), 1.0)
+
+
+def test_lm_trainers_match_across_a_restart():
+    """Reduced qwen2 from the reference's ``init_lm``, batches of the
+    reference's token stream carried through numpy to both: three steps,
+    a node failure at step 2 (after the checkpoint of step 2), one restart
+    in each package and the same losses a step within 2e-4."""
+    jcfg = jget_config("qwen2-1.5b", reduced=True)
+    params = jax.jit(lambda k: jtf.init_lm(k, jcfg, jax.numpy.float32))(
+        jax.random.PRNGKey(0))
+    batches = [jax.tree_util.tree_map(np.asarray, jtokens.token_batch(
+        0, i, 4, 16, jcfg.vocab_size)) for i in range(3)]
+    outs = {}
+    with tempfile.TemporaryDirectory() as dj, \
+            tempfile.TemporaryDirectory() as dt:
+        jopt = JAdamW(lr=jconstant(1e-3))
+        ref = JTrainer(
+            JTrainerConfig(total_steps=3, ckpt_every=2, ckpt_dir=dj,
+                           log_every=1, ckpt_async=False),
+            jax.jit(jmake_train_step(jcfg, jopt)), lambda i: batches[i],
+            params, opt_state=jopt.init(params),
+            fail_at={2: RuntimeError("node died")})
+        cfg = tconfigs.get_config("qwen2-1.5b", reduced=True)
+        tparams = lm_params_from_jax(
+            jax.tree_util.tree_map(np.asarray, params), cfg)
+        opt = AdamW(lr=constant(1e-3))
+        ours = Trainer(
+            TrainerConfig(total_steps=3, ckpt_every=2, ckpt_dir=dt,
+                          log_every=1, ckpt_async=False),
+            make_train_step(cfg, opt),
+            lambda i: {k: torch.tensor(v) for k, v in batches[i].items()},
+            tparams, opt_state=opt.init(tparams),
+            fail_at={2: RuntimeError("node died")})
+        outs = {"ref": ref.run_with_restarts(),
+                "ours": ours.run_with_restarts()}
+        assert ours.restarts == ref.restarts == 1
+    steps = [[m["step"] for m in o["metrics"]] for o in outs.values()]
+    assert steps[0] == steps[1] == [0, 1, 2]
+    for tm, jm in zip(outs["ours"]["metrics"], outs["ref"]["metrics"]):
+        assert abs(tm["loss"] - jm["loss"]) <= 2e-4 * abs(jm["loss"]), (
+            tm, jm)
 
 
 def test_nan_budget_exceeded_raises_not_restarts(task):
@@ -286,14 +331,16 @@ def test_watchdog_beat_prevents_fire():
 
 
 def test_watchdog_callback_runs_outside_lock():
-    done = threading.Event()
+    done, ready = threading.Event(), threading.Event()
     holder = {}
 
     def cb():
+        ready.wait(2.0)  # the watchdog may fire before it is stored
         holder["wd"].beat()  # would deadlock inside the checker's lock
         done.set()
 
     holder["wd"] = Watchdog(0.1, cb)
+    ready.set()
     try:
         assert done.wait(2.0)
     finally:
